@@ -10,17 +10,33 @@ Phases (any failed check raises and the script exits non-zero):
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together) and print the card's name and power
    limit;
-2. hold every kernel of the serving path against its plain PyTorch
-   version on the card, at the serving shape, a llama7b-width shape and
-   a GQA shape, in bf16 and fp32, and time the kernel, the plain version
-   and, where one PyTorch call computes the same function, that call;
+2. hold every kernel against its plain PyTorch version on the card, in
+   bf16 and fp32, and time the kernel, the plain version and, where one
+   PyTorch call computes the same function, that call: the tick kernels
+   and ``ragged_decode_attention`` at the serving shape, a llama7b-width
+   shape and a GQA shape; ``ragged_paged_attention`` on the serving
+   decode tick, the serving admit prefill (256 rows at context 0 and
+   192), llama7b-width and GQA decode ticks and one mixed-q_len launch,
+   each on a shuffled page table, beside gather + SDPA (two calls);
 3. serve 32 requests of the mixed workload through ``ServingEngine`` at
    ``LlamaConfig.bert_base_equiv`` width in bf16 (random weights from a
    seeded generator), check every request's tokens, and check from the
    launch counters that every decode tick went through the four kernels;
-4. teacher-forced decode ticks on one cache through the kernel path and
-   the plain path side by side: logits within a stated bf16 tolerance;
-5. print the kernels' JSON line, then the result line.
+3b. the same 32 requests through ``ServingEngine(paged=True)``: every
+   attention through ``ragged_paged_attention`` (L per segment step),
+   the tick kernels L or L + 1 times per decode step, no page leaked,
+   one device read per segment and none while a segment is issued; then
+   both engines' drains timed in turns;
+3c. the serving benchmark's shared-prefix burst (16 requests, a 192-token
+   prefix, 32-token tails) through ``OnlineScheduler`` with a
+   ``PagedPrefixCache``: prefix hits by page reference, no COW break, no
+   leak;
+4. teacher-forced decode ticks through the kernel path and the plain path
+   side by side, on the contiguous cache (4) and on a shuffled page table
+   (4b): logits within a stated bf16 tolerance;
+5. print the kernels' JSON line, then the result line. Each path of
+   3-3c is driven with every launch count set to 0 just before it and
+   read just after; a kernel's ``launches`` is its sum over those paths.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX or of ``paddle_tpu``.
@@ -267,20 +283,125 @@ def kernel_checks(torch, F, da, tf, shape, dtype, gen):
     return rows
 
 
+PAGED_SHAPES = [
+    # name, B, Tq, nH, Hkv, D, max_pages, ctx (None: mixed, 0 and the
+    # window's last row included), q_len (None: every row)
+    ("serving_decode", 8, 1, 12, 12, 64, 24, None, None),
+    ("serving_prefill_ctx0", 1, 256, 12, 12, 64, 24, [0], None),
+    ("serving_prefill_ctx192", 1, 256, 12, 12, 64, 24, [192], None),
+    ("llama7b_decode", 8, 1, 32, 32, 128, 128, None, None),
+    ("gqa_decode", 8, 1, 32, 8, 128, 128, None, None),
+    ("mixed_q_len", 4, 16, 12, 12, 64, 24, [0, 5, 200, 370],
+     [1, 16, 9, 1]),
+]
+PAGE = 16
+L2_BYTES = 50e6
+
+
+def paged_checks(torch, F, pa, shape, dtype, gen):
+    """``ragged_paged_attention`` at one shape: the pool is stacked over
+    enough layers to exceed twice the L2 cache, and the timed calls cycle
+    the layers, as the engine's layers do."""
+    name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len = shape
+    dev = DEVICE
+    W = max_pages * PAGE
+    P = B * max_pages + 1
+    elt = torch.tensor([], dtype=dtype).element_size()
+    layer_bytes = 2 * P * PAGE * Hkv * D * elt
+    L = max(2, min(128, math.ceil(2 * L2_BYTES / layer_bytes)))
+    kp = (torch.randn(L, P, PAGE, Hkv, D, generator=gen, device=dev)
+          .to(dtype))
+    vp = (torch.randn(L, P, PAGE, Hkv, D, generator=gen, device=dev)
+          .to(dtype))
+    q = torch.randn(B, Tq, nH, D, generator=gen, device=dev).to(dtype)
+    pt = (torch.randperm(P - 1, generator=gen, device=dev)[:B * max_pages]
+          + 1).to(torch.int32).reshape(B, max_pages)
+    if ctx is None:
+        c = torch.randint(0, W, (B,), generator=gen, device=dev)
+        c[0], c[-1] = 0, W - 1
+    else:
+        c = torch.tensor(ctx, device=dev)
+    c = c.to(torch.int32)
+    ql = None if q_len is None else torch.tensor(q_len, dtype=torch.int32,
+                                                 device=dev)
+    rows = [Tq] * B if q_len is None else q_len
+    ctx_h = c.tolist()
+
+    def kernel(i):
+        return pa.ragged_paged_attention(q, kp[i], vp[i], pt, c, ql)
+
+    def plain(i):
+        return pa.ragged_paged_attention_plain(q, kp[i], vp[i], pt, c, ql)
+
+    out, ref = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    err = 0.0
+    for b in range(B):  # rows at or past q_len are padding
+        err = max(err, check(torch, f"ragged_paged_attention {name}",
+                             out[b, :rows[b]], ref[b, :rows[b]], dtype))
+    if not torch.isfinite(out.float()).all():
+        raise AssertionError(f"ragged_paged_attention {name}: non-finite")
+
+    # the same function as two library calls: gather the slot's pages,
+    # then SDPA with the causal mask in virtual positions
+    idx = pt.long()
+    qpos = c.long()[:, None] + torch.arange(Tq, device=dev)       # [B, Tq]
+    mask = (torch.arange(W, device=dev)[None, None, :]
+            <= qpos[:, :, None])[:, None]                       # [B,1,Tq,W]
+    gqa = {"enable_gqa": True} if nH != Hkv else {}
+
+    def gather_sdpa(i):
+        gk = kp[i][idx].reshape(B, W, Hkv, D).transpose(1, 2)
+        gv = vp[i][idx].reshape(B, W, Hkv, D).transpose(1, 2)
+        return F.scaled_dot_product_attention(
+            q.transpose(1, 2), gk, gv, attn_mask=mask, **gqa).transpose(1, 2)
+
+    lib = gather_sdpa(0)
+    lib_err = max((lib[b, :rows[b]].float() - ref[b, :rows[b]].float())
+                  .abs().max().item() for b in range(B))
+    # bound: each visible K/V row read once, q read and out written once;
+    # 4 operations per (query row, visible key, head, dim): two products
+    keys = sum(min(ctx_h[b] + rows[b], W) for b in range(B))
+    pairs = sum(min(ctx_h[b] + t + 1, W) for b in range(B)
+                for t in range(rows[b]))
+    nbytes = (2 * keys * Hkv * D * elt + 2 * B * Tq * nH * D * elt
+              + 4 * B * (max_pages + 2))
+    row = timed(torch, "ragged_paged_attention", err, kernel, plain, None,
+                bound_ms(nbytes, 4 * pairs * nH * D, PEAK_OPS[str(dtype)]),
+                n_inputs=L, plain_iters=20)
+    row["gather_sdpa_ms"] = time_ms(torch, gather_sdpa, L, iters=20)
+    row["gather_sdpa_max_abs_err"] = lib_err
+    row["shape"], row["dtype"] = name, str(dtype).replace("torch.", "")
+    row["pages_read"] = sum(min(pa.pages_read(ctx_h[b], rows[b], PAGE),
+                                max_pages) for b in range(B))
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine
 # ---------------------------------------------------------------------------
 
-def counters(da, tf):
+def counters(da, tf, pa):
     return {"ragged_decode_attention": da.ragged_decode_attention,
             "fused_rms_norm": tf.fused_rms_norm,
             "fused_add_rms_norm": tf.fused_add_rms_norm,
-            "fused_rope_qk": tf.fused_rope_qk}
+            "fused_rope_qk": tf.fused_rope_qk,
+            "ragged_paged_attention": pa.ragged_paged_attention}
 
 
-def serve(torch, llama, ServingEngine, da, tf, params, cfg, reqs, max_len):
+def zero_counts(fns):
+    for fn in fns.values():
+        fn.launches = 0
+
+
+def read_counts(fns):
+    return {n: fn.launches for n, fn in fns.items()}
+
+
+def serve(torch, ServingEngine, fns, params, cfg, reqs, max_len):
     """Serve ``reqs`` once to warm up, then again with every launch count
-    at 0; returns the timed run's stats and the launch counts."""
+    at 0; returns the timed run's stats, the launch counts and the tokens
+    of each request."""
     def engine():
         return ServingEngine(cfg, params, slots=8, max_len=max_len,
                              chunk=16, prompt_buckets=(64, 128, 256),
@@ -294,15 +415,30 @@ def serve(torch, llama, ServingEngine, da, tf, params, cfg, reqs, max_len):
 
     eng = engine()
     rids = [eng.add_request(p, g) for p, g in reqs]
-    fns = counters(da, tf)
-    for fn in fns.values():
-        fn.launches = 0
+    zero_counts(fns)
     t0 = time.perf_counter()
     out = eng.run()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {n: fn.launches for n, fn in fns.items()}
+    launches = read_counts(fns)
 
+    check_tokens(out, rids, reqs, cfg)
+    ticks = eng.last_run_ticks
+    L = cfg.num_layers
+    check_counts(launches, {
+        "ragged_decode_attention": L * ticks,
+        "fused_rms_norm": (L + 1) * ticks,
+        "fused_add_rms_norm": L * ticks, "fused_rope_qk": L * ticks,
+        "ragged_paged_attention": 0}, f"{ticks} ticks")
+    new_tokens = sum(g for _, g in reqs)
+    return {"requests": len(reqs), "new_tokens": new_tokens,
+            "wall_s": wall, "tokens_per_s": new_tokens / wall,
+            "ticks": ticks, "chunks": eng.last_run_chunks,
+            "ms_per_tick": 1e3 * wall / max(1, ticks)}, launches, \
+        [out[r] for r in rids]
+
+
+def check_tokens(out, rids, reqs, cfg):
     for rid, (p, g) in zip(rids, reqs):
         toks = out[rid]
         if len(toks) != g:
@@ -310,20 +446,194 @@ def serve(torch, llama, ServingEngine, da, tf, params, cfg, reqs, max_len):
                                  f"wanted {g}")
         if not all(0 <= t < cfg.vocab_size for t in toks):
             raise AssertionError(f"request {rid}: token out of vocab")
-    ticks = eng.last_run_ticks
-    L = cfg.num_layers
-    want = {"ragged_decode_attention": L * ticks,
-            "fused_rms_norm": (L + 1) * ticks,
-            "fused_add_rms_norm": L * ticks, "fused_rope_qk": L * ticks}
+
+
+def check_counts(launches, want, what):
+    """Each kernel launched exactly as often as the path needs it, and a
+    kernel of the path at least once."""
     for n, c in launches.items():
-        if c <= 0 or c != want[n]:
+        if c != want[n]:
             raise AssertionError(f"{n}: {c} launches on the main path, "
-                                 f"wanted {want[n]} ({ticks} ticks)")
+                                 f"wanted {want[n]} ({what})")
+    if not any(launches.values()):
+        raise AssertionError(f"no kernel launched on the main path ({what})")
+
+
+def serve_paged(torch, ServingEngine, fns, params, cfg, reqs, max_len):
+    """Phase 3b: the same requests through the paged engine's segments
+    (``run()`` drains in segments of 4 * chunk steps), after a warm-up
+    run. Returns stats, launch counts and tokens."""
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_len=max_len,
+                             chunk=16, prompt_buckets=(64, 128, 256),
+                             paged=True, page_size=PAGE, device=DEVICE)
+
+    warm = engine()
+    for p, g in reqs[:8]:
+        warm.add_request(p, g)
+    warm.run()
+    torch.cuda.synchronize()
+
+    eng = engine()
+    rids = [eng.add_request(p, g) for p, g in reqs]
+    zero_counts(fns)
+    f0 = eng.fetches
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+
+    check_tokens(out, rids, reqs, cfg)
+    leaks = eng.pager.leak_report()
+    if leaks:
+        raise AssertionError(f"paged drain leaked pages: {leaks}")
+    steps = eng.last_run_ticks
+    decode = steps - len(reqs)      # every request is admitted once
+    L = cfg.num_layers
+    check_counts(launches, {
+        "ragged_paged_attention": L * steps, "ragged_decode_attention": 0,
+        "fused_rms_norm": (L + 1) * decode,
+        "fused_add_rms_norm": L * decode, "fused_rope_qk": L * decode},
+        f"{steps} steps, {decode} decode steps")
+    fetches = eng.fetches - f0
+    if fetches != eng.last_run_chunks:
+        raise AssertionError(f"{fetches} fetches for "
+                             f"{eng.last_run_chunks} segments")
+    # no host read inside a segment: issuing a segment's steps must not
+    # synchronise with the card at all (PyTorch raises on any sync while
+    # the debug mode is "error"); only finish_segment reads the device
+    audit = engine()
+    for p, g in reqs[:12]:
+        audit.add_request(p, g)
+    audited = 0
+    while audit._queue or audit.free_slot_count() < audit.slots:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = audit.dispatch_segment(64)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        audit.finish_segment(pending)
+        audited += 1
     new_tokens = sum(g for _, g in reqs)
     return {"requests": len(reqs), "new_tokens": new_tokens,
             "wall_s": wall, "tokens_per_s": new_tokens / wall,
-            "ticks": ticks, "chunks": eng.last_run_chunks,
-            "ms_per_tick": 1e3 * wall / max(1, ticks)}, launches
+            "steps": steps, "decode_steps": decode, "admits": len(reqs),
+            "segments": eng.last_run_chunks, "fetches": fetches,
+            "sync_free_dispatches": audited,
+            "ms_per_step": 1e3 * wall / max(1, steps),
+            "pages": eng.pager.stats()}, launches, [out[r] for r in rids]
+
+
+def prefix_burst(torch, sched, PagedPrefixCache, ServingEngine, fns,
+                 params, cfg):
+    """Phase 3c: the serving benchmark's shared-prefix burst (16 requests
+    of a 192-token prefix and a 32-token tail, 32 generated tokens each,
+    all at t = 0) through ``OnlineScheduler`` with a paged prefix cache.
+    The warm pass of ``serve(warm=True)`` runs first as its own call, so
+    the launch counts cover the measured pass alone."""
+    prefix = np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (192,)).astype(np.int32)
+    arrivals = sched.staggered_arrivals(0, 16, 0.0, cfg.vocab_size,
+                                        prompt_lens=(32,), gen_lens=(32,),
+                                        prefix=prefix)
+    eng = ServingEngine(cfg, params, slots=8, max_len=384,
+                        prompt_buckets=(32, 64, 128, 256), paged=True,
+                        page_size=PAGE, device=DEVICE)
+    pc = PagedPrefixCache(eng.pager, capacity_pages=512)
+    sch = sched.OnlineScheduler(eng, seg_steps=16, prefix_cache=pc)
+    sch.serve(arrivals)             # serve(warm=True) is this, reset, serve
+    torch.cuda.synchronize()
+    sch.reset()
+    zero_counts(fns)
+    rep = sch.serve(arrivals)
+    torch.cuda.synchronize()
+    launches = read_counts(fns)
+    res = sch.results()
+    if sorted(len(t) for t in res.values()) != [32] * 16:
+        raise AssertionError("prefix burst: a request got the wrong count")
+    if rep.prefix["hits"] < 1 or eng.pager.cow_breaks != 0:
+        raise AssertionError(f"prefix burst: {rep.prefix['hits']} hits, "
+                             f"{eng.pager.cow_breaks} COW breaks")
+    steps = rep.ticks
+    decode = steps - len(arrivals)  # every request is admitted once
+    L = cfg.num_layers
+    check_counts(launches, {
+        "ragged_paged_attention": L * steps, "ragged_decode_attention": 0,
+        "fused_rms_norm": (L + 1) * decode,
+        "fused_add_rms_norm": L * decode, "fused_rope_qk": L * decode},
+        f"prefix burst: {steps} steps, {decode} decode steps")
+    pc.clear()
+    leaks = eng.pager.leak_report()
+    if leaks:
+        raise AssertionError(f"prefix burst leaked pages: {leaks}")
+    out = {k: getattr(rep, k) for k in (
+        "n_requests", "total_tokens", "makespan_s", "throughput_tok_s",
+        "ttft_p50_s", "ttft_p99_s", "e2e_p50_s", "e2e_p99_s",
+        "queue_wait_p50_s", "slot_occupancy", "segments", "ticks")}
+    out["prefix"] = rep.prefix
+    # ``prefix["hits"]`` counts matches when a request is picked, so a
+    # request picked, requeued for want of a slot and picked again counts
+    # twice; this counts the requests that were admitted on a hit
+    out["requests_admitted_on_a_hit"] = sum(
+        r["prefix_hit_len"] > 0 for r in rep.per_request)
+    out["decode_steps"] = decode
+    out["pages"] = rep.pages
+    return out, launches
+
+
+def eager_and_device_ms(torch, step, iters):
+    """ms per call of ``step()`` issued eagerly (host clock around
+    ``iters`` calls and a synchronize), and the device ms of the same
+    call captured in a CUDA graph and replayed."""
+    with torch.no_grad():
+        step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            step()
+        torch.cuda.synchronize()
+        eager = 1e3 * (time.perf_counter() - t0) / iters
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            step()
+        graph.replay()
+
+        def replay():
+            for _ in range(iters):
+                graph.replay()
+        device = _events(torch, replay) / iters
+        del graph
+    return eager, device
+
+
+def paged_step_breakdown(torch, llama, params, cfg, max_len, iters=50):
+    """The paged engine's two kinds of step at the engine's shape: a
+    decode tick over 8 slots (positions spread over the window, a
+    shuffled page table) and an admit prefill ([1, 256] at context 0),
+    each eager and as a CUDA-graph replay: the device's busy share of
+    the eager step."""
+    B = 8
+    max_pages = max_len // PAGE
+    P = B * max_pages + 1
+    pool = llama.init_paged_pool(cfg, P, PAGE, DEVICE)
+    pt = torch.from_numpy(np.random.RandomState(2).permutation(
+        np.arange(1, P)).reshape(B, max_pages).astype(np.int32)).to(DEVICE)
+    nxt = torch.arange(B, device=DEVICE)[:, None]
+    pos = torch.linspace(0, max_len - 1, B, device=DEVICE).to(torch.int32)
+    live = torch.ones(B, dtype=torch.bool, device=DEVICE)
+    prompt = torch.arange(256, device=DEVICE)[None] % cfg.vocab_size
+    zero = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    out = {}
+    for name, step in (
+            ("decode", lambda: llama.forward_with_pages(
+                params, nxt, cfg, pool, pt, pos, live=live)),
+            ("admit_prefill", lambda: llama.forward_with_pages(
+                params, prompt, cfg, pool, pt[:1], zero, logit_pos=200))):
+        eager, device = eager_and_device_ms(torch, step, iters)
+        out[name] = {"eager_ms": eager, "device_ms": device,
+                     "device_busy_share": device / eager}
+    return out
 
 
 def tick_breakdown(torch, llama, params, cfg, max_len, rows, iters=50):
@@ -337,28 +647,9 @@ def tick_breakdown(torch, llama, params, cfg, max_len, rows, iters=50):
     cache = llama.init_kv_cache(cfg, B, max_len, DEVICE)
     nxt = torch.arange(B, device=DEVICE)[:, None]
     pos = torch.linspace(0, max_len - 1, B, device=DEVICE).to(torch.int32)
-
-    def tick():
-        llama.forward_with_cache(params, nxt, cfg, cache, pos)
-
-    with torch.no_grad():
-        tick()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(iters):
-            tick()
-        torch.cuda.synchronize()
-        eager = 1e3 * (time.perf_counter() - t0) / iters
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            tick()
-        graph.replay()
-
-        def replay():
-            for _ in range(iters):
-                graph.replay()
-        device = _events(torch, replay) / iters
-        del graph
+    eager, device = eager_and_device_ms(
+        torch, lambda: llama.forward_with_cache(params, nxt, cfg, cache, pos),
+        iters)
     per_tick = {"ragged_decode_attention": L, "fused_rms_norm": L + 1,
                 "fused_add_rms_norm": L, "fused_rope_qk": L}
     kern = sum(n * next(r["ms"] for r in rows if r["name"] == name
@@ -424,6 +715,63 @@ def teacher_forced(torch, llama, da, tf, params, cfg, reqs, max_len, ticks):
             "greedy_agreement": agree / (ticks * B)}
 
 
+def teacher_forced_paged(torch, llama, pa, tf, params, cfg, reqs, max_len,
+                         ticks):
+    """Phase 4b: phase 4 on a paged pool behind a shuffled page table:
+    the 8 prompts prefill at context 0 in one [8, 64] chunk, then ragged
+    ticks run through the kernels and through the plain versions side
+    by side."""
+    B = 8
+    max_pages = max_len // PAGE
+    P = B * max_pages + 1
+    prompt = torch.tensor(np.stack([p[:64] for p, _ in reqs
+                                    if len(p) >= 64][:B]),
+                          dtype=torch.int64, device=DEVICE)
+    pt = torch.from_numpy(np.random.RandomState(1).permutation(
+        np.arange(1, P)).reshape(B, max_pages).astype(np.int32)).to(DEVICE)
+    pool_k = llama.init_paged_pool(cfg, P, PAGE, DEVICE)
+    with torch.no_grad():
+        llama.forward_with_pages(params, prompt, cfg, pool_k, pt,
+                                 torch.zeros(B, dtype=torch.int32,
+                                             device=DEVICE))
+    pool_p = {k: v.clone() for k, v in pool_k.items()}
+    lens = torch.tensor([64, 1, 17, 33, 48, 63, 5, 40], dtype=torch.int32,
+                        device=DEVICE)
+    nxt = prompt[torch.arange(B, device=DEVICE), lens.long() - 1]
+    plain = [mock.patch.object(tf, "fused_rms_norm", tf.rms_norm_plain),
+             mock.patch.object(tf, "fused_add_rms_norm",
+                               tf.add_rms_norm_plain),
+             mock.patch.object(tf, "fused_rope_qk", tf.rope_qk_plain),
+             mock.patch.object(pa, "ragged_paged_attention",
+                               pa.ragged_paged_attention_plain)]
+    max_err, agree = 0.0, 0
+    pos = lens.clone()
+    with torch.no_grad():
+        for _ in range(ticks):
+            lk, _ = llama.forward_with_pages(params, nxt[:, None], cfg,
+                                             pool_k, pt, pos)
+            for p in plain:
+                p.start()
+            try:
+                lp, _ = llama.forward_with_pages(params, nxt[:, None], cfg,
+                                                 pool_p, pt, pos)
+            finally:
+                for p in plain:
+                    p.stop()
+            if not torch.isfinite(lk).all():
+                raise AssertionError("non-finite logits on the kernel path")
+            max_err = max(max_err, (lk - lp).abs().max().item())
+            agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+            nxt = lk.argmax(-1)          # the kernel path is the teacher
+            pos = pos + 1
+    if max_err > LOGIT_ATOL:
+        raise AssertionError(f"paged teacher-forced logits differ by "
+                             f"{max_err} > {LOGIT_ATOL}")
+    return {"ticks": ticks, "max_abs_logit_err": max_err,
+            "logit_atol": LOGIT_ATOL,
+            "greedy_agreement": agree / (ticks * B)}
+
+
 def main() -> None:
     import torch
 
@@ -436,10 +784,13 @@ def main() -> None:
     os.environ.setdefault("TRITON_CACHE_DIR", str(build_dir / "triton"))
     import torch.nn.functional as F
 
+    from paddle_tpu_torch.inference import scheduler as sched
+    from paddle_tpu_torch.inference.prefix_cache import PagedPrefixCache
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -473,6 +824,18 @@ def main() -> None:
                       f"ms {r['ms']:.6g} eager_ms {r['eager_ms']:.6g} "
                       f"plain_ms {r['plain_ms']:.6g} library_ms {lib} "
                       f"bound_ms {r['bound_ms']:.6g} ({r['bound_by']})")
+    for shape in PAGED_SHAPES:
+        for dtype in (torch.bfloat16, torch.float32):
+            r = paged_checks(torch, F, pa, shape, dtype, gen)
+            rows.append(r)
+            print(f"kernel {r['name']:24s} {r['shape']:22s} "
+                  f"{r['dtype']:9s} max_abs_err {r['max_abs_err']:.3e} "
+                  f"ms {r['ms']:.6g} eager_ms {r['eager_ms']:.6g} "
+                  f"plain_ms {r['plain_ms']:.6g} gather+sdpa_ms (two calls) "
+                  f"{r['gather_sdpa_ms']:.6g} (err "
+                  f"{r['gather_sdpa_max_abs_err']:.3e}) bound_ms "
+                  f"{r['bound_ms']:.6g} ({r['bound_by']}) pages_read "
+                  f"{r['pages_read']}")
     print(f"kernel checks passed ({card})")
 
     # 3. the engine at bert_base_equiv width
@@ -482,53 +845,106 @@ def main() -> None:
     reqs = mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
     need = max(len(p) + g - 1 for p, g in reqs)
     max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
-    stats, launches = serve(torch, llama, ServingEngine, da, tf, params, cfg,
-                            reqs, max_len)
+    fns = counters(da, tf, pa)
+    stats, launches, toks_c = serve(torch, ServingEngine, fns, params, cfg,
+                                    reqs, max_len)
     print(f"engine ({card}): bert_base_equiv bf16 slots 8 chunk 16 "
           f"max_len {max_len}: {stats['requests']} requests, "
           f"{stats['new_tokens']} tokens in {stats['wall_s']:.3f} s = "
           f"{stats['tokens_per_s']:.1f} tokens/s, {stats['ticks']} ticks, "
           f"{stats['chunks']} chunks, {stats['ms_per_tick']:.3f} ms/tick")
-    print(f"launches on the main path: {json.dumps(launches)}")
+    print(f"launches on the contiguous drain: {json.dumps(launches)}")
     tick = tick_breakdown(torch, llama, params, cfg, max_len, rows)
     print(f"decode tick ({card}): {json.dumps(tick)}")
 
-    # 4. teacher-forced ticks
+    # 3b. the paged engine, same requests
+    pstats, plaunches, toks_p = serve_paged(torch, ServingEngine, fns,
+                                            params, cfg, reqs, max_len)
+    same = sum(a == b for a, b in zip(toks_c, toks_p))
+    pos_same = sum(x == y for a, b in zip(toks_c, toks_p)
+                   for x, y in zip(a, b))
+    pstats["requests_identical_to_contiguous"] = same
+    pstats["tokens_identical_to_contiguous"] = pos_same / sum(
+        len(a) for a in toks_c)
+    print(f"paged engine ({card}): bert_base_equiv bf16 slots 8 page 16 "
+          f"max_len {max_len}: {pstats['new_tokens']} tokens in "
+          f"{pstats['wall_s']:.3f} s = {pstats['tokens_per_s']:.1f} "
+          f"tokens/s, {pstats['steps']} steps ({pstats['admits']} admits), "
+          f"{pstats['segments']} segments, {pstats['fetches']} fetches "
+          f"({pstats['sync_free_dispatches']} more segments issued with no "
+          f"sync), "
+          f"{pstats['ms_per_step']:.3f} ms/step; greedy agreement with the "
+          f"contiguous engine: {same}/{len(reqs)} requests, "
+          f"{pstats['tokens_identical_to_contiguous']:.4f} of tokens")
+    print(f"launches on the paged drain: {json.dumps(plaunches)}")
+    psteps = paged_step_breakdown(torch, llama, params, cfg, max_len)
+    print(f"paged steps ({card}): {json.dumps(psteps)}")
+
+    # 3c. the shared-prefix burst through the online scheduler
+    burst, blaunches = prefix_burst(torch, sched, PagedPrefixCache,
+                                    ServingEngine, fns, params, cfg)
+    print(f"prefix burst ({card}): {burst['total_tokens']} tokens, "
+          f"{burst['throughput_tok_s']:.1f} tokens/s, ttft p50/p99 "
+          f"{burst['ttft_p50_s']:.4f}/{burst['ttft_p99_s']:.4f} s, e2e "
+          f"p50/p99 {burst['e2e_p50_s']:.4f}/{burst['e2e_p99_s']:.4f} s, "
+          f"{burst['requests_admitted_on_a_hit']}/{burst['n_requests']} "
+          f"requests admitted on a prefix hit ({burst['prefix']['hits']} "
+          f"matches at picking, {burst['prefix']['hit_tokens']} hit tokens), "
+          f"{burst['segments']} segments, {burst['ticks']} steps "
+          f"({burst['decode_steps']} decode)")
+    print(f"launches on the prefix burst: {json.dumps(blaunches)}")
+
+    # 4. teacher-forced ticks, contiguous cache and paged pool
     tfc = teacher_forced(torch, llama, da, tf, params, cfg, reqs, max_len,
                          ticks=16)
     print(f"teacher-forced ({card}): {json.dumps(tfc)}")
+    tfp = teacher_forced_paged(torch, llama, pa, tf, params, cfg, reqs,
+                               max_len, ticks=16)
+    print(f"teacher-forced paged ({card}): {json.dumps(tfp)}")
 
     # 5. results
     meta = {
         "ragged_decode_attention": (
             "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
-            "paddle_tpu/ops/pallas/decode_attention.py:220"),
+            "paddle_tpu/ops/pallas/decode_attention.py:220", "serving"),
         "fused_rms_norm": (
             "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
-            "paddle_tpu/ops/pallas/tick_fusion.py:88"),
+            "paddle_tpu/ops/pallas/tick_fusion.py:88", "serving"),
         "fused_add_rms_norm": (
             "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
-            "paddle_tpu/ops/pallas/tick_fusion.py:111"),
+            "paddle_tpu/ops/pallas/tick_fusion.py:111", "serving"),
         "fused_rope_qk": (
             "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
-            "paddle_tpu/ops/pallas/tick_fusion.py:159"),
+            "paddle_tpu/ops/pallas/tick_fusion.py:159", "serving"),
+        "ragged_paged_attention": (
+            "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/ops/pallas/paged_attention.py:194",
+            "serving_decode"),
     }
+    by_path = {"contiguous_drain": launches, "paged_drain": plaunches,
+               "prefix_burst": blaunches}
     kernels = []
-    for name, (route, source, replaces) in meta.items():
+    for name, (route, source, replaces, at) in meta.items():
         r = next(r for r in rows if r["name"] == name
-                 and r["shape"] == "serving" and r["dtype"] == "bfloat16")
-        kernels.append({
-            "name": name, "route": route, "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-            "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-            "bound_by": r["bound_by"], "library_ms": r["library_ms"]})
+                 and r["shape"] == at and r["dtype"] == "bfloat16")
+        k = {"name": name, "route": route, "source": source,
+             "replaces": replaces,
+             "launches": sum(c[name] for c in by_path.values()),
+             "launches_by_path": {p: c[name] for p, c in by_path.items()},
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]}
+        if "gather_sdpa_ms" in r:
+            k["gather_sdpa_ms_two_calls"] = r["gather_sdpa_ms"]
+        kernels.append(k)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "kernel_rows": rows, "engine": stats,
-                   "tick": tick,
-                   "launches": launches, "teacher_forced": tfc}, f,
-                  indent=1)
+                   "tick": tick, "paged_engine": pstats,
+                   "paged_steps": psteps, "prefix_burst": burst,
+                   "launches": by_path, "teacher_forced": tfc,
+                   "teacher_forced_paged": tfp}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -6,9 +6,12 @@ kernel on a ported path is a hand-written Hopper kernel (CUDA C++ under
 ``csrc/`` or Triton) under ``ops/kernels/``, each with a plain PyTorch
 version that CPU tensors take.
 
-Ported so far: the continuous-batching LLaMA serving engine on the
-slot-contiguous KV cache (``inference.serving.ServingEngine``) and the
-KV-cache decoder under it (``models.llama``).
+Ported so far: the continuous-batching LLaMA serving engine
+(``inference.serving.ServingEngine``) on the slot-contiguous KV cache or
+on a paged pool (``inference.paged_kv``, with ``inference.prefix_cache``'s
+page-sharing prefix cache), the online scheduler over it
+(``inference.scheduler``), and the KV-cache decoder under them
+(``models.llama``).
 """
 
 from .device import resolve_device

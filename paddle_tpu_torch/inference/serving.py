@@ -1,27 +1,50 @@
-"""Continuous-batching generation engine over a slot-contiguous KV cache.
+"""Continuous-batching generation engine, slot-contiguous or paged.
 
-Port of the contiguous engine of ``paddle_tpu/inference/serving.py``
-(``ServingEngine(paged=False)`` driven by its windowed loop,
-``run(fused=False)``). A fixed pool of decode slots shares one
-``[L, slots, max_len, Hkv, D]`` cache; finished requests hand their slot
-to queued ones so the batch stays full:
+Port of ``paddle_tpu/inference/serving.py``. A fixed pool of decode slots
+shares one KV store; finished requests hand their slot to queued ones so
+the batch stays full. Two layouts, as in the JAX engine:
 
-* **Admission** groups queued requests by prompt bucket and prefills each
+**Slot-contiguous** (``paged=False``, the JAX engine's windowed loop
+``run(fused=False)``): one ``[L, slots, max_len, Hkv, D]`` cache.
+
+* Admission groups queued requests by prompt bucket and prefills each
   group as one ``[nb, bucket]`` batch (sub-waves of ``_WAVE_WIDTHS``),
   reading logits at each row's true last token, then scatters the rows
   into the slots' cache and slot state (``pos``, ``nxt``, ``rem``).
-* **Decode** runs chunks of ``chunk`` ragged ticks over all slots: each
-  slot attends and writes at its own ``pos``; a slot freezes on the device
-  the tick its remaining count reaches 0 or it emits EOS.
-* **Windowed host loop**: decode chunks are issued up to the next point
-  where the host knows the refill hysteresis would admit, and the window's
-  tokens come back in ONE device-to-host copy. Nothing inside a chunk
-  reads the device from the host.
+* Decode runs chunks of ``chunk`` ragged ticks over all slots: each slot
+  attends and writes at its own ``pos``; a slot freezes on the device the
+  tick its remaining count reaches 0 or it emits EOS.
+* Windowed host loop: decode chunks are issued up to the next point where
+  the host knows the refill hysteresis would admit, and the window's
+  tokens come back in ONE device-to-host copy.
+
+**Paged** (``paged=True``, the JAX engine's segments, ``run_segment``):
+one flat page pool and per-slot page tables (``inference/paged_kv.py``);
+admission is gated on pages free, and a ``PagedPrefixCache`` hit maps
+shared pages into the new slot by reference.
+
+* A segment picks queued requests FCFS (up to ``n_pad``), reserves their
+  page lists, then runs up to ``max_steps`` steps. Each step either admits
+  the next picked request into the first free slot (a ``[1, s_max]``
+  prefill at context offset ``pre_len``, straight into its pages) or runs
+  one ragged decode tick over every slot; dead slots write to the trash
+  page. The JAX engine makes that choice inside one compiled
+  ``while_loop``; here the host makes it from its mirror of the slots'
+  remaining counts, which without EOS are known from the generation
+  lengths alone, so the steps are issued back to back and the segment's
+  event log comes back in ONE counted fetch (``_fetch``). With
+  ``eos_token_id`` set the schedule depends on the tokens, so each step's
+  tokens are fetched once before the next step is chosen.
+* The host then replays the event log (the same admitted / first-token /
+  finished lists, in the same order, as the JAX engine), installs and
+  releases page lists, harvests admitted prompts into the prefix cache
+  and requeues what the step budget did not admit.
 
 Greedy decoding only, like the JAX engine's default. Out of this port so
-far: the single-program fused drain, segments, paged mode, chunked
-prefill, speculative/sampled decoding, quality digests, quantization,
-sequence parallelism and meshes.
+far: the fused drain, the contiguous engine's segments and its row-copy
+prefix cache, chunked prefill, speculative/sampled decoding, quality
+digests, quantization, sequence parallelism, meshes, preemption and
+abort, and telemetry.
 """
 
 from __future__ import annotations
@@ -35,6 +58,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama
+from .paged_kv import PagedKVCache
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -49,17 +73,56 @@ class Request:
     tokens: List[int] = field(default_factory=list)
     submit_time: float = 0.0      # perf_counter at add_request
     finish_time: float = 0.0      # perf_counter at retirement
+    # online lifecycle (perf_counter, 0.0 = not yet), stamped by the
+    # segment engine and the online scheduler at the host fetch that
+    # surfaced each event
+    arrival_time: float = 0.0     # entered the system
+    admit_time: float = 0.0       # picked into a segment
+    first_token_time: float = 0.0  # first generated token host-visible
+    prefix_hit_len: int = 0       # KV rows reused from the prefix cache
+    preemptions: int = 0          # lost its slot (resumes from its tokens)
+    requeues: int = 0             # lost its replica
 
     @property
     def done(self) -> bool:
         return len(self.tokens) >= self.max_new_tokens
+
+    def resume_view(self):
+        """(tokens to prefill, generations still owed) for admission: a
+        fresh request prefills its prompt; a resumed one prompt + what it
+        already generated, and owes only the tail."""
+        if not self.tokens:
+            return self.prompt, self.max_new_tokens
+        full = np.concatenate(
+            [self.prompt, np.asarray(self.tokens, np.int32)])
+        return full, self.max_new_tokens - len(self.tokens)
+
+
+@dataclass
+class _PendingSegment:
+    """A paged segment whose steps are issued and whose event log is not
+    yet read: the picked requests, their reservations and admission views,
+    and the host-known half of the log (admit records, step counts)."""
+    picked: List[Request]
+    prefix_cache: object
+    pre_lens: List[int]            # reused-prefix rows per request
+    req_pages: List[List[int]]     # page reservations per request
+    full_prompts: List[np.ndarray]  # the spans the admits prefill
+    out: torch.Tensor              # [max_steps, slots] tokens, on device
+    toks: Optional[np.ndarray]     # the same log, already read (EOS)
+    aq: np.ndarray                 # [max_steps] admitted row; n_pad: decode
+    aslot: np.ndarray              # [max_steps] slot of each admit
+    steps: int
+    qadm: int                      # picked requests admitted
 
 
 class ServingEngine:
     def __init__(self, cfg: llama.LlamaConfig, params, slots: int = 8,
                  max_len: Optional[int] = None, chunk: int = 32,
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256),
-                 eos_token_id: Optional[int] = None, device="cuda"):
+                 eos_token_id: Optional[int] = None, paged: bool = False,
+                 page_size: int = 16, num_pages: Optional[int] = None,
+                 device="cuda"):
         self.device = resolve_device(device)
         for name, t in params.items():
             if t.device != self.device or t.dtype != cfg.dtype:
@@ -80,20 +143,38 @@ class ServingEngine:
         self._active: List[Optional[Request]] = [None] * self.slots
         self._rem_host = [0] * self.slots  # host mirror of remaining counts
         self._finished: List[Request] = []
-        self.last_run_chunks = 0  # decode chunks issued by the last run()
-        self.last_run_ticks = 0   # decode ticks (chunks * chunk)
+        self.last_run_chunks = 0  # decode chunks (paged: segments) last run
+        self.last_run_ticks = 0   # decode ticks (paged: segment steps)
         self.last_latencies = {}  # rid -> submit->finish seconds (last run)
+        self.fetches = 0          # device-to-host reads (``_fetch``)
         self._next_rid = 0
-        self._cache = llama.init_kv_cache(cfg, self.slots, self.max_len,
-                                          self.device)
+        self.paged = bool(paged)
+        self.page_backpressure_events = 0  # admissions deferred for pages
+        self._pending_seg: Optional[_PendingSegment] = None
+        if self.paged:
+            # max_len stays the per-slot virtual cap (max_pages pages);
+            # num_pages sizes the physical pool
+            self.page_size = int(page_size)
+            if self.max_len % self.page_size:
+                raise ValueError(f"max_len {self.max_len} is not a "
+                                 f"multiple of page_size {self.page_size}")
+            max_pages = self.max_len // self.page_size
+            self.pager = PagedKVCache(
+                cfg, self.slots, self.page_size,
+                num_pages=int(num_pages or self.slots * max_pages + 1),
+                max_pages=max_pages, device=self.device)
+            self._cache = None
+        else:
+            self.pager = None
+            self._cache = llama.init_kv_cache(cfg, self.slots, self.max_len,
+                                              self.device)
         # slot state on the device: position of the next write, the token
         # to feed, generations still owed
-        self._pos = torch.zeros(self.slots, dtype=torch.int32,
-                                device=self.device)
-        self._nxt = torch.zeros(self.slots, dtype=torch.int64,
-                                device=self.device)
-        self._rem = torch.zeros(self.slots, dtype=torch.int32,
-                                device=self.device)
+        self._pos, self._nxt, self._rem = self._slot_state()
+
+    def _slot_state(self):
+        z = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
+        return z, z.to(torch.int64), z.clone()
 
     # --- request intake ---------------------------------------------------
     def add_request(self, prompt, max_new_tokens: int) -> int:
@@ -105,11 +186,31 @@ class ServingEngine:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
                 f"exceeds cache max_len {self.max_len}")
+        if self.paged:
+            need = self.pager.pages_needed(len(prompt) + max_new_tokens - 1)
+            if need > self.pager.num_pages - 1:
+                raise ValueError(
+                    f"request spans {need} pages but the pool holds only "
+                    f"{self.pager.num_pages - 1} — it could never admit")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid, prompt, int(max_new_tokens),
                                    submit_time=time.perf_counter()))
         return rid
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """``a`` on the engine's device without synchronising: from pinned
+        memory, non-blocking, on a card."""
+        t = torch.from_numpy(a)
+        if self.device.type == "cuda":
+            t = t.pin_memory()
+        return t.to(self.device, non_blocking=True)
+
+    def _fetch(self, t: torch.Tensor) -> np.ndarray:
+        """The engine's one way to read the device from the host: a copy
+        of ``t`` as numpy, counted in ``fetches``."""
+        self.fetches += 1
+        return t.cpu().numpy()
 
     def _retire(self, r: Request) -> None:
         r.finish_time = time.perf_counter()
@@ -261,7 +362,7 @@ class ServingEngine:
         if not admits and not chunk_toks:
             return
         parts = [a[0] for a in admits] + [t.reshape(-1) for t in chunk_toks]
-        flat = torch.cat(parts).cpu().numpy()
+        flat = self._fetch(torch.cat(parts))
         off = 0
         for tok0, pairs in admits:
             for (r, s), t in zip(pairs, flat[off:off + len(pairs)].tolist()):
@@ -307,12 +408,42 @@ class ServingEngine:
         self._finished = []
         return done
 
+    def free_slot_count(self) -> int:
+        return sum(1 for r in self._active if r is None)
+
+    def reset_slots(self) -> None:
+        """Clear all slot state between a warm-up and a timed run (cache
+        rows and pages stay allocated: positions and page tables make
+        stale rows unreachable)."""
+        assert all(r is None for r in self._active), \
+            "reset_slots with live requests"
+        assert self._pending_seg is None, \
+            "reset_slots with a dispatched segment in flight"
+        self._pos, self._nxt, self._rem = self._slot_state()
+        self._rem_host = [0] * self.slots
+        self._queue = []
+        self._finished = []
+        self.last_run_ticks = 0
+        self.last_run_chunks = 0
+        self.last_latencies = {}
+        self.page_backpressure_events = 0
+        if self.paged:
+            self.pager.reset()
+
     # --- the engine loop --------------------------------------------------
     def run(self) -> Dict[int, List[int]]:
         """Drain the queue: continuous batching until every request is
         served. Returns rid -> generated tokens (greedy, including the
-        token chosen at prefill). Host reads are one copy per admission
-        window."""
+        token chosen at prefill). A paged engine drains through segments
+        of ``4 * chunk`` steps, one counted fetch each (without EOS); the
+        contiguous engine's host reads are one copy per admission window."""
+        if self.paged:
+            self.last_run_ticks = 0
+            self.last_run_chunks = 0
+            self.last_latencies = {}
+            while self._queue or any(r is not None for r in self._active):
+                self.run_segment(4 * self.chunk)
+            return self.collect_finished()
         self.last_run_chunks = 0
         self.last_latencies = {}
         admits: List[tuple] = []
@@ -328,3 +459,346 @@ class ServingEngine:
         self._sync(admits, [])  # tail: admits whose requests all retired
         self.last_run_ticks = self.last_run_chunks * self.chunk
         return self.collect_finished()
+
+    # --- paged segments ---------------------------------------------------
+    @staticmethod
+    def _pow2(n: int, lo: int = 1) -> int:
+        p = lo
+        while p < n:
+            p *= 2
+        return p
+
+    def run_segment(self, max_steps: int, prefix_cache=None,
+                    n_pad: Optional[int] = None,
+                    now: Optional[float] = None) -> dict:
+        """One continuous-batching segment: admit FCFS from the queue into
+        free slots (at most ``n_pad`` requests), run up to ``max_steps``
+        steps, read the event log back, and replay it on the host to
+        distribute tokens and retire requests.
+
+        Returns {"steps", "admitted", "first_tokens", "finished",
+        "tokens"}: rid lists the caller (the online scheduler) stamps with
+        the time of the read; ``now`` (default ``time.perf_counter()``) is
+        each picked request's admit_time. ``dispatch_segment`` followed by
+        ``finish_segment``."""
+        return self.finish_segment(
+            self.dispatch_segment(max_steps, prefix_cache, n_pad, now))
+
+    def dispatch_segment(self, max_steps: int, prefix_cache=None,
+                         n_pad: Optional[int] = None,
+                         now: Optional[float] = None) -> _PendingSegment:
+        """Pick requests, reserve their pages and issue the segment's
+        steps, without reading its event log (unless EOS makes the
+        schedule depend on the tokens). At most one segment is in flight
+        per engine: the next one starts from this one's slot state."""
+        if not self.paged:
+            raise NotImplementedError(
+                "segments run on a paged engine (paged=True); the "
+                "contiguous engine's segments are not ported yet, so it "
+                "serves through run()")
+        if self._pending_seg is not None:
+            raise RuntimeError(
+                "dispatch_segment with a segment already in flight — "
+                "finish_segment must run first (one outstanding segment "
+                "per engine)")
+        if prefix_cache is not None and not hasattr(prefix_cache, "pager"):
+            raise TypeError("paged engine requires a PagedPrefixCache "
+                            "(inference/prefix_cache.py), got "
+                            f"{type(prefix_cache).__name__}")
+        now = time.perf_counter() if now is None else now
+        n_pad = n_pad or self._pow2(self.slots)
+        self._pending_seg = self._dispatch_segment_paged(
+            max_steps, prefix_cache, n_pad, now)
+        return self._pending_seg
+
+    def finish_segment(self, pending: Optional[_PendingSegment] = None
+                       ) -> dict:
+        """Read a dispatched segment's event log (its one counted fetch)
+        and replay it. Returns the ``run_segment`` result dict."""
+        p = pending if pending is not None else self._pending_seg
+        if p is None or p is not self._pending_seg:
+            raise RuntimeError("finish_segment without a matching "
+                               "dispatched segment")
+        self._pending_seg = None
+        return self._finish_segment_paged(p)
+
+    def _dispatch_segment_paged(self, max_steps: int, prefix_cache,
+                                n_pad: int, now: float) -> _PendingSegment:
+        """Pick FCFS gated on pages free (a request's page span is known
+        at admission: its generation length is fixed), reserve page lists
+        with any prefix hit shared by reference, then issue the steps."""
+        pgr = self.pager
+        psz = self.page_size
+        picked: List[Request] = []
+        fulls: List[np.ndarray] = []      # admission (resume) views
+        req_pages: List[List[int]] = []
+        pre_lens_l: List[int] = []
+        tables: List[np.ndarray] = []
+        deferred = 0
+        while self._queue and len(picked) < n_pad:
+            r = self._queue[0]
+            fp, remaining = r.resume_view()
+            rows = len(fp) + remaining - 1
+            total = pgr.pages_needed(rows)
+            hit_pages: List[int] = []
+            hit_len = 0
+            if prefix_cache is not None:
+                m = prefix_cache.match(fp)
+                if m is not None:
+                    hit_pages, hit_len = list(m.pages), m.length
+            need_new = total - len(hit_pages)
+            if need_new > pgr.pages_free:
+                if prefix_cache is not None:
+                    # pressure valve: cached history yields pages before
+                    # live traffic defers; eviction may have freed pages
+                    # the hit named, so trim it at the first freed page
+                    prefix_cache.evict_until(need_new)
+                    k = 0
+                    while (k < len(hit_pages)
+                           and pgr.allocator.ref(hit_pages[k]) > 0):
+                        k += 1
+                    hit_pages, hit_len = hit_pages[:k], k * psz
+                    need_new = total - k
+                if need_new > pgr.pages_free:
+                    # FCFS: the queue head blocks until pages retire
+                    deferred = len(self._queue)
+                    if not picked and all(not p for p in pgr.slot_pages):
+                        raise RuntimeError(
+                            f"page pool starved: request needs "
+                            f"{need_new} pages, {pgr.pages_free} free, "
+                            f"no live slots to retire (pages held by an "
+                            f"external prefix cache or fork?)")
+                    break
+            pages, row = pgr.reserve(rows, hit_pages)
+            self._queue.pop(0)
+            r.prefix_hit_len = hit_len
+            r.admit_time = now
+            picked.append(r)
+            fulls.append(fp)
+            req_pages.append(pages)
+            pre_lens_l.append(hit_len)
+            tables.append(row)
+        if deferred:
+            self.page_backpressure_events += 1
+        n = len(picked)
+
+        # admit window: the largest bucket when nothing was reused (one
+        # shape for every admit), the bucket of the longest suffix when
+        # prefix hits shorten the prefills
+        if prefix_cache is None or not any(pre_lens_l):
+            s_max = self.buckets[-1]
+        else:
+            s_max = self._bucket_for(max(
+                (len(fulls[j]) - pre_lens_l[j] for j in range(n)),
+                default=1))
+        prompts = np.zeros((n, s_max), np.int32)
+        for j in range(n):
+            suf = fulls[j][pre_lens_l[j]:]
+            prompts[j, :len(suf)] = suf
+        out, toks, aq, aslot, steps, qadm = self._run_steps(
+            max_steps, n_pad, prompts, tables, pre_lens_l,
+            [len(f) - p for f, p in zip(fulls, pre_lens_l)],
+            [r.max_new_tokens - len(r.tokens) for r in picked])
+        return _PendingSegment(picked=picked, prefix_cache=prefix_cache,
+                               pre_lens=pre_lens_l, req_pages=req_pages,
+                               full_prompts=fulls, out=out, toks=toks,
+                               aq=aq, aslot=aslot, steps=steps, qadm=qadm)
+
+    @torch.no_grad()
+    def _run_steps(self, max_steps: int, n_pad: int, prompts, tables,
+                   pre_lens: List[int], lens: List[int], gens: List[int]):
+        """Issue the segment's steps: the JAX segment's ``while_loop``,
+        driven from the host. ``rem`` mirrors the device's remaining
+        counts; each step admits picked request ``qidx`` into the first
+        slot with nothing owed (``argmin(rem)``) while one is free and
+        requests remain, else runs a decode tick over every slot.
+
+        Returns (out, toks, aq, aslot, steps, qadm): the [max_steps,
+        slots] device token log; the same log read step by step when EOS
+        is set (else None); the host-known admit records (aq = n_pad marks
+        a decode step); the steps run and the requests admitted."""
+        n, S = prompts.shape
+        M = self.pager.max_pages
+        # the segment's inputs reach the device in one copy that the host
+        # does not wait for
+        buf = self._upload(np.concatenate([
+            prompts.reshape(-1), np.asarray(tables, np.int32).reshape(-1),
+            np.asarray(pre_lens, np.int32)]))
+        prompts_d = buf[:n * S].view(n, S)
+        tables_d = buf[n * S:n * (S + M)].view(n, M)
+        pre_d = buf[n * (S + M):]
+        out = torch.zeros((max_steps, self.slots), dtype=torch.int64,
+                          device=self.device)
+        toks = None if self.eos is None else np.zeros(
+            (max_steps, self.slots), np.int64)
+        aq = np.full((max_steps,), n_pad, np.int32)
+        aslot = np.zeros((max_steps,), np.int32)
+        rem = list(self._rem_host)
+        qidx = step = 0
+        while (qidx < n or any(r > 0 for r in rem)) and step < max_steps:
+            if qidx < n and 0 in rem:
+                s = rem.index(0)
+                t0 = self._admit_paged(s, prompts_d[qidx:qidx + 1],
+                                       tables_d[qidx:qidx + 1],
+                                       pre_d[qidx:qidx + 1],
+                                       lens[qidx], gens[qidx])
+                out[step, s] = t0[0]
+                rem[s] = gens[qidx] - 1
+                if toks is not None:
+                    toks[step, s] = self._fetch(t0)[0]
+                    if toks[step, s] == self.eos:
+                        rem[s] = 0
+                aq[step], aslot[step] = qidx, s
+                qidx += 1
+            else:
+                out[step] = self._decode_paged()
+                live = [r > 0 for r in rem]
+                rem = [r - 1 if r > 0 else 0 for r in rem]
+                if toks is not None:
+                    toks[step] = self._fetch(out[step])
+                    rem = [0 if lv and t == self.eos else r
+                           for r, lv, t in zip(rem, live, toks[step])]
+            step += 1
+        return out, toks, aq, aslot, step, qidx
+
+    def _admit_paged(self, s: int, prompt, table, pre_len, ln: int,
+                     gen: int) -> torch.Tensor:
+        """Prefill one picked request's suffix ([1, s_max] at context
+        offset ``pre_len``) straight into its pages, and bind it to slot
+        ``s``. Shared-prefix rows already sit in the shared pages, so a
+        hit costs no prefill of the prefix and no row copy. Returns the
+        first token, [1], on the device."""
+        logits, _ = llama.forward_with_pages(
+            self.params, prompt, self.cfg, self.pager.pool, table, pre_len,
+            logit_pos=ln - 1)
+        t0 = torch.argmax(logits, dim=-1)
+        self.pager.page_table[s] = table[0]
+        self._pos[s] = pre_len[0] + ln
+        self._nxt[s] = t0[0]
+        if self.eos is None:
+            # fill_, not item assignment: assigning a Python number copies
+            # it from the host and synchronises
+            self._rem[s].fill_(gen - 1)
+        else:
+            self._rem[s] = torch.where(t0[0] == self.eos, 0, gen - 1)
+        return t0
+
+    def _decode_paged(self) -> torch.Tensor:
+        """One ragged decode tick over every slot; dead slots (nothing
+        owed) write to the trash page and repeat their token. Returns the
+        [slots] tokens on the device."""
+        live = self._rem > 0
+        logits, _ = llama.forward_with_pages(
+            self.params, self._nxt[:, None], self.cfg, self.pager.pool,
+            self.pager.page_table, self._pos, live=live)
+        tok = torch.where(live, torch.argmax(logits, dim=-1), self._nxt)
+        step = live.to(torch.int32)
+        self._rem = self._rem - step
+        if self.eos is not None:
+            self._rem = torch.where(live & (tok == self.eos), 0, self._rem)
+        self._pos = self._pos + step
+        self._nxt = tok
+        return tok
+
+    def _finish_segment_paged(self, p: _PendingSegment) -> dict:
+        picked, n, prefix_cache = p.picked, len(p.picked), p.prefix_cache
+        pgr = self.pager
+        psz = self.page_size
+        toks = p.toks if p.toks is not None else self._fetch(
+            p.out[:p.steps])
+        self.last_run_ticks += p.steps
+        self.last_run_chunks += 1
+
+        # page bookkeeping rides the replay through hooks; retired slots'
+        # releases wait until after the prefix-cache inserts, so harvest
+        # by reference can still retain a finished request's prompt pages
+        pending_frees: List[List[int]] = []
+
+        def on_admit(q, s):
+            pgr.install(s, p.req_pages[q])
+
+        def on_retire(r, s):
+            pending_frees.append(pgr.slot_pages[s])
+            pgr.slot_pages[s] = []
+
+        admitted, first_tokens, finished, new_tokens = self._replay_segment(
+            picked, toks, p.aq, p.aslot, p.steps, on_admit, on_retire)
+        if p.qadm < n:
+            # the step budget ran out before every picked request found a
+            # slot: release their reservations and requeue them FCFS
+            for j in range(p.qadm, n):
+                picked[j].admit_time = 0.0
+                pgr.release_pages(p.req_pages[j])
+            self._queue[:0] = picked[p.qadm:]
+
+        # prefix-cache population, by reference: retain each admitted
+        # request's prompt-spanning pages
+        if prefix_cache is not None:
+            last_admit = {}                # slot -> its latest admit event
+            for st in range(p.steps):
+                if p.aq[st] < n:
+                    last_admit[int(p.aslot[st])] = int(p.aq[st])
+            for s, q in last_admit.items():
+                fp = p.full_prompts[q]     # the span actually prefilled
+                plen_b = prefix_cache.round_down(len(fp))
+                if plen_b > p.pre_lens[q]:
+                    prefix_cache.insert(fp[:plen_b],
+                                        p.req_pages[q][:plen_b // psz])
+        for pages in pending_frees:
+            pgr.release_pages(pages)
+        return {"steps": p.steps, "admitted": admitted,
+                "first_tokens": first_tokens, "finished": finished,
+                "tokens": new_tokens}
+
+    def _replay_segment(self, picked, toks, aq, aslot, steps: int,
+                        on_admit, on_retire):
+        """Walk a segment's event log in order, tracking slot occupancy:
+        an admit binds a slot and delivers its first token; a decode step
+        appends one token to every slot the host knows is live (its
+        ``_rem_host`` mirror), so frozen repeats are dropped. The page
+        hooks run in event order, so a slot freed and re-admitted within
+        the segment releases its old pages before the new list installs.
+        Returns (admitted, first_tokens, finished, new_tokens)."""
+        n = len(picked)
+        admitted, first_tokens, finished = [], [], []
+        new_tokens = 0
+        for st in range(steps):
+            q = int(aq[st])
+            if q < n:                      # admit event
+                r = picked[q]
+                s = int(aslot[st])
+                assert self._active[s] is None, "admit into a live slot"
+                on_admit(q, s)
+                t = int(toks[st, s])
+                r.tokens.append(t)
+                new_tokens += 1
+                admitted.append(r.rid)
+                if len(r.tokens) == 1:     # a resumed request already had
+                    first_tokens.append(r.rid)  # its first token
+                hit_eos = self.eos is not None and t == self.eos
+                if r.done or hit_eos:
+                    self._rem_host[s] = 0
+                    self._retire(r)
+                    finished.append(r.rid)
+                    on_retire(r, s)
+                else:
+                    self._active[s] = r
+                    self._rem_host[s] = r.max_new_tokens - len(r.tokens)
+                continue
+            for s, r in enumerate(self._active):   # decode tick
+                if r is None or self._rem_host[s] <= 0:
+                    continue
+                t = int(toks[st, s])
+                r.tokens.append(t)
+                new_tokens += 1
+                if len(r.tokens) == 1:
+                    first_tokens.append(r.rid)
+                self._rem_host[s] -= 1
+                if self.eos is not None and t == self.eos:
+                    self._rem_host[s] = 0
+                if self._rem_host[s] == 0:
+                    self._retire(r)
+                    self._active[s] = None
+                    finished.append(r.rid)
+                    on_retire(r, s)
+        return admitted, first_tokens, finished, new_tokens

@@ -2,18 +2,23 @@
 
 Port of the KV-cache half of ``paddle_tpu/models/llama.py``: the config
 and its presets, parameter init, the prefill forward (T > 1, plain torch)
-and the single-token decode tick (T == 1), whose between-matmul chains and
-attention run as the hand-written kernels of ``ops/kernels``:
+and the single-token decode tick (T == 1), over a slot-contiguous cache
+(``forward_with_cache``) or a paged pool (``forward_with_pages``). The
+tick's between-matmul chains and every attention run as the hand-written
+kernels of ``ops/kernels``:
 
 - ``fused_rms_norm`` / ``fused_add_rms_norm`` / ``fused_rope_qk``
   (Triton) replace the inline rmsnorm, residual+rmsnorm and rope chains;
 - ``ragged_decode_attention`` (CUDA C++) reads each slot's cache rows
-  [0, pos] only.
+  [0, pos] only;
+- ``ragged_paged_attention`` (CUDA C++) serves the paged decode ticks and
+  the paged prefill chunks, reading each slot's pages up to its position.
 
 Layout follows the JAX package so the two are compared like with like:
 parameters are a dict with the same keys and stacked ``[L, ...]`` layer
-weights, the cache is ``{"k", "v"}`` of ``[L, B, max_len, Hkv, D]``, and
-layers run as an unrolled loop. The cache is updated in place.
+weights, the cache is ``{"k", "v"}`` of ``[L, B, max_len, Hkv, D]``, the
+pool ``{"k", "v"}`` of ``[L, num_pages, page_size, Hkv, D]``, and layers
+run as an unrolled loop. Cache and pool are updated in place.
 """
 
 from __future__ import annotations
@@ -27,10 +32,12 @@ import torch.nn.functional as F
 
 from ..device import resolve_device
 from ..ops.kernels import decode_attention as _da
+from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import tick_fusion as _tf
 
 __all__ = ["LlamaConfig", "LAYER_KEYS", "init_params", "init_kv_cache",
-           "forward_with_cache", "generate"]
+           "init_paged_pool", "forward_with_cache", "forward_with_pages",
+           "generate"]
 
 # stacked [L, ...] per-layer weights, in the JAX package's key names
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -158,17 +165,19 @@ def _layer_post(cfg: LlamaConfig, x, attn, lp):
     return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
 
 
-def _dense_cache_attention(cfg: LlamaConfig, q, kc, vc, positions):
+def _dense_cache_attention(cfg: Optional[LlamaConfig], q, kc, vc, positions,
+                           scale: Optional[float] = None):
     """q [B,T,nH,D] against the unrepeated cache kc/vc [B,Smax,Hkv,D],
     keys j > the query's position masked; fp32 scores and products, as
-    the reference's ``preferred_element_type=float32`` einsums."""
+    the reference's ``preferred_element_type=float32`` einsums. ``scale``
+    defaults to 1/sqrt(cfg.head_dim); given, ``cfg`` may be None (the head
+    counts come from the shapes)."""
     B, T, nH, D = q.shape
-    Smax = kc.shape[1]
-    rep = cfg.num_heads // cfg.num_kv_heads
+    Smax, Hkv = kc.shape[1], kc.shape[2]
     dt = q.dtype
-    qg = q.reshape(B, T, cfg.num_kv_heads, rep, D)
+    qg = q.reshape(B, T, Hkv, nH // Hkv, D)
     s = torch.einsum("bthrd,bshd->bhrts", qg.float(), kc.float())
-    s = s * (1.0 / math.sqrt(cfg.head_dim))
+    s = s * (1.0 / math.sqrt(cfg.head_dim) if scale is None else scale)
     visible = (torch.arange(Smax, device=q.device)
                <= positions[..., None])                 # [(B,) T, Smax]
     if visible.dim() == 2:
@@ -268,6 +277,92 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
         last = _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
     logits = last @ params["lm_head"]
     return logits.float(), cache
+
+
+def init_paged_pool(cfg: LlamaConfig, num_pages: int, page_size: int,
+                    device, dtype: Optional[torch.dtype] = None,
+                    quant=None) -> Dict[str, torch.Tensor]:
+    """Flat paged K/V pool: [L, num_pages, page_size, Hkv, D], zeros in
+    ``dtype`` (default cfg.dtype). Page 0 is the allocator's reserved
+    trash page (``inference/paged_kv.py``). Quantized pools are not
+    ported yet."""
+    if quant is not None:
+        raise NotImplementedError("quantized paged pools are not ported yet")
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
+             cfg.head_dim)
+    dtype = dtype or cfg.dtype
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
+                       pos, live=None, logit_pos=None):
+    """``forward_with_cache`` over a paged pool. Returns (logits [B, V]
+    fp32, pool), the pool updated in place.
+
+    tokens [B, T] run at positions ``pos[b] .. pos[b] + T - 1`` (``pos``
+    [B] int32, each row at its own base: T == 1 is a ragged decode tick,
+    T > 1 a prefill chunk at context offset ``pos[b]``). ``page_table``
+    [B, max_pages] int32: virtual page j of row b is physical page
+    ``page_table[b, j]``. K/V rows scatter to [page, row] through the
+    table; ``live`` ([B] bool) sends dead slots' writes to the trash page
+    0, as it does rows past the table. Logits come from the last position
+    or from ``logit_pos`` (an int, or a [B] tensor).
+
+    Attention is ``ragged_paged_attention`` for both T == 1 and T > 1
+    (the JAX package's ``_paged_attention``): the kernel on a CUDA
+    tensor, the gather and dense plain version on a CPU one. T == 1 runs
+    the tick kernels as ``forward_with_cache`` does; T > 1 the plain
+    projections with per-row positions."""
+    B, T = tokens.shape
+    psz = pool["k"].shape[2]
+    max_pages = page_table.shape[1]
+    x = params["embed"][tokens.long()]                  # [B, T, H]
+    pos = pos.to(torch.int32).reshape(B)
+    positions = pos.long()[:, None] + torch.arange(T, device=x.device)
+    # destination of the chunk's K/V rows, shared by every layer
+    vpage = positions // psz
+    prow = positions % psz
+    phys = torch.gather(page_table.long(), 1,
+                        vpage.clamp(max=max_pages - 1))
+    writable = vpage < max_pages
+    if live is not None:
+        writable = writable & live[:, None]
+    phys = torch.where(writable, phys, 0)
+    kcs, vcs = pool["k"], pool["v"]
+    if T == 1:
+        x = x[:, 0]
+        phys, prow = phys[:, 0], prow[:, 0]
+        for i in range(cfg.num_layers):
+            lp = {kk: params[kk][i] for kk in LAYER_KEYS}
+            q, k_new, v_new = _decode_qkv(cfg, x, lp, pos)
+            # the scatter runs before the kernel reads the row, in order
+            # on the same stream
+            kcs[i, phys, prow] = k_new.to(kcs.dtype)
+            vcs[i, phys, prow] = v_new.to(vcs.dtype)
+            attn = _pa.ragged_paged_attention(q[:, None], kcs[i], vcs[i],
+                                              page_table, pos)
+            x = _decode_post(cfg, x, attn[:, 0], lp)
+        last = _tf.fused_rms_norm(x, params["ln_f"], cfg.rms_eps)
+    else:
+        for i in range(cfg.num_layers):
+            lp = {kk: params[kk][i] for kk in LAYER_KEYS}
+            q, k_new, v_new = _qkv_proj(cfg, x, lp, positions)
+            kcs[i, phys, prow] = k_new.to(kcs.dtype)
+            vcs[i, phys, prow] = v_new.to(vcs.dtype)
+            attn = _pa.ragged_paged_attention(q, kcs[i], vcs[i],
+                                              page_table, pos)
+            x = _layer_post(cfg, x, attn, lp)
+        if logit_pos is None:
+            x = x[:, -1]
+        elif torch.is_tensor(logit_pos) and logit_pos.dim() == 1:
+            x = x[torch.arange(B, device=x.device), logit_pos.long()]
+        else:
+            x = x[:, int(logit_pos)]
+        # rmsnorm is per row: norming only the rows read equals norming all
+        last = _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
+    logits = last @ params["lm_head"]
+    return logits.float(), pool
 
 
 def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int = 32,

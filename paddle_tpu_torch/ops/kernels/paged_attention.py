@@ -1,0 +1,160 @@
+"""Ragged paged attention: decode ticks and prefill chunks over a page pool.
+
+Replaces the TPU kernel ``paddle_tpu/ops/pallas/paged_attention.py``
+(``ragged_paged_attention``, body ``_make_kernel``). The CUDA kernel is
+``paddle_tpu_torch/csrc/paged_attention.cu``; its header says what bounds
+it on the H100 and how its design keeps the pages read proportional to
+each slot's position rather than to the table width.
+
+Dispatch: a CPU tensor takes the plain version below (the JAX package's
+CPU path: gather the slot's pages into a window, then dense attention);
+a CUDA tensor launches the kernel or raises. The quantized pool of the
+TPU engine takes a dequantizing gather there, not this kernel, and is not
+ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+__all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
+           "pages_read"]
+
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+_MAX_REP = 8    # ROWS in csrc/paged_attention.cu
+_MAX_TQ = 256   # MAX_TQ in csrc/paged_attention.cu
+
+
+def pages_read(ctx_len, q_len, page_size: int):
+    """Pages the kernel reads for a slot whose chunk ends at position
+    ``ctx_len + q_len - 1`` (keys [0, end] visible: end // page + 1),
+    before the clamp at the table width."""
+    return (ctx_len + q_len - 1) // page_size + 1
+
+
+def ragged_paged_attention_plain(q, kp, vp, page_table, ctx_len, q_len=None,
+                                 scale=None):
+    """The plain PyTorch version: gather each slot's pages into a
+    ``[B, max_pages * page_size]`` window and run the model's dense cache
+    attention on it with row t of slot b at position ``ctx_len[b] + t``.
+    Every row is computed; rows at or past ``q_len`` are padding the
+    caller discards."""
+    # imported here: models.llama imports this module
+    from ...models.llama import _dense_cache_attention
+
+    B, Tq, nH, D = q.shape
+    psz, Hkv = kp.shape[1], kp.shape[2]
+    W = page_table.shape[1] * psz
+    idx = page_table.long()
+    gk = kp[idx].reshape(B, W, Hkv, D)
+    gv = vp[idx].reshape(B, W, Hkv, D)
+    positions = (ctx_len.long()[:, None]
+                 + torch.arange(Tq, device=q.device))
+    return _dense_cache_attention(None, q, gk, gv, positions,
+                                  1.0 / math.sqrt(D) if scale is None
+                                  else scale)
+
+
+def _check(q, kp, vp, page_table, ctx_len, q_len):
+    if q.dim() != 4 or kp.dim() != 4 or vp.shape != kp.shape:
+        raise ValueError(f"expected q [B,Tq,nH,D] and kp/vp "
+                         f"[P,page_size,Hkv,D], got {tuple(q.shape)}, "
+                         f"{tuple(kp.shape)}, {tuple(vp.shape)}")
+    B, Tq, nH, D = q.shape
+    if kp.shape[3] != D:
+        raise ValueError(f"pool {tuple(kp.shape)} does not match q "
+                         f"{tuple(q.shape)}")
+    Hkv = kp.shape[2]
+    if nH % Hkv:
+        raise ValueError(f"num_heads {nH} is not a multiple of "
+                         f"num_kv_heads {Hkv}")
+    if (page_table.dim() != 2 or page_table.shape[0] != B
+            or page_table.dtype != torch.int32):
+        raise ValueError(f"page_table must be int32 [{B}, max_pages], got "
+                         f"{page_table.dtype} {tuple(page_table.shape)}")
+    for name, t in (("ctx_len", ctx_len), ("q_len", q_len)):
+        if t is not None and (t.shape != (B,) or t.dtype != torch.int32):
+            raise ValueError(f"{name} must be int32 [{B}], got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if q.dtype not in _DTYPE_CODES or kp.dtype != q.dtype \
+            or vp.dtype != q.dtype:
+        raise TypeError(f"q/kp/vp must share a dtype in float32/bfloat16, "
+                        f"got {q.dtype}, {kp.dtype}, {vp.dtype}")
+    ts = [t for t in (q, kp, vp, page_table, ctx_len, q_len) if t is not None]
+    devs = {t.device for t in ts}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on different devices: {devs}")
+
+
+def ragged_paged_attention(q, kp, vp, page_table, ctx_len, q_len=None,
+                           scale=None):
+    """Attention over a paged KV pool, decode ticks and prefill chunks in
+    one call.
+
+    q: [B, Tq, nH, D], row t of slot b at position ``ctx_len[b] + t``;
+    kp/vp: [P, page_size, Hkv, D], the flat pool (one layer's view of the
+    stacked pool), already holding the chunk's own K/V rows (the caller
+    scatters first, on the same stream); page_table: [B, max_pages] int32
+    physical page per virtual page slot; ctx_len: [B] int32 rows already
+    in the cache; q_len: [B] int32 live rows per chunk (None: all Tq).
+    Returns [B, Tq, nH, D] in q.dtype; rows at or past q_len are finite
+    garbage."""
+    _check(q, kp, vp, page_table, ctx_len, q_len)
+    if q.device.type == "cpu":
+        return ragged_paged_attention_plain(q, kp, vp, page_table, ctx_len,
+                                            q_len, scale)
+    if q.device.type != "cuda":
+        raise ValueError(f"no kernel for device {q.device}")
+    B, Tq, nH, D = q.shape
+    P, psz, Hkv = kp.shape[0], kp.shape[1], kp.shape[2]
+    if D not in _HEAD_DIMS or nH // Hkv > _MAX_REP:
+        raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS} and at "
+                         f"most {_MAX_REP} query heads per kv head, got "
+                         f"D={D}, {nH}/{Hkv}")
+    if psz % 8 or not 1 <= Tq <= _MAX_TQ:
+        raise ValueError(f"the kernel takes page_size a multiple of 8 and "
+                         f"1 <= Tq <= {_MAX_TQ}, got page_size={psz}, "
+                         f"Tq={Tq}")
+    ts = [t for t in (q, kp, vp, page_table, ctx_len, q_len) if t is not None]
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("q, kp, vp, page_table, ctx_len and q_len must be "
+                         "contiguous")
+    if any(t.data_ptr() % 16 for t in (q, kp, vp)):
+        raise ValueError("q, kp and vp must start on a 16-byte boundary "
+                         "(the kernel reads rows in 16-byte loads)")
+    out = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _kernel()(
+            q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
+            page_table.data_ptr(), ctx_len.data_ptr(),
+            None if q_len is None else q_len.data_ptr(), out.data_ptr(),
+            B, Tq, nH, Hkv, D, psz, P, page_table.shape[1],
+            _DTYPE_CODES[q.dtype],
+            1.0 / math.sqrt(D) if scale is None else scale,
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"ragged_paged_attention launch failed: CUDA "
+                           f"error {err}")
+    ragged_paged_attention.launches += 1
+    return out
+
+
+ragged_paged_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel():
+    """The C entry point, built and loaded at first use; every pointer
+    and the stream are declared ``c_void_p`` so none is cut to 32 bits."""
+    from ._build import load_library
+
+    fn = load_library("paged_attention").ragged_paged_attention
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn

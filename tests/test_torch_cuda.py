@@ -19,6 +19,7 @@ import torch
 
 from paddle_tpu_torch.models import llama
 from paddle_tpu_torch.ops.kernels import decode_attention as da
+from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import tick_fusion as tf
 
 pytestmark = pytest.mark.cuda
@@ -93,6 +94,67 @@ class TestDecodeAttention:
             da.ragged_decode_attention(q[:, :4], kc, kc, pos)
 
 
+class TestPagedAttention:
+    """``ragged_paged_attention`` against its plain version (gather the
+    slot's pages, then dense attention) on a shuffled page table. The
+    plain version scales the fp32 scores where the kernel pre-scales q in
+    its own dtype; in bf16 at D 128 (a scale that is no power of two)
+    that is about one bf16 ulp of a score, inside the bf16 tolerance."""
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("case", [
+        # name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len
+        ("decode", 8, 1, 12, 12, 64, 24,
+         [0, 383, 384, 17, 100, 255, 1, 16], None),
+        ("prefill_ctx0", 1, 256, 12, 12, 64, 24, [0], None),
+        ("prefill_ctx192", 1, 256, 12, 12, 64, 24, [192], None),
+        ("mixed_q_len", 4, 8, 4, 2, 64, 8, [0, 5, 37, 100], [1, 8, 3, 1]),
+        ("gqa_decode", 8, 1, 32, 8, 128, 128,
+         [0, 2047, 2048, 5, 700, 1023, 1024, 64], None),
+        ("rep8_prefill", 2, 12, 8, 1, 128, 6, [3, 40], [12, 5]),
+    ])
+    def test_matches_plain(self, cuda, dtype, case):
+        name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len = case
+        psz = 16
+        gen = torch.Generator(device=cuda).manual_seed(B * Tq + nH)
+        P = B * max_pages + 3
+        kp = _randn(gen, 2, P, psz, Hkv, D, dtype=dtype)
+        vp = _randn(gen, 2, P, psz, Hkv, D, dtype=dtype)
+        q = _randn(gen, B, Tq, nH, D, dtype=dtype)
+        pt = (torch.randperm(P - 1, generator=gen, device=cuda)[
+            :B * max_pages] + 1).to(torch.int32).reshape(B, max_pages)
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+        ql = (None if q_len is None
+              else torch.tensor(q_len, dtype=torch.int32, device=cuda))
+        before = pa.ragged_paged_attention.launches
+        out = pa.ragged_paged_attention(q, kp[1], vp[1], pt, ctx_t, ql)
+        torch.cuda.synchronize()
+        assert pa.ragged_paged_attention.launches == before + 1
+        ref = pa.ragged_paged_attention_plain(q, kp[1], vp[1], pt, ctx_t)
+        assert torch.isfinite(out.float()).all()
+        rows = [Tq] * B if q_len is None else q_len
+        for b in range(B):  # rows past q_len are padding
+            _close(out[b, :rows[b]], ref[b, :rows[b]], dtype)
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        pt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+        ctx = torch.zeros(2, dtype=torch.int32, device=cuda)
+
+        def call(Tq=1, nH=4, Hkv=2, D=64, psz=16):
+            q = torch.zeros(2, Tq, nH, D, device=cuda)
+            kp = torch.zeros(9, psz, Hkv, D, device=cuda)
+            return pa.ragged_paged_attention(q, kp, kp, pt, ctx)
+
+        with pytest.raises(ValueError, match="head_dim"):
+            call(D=96)
+        with pytest.raises(ValueError, match="query heads"):
+            call(nH=32, Hkv=2)
+        with pytest.raises(ValueError, match="page_size"):
+            call(psz=12)
+        with pytest.raises(ValueError, match="Tq"):
+            call(Tq=257)
+
+
 class TestTickFusion:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("H", [768, 4096, 100])
@@ -159,3 +221,46 @@ def test_decode_tick_matches_plain_path(cuda, monkeypatch):
                             da.ragged_decode_attention_plain)
         want = tick()
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_paged_tick_matches_plain_path(cuda, monkeypatch):
+    """``forward_with_pages`` on the card, fp32: a prefill chunk at a
+    context offset, then a ragged decode tick with a dead slot, through
+    the kernels and again with every kernel swapped for its plain
+    version; logits and pools agree."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2,
+                            num_heads=4, num_kv_heads=2, max_seq_len=128,
+                            dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=cuda)
+    rng = np.random.RandomState(1)
+    pt = torch.from_numpy(rng.permutation(np.arange(1, 33))
+                          .reshape(4, 8).astype(np.int32)).to(cuda)
+    chunk = torch.from_numpy(rng.randint(0, 512, (1, 24))).to(cuda)
+    nxt = torch.from_numpy(rng.randint(0, 512, (4, 1))).to(cuda)
+    pos = torch.tensor([40, 3, 127, 64], dtype=torch.int32, device=cuda)
+    live = torch.tensor([True, True, False, True], device=cuda)
+
+    def run():
+        pool = llama.init_paged_pool(cfg, 33, 16, cuda)
+        a, _ = llama.forward_with_pages(
+            params, chunk, cfg, pool, pt[:1],
+            torch.tensor([16], dtype=torch.int32, device=cuda))
+        b, _ = llama.forward_with_pages(params, nxt, cfg, pool, pt, pos,
+                                        live=live)
+        return a, b, pool
+
+    with torch.no_grad():
+        got = run()
+        monkeypatch.setattr(tf, "fused_rms_norm", tf.rms_norm_plain)
+        monkeypatch.setattr(tf, "fused_add_rms_norm", tf.add_rms_norm_plain)
+        monkeypatch.setattr(tf, "fused_rope_qk", tf.rope_qk_plain)
+        monkeypatch.setattr(pa, "ragged_paged_attention",
+                            pa.ragged_paged_attention_plain)
+        want = run()
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    for kk in ("k", "v"):
+        torch.testing.assert_close(got[2][kk], want[2][kk], rtol=1e-4,
+                                   atol=1e-4)
