@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
+H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -17,7 +18,13 @@ Phases (any failed check raises and the script exits non-zero):
    shape and a GQA shape; ``ragged_paged_attention`` on the serving
    decode tick, the serving admit prefill (256 rows at context 0 and
    192), llama7b-width and GQA decode ticks and one mixed-q_len launch,
-   each on a shuffled page table, beside gather + SDPA (two calls);
+   each on a shuffled page table, beside gather + SDPA (two calls); the
+   flash-attention forward, dq and dk/dv kernels (bf16) at bench.py's
+   training shape (B 44, S 512, 12 heads of D 64, causal), at llama7b
+   width (B 1, S 2048, 32 heads of D 128, causal) and one non-causal
+   shape with a ragged edge, beside SDPA's forward and backward; and
+   ``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768)
+   beside its GEMM alone;
 3. serve 32 requests of the mixed workload through ``ServingEngine`` at
    ``LlamaConfig.bert_base_equiv`` width in bf16 (random weights from a
    seeded generator), check every request's tokens, and check from the
@@ -34,9 +41,20 @@ Phases (any failed check raises and the script exits non-zero):
 4. teacher-forced decode ticks through the kernel path and the plain path
    side by side, on the contiguous cache (4) and on a shuffled page table
    (4b): logits within a stated bf16 tolerance;
-5. print the kernels' JSON line, then the result line. Each path of
-   3-3c is driven with every launch count set to 0 just before it and
-   read just after; a kernel's ``launches`` is its sum over those paths.
+5. training at ``bert_base_equiv`` width, bf16 compute with fp32 master
+   weights (random, from a seeded generator) on tokens from
+   ``np.random.RandomState(0)`` with labels = tokens, as bench.py trains:
+   (a) at B 8, S 512 one ``loss_fn`` value and gradient through the
+   kernels and through their plain versions, within stated budgets;
+   (b) at B 44, S 512, two warm-up steps of ``make_train_step`` (AdamW,
+   lr 1e-4), then ten timed ones: tokens/s, ms/step, peak memory, the
+   device's busy share from a profiled step; (c) the loss after them is
+   below the first step's; (d) each timed step launches the forward, dq
+   and dk/dv kernels once per layer and ``head_dx_softmax`` once;
+6. print the kernels' JSON line, then the result line. Each path of
+   3-3c and 5b is driven with every launch count set to 0 just before it
+   and read just after; a kernel's ``launches`` is its sum over those
+   paths.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX or of ``paddle_tpu``.
@@ -75,6 +93,28 @@ TOL = {"torch.bfloat16": (1.6e-2, 2e-2), "torch.float32": (1e-5, 1e-5)}
 # average but not on near-ties, which is why token agreement is printed,
 # not asserted.
 LOGIT_ATOL = 0.15
+# lse is fp32, from the same bf16 products summed in another order, with
+# exp2/log2 on the card's approximate units: 1e-4
+LSE_TOL = 1e-4
+# head_dx_softmax's outputs are far below the shared bf16 atol (a row's
+# probabilities sum to at most 1 and W is drawn at 1/sqrt(H), so |out| is
+# ~1e-2), so its limit is tied to the output's size: atol 2^-7 of the
+# largest |output| (two bf16 ulps there) with rtol 1.6e-2, and the
+# relative Frobenius error within 1e-2. The output's own bf16 rounding is
+# ~2^-9 of it (rms); an output off by 2 % in scale moves it 2 %, and one
+# dropped 64-column V tile of 32000 about 1.5 % (the probabilities of
+# logits at scale 3 are heavy-tailed, so a tile carries more than 1/500).
+HEAD_DX_ATOL_OF_MAX = 2.0 ** -7
+HEAD_DX_FRO_RTOL = 1e-2
+# training, bf16 kernel path against the plain path on the same fp32
+# master weights and tokens: the loss (~10.4 = ln 32000 at random weights)
+# within 2e-2, about one bf16 ulp of a logit at magnitude 4, where the two
+# paths' attention outputs round differently; each parameter's gradient
+# within 5e-2 of its norm (relative Frobenius error: bf16 keeps 2^-8 per
+# element, and the paths' rounding differences pass through twelve
+# layers' backward)
+TRAIN_LOSS_ATOL = 2e-2
+TRAIN_GRAD_RTOL = 5e-2
 
 
 def fail(msg: str) -> None:
@@ -140,6 +180,34 @@ def eager_ms(torch, fn, n_inputs=1, iters=100):
         for i in range(iters):
             fn(i % n_inputs)
     return _events(torch, run) / iters
+
+
+def backward_ms(torch, forward, inputs, grad_out, iters=20, warmup=3):
+    """Device ms per call of the backward of ``forward(*inputs)`` (dx of
+    every input), timed as ``time_ms`` times the kernels: the forward is
+    captured into one CUDA graph and ``iters`` ``torch.autograd.grad``
+    calls into a second, whose replay is timed with CUDA events. As in
+    ``torch.cuda.make_graphed_callables``, the backward's operations run
+    on their forward's stream, which is the graphs' capture stream."""
+    leaves = [t.detach().requires_grad_() for t in inputs]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(warmup):
+            torch.autograd.grad(forward(*leaves), leaves, grad_out)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
+    with torch.cuda.graph(fwd):
+        out = forward(*leaves)
+    with torch.cuda.graph(bwd, pool=fwd.pool()):
+        for _ in range(iters):
+            torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
+    fwd.replay()
+    bwd.replay()
+    ms = _events(torch, bwd.replay) / iters
+    del fwd, bwd, out
+    return ms
 
 
 def bound_ms(nbytes, ops, peak):
@@ -283,6 +351,119 @@ def kernel_checks(torch, F, da, tf, shape, dtype, gen):
     return rows
 
 
+FLASH_SHAPES = [
+    # name, B, S, H, D, causal
+    ("bench", 44, 512, 12, 64, True),        # bench.py's training shape
+    ("llama7b", 1, 2048, 32, 128, True),     # the TPU's blocked regime
+    ("noncausal", 8, 1000, 12, 64, False),   # a ragged edge at 64 rows
+]
+
+
+def flash_checks(torch, F, fa, shape, gen):
+    """The forward, dq and dk/dv kernels at one shape against their plain
+    versions (the backward kernels get the plain forward's out, lse and
+    delta), timed beside SDPA: its forward, and its backward (dq, dk and
+    dv in one call), both as CUDA-graph replays like the kernels."""
+    name, B, S, H, D, causal = shape
+    dt = torch.bfloat16
+
+    def randn():
+        return torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(dt)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    err_f = check(torch, "flash_attention_fwd", out, ref, dt)
+    torch.testing.assert_close(lse, ref_lse, rtol=LSE_TOL, atol=LSE_TOL)
+    lse_err = (lse - ref_lse).abs().max().item()
+    delta = fa.attention_delta(ref, do)
+    bwd = (q, k, v, do, ref_lse, delta, causal)
+    err_q = check(torch, "flash_attention_bwd_dq",
+                  fa.flash_attention_bwd_dq(*bwd),
+                  fa.flash_attention_bwd_dq_plain(*bwd), dt)
+    err_kv = check(torch, "flash_attention_bwd_dkv",
+                   fa.flash_attention_bwd_dkv(*bwd),
+                   fa.flash_attention_bwd_dkv_plain(*bwd), dt)
+
+    # bound: q, k, v, do read once, outputs written once, lse and delta
+    # fp32; operations 2 * D per visible (query, key) pair and product
+    pairs = B * H * (S * (S + 1) // 2 if causal else S * S)
+    n = B * S * H * D * 2
+    stats = 2 * B * H * S * 4
+    peak = PEAK_OPS[str(dt)]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def sdpa(i):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+
+    rows = [
+        timed(torch, "flash_attention_fwd", err_f,
+              lambda i: fa.flash_attention_fwd(q, k, v, causal),
+              lambda i: fa.flash_attention_fwd_plain(q, k, v, causal), sdpa,
+              bound_ms(4 * n + stats // 2, 4 * D * pairs, peak),
+              plain_iters=3),
+        timed(torch, "flash_attention_bwd_dq", err_q,
+              lambda i: fa.flash_attention_bwd_dq(*bwd),
+              lambda i: fa.flash_attention_bwd_dq_plain(*bwd), None,
+              bound_ms(5 * n + stats, 6 * D * pairs, peak), plain_iters=3),
+        timed(torch, "flash_attention_bwd_dkv", err_kv,
+              lambda i: fa.flash_attention_bwd_dkv(*bwd),
+              lambda i: fa.flash_attention_bwd_dkv_plain(*bwd), None,
+              bound_ms(6 * n + stats, 8 * D * pairs, peak), plain_iters=3)]
+    rows[0]["lse_max_abs_err"] = lse_err
+    lib_bwd = backward_ms(
+        torch, lambda *t: F.scaled_dot_product_attention(*t, is_causal=causal),
+        (qt, kt, vt), do.transpose(1, 2).contiguous())
+    for r in rows[1:]:
+        r["library_ms"] = lib_bwd
+        r["library"] = "sdpa backward (dq, dk and dv in one call)"
+    rows[0]["library"] = "sdpa forward"
+    for r in rows:
+        r["shape"], r["dtype"] = name, "bfloat16"
+    return rows
+
+
+def head_dx_checks(torch, hd, gen, M=22528, V=32000, H=768):
+    """``head_dx_softmax`` at the CE tail's shape (bench.py's B 44 x S 512
+    rows, the vocabulary, the hidden width) against its plain version,
+    beside the GEMM alone on precomputed bf16 probabilities."""
+    dt = torch.bfloat16
+    logits = (torch.randn(M, V, generator=gen, device=DEVICE) * 3).to(dt)
+    m = logits.float().max(-1).values
+    se = torch.exp(logits.float() - m[:, None]).sum(-1)
+    scale = torch.rand(M, generator=gen, device=DEVICE) / se
+    w = (torch.randn(H, V, generator=gen, device=DEVICE)
+         / math.sqrt(H)).to(dt)
+    out = hd.head_dx_softmax(logits, m, scale, w)
+    ref = hd.head_dx_softmax_plain(logits, m, scale, w)
+    torch.cuda.synchronize()
+    ref_max = ref.float().abs().max().item()
+    atol = HEAD_DX_ATOL_OF_MAX * ref_max
+    torch.testing.assert_close(
+        out.float(), ref.float(), rtol=TOL[str(dt)][0], atol=atol,
+        msg=lambda m: f"head_dx_softmax: {m}")
+    err = (out.float() - ref.float()).abs().max().item()
+    fro = ((out.float() - ref.float()).norm() / ref.float().norm()).item()
+    if not fro <= HEAD_DX_FRO_RTOL:
+        raise AssertionError(f"head_dx_softmax: relative Frobenius error "
+                             f"{fro} > {HEAD_DX_FRO_RTOL}")
+    del ref
+    p = (torch.exp(torch.clamp(logits.float() - m[:, None], max=0.0))
+         * scale[:, None]).to(dt)
+    row = timed(torch, "head_dx_softmax", err,
+                lambda i: hd.head_dx_softmax(logits, m, scale, w),
+                lambda i: hd.head_dx_softmax_plain(logits, m, scale, w),
+                None, bound_ms(M * V * 2 + 2 * M * 4 + H * V * 2 + M * H * 2,
+                               2 * M * V * H, PEAK_OPS[str(dt)]),
+                plain_iters=3)
+    row["gemm_only_ms"] = time_ms(torch, lambda i: p @ w.t(), iters=20)
+    row.update(shape="ce_tail", dtype="bfloat16", out_abs_max=ref_max,
+               atol=atol, rtol=TOL[str(dt)][0], fro_rel_err=fro,
+               fro_rtol=HEAD_DX_FRO_RTOL)
+    return row
+
+
 PAGED_SHAPES = [
     # name, B, Tq, nH, Hkv, D, max_pages, ctx (None: mixed, 0 and the
     # window's last row included), q_len (None: every row)
@@ -381,12 +562,16 @@ def paged_checks(torch, F, pa, shape, dtype, gen):
 # phase 3: the engine
 # ---------------------------------------------------------------------------
 
-def counters(da, tf, pa):
+def counters(da, tf, pa, fa, hd):
     return {"ragged_decode_attention": da.ragged_decode_attention,
             "fused_rms_norm": tf.fused_rms_norm,
             "fused_add_rms_norm": tf.fused_add_rms_norm,
             "fused_rope_qk": tf.fused_rope_qk,
-            "ragged_paged_attention": pa.ragged_paged_attention}
+            "ragged_paged_attention": pa.ragged_paged_attention,
+            "flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "head_dx_softmax": hd.head_dx_softmax}
 
 
 def zero_counts(fns):
@@ -449,12 +634,13 @@ def check_tokens(out, rids, reqs, cfg):
 
 
 def check_counts(launches, want, what):
-    """Each kernel launched exactly as often as the path needs it, and a
-    kernel of the path at least once."""
+    """Each kernel launched exactly as often as the path needs it (a kernel
+    ``want`` does not name, never), and a kernel of the path at least
+    once."""
     for n, c in launches.items():
-        if c != want[n]:
+        if c != want.get(n, 0):
             raise AssertionError(f"{n}: {c} launches on the main path, "
-                                 f"wanted {want[n]} ({what})")
+                                 f"wanted {want.get(n, 0)} ({what})")
     if not any(launches.values()):
         raise AssertionError(f"no kernel launched on the main path ({what})")
 
@@ -772,6 +958,162 @@ def teacher_forced_paged(torch, llama, pa, tf, params, cfg, reqs, max_len,
             "greedy_agreement": agree / (ticks * B)}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: training
+# ---------------------------------------------------------------------------
+
+def plain_kernels(fa, hd):
+    """Every training kernel swapped for its plain version."""
+    return [mock.patch.object(fa, "flash_attention_fwd",
+                              fa.flash_attention_fwd_plain),
+            mock.patch.object(fa, "flash_attention_bwd_dq",
+                              fa.flash_attention_bwd_dq_plain),
+            mock.patch.object(fa, "flash_attention_bwd_dkv",
+                              fa.flash_attention_bwd_dkv_plain),
+            mock.patch.object(hd, "head_dx_softmax",
+                              hd.head_dx_softmax_plain)]
+
+
+PROFILER_RECORDS = ("Activity Buffer Request", "Runtime Triggered Module",
+                    "Lazy Function Loading")
+# device kernel names: the port's training kernels, cuBLAS's matmuls
+HAND_WRITTEN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
+                "head_dx_kernel")
+MATMUL = ("nvjet", "gemm", "xmma")
+
+
+def train_vs_plain(torch, llama, fa, hd, params, cfg, tokens):
+    """Phase 5a: one ``loss_fn`` value and gradient through the kernels and
+    through their plain versions, on the same master weights and tokens."""
+    def loss_and_grads():
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        loss = llama.loss_fn(leaves, tokens, tokens, cfg)
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), dict(zip(leaves, grads))
+
+    lk, gk = loss_and_grads()
+    patches = plain_kernels(fa, hd)
+    for p in patches:
+        p.start()
+    try:
+        lp, gp = loss_and_grads()
+    finally:
+        for p in patches:
+            p.stop()
+    errs = {k: ((gk[k] - g).norm() / g.norm()).item() for k, g in gp.items()}
+    finite = all(torch.isfinite(g).all().item() for g in gk.values())
+    out = {"batch": list(tokens.shape), "loss_kernels": lk, "loss_plain": lp,
+           "loss_abs_err": abs(lk - lp), "loss_atol": TRAIN_LOSS_ATOL,
+           "grad_rel_err": errs, "grad_rtol": TRAIN_GRAD_RTOL}
+    if not (math.isfinite(lk) and finite):
+        raise AssertionError("non-finite loss or gradient on the kernel path")
+    if abs(lk - lp) > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"loss {lk} against the plain path's {lp}")
+    worst = max(errs, key=errs.get)
+    if errs[worst] > TRAIN_GRAD_RTOL:
+        raise AssertionError(f"gradient of {worst} differs by "
+                             f"{errs[worst]} of its norm")
+    return out
+
+
+def device_profile(torch, run):
+    """Device time of ``run()`` by kernel from ``torch.profiler``: total
+    ms, its split into the port's hand-written kernels, cuBLAS matmuls and
+    the rest (PyTorch's elementwise and reduction kernels), and the twelve
+    largest entries (None where the profiler saw no device time). Only
+    device entries count: the host operators that launch them report the
+    same time again, and the profiler's own buffer and module-loading
+    records are no kernels. ``wall_ms`` is the host clock around the same
+    ``run()`` and its synchronize, so the busy share it gives reads device
+    and wall time from one run (the profiler's host cost included)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    rows = []
+    for e in prof.key_averages():
+        us = e.self_device_time_total
+        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+                and not e.key.startswith(PROFILER_RECORDS)):
+            rows.append((e.key, us / 1e3, e.count))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    split = {"hand_written": 0.0, "matmul": 0.0, "other": 0.0}
+    for k, ms, _ in rows:
+        part = ("hand_written" if any(n in k for n in HAND_WRITTEN)
+                else "matmul" if any(n in k for n in MATMUL) else "other")
+        split[part] += ms
+    return {"device_ms": sum(r[1] for r in rows), "wall_ms": wall_ms,
+            "split_ms": split,
+            "top": [{"name": k[:90], "ms": ms, "calls": c}
+                    for k, ms, c in rows[:12]]}
+
+
+def train_run(torch, llama, fns, params, cfg, tokens, lr=1e-4, warmup=2,
+              steps=10):
+    """Phases 5b-5d: ``make_train_step`` at bench.py's batch; two warm-up
+    steps, then ``steps`` timed ones with every launch count at 0 before
+    them; then one profiled step for the device's busy share: its device
+    time over its own wall time."""
+    opt = llama.init_opt_state(params)
+    step = llama.make_train_step(cfg, lr=lr)
+    losses = []
+    for _ in range(warmup):
+        losses.append(step(params, opt, tokens, tokens)[2].item())
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    timed_losses = []
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(steps):
+        timed_losses.append(step(params, opt, tokens, tokens)[2])
+    end.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    L = cfg.num_layers
+    check_counts(launches, {
+        "flash_attention_fwd": L * steps, "flash_attention_bwd_dq": L * steps,
+        "flash_attention_bwd_dkv": L * steps, "head_dx_softmax": steps},
+        f"{steps} train steps")
+    peak = torch.cuda.max_memory_allocated()
+    losses += [t.item() for t in timed_losses]
+    with torch.no_grad():
+        final = llama.loss_fn(params, tokens, tokens, cfg).item()
+    if not all(math.isfinite(x) for x in losses + [final]):
+        raise AssertionError(f"non-finite training loss: {losses}, {final}")
+    if not final < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses[0]} at step 0, "
+                             f"{final} after {warmup + steps} steps")
+    prof = device_profile(torch, lambda: step(params, opt, tokens, tokens))
+    B, S = tokens.shape
+    ms_step = 1e3 * wall / steps
+    out = {"batch": [B, S], "lr": lr, "warmup_steps": warmup,
+           "timed_steps": steps, "wall_s": wall, "ms_per_step": ms_step,
+           "tokens_per_s": B * S * steps / wall,
+           "event_ms_per_step": start.elapsed_time(end) / steps,
+           "peak_memory_bytes": peak, "losses": losses,
+           "loss_after": final}
+    if prof is None:
+        out["device_ms_per_step"] = "not measured"
+    else:
+        out["device_ms_per_step"] = prof["device_ms"]
+        out["profiled_step_wall_ms"] = prof["wall_ms"]
+        out["device_busy_share"] = prof["device_ms"] / prof["wall_ms"]
+        out["device_split_ms"] = prof["split_ms"]
+        out["device_top"] = prof["top"]
+    return out, launches
+
+
 def main() -> None:
     import torch
 
@@ -790,6 +1132,8 @@ def main() -> None:
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as da
+    from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import head_dx as hd
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
 
@@ -836,6 +1180,25 @@ def main() -> None:
                   f"{r['gather_sdpa_max_abs_err']:.3e}) bound_ms "
                   f"{r['bound_ms']:.6g} ({r['bound_by']}) pages_read "
                   f"{r['pages_read']}")
+    for shape in FLASH_SHAPES:
+        for r in flash_checks(torch, F, fa, shape, gen):
+            rows.append(r)
+            print(f"kernel {r['name']:24s} {r['shape']:10s} bfloat16  "
+                  f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} "
+                  f"eager_ms {r['eager_ms']:.6g} plain_ms "
+                  f"{r['plain_ms']:.6g} library_ms {r['library_ms']:.6g} "
+                  f"({r['library']}) bound_ms {r['bound_ms']:.6g} "
+                  f"({r['bound_by']})")
+    r = head_dx_checks(torch, hd, gen)
+    rows.append(r)
+    print(f"kernel {r['name']:24s} {r['shape']:10s} bfloat16  max_abs_err "
+          f"{r['max_abs_err']:.3e} (atol {r['atol']:.3e} = 2^-7 of max "
+          f"|out| {r['out_abs_max']:.3e}, rtol {r['rtol']}; relative "
+          f"Frobenius error {r['fro_rel_err']:.3e} <= {r['fro_rtol']}) ms "
+          f"{r['ms']:.6g} eager_ms "
+          f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
+          f"null (none; its GEMM alone: {r['gemm_only_ms']:.6g}) bound_ms "
+          f"{r['bound_ms']:.6g} ({r['bound_by']})")
     print(f"kernel checks passed ({card})")
 
     # 3. the engine at bert_base_equiv width
@@ -845,7 +1208,7 @@ def main() -> None:
     reqs = mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
     need = max(len(p) + g - 1 for p, g in reqs)
     max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
-    fns = counters(da, tf, pa)
+    fns = counters(da, tf, pa, fa, hd)
     stats, launches, toks_c = serve(torch, ServingEngine, fns, params, cfg,
                                     reqs, max_len)
     print(f"engine ({card}): bert_base_equiv bf16 slots 8 chunk 16 "
@@ -902,7 +1265,43 @@ def main() -> None:
                                max_len, ticks=16)
     print(f"teacher-forced paged ({card}): {json.dumps(tfp)}")
 
-    # 5. results
+    # 5. training at bert_base_equiv width, fp32 master weights
+    del params
+    tcfg = llama.LlamaConfig.bert_base_equiv()
+    tparams = llama.init_params(
+        tcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
+        dtype=torch.float32)
+    rng = np.random.RandomState(0)
+    tok8 = torch.from_numpy(rng.randint(0, tcfg.vocab_size, (8, 512))
+                            .astype(np.int32)).to(DEVICE)
+    tvp = train_vs_plain(torch, llama, fa, hd, tparams, tcfg, tok8)
+    print(f"train, kernels against plain ({card}): B 8 S 512 loss "
+          f"{tvp['loss_kernels']:.6f} / {tvp['loss_plain']:.6f} (|err| "
+          f"{tvp['loss_abs_err']:.3e} <= {TRAIN_LOSS_ATOL}), largest "
+          f"gradient error {max(tvp['grad_rel_err'].values()):.3e} of its "
+          f"norm (<= {TRAIN_GRAD_RTOL}): {json.dumps(tvp['grad_rel_err'])}")
+    tok44 = torch.from_numpy(rng.randint(0, tcfg.vocab_size, (44, 512))
+                             .astype(np.int32)).to(DEVICE)
+    train, tlaunches = train_run(torch, llama, fns, tparams, tcfg, tok44)
+    busy = train.get("device_busy_share")
+    print(f"train ({card}): bert_base_equiv bf16/fp32 master, B 44 S 512, "
+          f"{train['timed_steps']} timed AdamW steps: "
+          f"{train['tokens_per_s']:.1f} tokens/s, "
+          f"{train['ms_per_step']:.3f} ms/step (CUDA events "
+          f"{train['event_ms_per_step']:.3f}), device "
+          f"{train['device_ms_per_step']} ms in one profiled step of "
+          f"{train.get('profiled_step_wall_ms', 'not measured')} ms wall "
+          f"(busy share "
+          f"{'not measured' if busy is None else f'{busy:.4f}'}), peak "
+          f"memory {train['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+          f"{', '.join(f'{x:.4f}' for x in train['losses'])}, after "
+          f"{train['loss_after']:.4f}")
+    print(f"launches on the train steps: {json.dumps(tlaunches)}")
+    print(f"train device time (ms/step) by kind: "
+          f"{json.dumps(train.get('device_split_ms'))}; largest kernels: "
+          f"{json.dumps(train.get('device_top'))}")
+
+    # 6. results
     meta = {
         "ragged_decode_attention": (
             "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
@@ -920,9 +1319,25 @@ def main() -> None:
             "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
             "paddle_tpu/ops/pallas/paged_attention.py:194",
             "serving_decode"),
+        "flash_attention_fwd": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:647", "bench"),
+        "flash_attention_bwd_dq": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
+        "flash_attention_bwd_dkv": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
+        "head_dx_softmax": (
+            "cuda", "paddle_tpu_torch/csrc/head_dx.cu",
+            "paddle_tpu/ops/pallas/head_dx.py:86", "ce_tail"),
     }
+    # the blocked TPU kernels (S > 512) that the same kernels serve
+    also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
+            "flash_attention_bwd_dq": ["paddle_tpu/ops/pallas/flash_attention.py:442"],
+            "flash_attention_bwd_dkv": ["paddle_tpu/ops/pallas/flash_attention.py:458"]}
     by_path = {"contiguous_drain": launches, "paged_drain": plaunches,
-               "prefix_burst": blaunches}
+               "prefix_burst": blaunches, "train": tlaunches}
     kernels = []
     for name, (route, source, replaces, at) in meta.items():
         r = next(r for r in rows if r["name"] == name
@@ -937,6 +1352,10 @@ def main() -> None:
              "library_ms": r["library_ms"]}
         if "gather_sdpa_ms" in r:
             k["gather_sdpa_ms_two_calls"] = r["gather_sdpa_ms"]
+        if "gemm_only_ms" in r:
+            k["gemm_only_ms"] = r["gemm_only_ms"]
+        if name in also:
+            k["also_replaces"] = also[name]
         kernels.append(k)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -944,7 +1363,8 @@ def main() -> None:
                    "tick": tick, "paged_engine": pstats,
                    "paged_steps": psteps, "prefix_burst": burst,
                    "launches": by_path, "teacher_forced": tfc,
-                   "teacher_forced_paged": tfp}, f, indent=1)
+                   "teacher_forced_paged": tfp, "train_vs_plain": tvp,
+                   "train": train}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,9 +1,12 @@
-"""Parameters from numpy: how weights cross from the JAX package.
+"""Parameters and optimizer state from numpy: how they cross from the JAX
+package.
 
 The JAX package's LLaMA parameter tree, as ``{key: np.asarray(value)}``,
 becomes the port's tree with the same keys and the same stacked ``[L, ...]``
-layer weights. Tests use it to make both packages compute the same thing;
-the port never reproduces ``jax.random``.
+layer weights; its AdamW state ``{"step", "m", "v"}`` becomes the port's.
+Tests use them to make both packages compute the same thing, from the
+start or from the middle of a trajectory; the port never reproduces
+``jax.random``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 from ..device import resolve_device
 from .llama import LlamaConfig, param_shapes
 
-__all__ = ["params_from_numpy"]
+__all__ = ["params_from_numpy", "opt_state_from_numpy"]
 
 
 def params_from_numpy(np_params: Mapping[str, np.ndarray], cfg: LlamaConfig,
@@ -40,3 +43,16 @@ def params_from_numpy(np_params: Mapping[str, np.ndarray], cfg: LlamaConfig,
         out[name] = torch.tensor(arr.astype(np.float32), dtype=dtype,
                                  device=device)
     return out
+
+
+def opt_state_from_numpy(np_state: Mapping[str, object], cfg: LlamaConfig,
+                         device="cuda") -> Dict[str, object]:
+    """The port's AdamW state (``init_opt_state``'s layout) from the JAX
+    package's ``{"step", "m", "v"}`` as numpy: ``step`` an int32 0-d
+    tensor, the moments fp32 trees checked as ``params_from_numpy``
+    checks parameters."""
+    device = resolve_device(device)
+    return {"step": torch.tensor(int(np.asarray(np_state["step"])),
+                                 dtype=torch.int32, device=device),
+            "m": params_from_numpy(np_state["m"], cfg, device, torch.float32),
+            "v": params_from_numpy(np_state["v"], cfg, device, torch.float32)}

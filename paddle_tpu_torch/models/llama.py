@@ -1,24 +1,31 @@
-"""LLaMA-family decoder with a KV cache, in PyTorch.
+"""LLaMA-family decoder, trained and served, in PyTorch.
 
-Port of the KV-cache half of ``paddle_tpu/models/llama.py``: the config
-and its presets, parameter init, the prefill forward (T > 1, plain torch)
-and the single-token decode tick (T == 1), over a slot-contiguous cache
-(``forward_with_cache``) or a paged pool (``forward_with_pages``). The
-tick's between-matmul chains and every attention run as the hand-written
-kernels of ``ops/kernels``:
+Port of ``paddle_tpu/models/llama.py``: the config and its presets,
+parameter init, the KV-cache half (the prefill forward, T > 1, plain
+torch, and the single-token decode tick, T == 1, over a slot-contiguous
+cache, ``forward_with_cache``, or a paged pool, ``forward_with_pages``)
+and the single-device training half (``forward``, ``loss_fn`` with its
+three cross-entropy branches, ``train_step`` with the global-norm clip and
+AdamW, ``make_train_step``). The tick's between-matmul chains, every
+attention and the CE tail's dx run as the hand-written kernels of
+``ops/kernels``:
 
 - ``fused_rms_norm`` / ``fused_add_rms_norm`` / ``fused_rope_qk``
   (Triton) replace the inline rmsnorm, residual+rmsnorm and rope chains;
 - ``ragged_decode_attention`` (CUDA C++) reads each slot's cache rows
   [0, pos] only;
 - ``ragged_paged_attention`` (CUDA C++) serves the paged decode ticks and
-  the paged prefill chunks, reading each slot's pages up to its position.
+  the paged prefill chunks, reading each slot's pages up to its position;
+- the flash-attention forward, dq and dk/dv kernels (CUDA C++) serve the
+  training attention and its backward, ``head_dx_softmax`` (CUDA C++) the
+  softmax term of the custom CE tail's dh.
 
 Layout follows the JAX package so the two are compared like with like:
 parameters are a dict with the same keys and stacked ``[L, ...]`` layer
 weights, the cache is ``{"k", "v"}`` of ``[L, B, max_len, Hkv, D]``, the
 pool ``{"k", "v"}`` of ``[L, num_pages, page_size, Hkv, D]``, and layers
-run as an unrolled loop. Cache and pool are updated in place.
+run as an unrolled loop. Cache and pool are updated in place, and so are
+parameters and optimizer state in ``train_step``.
 """
 
 from __future__ import annotations
@@ -29,15 +36,20 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
 from ..ops.kernels import decode_attention as _da
+from ..ops.kernels import flash_attention as _fa
+from ..ops.kernels import head_dx as _hd
 from ..ops.kernels import paged_attention as _pa
 from ..ops.kernels import tick_fusion as _tf
 
-__all__ = ["LlamaConfig", "LAYER_KEYS", "init_params", "init_kv_cache",
-           "init_paged_pool", "forward_with_cache", "forward_with_pages",
-           "generate"]
+__all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "init_params",
+           "init_kv_cache", "init_paged_pool", "forward_with_cache",
+           "forward_with_pages", "generate", "forward_hidden", "forward",
+           "loss_fn", "init_opt_state", "adamw_update", "train_step",
+           "make_train_step"]
 
 # stacked [L, ...] per-layer weights, in the JAX package's key names
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -56,6 +68,17 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     rms_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    # training: per-layer activation checkpointing (the reference's
+    # fleet.recompute); on the flash path the qkv and post halves are
+    # checkpointed and attention kept outside, so its O(S) residuals are
+    # saved instead of re-running the forward kernel in the backward
+    remat: bool = True
+    # head + CE over ce_chunks batch chunks, each recomputed in the
+    # backward, so the [B, S, V] logits never stay alive (0 = off)
+    ce_chunks: int = 0
+    # head + CE as one autograd Function whose backward runs the softmax
+    # term of dh as the head_dx_softmax kernel and gathers W's gold columns
+    ce_tail_custom: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -66,17 +89,18 @@ class LlamaConfig:
         """Tiny config for tests."""
         d = dict(vocab_size=256, hidden_size=64, intermediate_size=128,
                  num_layers=2, num_heads=4, num_kv_heads=4, max_seq_len=64,
-                 dtype=torch.float32)
+                 dtype=torch.float32, remat=False)
         d.update(kw)
         return cls(**d)
 
     @classmethod
     def bert_base_equiv(cls, **kw):
-        """~110M decoder at the BERT/ERNIE-base budget: the serving
-        benchmark's model."""
+        """~110M decoder at the BERT/ERNIE-base budget: the training and
+        serving benchmarks' model. No remat (the activations fit) and the
+        custom CE tail, as in the JAX package."""
         d = dict(vocab_size=32000, hidden_size=768, intermediate_size=3072,
                  num_layers=12, num_heads=12, num_kv_heads=12,
-                 max_seq_len=512)
+                 max_seq_len=512, remat=False, ce_tail_custom=True)
         d.update(kw)
         return cls(**d)
 
@@ -85,7 +109,7 @@ class LlamaConfig:
         """~3M-param decoder, fp32: the serving benchmarks' CPU shape."""
         d = dict(vocab_size=2048, hidden_size=128, intermediate_size=512,
                  num_layers=4, num_heads=8, num_kv_heads=8, max_seq_len=512,
-                 dtype=torch.float32)
+                 dtype=torch.float32, remat=False)
         d.update(kw)
         return cls(**d)
 
@@ -393,3 +417,254 @@ def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int = 32,
         nxt = torch.argmax(logits, dim=-1)
         out.append(nxt)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# training (single device): forward, loss, global-norm clip and AdamW
+# ---------------------------------------------------------------------------
+
+# norm gains and the embedding take no weight decay
+NO_DECAY_KEYS = ("ln_attn", "ln_mlp", "ln_f", "embed")
+
+
+def _layer_qkv(cfg: LlamaConfig, x, lp):
+    """Pre-attention half of a block: rms, q/k/v projections, rope at
+    0..S-1, then the GQA repeat of the kv heads (``jnp.repeat`` on the
+    head axis: head j reads kv head j // rep)."""
+    positions = torch.arange(x.shape[1], device=x.device)
+    q, k, v = _qkv_proj(cfg, x, lp, positions)
+    if cfg.num_kv_heads != cfg.num_heads:
+        rep = cfg.num_heads // cfg.num_kv_heads
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    return q, k, v
+
+
+def _attention(cfg: LlamaConfig, q, k, v):
+    """Training attention: causal, through the flash kernels on the card."""
+    return _fa.dot_product_attention(q, k, v, is_causal=True)
+
+
+def _decoder_layer(cfg: LlamaConfig, x, lp):
+    q, k, v = _layer_qkv(cfg, x, lp)
+    return _layer_post(cfg, x, _attention(cfg, q, k, v), lp)
+
+
+def forward_hidden(params, tokens, cfg: LlamaConfig):
+    """Final hidden states (post ln_f). tokens [B, S] -> [B, S, H] in
+    cfg.dtype. Parameters may be fp32 master weights: each use site casts
+    its weight to cfg.dtype, so gradients reach them in fp32."""
+    dt = cfg.dtype
+    x = params["embed"].to(dt)[tokens.long()]
+    # on the flash path attention stays outside the checkpointed halves,
+    # so its O(S) residuals are saved rather than recomputed
+    split = cfg.remat and _fa.flash_path_active(x)
+    # one cast and one unbind per stacked weight: their backward is one
+    # cast and one stack, where indexing layer i would make autograd add a
+    # zero-filled [L, ...] gradient per layer
+    layers = {kk: params[kk].to(dt).unbind(0) for kk in LAYER_KEYS}
+    for i in range(cfg.num_layers):
+        lp = {kk: layers[kk][i] for kk in LAYER_KEYS}
+        if split:
+            q, k, v = checkpoint(_layer_qkv, cfg, x, lp, use_reentrant=False)
+            attn = _attention(cfg, q, k, v)
+            x = checkpoint(_layer_post, cfg, x, attn, lp,
+                           use_reentrant=False)
+        elif cfg.remat:
+            x = checkpoint(_decoder_layer, cfg, x, lp, use_reentrant=False)
+        else:
+            x = _decoder_layer(cfg, x, lp)
+    return _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
+
+
+def forward(params, tokens, cfg: LlamaConfig):
+    """Next-token logits [B, S, V] in cfg.dtype."""
+    return forward_hidden(params, tokens, cfg) @ params["lm_head"].to(
+        cfg.dtype)
+
+
+def _nll_terms(logits, targets):
+    """Per-row max m (no gradient: the logsumexp's gradient is exact for any
+    constant shift), sumexp and gold logit, all fp32. ``logits - m`` is
+    promoted to fp32, so it still makes one fp32 temporary of the logits'
+    shape (and ``exp`` a second) before the sum; only a separate ``.float()``
+    copy of the logits is avoided."""
+    m = logits.max(dim=-1).values.float().detach()
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)   # promoted to fp32
+    gold = logits.gather(-1, targets.long()[..., None])[..., 0].float()
+    return m, se, gold
+
+
+def _nll_sum(logits, targets, weights):
+    """Weighted token-nll sum over one logits block."""
+    m, se, gold = _nll_terms(logits, targets)
+    return ((m + torch.log(se) - gold) * weights).sum()
+
+
+class _HeadCETail(torch.autograd.Function):
+    """lm_head matmul + weighted token-nll sum with a hand-scheduled
+    backward (the JAX package's ``_head_ce_tail``): the forward equals
+    ``_nll_sum(h2 @ W, targets, wgt)``; the backward runs dh's softmax term
+    as ``head_dx_softmax`` and its gold term as a gather of W's columns."""
+
+    @staticmethod
+    def forward(ctx, h2, W, targets, wgt):
+        logits = h2 @ W.to(h2.dtype)
+        m, se, gold = _nll_terms(logits, targets)
+        ctx.save_for_backward(h2, W, logits, m, se, targets, wgt)
+        return ((m + torch.log(se) - gold) * wgt[None, :]).sum()
+
+    @staticmethod
+    def backward(ctx, gs):
+        return _head_ce_tail_bwd(ctx.saved_tensors, gs)
+
+
+_head_ce_tail = _HeadCETail.apply
+
+
+def _head_ce_tail_bwd(res, gs):
+    """(dh, dW, None, None). Per row, gw = gs * weight scales the one-hot
+    terms and gw / sumexp the softmax terms.
+
+    dh = head_dx_softmax(logits, m, gw / se, W) - gw * W[:, target]^T.
+    dW = h2^T @ ((exp(l - m) / se - onehot) * gw), in JAX's wide-N
+    orientation, as one GEMM that accumulates in fp32 and, as JAX's
+    ``preferred_element_type=float32``, writes its [H, V] output in fp32
+    (``torch.mm(..., out_dtype=...)`` on the card; the CPU has no such
+    GEMM for bf16 inputs and rounds dW to cfg.dtype once before the cast
+    back to W's type)."""
+    h2, W, logits, m, se, targets, wgt = res
+    B, T, H = h2.shape
+    V = logits.shape[-1]
+    dt = h2.dtype
+    M = B * T
+    lf = logits.reshape(M, V)
+    mf, sef = m.reshape(M), se.reshape(M)
+    tf = targets.reshape(M).long()
+    gw = gs.float() * wgt[None, :].expand(B, T).reshape(M)
+    Wd = W.to(dt)
+    dh_soft = _hd.head_dx_softmax(lf, mf, gw / sef, Wd)
+    gold_rows = (Wd.t()[tf].float() * gw[:, None]).to(dt)        # [M, H]
+    dh = (dh_soft - gold_rows).reshape(B, T, H)
+    # (exp(l - m) / se - onehot) * gw, in place on one fp32 [M, V] buffer
+    e = torch.sub(lf, mf[:, None]).exp_().div_(sef[:, None])
+    e[torch.arange(M, device=e.device), tf] -= 1.0
+    dlog = e.mul_(gw[:, None]).to(dt)
+    del e
+    h2t = h2.reshape(M, H).t()
+    if h2.is_cuda and dt != W.dtype:
+        dW = torch.mm(h2t, dlog, out_dtype=W.dtype)              # [H, V]
+    else:
+        dW = (h2t @ dlog).to(W.dtype)
+    return dh, dW, None, None
+
+
+def loss_fn(params, tokens, labels, cfg: LlamaConfig):
+    """Next-token cross entropy, averaged over B * (S - 1) positions:
+    position i's logits are scored against labels[i + 1].
+
+    ``cfg.ce_chunks`` (dividing B): head + CE per batch chunk, each chunk
+    checkpointed, so its logits are recomputed in the backward and never
+    saved. ``cfg.ce_tail_custom``: the custom tail (``_HeadCETail``), all
+    S positions scored with weight 0 on the last. Otherwise the plain
+    head matmul on the first S - 1 positions and ``_nll_sum``."""
+    h = forward_hidden(params, tokens, cfg)
+    dt = cfg.dtype
+    B, S, _ = h.shape
+    nc = cfg.ce_chunks
+    labels = labels.long()
+    pad = torch.zeros(B, 1, dtype=labels.dtype, device=labels.device)
+    if nc and B % nc == 0:
+        W = params["lm_head"].to(dt)
+        targets = torch.cat([labels[:, 1:], pad], dim=1)
+        wgt = torch.ones(S, dtype=torch.float32, device=h.device)
+        wgt[-1] = 0.0
+        hc = h.reshape(nc, B // nc, S, h.shape[-1])
+        tc = targets.reshape(nc, B // nc, S)
+
+        def body(hcb, tcb):
+            return _nll_sum(hcb @ W, tcb, wgt[None, :])
+
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(nc):
+            total = total + checkpoint(body, hc[i], tc[i],
+                                       use_reentrant=False)
+        return total / (B * (S - 1))
+    if cfg.ce_tail_custom:
+        targets = torch.cat([labels[:, 1:], pad], dim=1)
+        wgt = torch.ones(S, dtype=torch.float32, device=h.device)
+        wgt[-1] = 0.0
+        total = _head_ce_tail(h, params["lm_head"], targets, wgt)
+        return total / (B * (S - 1))
+    logits = h[:, :-1] @ params["lm_head"].to(dt)
+    return _nll_sum(logits, labels[:, 1:], 1.0) / (B * (S - 1))
+
+
+def init_opt_state(params):
+    """AdamW state: ``step`` (int32, 0-d) and zero moments ``m``, ``v``
+    shaped and typed as the parameters."""
+    p0 = next(iter(params.values()))
+    return {"step": torch.zeros((), dtype=torch.int32, device=p0.device),
+            "m": {k: torch.zeros_like(p) for k, p in params.items()},
+            "v": {k: torch.zeros_like(p) for k, p in params.items()}}
+
+
+@torch.no_grad()
+def adamw_update(params, grads, opt_state, lr=3e-4, beta1=0.9, beta2=0.95,
+                 eps=1e-8, weight_decay=0.1, no_decay_keys=None):
+    """AdamW with bias correction and decoupled decay, in the JAX package's
+    order of operations (``torch.optim.AdamW`` rounds differently):
+    m = b1 m + (1 - b1) g; v = b2 v + (1 - b2) g^2;
+    p -= lr ((m / c1) / (sqrt(v / c2) + eps) + wd p), c = 1 - b^step.
+    Updates ``params`` and ``opt_state`` in place and returns them."""
+    opt_state["step"].add_(1)
+    t = opt_state["step"].float()
+    c1 = 1.0 - torch.pow(beta1, t)
+    c2 = 1.0 - torch.pow(beta2, t)
+    nd = NO_DECAY_KEYS if no_decay_keys is None else no_decay_keys
+    for k, p in params.items():
+        wd = 0.0 if k in nd else weight_decay
+        g = grads[k].float()
+        m, v = opt_state["m"][k], opt_state["v"][k]
+        m.mul_(beta1).add_((1 - beta1) * g)
+        v.mul_(beta2).add_((1 - beta2) * (g * g))
+        p.sub_(lr * ((m / c1) / (torch.sqrt(v / c2) + eps) + wd * p))
+    return params, opt_state
+
+
+def train_step(params, opt_state, tokens, labels, cfg: LlamaConfig,
+               lr=3e-4):
+    """One step: loss and gradients, the global-norm clip
+    ``min(1, 1 / (|g| + 1e-6))``, then AdamW. Updates ``params`` and
+    ``opt_state`` in place; returns (params, opt_state, loss)."""
+    keys = list(params)
+    leaves = {k: params[k].detach().requires_grad_() for k in keys}
+    with torch.enable_grad():
+        loss = loss_fn(leaves, tokens, labels, cfg)
+        grads = torch.autograd.grad(loss, [leaves[k] for k in keys])
+    with torch.no_grad():
+        gnorm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        clip = torch.clamp(1.0 / (gnorm + 1e-6), max=1.0)
+        grads = {k: g * clip.to(g.dtype) for k, g in zip(keys, grads)}
+    adamw_update(params, grads, opt_state, lr=lr)
+    return params, opt_state, loss.detach()
+
+
+def make_train_step(cfg: LlamaConfig, lr=3e-4, device="cuda"):
+    """The single-device counterpart of the JAX package's
+    ``make_sharded_train_step``: returns ``step(params, opt_state, tokens,
+    labels) -> (params, opt_state, loss)`` on ``device`` (the card unless
+    the caller names another; raises where CUDA is asked for and absent).
+
+    Parameters are fp32 master weights (``init_params(...,
+    dtype=torch.float32)``) and the state ``init_opt_state(params)``, both
+    on ``device``. They are updated in place, the counterpart of JAX's
+    ``donate_argnums``: the returned dicts are the ones passed in."""
+    dev = resolve_device(device)
+
+    def step(params, opt_state, tokens, labels):
+        tokens = torch.as_tensor(tokens, device=dev)
+        labels = torch.as_tensor(labels, device=dev)
+        return train_step(params, opt_state, tokens, labels, cfg, lr=lr)
+
+    return step

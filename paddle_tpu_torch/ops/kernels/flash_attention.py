@@ -1,0 +1,325 @@
+"""Flash attention for training: forward with logsumexp, backward as dq and
+dk/dv.
+
+Replaces the TPU kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
+the blocked ``_pallas_flash_attention`` / ``_pallas_flash_fwd_lse`` and the
+packed ``_pallas_flash_fwd_packed`` become one forward kernel; the blocked
+``_pallas_flash_bwd`` (its dq and dk/dv calls) and the fused packed
+``_pallas_flash_bwd_packed`` become a dq kernel and a dk/dv kernel. The
+CUDA source is ``paddle_tpu_torch/csrc/flash_attention.cu``; its header
+says what bounds the kernels on the H100 and how they are built.
+
+Layouts: q, k, v, out and their gradients are ``[B, S, H, D]`` (the JAX
+package's); ``lse`` (natural log) and ``delta = rowsum(do * o)`` are
+``[B, H, Sq]`` fp32. Causal masking is ``tril(k=Sk-Sq)``.
+
+Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
+kernel or raises (bf16, D in {64, 128}, contiguous).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+__all__ = ["attention_probs", "attention_apply", "xla_attention",
+           "attention_delta", "flash_attention_fwd_plain",
+           "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
+           "flash_attention_bwd_plain", "flash_attention_fwd",
+           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
+           "dot_product_attention", "flash_path_active"]
+
+_DTYPES = (torch.float32, torch.bfloat16)
+_HEAD_DIMS = (64, 128)
+
+
+def _scale(q, scale):
+    return 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+
+
+# ---------------------------------------------------------------------------
+# plain versions (dense [B, H, Sq, Sk] scores)
+# ---------------------------------------------------------------------------
+
+def _scores(q, k, is_causal, scale):
+    """fp32 scores [B, H, Sq, Sk] of q [B, Sq, H, D] against k, keys past
+    the causal diagonal at -inf."""
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if is_causal:
+        sq, sk = s.shape[-2], s.shape[-1]
+        causal = torch.ones(sq, sk, dtype=torch.bool,
+                            device=s.device).tril(sk - sq)
+        s = s.masked_fill(~causal, float("-inf"))
+    return s
+
+
+def attention_probs(q, k, mask=None, is_causal=False, scale=None):
+    """Masked softmax probabilities [B, H, Sq, Sk] in fp32: scores from
+    fp32 products, the causal mask, then a boolean mask (False hides a key)
+    or an additive one."""
+    s = _scores(q, k, is_causal, _scale(q, scale))
+    if mask is not None:
+        if mask.dtype == torch.bool:
+            s = s.masked_fill(~mask, float("-inf"))
+        else:
+            s = s + mask.float()
+    return torch.softmax(s, dim=-1)
+
+
+def attention_apply(probs, v, dtype=None):
+    """probs [B, H, Sq, Sk] @ v [B, Sk, H, D] -> [B, Sq, H, D]: the probs
+    rounded to ``dtype`` (default v's), the product accumulated in fp32."""
+    dtype = dtype or v.dtype
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(dtype).float(), v.float())
+    return out.to(dtype)
+
+
+def xla_attention(q, k, v, mask=None, is_causal=False, scale=None):
+    """Dense attention, the JAX package's ``_xla_attention``."""
+    probs = attention_probs(q, k, mask=mask, is_causal=is_causal,
+                            scale=scale)
+    return attention_apply(probs, v, dtype=q.dtype)
+
+
+def attention_delta(out, do):
+    """delta = rowsum(do * o) in fp32, [B, Sq, H, D] -> [B, H, Sq]: the
+    softmax-jacobian term of the backward, one reduction outside the
+    kernels (as the JAX package computes it outside its blocked ones)."""
+    return (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+
+
+def flash_attention_fwd_plain(q, k, v, causal=False, scale=None):
+    """(out [B, Sq, H, D] in q's dtype, lse [B, H, Sq] fp32)."""
+    s = _scores(q, k, causal, _scale(q, scale))
+    lse = torch.logsumexp(s, dim=-1)
+    return attention_apply(torch.exp(s - lse[..., None]), v,
+                           dtype=q.dtype), lse
+
+
+def _probs_and_ds(q, k, v, do, lse, delta, causal, scale):
+    """p = exp(s - lse) (0 where masked) and ds = p * (dp - delta) rounded
+    to q's dtype, both [B, H, Sq, Sk]."""
+    p = torch.exp(_scores(q, k, causal, scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, (p * (dp - delta[..., None])).to(q.dtype)
+
+
+def flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal=False,
+                                 scale=None):
+    """dq = (ds @ k) * scale, rounded to q's dtype."""
+    scale = _scale(q, scale)
+    _, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dq = torch.einsum("bhqk,bkhd->bqhd", ds.float(), k.float()) * scale
+    return dq.to(q.dtype)
+
+
+def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
+                                  scale=None):
+    """(dk = (ds^T @ q) * scale, dv = p^T @ do), p rounded to the dtype
+    before its product."""
+    scale = _scale(q, scale)
+    p, ds = _probs_and_ds(q, k, v, do, lse, delta, causal, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p.to(q.dtype).float(), do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds.float(), q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
+    """(dq, dk, dv) of the attention whose forward gave ``o`` and ``lse``:
+    the flash backward written out, p = exp(s - lse), delta = rowsum(do *
+    o) in fp32, ds = p * (dp - delta)."""
+    delta = attention_delta(o, do)
+    dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
+    dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
+                                           scale)
+    return dq, dk, dv
+
+
+# ---------------------------------------------------------------------------
+# wrappers
+# ---------------------------------------------------------------------------
+
+def _check(q, k, v, causal, *more):
+    """q [B, Sq, H, D], k/v [B, Sk, H, D], one dtype and device; ``more``
+    holds (name, tensor, shape, dtype) of the other operands."""
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"expected q [B,Sq,H,D] and k/v [B,Sk,H,D], got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    B, Sq, H, D = q.shape
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, H, D):
+        raise ValueError(f"k {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)} (repeat kv heads first)")
+    if causal and Sq > k.shape[1]:
+        raise ValueError(f"causal attention needs Sq <= Sk, got {Sq} > "
+                         f"{k.shape[1]}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share a dtype in float32/bfloat16, got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    for name, t, shape, dtype in more:
+        if tuple(t.shape) != tuple(shape) or t.dtype != dtype:
+            raise ValueError(f"{name} must be {dtype} {tuple(shape)}, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    devs = {t.device for t in (q, k, v)} | {m[1].device for m in more}
+    if len(devs) != 1:
+        raise ValueError(f"inputs lie on different devices: {devs}")
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {q.device}")
+
+
+def _check_kernel(*ts):
+    D = ts[0].shape[-1]
+    if ts[0].dtype != torch.bfloat16 or D not in _HEAD_DIMS:
+        raise ValueError(f"the kernels take bfloat16 with head_dim in "
+                         f"{_HEAD_DIMS}, got {ts[0].dtype}, D={D}")
+    if not all(t.is_contiguous() for t in ts):
+        raise ValueError("the kernels take contiguous tensors")
+    if any(t.data_ptr() % 16 for t in ts):
+        raise ValueError("the kernels take tensors on a 16-byte boundary "
+                         "(rows are read in 16-byte loads)")
+
+
+def _lse_shape(q):
+    return (q.shape[0], q.shape[2], q.shape[1])
+
+
+def flash_attention_fwd(q, k, v, causal=False, scale=None):
+    """(out [B, Sq, H, D], lse [B, H, Sq] fp32 natural log)."""
+    _check(q, k, v, causal)
+    if q.device.type == "cpu":
+        return flash_attention_fwd_plain(q, k, v, causal, scale)
+    _check_kernel(q, k, v)
+    B, Sq, H, D = q.shape
+    out = torch.empty_like(q)
+    lse = torch.empty(_lse_shape(q), dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        err = _kernel("flash_attention_fwd", 5)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), B, H, Sq, k.shape[1], D, int(causal),
+            _scale(q, scale), torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
+                           f"{err}")
+    flash_attention_fwd.launches += 1
+    return out, lse
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                           scale=None):
+    """dq [B, Sq, H, D] from the forward's ``lse`` and ``delta``
+    (``attention_delta(out, do)``)."""
+    st = _lse_shape(q)
+    _check(q, k, v, causal, ("do", do, q.shape, q.dtype),
+           ("lse", lse, st, torch.float32), ("delta", delta, st,
+                                             torch.float32))
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
+                                            scale)
+    _check_kernel(q, k, v, do, lse, delta)
+    B, Sq, H, D = q.shape
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _kernel("flash_attention_bwd_dq", 7)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Sq,
+            k.shape[1], D, int(causal), _scale(q, scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
+                            scale=None):
+    """(dk, dv) [B, Sk, H, D] from the forward's ``lse`` and ``delta``."""
+    st = _lse_shape(q)
+    _check(q, k, v, causal, ("do", do, q.shape, q.dtype),
+           ("lse", lse, st, torch.float32), ("delta", delta, st,
+                                             torch.float32))
+    if q.device.type == "cpu":
+        return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
+                                             causal, scale)
+    _check_kernel(q, k, v, do, lse, delta)
+    B, Sq, H, D = q.shape
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _kernel("flash_attention_bwd_dkv", 8)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            B, H, Sq, k.shape[1], D, int(causal), _scale(q, scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
+                           f"error {err}")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_fwd.launches = 0
+flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dkv.launches = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(name: str, n_ptrs: int):
+    """The C entry point ``name`` of ``csrc/flash_attention.cu``, built
+    and loaded at first use: ``n_ptrs`` tensor pointers, then B, H, Sq,
+    Sk, D, causal, scale and the stream; every pointer and the stream are
+    ``c_void_p`` so none is cut to 32 bits."""
+    from ._build import load_library
+
+    fn = getattr(load_library("flash_attention"), name)
+    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
+
+
+# ---------------------------------------------------------------------------
+# the differentiable entry
+# ---------------------------------------------------------------------------
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, saving (q, k, v, out, lse): O(S) residuals,
+    never the [S, S] scores; the backward is the dq and dk/dv kernels."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        do = do.contiguous()
+        delta = attention_delta(out, do)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
+                                    ctx.scale)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                         ctx.causal, ctx.scale)
+        return dq, dk, dv, None, None
+
+
+def flash_path_active(t) -> bool:
+    """True where ``dot_product_attention`` launches the flash kernels: a
+    CUDA tensor. Models pick their remat structure on it."""
+    return t.device.type == "cuda"
+
+
+def dot_product_attention(q, k, v, mask=None, is_causal=False):
+    """Attention over [B, S, H, D] with Hkv == H, differentiable. Without a
+    mask: the flash forward and backward (the kernels on a CUDA tensor,
+    their plain versions on a CPU one). With a mask: ``xla_attention``
+    and autograd, as the JAX entry does."""
+    if mask is not None:
+        return xla_attention(q, k, v, mask=mask, is_causal=is_causal)
+    return _FlashAttention.apply(q, k, v, bool(is_causal), None)

@@ -19,6 +19,8 @@ import torch
 
 from paddle_tpu_torch.models import llama
 from paddle_tpu_torch.ops.kernels import decode_attention as da
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import head_dx as hd
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import tick_fusion as tf
 
@@ -28,6 +30,14 @@ pytestmark = pytest.mark.cuda
 # (1e-5); bf16 to two ulps of the output (rtol 1.6e-2) with one ulp at the
 # inputs' magnitude as atol
 TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (1.6e-2, 2e-2)}
+# bf16 training, kernel path against plain path: a loss of magnitude ~6
+# within 2e-2 (about one bf16 ulp of a logit at magnitude 4, where the two
+# paths' attention outputs round differently), and each parameter's
+# gradient within 5e-2 of its norm (relative Frobenius error: bf16 keeps
+# 2^-8 relative per element, and the rounding differences pass through
+# the layers' backward)
+LOSS_ATOL = 2e-2
+GRAD_RTOL = 5e-2
 
 
 @pytest.fixture
@@ -264,3 +274,143 @@ def test_paged_tick_matches_plain_path(cuda, monkeypatch):
     for kk in ("k", "v"):
         torch.testing.assert_close(got[2][kk], want[2][kk], rtol=1e-4,
                                    atol=1e-4)
+
+
+class TestFlashAttention:
+    """The forward, dq and dk/dv kernels against their plain versions in
+    bf16; the backward kernels get the same out, lse and delta as the plain
+    backward. lse is fp32: to 1e-4 (exp2 and log2 on the card's approximate
+    units, sums in another order)."""
+
+    @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
+        (2, 128, 128, 4, 64, True),
+        (2, 128, 128, 4, 64, False),
+        (1, 512, 512, 4, 64, True),     # bench.py's sequence length
+        (1, 1024, 1024, 2, 64, True),   # past 512: the TPU's blocked regime
+        (1, 256, 256, 2, 128, True),    # llama7b's head width
+        (2, 200, 200, 3, 64, True),     # a ragged edge at 64-row tiles
+        (1, 40, 100, 2, 128, True),     # Sq < Sk: causal offset 60
+        (1, 72, 136, 2, 64, False),
+    ])
+    def test_matches_plain(self, cuda, B, Sq, Sk, H, D, causal):
+        gen = torch.Generator(device=cuda).manual_seed(Sq * 7 + Sk + D)
+        dt = torch.bfloat16
+        q = _randn(gen, B, Sq, H, D, dtype=dt)
+        k = _randn(gen, B, Sk, H, D, dtype=dt)
+        v = _randn(gen, B, Sk, H, D, dtype=dt)
+        do = _randn(gen, B, Sq, H, D, dtype=dt)
+        n0 = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        _close(out, ref, dt)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-4, atol=1e-4)
+        delta = fa.attention_delta(ref, do)
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, ref_lse, delta, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, ref_lse, delta,
+                                            causal)
+        torch.cuda.synchronize()
+        want_dq = fa.flash_attention_bwd_dq_plain(q, k, v, do, ref_lse,
+                                                  delta, causal)
+        want_dk, want_dv = fa.flash_attention_bwd_dkv_plain(
+            q, k, v, do, ref_lse, delta, causal)
+        for g, w in ((dq, want_dq), (dk, want_dk), (dv, want_dv)):
+            assert torch.isfinite(g.float()).all()
+            _close(g, w, dt)
+        assert (fa.flash_attention_fwd.launches,
+                fa.flash_attention_bwd_dq.launches,
+                fa.flash_attention_bwd_dkv.launches) == tuple(
+                    n + 1 for n in n0)
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        q = torch.zeros(1, 64, 2, 64, device=cuda)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fa.flash_attention_fwd(q, q, q)
+        q = torch.zeros(1, 64, 2, 32, device=cuda, dtype=torch.bfloat16)
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_fwd(q, q, q)
+        q = torch.zeros(1, 2, 64, 64, device=cuda,
+                        dtype=torch.bfloat16).transpose(1, 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            fa.flash_attention_bwd_dq(
+                q, q, q, q, *[torch.zeros(1, 2, 64, device=cuda)] * 2)
+
+
+class TestHeadDx:
+    @pytest.mark.parametrize("M,V,H", [(300, 1000, 64), (256, 4096, 256),
+                                       (130, 520, 200)])
+    def test_matches_plain(self, cuda, M, V, H):
+        """Rows past a 128-row tile, V past a 32-column step and H past a
+        128-column tile are masked; scale = weight / sumexp, as the CE
+        tail passes it."""
+        gen = torch.Generator(device=cuda).manual_seed(M + V + H)
+        logits = _randn(gen, M, V, dtype=torch.bfloat16, scale=3.0)
+        m = logits.float().max(-1).values
+        se = torch.exp(logits.float() - m[:, None]).sum(-1)
+        scale = torch.rand(M, generator=gen, device=cuda) / se
+        w = _randn(gen, H, V, dtype=torch.bfloat16)
+        n0 = hd.head_dx_softmax.launches
+        out = hd.head_dx_softmax(logits, m, scale, w).float()
+        torch.cuda.synchronize()
+        assert hd.head_dx_softmax.launches == n0 + 1
+        # the outputs are small beside the shared bf16 atol (a row's
+        # probabilities sum to at most 1), so the limit is tied to their
+        # size: atol 2^-7 of the largest |output| (two bf16 ulps there),
+        # and the relative Frobenius error within 1e-2 (the output's own
+        # bf16 rounding is ~2^-9 of it; a dropped V tile moves it more)
+        ref = hd.head_dx_softmax_plain(logits, m, scale, w).float()
+        torch.testing.assert_close(out, ref, rtol=TOL[torch.bfloat16][0],
+                                   atol=2.0 ** -7 * ref.abs().max().item())
+        assert ((out - ref).norm() / ref.norm()).item() <= 1e-2
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        m = torch.zeros(4, device=cuda)
+        with pytest.raises(ValueError, match="bfloat16"):
+            hd.head_dx_softmax(torch.zeros(4, 16, device=cuda), m, m,
+                               torch.zeros(8, 16, device=cuda))
+        with pytest.raises(ValueError, match="multiples of 8"):
+            b = torch.bfloat16
+            hd.head_dx_softmax(torch.zeros(4, 12, device=cuda, dtype=b), m,
+                               m, torch.zeros(8, 12, device=cuda, dtype=b))
+
+
+def test_loss_and_grads_match_plain_path(cuda, monkeypatch):
+    """``loss_fn`` (the custom CE tail) and its gradients in bf16 with fp32
+    master weights at D 64 (GQA, 4 over 2 heads) on the card, through the
+    kernels and again with every kernel swapped for its plain version; the
+    kernels launch once per layer and the CE tail's once."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2,
+                            num_heads=4, num_kv_heads=2, max_seq_len=256,
+                            remat=False, ce_tail_custom=True)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=cuda, dtype=torch.float32)
+    tok = torch.from_numpy(np.random.RandomState(0).randint(
+        0, 512, (2, 256))).to(cuda)
+    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+           fa.flash_attention_bwd_dkv, hd.head_dx_softmax)
+
+    def run():
+        leaves = {k: p.clone().requires_grad_() for k, p in params.items()}
+        loss = llama.loss_fn(leaves, tok, tok, cfg)
+        loss.backward()
+        return loss.item(), {k: p.grad for k, p in leaves.items()}
+
+    n0 = [f.launches for f in fns]
+    got = run()
+    assert [f.launches - n for f, n in zip(fns, n0)] == [2, 2, 2, 1]
+    monkeypatch.setattr(fa, "flash_attention_fwd",
+                        fa.flash_attention_fwd_plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq",
+                        fa.flash_attention_bwd_dq_plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv",
+                        fa.flash_attention_bwd_dkv_plain)
+    monkeypatch.setattr(hd, "head_dx_softmax", hd.head_dx_softmax_plain)
+    want = run()
+    assert abs(got[0] - want[0]) <= LOSS_ATOL
+    for k, g in want[1].items():
+        assert g.dtype == torch.float32
+        err = ((got[1][k] - g).norm() / g.norm()).item()
+        assert err <= GRAD_RTOL, (k, err)
