@@ -22,9 +22,14 @@ Phases (any failed check raises and the script exits non-zero):
    flash-attention forward, dq and dk/dv kernels (bf16) at bench.py's
    training shape (B 44, S 512, 12 heads of D 64, causal), at llama7b
    width (B 1, S 2048, 32 heads of D 128, causal) and one non-causal
-   shape with a ragged edge, beside SDPA's forward and backward; and
+   shape with a ragged edge, beside SDPA's forward and backward;
    ``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768)
-   beside its GEMM alone;
+   beside its GEMM alone; ``quant_matmul`` (int8 and fp8 weights, bf16
+   x) at the decode tick's four projection shapes with B 8, lm_head with
+   B 1 and B 8, and two ragged edges, beside dequantize + ``torch.mm``;
+   and ``ragged_decode_attention``'s quant mode (int8 and fp8 caches with
+   per-row scales) at the serving shape and at llama7b width, beside
+   dequantize + SDPA;
 3. serve 32 requests of the mixed workload through ``ServingEngine`` at
    ``LlamaConfig.bert_base_equiv`` width in bf16 (random weights from a
    seeded generator), check every request's tokens, and check from the
@@ -38,9 +43,21 @@ Phases (any failed check raises and the script exits non-zero):
    prefix, 32-token tails) through ``OnlineScheduler`` with a
    ``PagedPrefixCache``: prefix hits by page reference, no COW break, no
    leak;
+3d. quantized serving: the 32 requests through
+   ``ServingEngine(paged=True, quant="int8", quality_digest=True)``, every
+   tick projection and lm_head through ``quant_matmul`` (7 L + 1 per
+   decode step, 1 per admit) and no paged or decode attention kernel
+   (the quantized pool attends through the dequantizing gather); one
+   fetch per segment and none while one is issued; then the same
+   requests through a bf16 paged engine with digests as the shadow, each
+   request scored with ``compare_pair`` (printed: on random weights at
+   this width two bf16 engines already disagree, see 3b's matched-prefix
+   rate against the contiguous engine); then 8 requests through an fp8
+   engine;
 4. teacher-forced decode ticks through the kernel path and the plain path
-   side by side, on the contiguous cache (4) and on a shuffled page table
-   (4b): logits within a stated bf16 tolerance;
+   side by side, on the contiguous cache (4), on a shuffled page table
+   (4b) and, with int8 weights and pool, on a quantized one (4c): logits
+   within a stated bf16 tolerance;
 5. training at ``bert_base_equiv`` width, bf16 compute with fp32 master
    weights (random, from a seeded generator) on tokens from
    ``np.random.RandomState(0)`` with labels = tokens, as bench.py trains:
@@ -51,10 +68,17 @@ Phases (any failed check raises and the script exits non-zero):
    device's busy share from a profiled step; (c) the loss after them is
    below the first step's; (d) each timed step launches the forward, dq
    and dk/dv kernels once per layer and ``head_dx_softmax`` once;
+3e. (after 5) quantized serving's quality bar on a confident model:
+   phase 5's weights trained on over its batch until the loss is below
+   0.3, cast to bf16, serve 32 continuations of its training sequences
+   (the mixed workload's lengths) through the int8 and the bf16 paged
+   engines with digests; the int8 serve's matched-prefix rate against the
+   bf16 one must be at least 0.5, the JAX package's bar;
 6. print the kernels' JSON line, then the result line. Each path of
-   3-3c and 5b is driven with every launch count set to 0 just before it
+   3-3e and 5b is driven with every launch count set to 0 just before it
    and read just after; a kernel's ``launches`` is its sum over those
-   paths.
+   paths (the decode kernel's quant mode has no engine caller, as in the
+   JAX package, so its count is 0 there).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX or of ``paddle_tpu``.
@@ -106,6 +130,19 @@ LSE_TOL = 1e-4
 # logits at scale 3 are heavy-tailed, so a tile carries more than 1/500).
 HEAD_DX_ATOL_OF_MAX = 2.0 ** -7
 HEAD_DX_FRO_RTOL = 1e-2
+# quant_matmul against its plain version: both fp32, sums over K in
+# another order and the scale applied once per column after the sum (the
+# plain version scales each weight), a few fp32 ulps of outputs of
+# magnitude ~1
+QMM_TOL = 1e-4
+# quantized serving's bar against its bf16 shadow: the JAX package's
+# matched-prefix rate on random-init weights (tests/test_quantized_serving)
+MATCHED_PREFIX_FLOOR = 0.5
+# phase 3e trains on until its batch's loss is below this: a memorized
+# batch, whose continuations the model predicts with margins far above
+# quantization's logit error (random weights at vocab 32000 are near-ties
+# everywhere, where two bf16 engines already diverge)
+MEMO_LOSS = 0.3
 # training, bf16 kernel path against the plain path on the same fp32
 # master weights and tokens: the loss (~10.4 = ln 32000 at random weights)
 # within 2e-2, about one bf16 ulp of a logit at magnitude 4, where the two
@@ -558,29 +595,151 @@ def paged_checks(torch, F, pa, shape, dtype, gen):
     return row
 
 
+QMM_SHAPES = [
+    # name, B, K, N: the decode tick's projections (B = 8 slots), the
+    # admit's and the tick's lm_head, and two ragged edges (N no multiple
+    # of the 64-column block; then no multiple of 8 either, K of the
+    # 256-row chunk)
+    ("wq_wk_wv_wo", 8, 768, 768),
+    ("w_gate_w_up", 8, 768, 3072),
+    ("w_down", 8, 3072, 768),
+    ("lm_head_admit", 1, 768, 32000),
+    ("lm_head_tick", 8, 768, 32000),
+    ("ragged_n", 8, 768, 1000),
+    ("ragged_nk", 8, 770, 999),
+]
+
+
+def quant_matmul_checks(torch, qm, qs, mode, shape, gen):
+    """``quant_matmul`` at one shape against its plain version, timed
+    beside dequantize + ``torch.mm`` in bf16 (the two-call library path,
+    which rounds the dequantized weights to bf16); the weight is one of
+    enough copies to exceed twice the L2 cache, cycled, as the engine's
+    layers are."""
+    name, B, K, N = shape
+    dt = torch.bfloat16
+    copies = max(2, min(64, math.ceil(2 * L2_BYTES / (K * N))))
+    ws, scs = [], []
+    for _ in range(copies):
+        w, sc = qs.quantize_weight(
+            torch.randn(K, N, generator=gen, device=DEVICE) / math.sqrt(K),
+            mode)
+        ws.append(w)
+        scs.append(sc)
+    x = torch.randn(B, K, generator=gen, device=DEVICE).to(dt)
+    out = qm.quant_matmul(x, ws[0], scs[0])
+    ref = qm.quant_matmul_plain(x, ws[0], scs[0])
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out, ref, rtol=QMM_TOL, atol=QMM_TOL,
+                               msg=lambda m: f"quant_matmul {name}: {m}")
+    err = (out - ref).abs().max().item()
+
+    def library(i):
+        return torch.mm(x, ws[i].to(dt) * scs[i].to(dt))
+
+    lib_err = (library(0).float() - ref).abs().max().item()
+    # bound: each weight byte, scale, x and output element once; 2 B K N
+    # operations at the bf16 tensor-core rate (bytes bound it here)
+    row = timed(torch, "quant_matmul", err,
+                lambda i: qm.quant_matmul(x, ws[i], scs[i]),
+                lambda i: qm.quant_matmul_plain(x, ws[i], scs[i]), library,
+                bound_ms(K * N + 4 * N + 2 * B * K + 4 * B * N,
+                         2 * B * K * N, PEAK_OPS[str(dt)]),
+                n_inputs=copies, plain_iters=20)
+    row.update(shape=name, dtype=mode, B=B, K=K, N=N,
+               library="dequantize (bf16) + torch.mm, two calls",
+               library_max_abs_err=lib_err)
+    return row
+
+
+DECODE_QUANT_SHAPES = [s for s in SHAPES if s[0] in ("serving", "llama7b")]
+
+
+def decode_quant_checks(torch, F, da, qs, mode, shape, gen):
+    """``ragged_decode_attention``'s quant mode at one shape, bf16 q, an
+    [L, B, max_len, Hkv, D] narrow cache with its row scales (layers
+    cycled, as in ``kernel_checks``), against its plain version and beside
+    dequantize + SDPA."""
+    name, B, nH, Hkv, D, max_len, L = shape
+    dt = torch.bfloat16
+    qdt = qs.quant_dtype(mode)
+    kc, ks = qs.quantize_kv_rows(torch.randn(
+        L, B, max_len, Hkv, D, generator=gen, device=DEVICE), qdt)
+    vc, vs = qs.quantize_kv_rows(torch.randn(
+        L, B, max_len, Hkv, D, generator=gen, device=DEVICE), qdt)
+    q = torch.randn(B, nH, D, generator=gen, device=DEVICE).to(dt)
+    pos = torch.randint(0, max_len, (B,), generator=gen, device=DEVICE,
+                        dtype=torch.int32)
+    pos[0], pos[-1] = 0, max_len - 1
+
+    def kernel(i):
+        return da.ragged_decode_attention(q, kc[i], vc[i], pos, ks[i], vs[i])
+
+    def plain(i):
+        return da.ragged_decode_attention_plain(q, kc[i], vc[i], pos, ks[i],
+                                                vs[i])
+
+    out, ref = kernel(0), plain(0)
+    torch.cuda.synchronize()
+    err = check(torch, f"ragged_decode_attention quant {mode} {name}", out,
+                ref, dt)
+    mask = (torch.arange(max_len, device=DEVICE)[None, :]
+            <= pos.long()[:, None])[:, None, None, :]
+    gqa = {"enable_gqa": True} if nH != Hkv else {}
+
+    def library(i):
+        kd = kc[i].to(dt) * ks[i][..., None, None].to(dt)
+        vd = vc[i].to(dt) * vs[i][..., None, None].to(dt)
+        return F.scaled_dot_product_attention(
+            q[:, :, None, :], kd.transpose(1, 2), vd.transpose(1, 2),
+            attn_mask=mask, **gqa)
+
+    lib_err = (library(0)[:, :, 0].float() - ref.float()).abs().max().item()
+    keys = int((pos.long() + 1).sum())
+    nbytes = (2 * keys * (Hkv * D + 4) + 2 * B * nH * D * 2 + 4 * B)
+    row = timed(torch, "ragged_decode_attention_quant", err, kernel, plain,
+                library, bound_ms(nbytes, 4 * keys * nH * D,
+                                  PEAK_OPS[str(dt)]),
+                n_inputs=L, plain_iters=20)
+    row.update(shape=name, dtype=mode, q_dtype="bfloat16",
+               library="dequantize (bf16) + SDPA",
+               library_max_abs_err=lib_err)
+    return row
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the engine
 # ---------------------------------------------------------------------------
 
-def counters(da, tf, pa, fa, hd):
-    return {"ragged_decode_attention": da.ragged_decode_attention,
-            "fused_rms_norm": tf.fused_rms_norm,
-            "fused_add_rms_norm": tf.fused_add_rms_norm,
-            "fused_rope_qk": tf.fused_rope_qk,
-            "ragged_paged_attention": pa.ragged_paged_attention,
-            "flash_attention_fwd": fa.flash_attention_fwd,
-            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
-            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
-            "head_dx_softmax": hd.head_dx_softmax}
+def counters(da, tf, pa, fa, hd, qm):
+    """Each kernel's wrapper and the attribute that counts its launches
+    (the decode kernel's quant mode is counted apart, on the same
+    wrapper)."""
+    return {"ragged_decode_attention": (da.ragged_decode_attention,
+                                        "launches"),
+            "ragged_decode_attention_quant": (da.ragged_decode_attention,
+                                              "quant_launches"),
+            "fused_rms_norm": (tf.fused_rms_norm, "launches"),
+            "fused_add_rms_norm": (tf.fused_add_rms_norm, "launches"),
+            "fused_rope_qk": (tf.fused_rope_qk, "launches"),
+            "ragged_paged_attention": (pa.ragged_paged_attention,
+                                       "launches"),
+            "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
+            "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,
+                                       "launches"),
+            "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
+                                        "launches"),
+            "head_dx_softmax": (hd.head_dx_softmax, "launches"),
+            "quant_matmul": (qm.quant_matmul, "launches")}
 
 
 def zero_counts(fns):
-    for fn in fns.values():
-        fn.launches = 0
+    for fn, attr in fns.values():
+        setattr(fn, attr, 0)
 
 
 def read_counts(fns):
-    return {n: fn.launches for n, fn in fns.items()}
+    return {n: getattr(fn, attr) for n, (fn, attr) in fns.items()}
 
 
 def serve(torch, ServingEngine, fns, params, cfg, reqs, max_len):
@@ -768,6 +927,183 @@ def prefix_burst(torch, sched, PagedPrefixCache, ServingEngine, fns,
     return out, launches
 
 
+def paged_counts(L, steps, decode, quant=False):
+    """The launches a paged drain of ``steps`` steps (``decode`` of them
+    decode ticks, the rest admits) needs: the tick kernels on every decode
+    tick; the paged kernel on every step of an unquantized pool, none on a
+    quantized one (the dequantizing gather); on a quantized tree,
+    ``quant_matmul`` for the tick's 7 projections per layer and lm_head,
+    and the admit's lm_head."""
+    want = {"fused_rms_norm": (L + 1) * decode,
+            "fused_add_rms_norm": L * decode, "fused_rope_qk": L * decode,
+            "ragged_paged_attention": 0 if quant else L * steps}
+    if quant:
+        want["quant_matmul"] = (7 * L + 1) * decode + (steps - decode)
+    return want
+
+
+def paged_engine(ServingEngine, params, cfg, max_len, **kw):
+    """The paged engine of phases 3b-3e: 8 slots, pages of 16."""
+    return ServingEngine(cfg, params, slots=8, max_len=max_len, chunk=16,
+                         prompt_buckets=(64, 128, 256), paged=True,
+                         page_size=PAGE, device=DEVICE, **kw)
+
+
+def digest_drain(torch, fns, eng, cfg, rs):
+    """``run()``'s drain of requests ``rs`` on a paged engine with quality
+    digests, every launch count at 0 before it and read after, the
+    finished requests (their digests) kept before ``collect_finished``
+    hands back their tokens, as the JAX fleet's shadow harvest does.
+    Checks the tokens, the pages, the launches and one fetch per segment.
+    Returns (stats, launches, [(tokens, digests)] in request order)."""
+    rids = [eng.add_request(p, g) for p, g in rs]
+    zero_counts(fns)
+    f0 = eng.fetches
+    eng.last_run_ticks = eng.last_run_chunks = 0
+    t0 = time.perf_counter()
+    while eng._queue or eng.free_slot_count() < eng.slots:
+        eng.run_segment(4 * eng.chunk)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    finished = list(eng._finished)
+    out = eng.collect_finished()
+    digests = {r.rid: r.digests for r in finished}
+    check_tokens(out, rids, rs, cfg)
+    if eng.pager.leak_report():
+        raise AssertionError(f"leaked pages: {eng.pager.leak_report()}")
+    steps = eng.last_run_ticks
+    decode = steps - len(rs)    # every request is admitted once
+    check_counts(launches,
+                 paged_counts(cfg.num_layers, steps, decode, eng.quant),
+                 f"quant={eng.quant}: {steps} steps, {decode} decode")
+    if eng.fetches - f0 != eng.last_run_chunks:
+        raise AssertionError(f"{eng.fetches - f0} fetches for "
+                             f"{eng.last_run_chunks} segments")
+    new = sum(g for _, g in rs)
+    stats = {"requests": len(rs), "new_tokens": new, "wall_s": wall,
+             "tokens_per_s": new / wall, "steps": steps,
+             "decode_steps": decode, "segments": eng.last_run_chunks,
+             "fetches": eng.fetches - f0,
+             "ms_per_step": 1e3 * wall / max(1, steps)}
+    return stats, launches, [(out[r], digests[r]) for r in rids]
+
+
+def score_pairs(compare_pair, prim, shad):
+    """``compare_pair`` over requests: [(tokens, digests or None)] of the
+    primary and of the shadow serve, aggregated. The matched-prefix rate
+    is the matched tokens (up to each first divergence) over the tokens
+    compared; KL mean is over all scored positions."""
+    pairs = [compare_pair(pt, st, pd, sd)
+             for (pt, pd), (st, sd) in zip(prim, shad)]
+    compared = sum(r["compared"] for r in pairs)
+    kl_pos = sum(r["kl_positions"] for r in pairs)
+    return {"matched_prefix_rate": sum(r["tokens_matched"]
+                                       for r in pairs) / compared,
+            "requests_identical": sum(r["match"] for r in pairs),
+            "requests": len(pairs),
+            "logit_positions": sum(r["logit_positions"] for r in pairs),
+            "logit_max_abs_err": max(
+                (r["logit_max_abs_err"] for r in pairs
+                 if r["logit_max_abs_err"] is not None), default=None),
+            "kl_positions": kl_pos,
+            "kl_mean": (sum(r["kl_mean"] * r["kl_positions"]
+                            for r in pairs if r["kl_positions"])
+                        / kl_pos if kl_pos else None),
+            "kl_max": max((r["kl_max"] for r in pairs
+                           if r["kl_max"] is not None), default=None)}
+
+
+def quant_serve(torch, ServingEngine, compare_pair, fns, params, cfg, reqs,
+                max_len):
+    """Phase 3d: the requests through the int8 paged engine with quality
+    digests (after a warm-up run), its launches and fetches checked and
+    its segment dispatch audited for host syncs; the same requests through
+    a bf16 paged engine with digests, the shadow, each request scored with
+    ``compare_pair`` (reported: on these random weights the bar is not
+    asserted, see ``quant_trained``); then an fp8 engine on the first 8
+    requests."""
+    warm = paged_engine(ServingEngine, params, cfg, max_len, quant="int8",
+                        quality_digest=True)
+    for p, g in reqs[:8]:
+        warm.add_request(p, g)
+    warm.run()
+    torch.cuda.synchronize()
+    eng = paged_engine(ServingEngine, params, cfg, max_len, quant="int8",
+                       quality_digest=True)
+    if not (eng.quant_kernel_active() and not eng.paged_kernel_active()):
+        raise AssertionError("the int8 engine does not route its "
+                             "projections to quant_matmul")
+    stats, launches, primary = digest_drain(torch, fns, eng, cfg, reqs)
+    # no host read while a segment is issued, digests included
+    audited = 0
+    for p, g in reqs[:12]:
+        eng.add_request(p, g)
+    while eng._queue or eng.free_slot_count() < eng.slots:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = eng.dispatch_segment(64)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        eng.finish_segment(pending)
+        audited += 1
+    eng.collect_finished()
+    stats["sync_free_dispatches"] = audited
+    shadow, _, shadow_out = digest_drain(
+        torch, fns, paged_engine(ServingEngine, params, cfg, max_len,
+                                 quality_digest=True), cfg, reqs)
+    fp8, fp8_launches, fp8_out = digest_drain(
+        torch, fns, paged_engine(ServingEngine, params, cfg, max_len,
+                                 quant="fp8", quality_digest=True), cfg,
+        reqs[:8])
+    fp8["quality_against_bf16"] = score_pairs(compare_pair, fp8_out,
+                                              shadow_out[:8])
+    return ({"int8": stats, "bf16_shadow": shadow, "fp8": fp8,
+             "int8_against_bf16": score_pairs(compare_pair, primary,
+                                              shadow_out)},
+            launches, fp8_launches)
+
+
+def memorize(torch, llama, params, cfg, tokens, lr=1e-4, max_steps=60):
+    """Phase 3e's model: more AdamW steps on phase 5's batch (a fresh
+    optimizer state) until its loss is below ``MEMO_LOSS`` or ``max_steps``
+    ran; returns the losses. A model that has memorized its batch is
+    confident on continuations of those sequences."""
+    opt = llama.init_opt_state(params)
+    step = llama.make_train_step(cfg, lr=lr)
+    losses = []
+    while len(losses) < max_steps and (not losses
+                                       or losses[-1] >= MEMO_LOSS):
+        losses.append(step(params, opt, tokens, tokens)[2].item())
+    del opt
+    return losses
+
+
+def quant_trained(torch, ServingEngine, compare_pair, fns, params, cfg,
+                  reqs, max_len):
+    """Phase 3e: the quality bar on the memorized model (cast to bf16),
+    served continuations of its training sequences: the requests through
+    the int8 engine and through the bf16 engine, both with digests, each
+    request scored with ``compare_pair``; the matched-prefix rate must be
+    at least ``MATCHED_PREFIX_FLOOR``."""
+    int8, launches, primary = digest_drain(
+        torch, fns, paged_engine(ServingEngine, params, cfg, max_len,
+                                 quant="int8", quality_digest=True), cfg,
+        reqs)
+    shadow, _, shadow_out = digest_drain(
+        torch, fns, paged_engine(ServingEngine, params, cfg, max_len,
+                                 quality_digest=True), cfg, reqs)
+    quality = score_pairs(compare_pair, primary, shadow_out)
+    if not quality["matched_prefix_rate"] >= MATCHED_PREFIX_FLOOR:
+        raise AssertionError(f"int8 against bf16 on the trained weights: "
+                             f"matched-prefix rate "
+                             f"{quality['matched_prefix_rate']} < "
+                             f"{MATCHED_PREFIX_FLOOR}")
+    return {"int8": int8, "bf16_shadow": shadow,
+            "int8_against_bf16": quality,
+            "outputs": (primary, shadow_out)}, launches
+
+
 def eager_and_device_ms(torch, step, iters):
     """ms per call of ``step()`` issued eagerly (host clock around
     ``iters`` calls and a synchronize), and the device ms of the same
@@ -793,16 +1129,18 @@ def eager_and_device_ms(torch, step, iters):
     return eager, device
 
 
-def paged_step_breakdown(torch, llama, params, cfg, max_len, iters=50):
+def paged_step_breakdown(torch, llama, params, cfg, max_len, iters=50,
+                         quant=None):
     """The paged engine's two kinds of step at the engine's shape: a
     decode tick over 8 slots (positions spread over the window, a
     shuffled page table) and an admit prefill ([1, 256] at context 0),
     each eager and as a CUDA-graph replay: the device's busy share of
-    the eager step."""
+    the eager step. ``quant``: a quantized tree's steps on a pool of that
+    mode."""
     B = 8
     max_pages = max_len // PAGE
     P = B * max_pages + 1
-    pool = llama.init_paged_pool(cfg, P, PAGE, DEVICE)
+    pool = llama.init_paged_pool(cfg, P, PAGE, DEVICE, quant=quant)
     pt = torch.from_numpy(np.random.RandomState(2).permutation(
         np.arange(1, P)).reshape(B, max_pages).astype(np.int32)).to(DEVICE)
     nxt = torch.arange(B, device=DEVICE)[:, None]
@@ -956,6 +1294,62 @@ def teacher_forced_paged(torch, llama, pa, tf, params, cfg, reqs, max_len,
     return {"ticks": ticks, "max_abs_logit_err": max_err,
             "logit_atol": LOGIT_ATOL,
             "greedy_agreement": agree / (ticks * B)}
+
+
+def teacher_forced_quant(torch, llama, qm, qs, tf, params, cfg, reqs,
+                         max_len, ticks, mode="int8"):
+    """Phase 4c: phase 4b with the parameters quantized and a quantized
+    pool: every tick projection and lm_head through ``quant_matmul`` and
+    the tick kernels, against the same ticks with those swapped for their
+    plain versions; attention is the dequantizing gather on both."""
+    B = 8
+    max_pages = max_len // PAGE
+    P = B * max_pages + 1
+    qparams = qs.quantize_llama_params(params, cfg, mode)
+    prompt = torch.tensor(np.stack([p[:64] for p, _ in reqs
+                                    if len(p) >= 64][:B]),
+                          dtype=torch.int64, device=DEVICE)
+    pt = torch.from_numpy(np.random.RandomState(1).permutation(
+        np.arange(1, P)).reshape(B, max_pages).astype(np.int32)).to(DEVICE)
+    pool_k = llama.init_paged_pool(cfg, P, PAGE, DEVICE, quant=mode)
+    with torch.no_grad():
+        llama.forward_with_pages(qparams, prompt, cfg, pool_k, pt,
+                                 torch.zeros(B, dtype=torch.int32,
+                                             device=DEVICE))
+    pool_p = {k: v.clone() for k, v in pool_k.items()}
+    lens = torch.tensor([64, 1, 17, 33, 48, 63, 5, 40], dtype=torch.int32,
+                        device=DEVICE)
+    nxt = prompt[torch.arange(B, device=DEVICE), lens.long() - 1]
+    plain = [mock.patch.object(tf, "fused_rms_norm", tf.rms_norm_plain),
+             mock.patch.object(tf, "fused_add_rms_norm",
+                               tf.add_rms_norm_plain),
+             mock.patch.object(tf, "fused_rope_qk", tf.rope_qk_plain),
+             mock.patch.object(qm, "quant_matmul", qm.quant_matmul_plain)]
+    max_err, agree = 0.0, 0
+    pos = lens.clone()
+    with torch.no_grad():
+        for _ in range(ticks):
+            lk, _ = llama.forward_with_pages(qparams, nxt[:, None], cfg,
+                                             pool_k, pt, pos)
+            for p in plain:
+                p.start()
+            try:
+                lp, _ = llama.forward_with_pages(qparams, nxt[:, None], cfg,
+                                                 pool_p, pt, pos)
+            finally:
+                for p in plain:
+                    p.stop()
+            if not torch.isfinite(lk).all():
+                raise AssertionError("non-finite logits on the kernel path")
+            max_err = max(max_err, (lk - lp).abs().max().item())
+            agree += int((lk.argmax(-1) == lp.argmax(-1)).sum())
+            nxt = lk.argmax(-1)          # the kernel path is the teacher
+            pos = pos + 1
+    if max_err > LOGIT_ATOL:
+        raise AssertionError(f"quantized teacher-forced logits differ by "
+                             f"{max_err} > {LOGIT_ATOL}")
+    return {"mode": mode, "ticks": ticks, "max_abs_logit_err": max_err,
+            "logit_atol": LOGIT_ATOL, "greedy_agreement": agree / (ticks * B)}
 
 
 # ---------------------------------------------------------------------------
@@ -1114,6 +1508,86 @@ def train_run(torch, llama, fns, params, cfg, tokens, lr=1e-4, warmup=2,
     return out, launches
 
 
+def kernels_line(rows, by_path):
+    """The kernels' JSON line: for each kernel its route, source, the
+    TPU kernel it replaces, its launches summed over the driven paths
+    and its phase-2 row at the shape of the path that runs it."""
+    meta = {
+        "ragged_decode_attention": (
+            "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
+            "paddle_tpu/ops/pallas/decode_attention.py:220", "serving"),
+        "fused_rms_norm": (
+            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
+            "paddle_tpu/ops/pallas/tick_fusion.py:88", "serving"),
+        "fused_add_rms_norm": (
+            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
+            "paddle_tpu/ops/pallas/tick_fusion.py:111", "serving"),
+        "fused_rope_qk": (
+            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
+            "paddle_tpu/ops/pallas/tick_fusion.py:159", "serving"),
+        "ragged_paged_attention": (
+            "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
+            "paddle_tpu/ops/pallas/paged_attention.py:194",
+            "serving_decode"),
+        "flash_attention_fwd": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:647", "bench"),
+        "flash_attention_bwd_dq": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
+        "flash_attention_bwd_dkv": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
+        "head_dx_softmax": (
+            "cuda", "paddle_tpu_torch/csrc/head_dx.cu",
+            "paddle_tpu/ops/pallas/head_dx.py:86", "ce_tail"),
+        "quant_matmul": (
+            "cuda", "paddle_tpu_torch/csrc/quant_matmul.cu",
+            "paddle_tpu/ops/pallas/tick_fusion.py:213", "w_gate_w_up"),
+    }
+    # the rows the line quotes: bf16 for the fp kernels, int8 weights for
+    # quant_matmul
+    line_dtype = {"quant_matmul": "int8"}
+    # the blocked TPU kernels (S > 512) that the same kernels serve
+    also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
+            "flash_attention_bwd_dq": ["paddle_tpu/ops/pallas/flash_attention.py:442"],
+            "flash_attention_bwd_dkv": ["paddle_tpu/ops/pallas/flash_attention.py:458"]}
+    kernels = []
+    for name, (route, source, replaces, at) in meta.items():
+        r = next(r for r in rows if r["name"] == name and r["shape"] == at
+                 and r["dtype"] == line_dtype.get(name, "bfloat16"))
+        k = {"name": name, "route": route, "source": source,
+             "replaces": replaces,
+             "launches": sum(c[name] for c in by_path.values()),
+             "launches_by_path": {p: c[name] for p, c in by_path.items()},
+             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
+             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+             "library_ms": r["library_ms"]}
+        if "gather_sdpa_ms" in r:
+            k["gather_sdpa_ms_two_calls"] = r["gather_sdpa_ms"]
+        if "gemm_only_ms" in r:
+            k["gemm_only_ms"] = r["gemm_only_ms"]
+        if name in also:
+            k["also_replaces"] = also[name]
+        if name in line_dtype:
+            k["shape"], k["mode"] = at, line_dtype[name]
+        if name == "ragged_decode_attention":
+            # the same kernel's quant mode (int8 pages with row scales, the
+            # TPU kernel's k_scale / v_scale): no engine path calls it, in
+            # the JAX package as here, so it is held by phase 2 alone
+            q = next(r for r in rows if r["name"] == name + "_quant"
+                     and r["shape"] == "serving" and r["dtype"] == "int8")
+            k["quant_mode"] = {
+                "launches": sum(c[name + "_quant"] for c in by_path.values()),
+                "shape": "serving", "mode": "int8",
+                **{key: q[key] for key in (
+                    "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}}
+        kernels.append(k)
+    return kernels
+
+
 def main() -> None:
     import torch
 
@@ -1130,12 +1604,15 @@ def main() -> None:
     from paddle_tpu_torch.inference.prefix_cache import PagedPrefixCache
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.observability.quality import compare_pair
     from paddle_tpu_torch.ops.kernels import _build
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import head_dx as hd
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
+    from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
+    from paddle_tpu_torch.quantization import serving as qs
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1199,6 +1676,27 @@ def main() -> None:
           f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
           f"null (none; its GEMM alone: {r['gemm_only_ms']:.6g}) bound_ms "
           f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    for mode in ("int8", "fp8"):
+        for shape in QMM_SHAPES:
+            r = quant_matmul_checks(torch, qm, qs, mode, shape, gen)
+            rows.append(r)
+            print(f"kernel {r['name']:24s} {r['shape']:14s} {mode:4s} B "
+                  f"{r['B']} K {r['K']} N {r['N']} max_abs_err "
+                  f"{r['max_abs_err']:.3e} ms {r['ms']:.6g} eager_ms "
+                  f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} "
+                  f"library_ms (dequantize + mm) {r['library_ms']:.6g} "
+                  f"(err {r['library_max_abs_err']:.3e}) bound_ms "
+                  f"{r['bound_ms']:.6g} ({r['bound_by']})")
+        for shape in DECODE_QUANT_SHAPES:
+            r = decode_quant_checks(torch, F, da, qs, mode, shape, gen)
+            rows.append(r)
+            print(f"kernel {r['name']:30s} {r['shape']:8s} {mode:4s} "
+                  f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} "
+                  f"eager_ms {r['eager_ms']:.6g} plain_ms "
+                  f"{r['plain_ms']:.6g} library_ms (dequantize + sdpa) "
+                  f"{r['library_ms']:.6g} (err "
+                  f"{r['library_max_abs_err']:.3e}) bound_ms "
+                  f"{r['bound_ms']:.6g} ({r['bound_by']})")
     print(f"kernel checks passed ({card})")
 
     # 3. the engine at bert_base_equiv width
@@ -1208,7 +1706,7 @@ def main() -> None:
     reqs = mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
     need = max(len(p) + g - 1 for p, g in reqs)
     max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
-    fns = counters(da, tf, pa, fa, hd)
+    fns = counters(da, tf, pa, fa, hd, qm)
     stats, launches, toks_c = serve(torch, ServingEngine, fns, params, cfg,
                                     reqs, max_len)
     print(f"engine ({card}): bert_base_equiv bf16 slots 8 chunk 16 "
@@ -1229,6 +1727,11 @@ def main() -> None:
     pstats["requests_identical_to_contiguous"] = same
     pstats["tokens_identical_to_contiguous"] = pos_same / sum(
         len(a) for a in toks_c)
+    # two bf16 engines whose kernels round differently: how near-tied the
+    # random weights' greedy choices are (the baseline for phase 3d's rate)
+    pstats["against_contiguous"] = score_pairs(
+        compare_pair, [(t, None) for t in toks_p],
+        [(t, None) for t in toks_c])
     print(f"paged engine ({card}): bert_base_equiv bf16 slots 8 page 16 "
           f"max_len {max_len}: {pstats['new_tokens']} tokens in "
           f"{pstats['wall_s']:.3f} s = {pstats['tokens_per_s']:.1f} "
@@ -1238,7 +1741,9 @@ def main() -> None:
           f"sync), "
           f"{pstats['ms_per_step']:.3f} ms/step; greedy agreement with the "
           f"contiguous engine: {same}/{len(reqs)} requests, "
-          f"{pstats['tokens_identical_to_contiguous']:.4f} of tokens")
+          f"{pstats['tokens_identical_to_contiguous']:.4f} of tokens, "
+          f"matched-prefix rate "
+          f"{pstats['against_contiguous']['matched_prefix_rate']:.4f}")
     print(f"launches on the paged drain: {json.dumps(plaunches)}")
     psteps = paged_step_breakdown(torch, llama, params, cfg, max_len)
     print(f"paged steps ({card}): {json.dumps(psteps)}")
@@ -1257,6 +1762,35 @@ def main() -> None:
           f"({burst['decode_steps']} decode)")
     print(f"launches on the prefix burst: {json.dumps(blaunches)}")
 
+    # 3d. quantized serving, scored against a bf16 shadow
+    quant, qlaunches, f8launches = quant_serve(
+        torch, ServingEngine, compare_pair, fns, params, cfg, reqs, max_len)
+    quant["int8_steps"] = paged_step_breakdown(
+        torch, llama, qs.quantize_llama_params(params, cfg, "int8"), cfg,
+        max_len, quant="int8")
+    q8, sh, f8 = quant["int8"], quant["bf16_shadow"], quant["fp8"]
+    qual = quant["int8_against_bf16"]
+    print(f"quantized engine ({card}): bert_base_equiv int8 weights and "
+          f"pages, digests, slots 8 page 16 max_len {max_len}: "
+          f"{q8['new_tokens']} tokens in {q8['wall_s']:.3f} s = "
+          f"{q8['tokens_per_s']:.1f} tokens/s, {q8['steps']} steps, "
+          f"{q8['ms_per_step']:.3f} ms/step, {q8['segments']} segments, "
+          f"{q8['fetches']} fetches ({q8['sync_free_dispatches']} more "
+          f"segments issued with no sync); bf16 shadow with digests "
+          f"{sh['tokens_per_s']:.1f} tokens/s, {sh['ms_per_step']:.3f} "
+          f"ms/step; fp8 (8 requests) {f8['tokens_per_s']:.1f} tokens/s")
+    print(f"int8 against its bf16 shadow, random weights ({card}): "
+          f"matched-prefix rate {qual['matched_prefix_rate']:.4f} (the bar "
+          f"is held on a memorized model, phase 3e), "
+          f"{qual['requests_identical']}/{len(reqs)} requests identical, "
+          f"logit max abs err {qual['logit_max_abs_err']} over "
+          f"{qual['logit_positions']} positions, KL mean {qual['kl_mean']} "
+          f"max {qual['kl_max']} over {qual['kl_positions']}; fp8 (8 "
+          f"requests): {json.dumps(f8['quality_against_bf16'])}")
+    print(f"int8 paged steps ({card}): {json.dumps(quant['int8_steps'])}")
+    print(f"launches on the int8 drain: {json.dumps(qlaunches)}")
+    print(f"launches on the fp8 drain: {json.dumps(f8launches)}")
+
     # 4. teacher-forced ticks, contiguous cache and paged pool
     tfc = teacher_forced(torch, llama, da, tf, params, cfg, reqs, max_len,
                          ticks=16)
@@ -1264,6 +1798,9 @@ def main() -> None:
     tfp = teacher_forced_paged(torch, llama, pa, tf, params, cfg, reqs,
                                max_len, ticks=16)
     print(f"teacher-forced paged ({card}): {json.dumps(tfp)}")
+    tfq = teacher_forced_quant(torch, llama, qm, qs, tf, params, cfg, reqs,
+                               max_len, ticks=16)
+    print(f"teacher-forced quantized paged ({card}): {json.dumps(tfq)}")
 
     # 5. training at bert_base_equiv width, fp32 master weights
     del params
@@ -1301,69 +1838,57 @@ def main() -> None:
           f"{json.dumps(train.get('device_split_ms'))}; largest kernels: "
           f"{json.dumps(train.get('device_top'))}")
 
+    # 3e. the quality bar of quantized serving, on a memorized model served
+    # continuations of its training sequences (the mixed workload's
+    # prompt and generation lengths)
+    memo = memorize(torch, llama, tparams, tcfg, tok44)
+    sparams = {k: v.detach().to(torch.bfloat16) for k, v in tparams.items()}
+    seqs = tok44.cpu().numpy()
+    mreqs = [(seqs[i, :len(p)].copy(), g) for i, (p, g) in enumerate(reqs)]
+    del tparams, tok8, tok44
+    qtrained, qtlaunches = quant_trained(
+        torch, ServingEngine, compare_pair, fns, sparams, cfg, mreqs,
+        max_len)
+    # how far each serve follows the memorized sequence
+    for key, outs in zip(("int8", "bf16_shadow"), qtrained.pop("outputs")):
+        hit = sum(t == int(seqs[i, len(p) + j])
+                  for i, ((p, _), (toks, _)) in enumerate(zip(mreqs, outs))
+                  for j, t in enumerate(toks))
+        qtrained[key]["memorized_token_rate"] = hit / sum(
+            g for _, g in mreqs)
+    qtrained["memorize_losses"] = memo
+    qual = qtrained["int8_against_bf16"]
+    print(f"memorized ({card}): {len(memo)} more AdamW steps on phase 5's "
+          f"batch, loss {memo[0]:.4f} -> {memo[-1]:.4f}; tokens following "
+          f"the training sequences: int8 "
+          f"{qtrained['int8']['memorized_token_rate']:.4f}, bf16 "
+          f"{qtrained['bf16_shadow']['memorized_token_rate']:.4f}")
+    print(f"int8 against its bf16 shadow, memorized model ({card}): "
+          f"matched-prefix rate {qual['matched_prefix_rate']:.4f} (>= "
+          f"{MATCHED_PREFIX_FLOOR}), {qual['requests_identical']}/"
+          f"{len(reqs)} requests identical, logit max abs err "
+          f"{qual['logit_max_abs_err']} over {qual['logit_positions']} "
+          f"positions, KL mean {qual['kl_mean']} max {qual['kl_max']} over "
+          f"{qual['kl_positions']}; int8 "
+          f"{qtrained['int8']['tokens_per_s']:.1f} tokens/s, bf16 "
+          f"{qtrained['bf16_shadow']['tokens_per_s']:.1f} tokens/s")
+    print(f"launches on the trained int8 drain: {json.dumps(qtlaunches)}")
+
     # 6. results
-    meta = {
-        "ragged_decode_attention": (
-            "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
-            "paddle_tpu/ops/pallas/decode_attention.py:220", "serving"),
-        "fused_rms_norm": (
-            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
-            "paddle_tpu/ops/pallas/tick_fusion.py:88", "serving"),
-        "fused_add_rms_norm": (
-            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
-            "paddle_tpu/ops/pallas/tick_fusion.py:111", "serving"),
-        "fused_rope_qk": (
-            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
-            "paddle_tpu/ops/pallas/tick_fusion.py:159", "serving"),
-        "ragged_paged_attention": (
-            "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
-            "paddle_tpu/ops/pallas/paged_attention.py:194",
-            "serving_decode"),
-        "flash_attention_fwd": (
-            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
-            "paddle_tpu/ops/pallas/flash_attention.py:647", "bench"),
-        "flash_attention_bwd_dq": (
-            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
-            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
-        "flash_attention_bwd_dkv": (
-            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
-            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
-        "head_dx_softmax": (
-            "cuda", "paddle_tpu_torch/csrc/head_dx.cu",
-            "paddle_tpu/ops/pallas/head_dx.py:86", "ce_tail"),
-    }
-    # the blocked TPU kernels (S > 512) that the same kernels serve
-    also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
-            "flash_attention_bwd_dq": ["paddle_tpu/ops/pallas/flash_attention.py:442"],
-            "flash_attention_bwd_dkv": ["paddle_tpu/ops/pallas/flash_attention.py:458"]}
     by_path = {"contiguous_drain": launches, "paged_drain": plaunches,
-               "prefix_burst": blaunches, "train": tlaunches}
-    kernels = []
-    for name, (route, source, replaces, at) in meta.items():
-        r = next(r for r in rows if r["name"] == name
-                 and r["shape"] == at and r["dtype"] == "bfloat16")
-        k = {"name": name, "route": route, "source": source,
-             "replaces": replaces,
-             "launches": sum(c[name] for c in by_path.values()),
-             "launches_by_path": {p: c[name] for p, c in by_path.items()},
-             "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-             "eager_ms": r["eager_ms"], "plain_ms": r["plain_ms"],
-             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-             "library_ms": r["library_ms"]}
-        if "gather_sdpa_ms" in r:
-            k["gather_sdpa_ms_two_calls"] = r["gather_sdpa_ms"]
-        if "gemm_only_ms" in r:
-            k["gemm_only_ms"] = r["gemm_only_ms"]
-        if name in also:
-            k["also_replaces"] = also[name]
-        kernels.append(k)
+               "prefix_burst": blaunches, "quant_int8_drain": qlaunches,
+               "quant_fp8_drain": f8launches, "train": tlaunches,
+               "quant_int8_trained_drain": qtlaunches}
+    kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "kernel_rows": rows, "engine": stats,
                    "tick": tick, "paged_engine": pstats,
                    "paged_steps": psteps, "prefix_burst": burst,
-                   "launches": by_path, "teacher_forced": tfc,
-                   "teacher_forced_paged": tfp, "train_vs_plain": tvp,
+                   "quant": quant, "quant_trained": qtrained,
+                   "launches": by_path,
+                   "teacher_forced": tfc, "teacher_forced_paged": tfp,
+                   "teacher_forced_quant": tfq, "train_vs_plain": tvp,
                    "train": train}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

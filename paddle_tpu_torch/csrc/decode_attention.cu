@@ -14,6 +14,14 @@
 // before the P @ V product, which accumulates in fp32; the output is
 // acc / l rounded to T.
 //
+// Quant mode (the TPU kernel's k_scale / v_scale): the cache holds int8 or
+// fp8-e4m3fn rows (KT) with one fp32 scale per row, ks / vs [B, max_len].
+// Keys and values are dequantized in fp32 with their row's scale (a key's
+// scale multiplies its score once, after the dot; a value's scale is
+// folded into its probability), the probabilities stay fp32 (not rounded
+// to T), and the output is rounded to T. A row's scale is read only when
+// the row is visible, so the bytes read still scale with pos.
+//
 // What bounds it on the H100: bytes. Each (slot, kv head) reads its
 // (pos+1) x D keys and values once; a tick does about 1 flop per byte
 // read, far below the card's ~295 flops/byte ridge. So the design aims at
@@ -39,9 +47,12 @@
 // cores are left for later work.
 
 #include <cuda_bf16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -53,6 +64,20 @@ constexpr int MAX_REP = 8;   // query heads per kv head
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+
+// one byte of a narrow cache as fp32
+template <typename T>
+__device__ __forceinline__ float byte_to_f(uint32_t b);
+template <>
+__device__ __forceinline__ float byte_to_f<int8_t>(uint32_t b) {
+  return static_cast<float>(static_cast<int8_t>(static_cast<uint8_t>(b)));
+}
+template <>
+__device__ __forceinline__ float byte_to_f<__nv_fp8_e4m3>(uint32_t b) {
+  __nv_fp8_e4m3 v;
+  v.__x = static_cast<__nv_fp8_storage_t>(b);
+  return static_cast<float>(v);
 }
 
 template <typename T>
@@ -79,10 +104,27 @@ __device__ __forceinline__ float bf16_hi(uint32_t w) {
 }
 
 // N consecutive values of T at p (aligned to their size) as fp32;
-// N * sizeof(T) is 4, 8 or 16 bytes, read in one load
+// N * sizeof(T) is 2, 4, 8 or 16 bytes, read in one load
 template <typename T, int N>
 __device__ __forceinline__ void load_f(const T* p, float (&f)[N]) {
-  if constexpr (sizeof(T) == 4) {
+  if constexpr (sizeof(T) == 1) {
+    if constexpr (N == 16) {
+      const uint4 u = *reinterpret_cast<const uint4*>(p);
+      const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+      for (int i = 0; i < 16; ++i)
+        f[i] = byte_to_f<T>((w[i / 4] >> (8 * (i % 4))) & 0xffu);
+    } else if constexpr (N == 4) {
+      const uint32_t u = *reinterpret_cast<const uint32_t*>(p);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) f[i] = byte_to_f<T>((u >> (8 * i)) & 0xffu);
+    } else {
+      static_assert(N == 2, "narrow loads of 2, 4 or 16 values");
+      const uint32_t u = *reinterpret_cast<const uint16_t*>(p);
+      f[0] = byte_to_f<T>(u & 0xffu);
+      f[1] = byte_to_f<T>(u >> 8);
+    }
+  } else if constexpr (sizeof(T) == 4) {
     if constexpr (N == 4) {
       const float4 u = *reinterpret_cast<const float4*>(p);
       f[0] = u.x; f[1] = u.y; f[2] = u.z; f[3] = u.w;
@@ -125,13 +167,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <typename T, int D>
+// T: q and out; KT: the cache (T, or int8_t / __nv_fp8_e4m3 in quant mode)
+template <typename T, typename KT, int D>
 __global__ void __launch_bounds__(THREADS, 2)
-ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
-                     const T* __restrict__ vc, const int32_t* __restrict__ pos,
-                     T* __restrict__ out, int nH, int Hkv, int max_len,
-                     float scale) {
-  constexpr int CH = 16 / sizeof(T);  // values per 16-byte key load
+ragged_decode_kernel(const T* __restrict__ q, const KT* __restrict__ kc,
+                     const KT* __restrict__ vc, const float* __restrict__ ks,
+                     const float* __restrict__ vs,
+                     const int32_t* __restrict__ pos, T* __restrict__ out,
+                     int nH, int Hkv, int max_len, float scale) {
+  constexpr bool QUANT = !std::is_same<T, KT>::value;
+  constexpr int CH = 16 / sizeof(KT);  // values per 16-byte key load
   constexpr int DL = D / 32;          // output columns per lane
   __shared__ __align__(16) float q_s[MAX_REP][D];
   __shared__ float p_s[WARPS][MAX_REP][TILE];
@@ -155,8 +200,9 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   __syncthreads();
 
   const size_t row = (size_t)Hkv * D;  // elements between cache rows
-  const T* kb = kc + (size_t)b * max_len * row + (size_t)h * D;
-  const T* vb = vc + (size_t)b * max_len * row + (size_t)h * D + lane * DL;
+  const KT* kb = kc + (size_t)b * max_len * row + (size_t)h * D;
+  const KT* vb = vc + (size_t)b * max_len * row + (size_t)h * D + lane * DL;
+  const size_t srow = (size_t)b * max_len;  // this slot's scale rows
   const int n_tiles = p_b / TILE + 1;
 
   float m[MAX_REP], l[MAX_REP], acc[MAX_REP][DL];
@@ -177,11 +223,11 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll
     for (int r = 0; r < MAX_REP; ++r) s[r] = 0.f;
     if (visible) {
-      const T* kr = kb + (size_t)key * row;
+      const KT* kr = kb + (size_t)key * row;
 #pragma unroll
       for (int c = 0; c < D; c += CH) {
         float kf[CH];
-        load_f<T, CH>(kr + c, kf);
+        load_f<KT, CH>(kr + c, kf);
 #pragma unroll
         for (int r = 0; r < MAX_REP; ++r) {
           if (r < rep) {
@@ -190,7 +236,14 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
           }
         }
       }
+      if constexpr (QUANT) {
+        const float k_sc = ks[srow + key];
+#pragma unroll
+        for (int r = 0; r < MAX_REP; ++r) s[r] *= k_sc;
+      }
     }
+    // the value row's scale, folded into the key's probability
+    const float v_sc = (QUANT && visible) ? vs[srow + key] : 1.f;
     // online softmax per query row, across the warp's 32 keys. Key t0 is
     // visible in every tile walked, so the tile max and m_new are finite.
     float alpha[MAX_REP];
@@ -203,7 +256,7 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
         alpha[r] = expf(m[r] - m_new);  // the warp's first tile: 0
         l[r] = l[r] * alpha[r] + warp_sum(p);
         m[r] = m_new;
-        p_s[warp][r][lane] = round_to<T>(p);
+        p_s[warp][r][lane] = QUANT ? p * v_sc : round_to<T>(p);
       }
     }
     __syncwarp();
@@ -219,7 +272,7 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
 #pragma unroll 4
     for (int t = 0; t < n_keys; ++t) {
       float vf[DL];
-      load_f<T, DL>(vb + (size_t)(t0 + t) * row, vf);
+      load_f<KT, DL>(vb + (size_t)(t0 + t) * row, vf);
 #pragma unroll
       for (int r = 0; r < MAX_REP; ++r) {
         if (r < rep) {
@@ -263,43 +316,76 @@ ragged_decode_kernel(const T* __restrict__ q, const T* __restrict__ kc,
   }
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* kc, const void* vc, const void* pos,
-           void* out, int B, int nH, int Hkv, int max_len, float scale,
-           cudaStream_t stream) {
+template <typename T, typename KT, int D>
+int launch(const void* q, const void* kc, const void* vc, const void* ks,
+           const void* vs, const void* pos, void* out, int B, int nH, int Hkv,
+           int max_len, float scale, cudaStream_t stream) {
   const dim3 grid(Hkv, B);
-  ragged_decode_kernel<T, D><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(kc),
-      static_cast<const T*>(vc), static_cast<const int32_t*>(pos),
+  ragged_decode_kernel<T, KT, D><<<grid, THREADS, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(kc),
+      static_cast<const KT*>(vc), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(pos),
       static_cast<T*>(out), nH, Hkv, max_len, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <typename T, typename KT>
+int launch_d(const void* q, const void* kc, const void* vc, const void* ks,
+             const void* vs, const void* pos, void* out, int B, int nH,
+             int Hkv, int D, int max_len, float scale, cudaStream_t s) {
+  if (D == 64)
+    return launch<T, KT, 64>(q, kc, vc, ks, vs, pos, out, B, nH, Hkv,
+                             max_len, scale, s);
+  if (D == 128)
+    return launch<T, KT, 128>(q, kc, vc, ks, vs, pos, out, B, nH, Hkv,
+                              max_len, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <typename T>
+int launch_kv(const void* q, const void* kc, const void* vc, const void* ks,
+              const void* vs, const void* pos, void* out, int B, int nH,
+              int Hkv, int D, int max_len, int kv_code, float scale,
+              cudaStream_t s) {
+  if (kv_code == 0)
+    return launch_d<T, T>(q, kc, vc, ks, vs, pos, out, B, nH, Hkv, D,
+                          max_len, scale, s);
+  if (ks == nullptr || vs == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (kv_code == 1)
+    return launch_d<T, int8_t>(q, kc, vc, ks, vs, pos, out, B, nH, Hkv, D,
+                               max_len, scale, s);
+  if (kv_code == 2)
+    return launch_d<T, __nv_fp8_e4m3>(q, kc, vc, ks, vs, pos, out, B, nH,
+                                      Hkv, D, max_len, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16. Returns the cudaError_t of the
-// launch (0 = success); cudaErrorInvalidValue for a shape or dtype the
-// kernel does not take. Pointers are device pointers aligned to 16 bytes;
-// q/out [B, nH, D], kc/vc [B, max_len, Hkv, D], pos [B] int32, all
-// contiguous.
+// dtype_code (q, out): 0 = float32, 1 = bfloat16. kv_code (kc, vc): 0 =
+// q's dtype, 1 = int8, 2 = float8_e4m3fn (quant mode: ks / vs are the
+// [B, max_len] float32 row scales; unused, and may be null, when kv_code is
+// 0). Returns the cudaError_t of the launch (0 = success);
+// cudaErrorInvalidValue for a shape or dtype the kernel does not take.
+// Pointers are device pointers aligned to 16 bytes; q/out [B, nH, D],
+// kc/vc [B, max_len, Hkv, D], pos [B] int32, all contiguous.
 extern "C" int ragged_decode_attention(const void* q, const void* kc,
-                                       const void* vc, const void* pos,
+                                       const void* vc, const void* ks,
+                                       const void* vs, const void* pos,
                                        void* out, int B, int nH, int Hkv,
                                        int D, int max_len, int dtype_code,
-                                       float scale, void* stream) {
+                                       int kv_code, float scale,
+                                       void* stream) {
   if (B < 1 || Hkv < 1 || max_len < 1 || nH % Hkv != 0 ||
       nH / Hkv > MAX_REP || B > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype_code == 0 && D == 64)
-    return launch<float, 64>(q, kc, vc, pos, out, B, nH, Hkv, max_len, scale, s);
-  if (dtype_code == 0 && D == 128)
-    return launch<float, 128>(q, kc, vc, pos, out, B, nH, Hkv, max_len, scale, s);
-  if (dtype_code == 1 && D == 64)
-    return launch<__nv_bfloat16, 64>(q, kc, vc, pos, out, B, nH, Hkv, max_len,
-                                      scale, s);
-  if (dtype_code == 1 && D == 128)
-    return launch<__nv_bfloat16, 128>(q, kc, vc, pos, out, B, nH, Hkv,
-                                      max_len, scale, s);
+  if (dtype_code == 0)
+    return launch_kv<float>(q, kc, vc, ks, vs, pos, out, B, nH, Hkv, D,
+                            max_len, kv_code, scale, s);
+  if (dtype_code == 1)
+    return launch_kv<__nv_bfloat16>(q, kc, vc, ks, vs, pos, out, B, nH, Hkv,
+                                    D, max_len, kv_code, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -20,8 +20,12 @@ device. Page 0 is the reserved trash page: dead slots' writes and
 table-tail lookups land there (``llama.forward_with_pages``), so a frozen
 slot never writes a page the allocator handed to someone else.
 
-Out of this port so far: meshes and quantized pools (``mesh``/``quant``
-raise), and the metrics and flight-recorder calls.
+A quantized pool (``quant="int8"`` or ``"fp8"``) holds narrow pages plus
+the per-row scale planes ``ks``/``vs``; every page-granular operation
+(copy-on-write, the trash page) treats all planes alike.
+
+Out of this port so far: meshes (``mesh`` raises), and the metrics and
+flight-recorder calls.
 """
 
 from __future__ import annotations
@@ -141,13 +145,14 @@ class PagedKVCache:
     segment loop reads, both on ``device`` and updated in place;
     ``slot_pages`` is the host mirror. ``max_pages`` bounds one slot's
     virtual length (``max_pages * page_size`` is the engine's max_len);
-    ``num_pages`` bounds the pool."""
+    ``num_pages`` bounds the pool. ``quant`` ('int8' | 'fp8') makes the
+    pool narrow with ``ks``/``vs`` row-scale planes
+    (``llama.init_paged_pool``)."""
 
     def __init__(self, cfg, slots: int, page_size: int, num_pages: int,
                  max_pages: int, device, dtype=None, mesh=None, quant=None):
-        if mesh is not None or quant is not None:
-            raise NotImplementedError(
-                "meshes and quantized pools are not ported yet")
+        if mesh is not None:
+            raise NotImplementedError("meshes are not ported yet")
         from ..models import llama
 
         self.cfg = cfg
@@ -159,7 +164,7 @@ class PagedKVCache:
         self.allocator = PageAllocator(self.num_pages)
         self.pool = llama.init_paged_pool(cfg, self.num_pages,
                                           self.page_size, self.device,
-                                          dtype=dtype)
+                                          dtype=dtype, quant=quant)
         self.page_table = torch.zeros((self.slots, self.max_pages),
                                       dtype=torch.int32, device=self.device)
         self.slot_pages: List[List[int]] = [[] for _ in range(self.slots)]
@@ -239,7 +244,8 @@ class PagedKVCache:
     def ensure_writable(self, slot: int, vpage: int) -> int:
         """Break-on-write: if ``slot``'s virtual page ``vpage`` is shared
         (ref > 1), copy its rows into a fresh private page and repoint the
-        table, the one place paging copies KV rows. Returns the (possibly
+        table, the one place paging copies KV rows (and, in a quantized
+        pool, their scales: every plane is copied). Returns the (possibly
         new) physical page id."""
         page = self.slot_pages[slot][vpage]
         if self.allocator.ref(page) <= 1:

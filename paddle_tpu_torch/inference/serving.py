@@ -40,11 +40,25 @@ shared pages into the new slot by reference.
   releases page lists, harvests admitted prompts into the prefix cache
   and requeues what the step budget did not admit.
 
+Two options of the paged engine, as in the JAX engine:
+
+* ``quant="int8"`` or ``"fp8"``: the parameters are quantized once at
+  build (``quantization/serving.py``), every projection of the decode
+  tick and every lm_head runs ``quant_matmul``, and the page pool holds
+  narrow K/V rows with per-row scales, read through the dequantizing
+  gather.
+* ``quality_digest=True``: every generated token also records its logit
+  and the top ``digest_top_k`` (ids, values) of its step's fp32 logits;
+  the columns ride the segment's one fetch and reach
+  ``Request.digests``, index-aligned with ``Request.tokens``, for
+  ``observability.quality.compare_pair`` to score a serve against its
+  shadow.
+
 Greedy decoding only, like the JAX engine's default. Out of this port so
 far: the fused drain, the contiguous engine's segments and its row-copy
-prefix cache, chunked prefill, speculative/sampled decoding, quality
-digests, quantization, sequence parallelism, meshes, preemption and
-abort, and telemetry.
+prefix cache, chunked prefill, speculative/sampled decoding, the
+quantized engine's program space and journal replay, sequence
+parallelism, meshes, preemption and abort, and telemetry.
 """
 
 from __future__ import annotations
@@ -58,6 +72,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama
+from ..quantization.serving import QUANT_MODES, quantize_llama_params
 from .paged_kv import PagedKVCache
 
 __all__ = ["Request", "ServingEngine"]
@@ -82,6 +97,9 @@ class Request:
     prefix_hit_len: int = 0       # KV rows reused from the prefix cache
     preemptions: int = 0          # lost its slot (resumes from its tokens)
     requeues: int = 0             # lost its replica
+    # quality digests (engine built with quality_digest=True): one
+    # (emitted_logit, top_k_ids, top_k_values) per generated token
+    digests: Optional[List[tuple]] = None
 
     @property
     def done(self) -> bool:
@@ -114,6 +132,10 @@ class _PendingSegment:
     aslot: np.ndarray              # [max_steps] slot of each admit
     steps: int
     qadm: int                      # picked requests admitted
+    # quality digests on the device: the emitted token's logit [max_steps,
+    # slots] fp32, the top-k ids [max_steps, slots, k] int32 and values
+    # fp32 (None without quality_digest)
+    dig: Optional[tuple] = None
 
 
 class ServingEngine:
@@ -122,7 +144,8 @@ class ServingEngine:
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256),
                  eos_token_id: Optional[int] = None, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
-                 device="cuda"):
+                 quality_digest: bool = False, digest_top_k: int = 4,
+                 quant: Optional[str] = None, device="cuda"):
         self.device = resolve_device(device)
         for name, t in params.items():
             if t.device != self.device or t.dtype != cfg.dtype:
@@ -151,6 +174,26 @@ class ServingEngine:
         self.paged = bool(paged)
         self.page_backpressure_events = 0  # admissions deferred for pages
         self._pending_seg: Optional[_PendingSegment] = None
+        self.quality_digest = bool(quality_digest)
+        self.digest_top_k = int(digest_top_k)
+        if self.quality_digest:
+            if not self.paged:
+                raise ValueError(
+                    "quality_digest requires paged=True (digests extend "
+                    "the paged segment event log)")
+            if self.digest_top_k < 1:
+                raise ValueError(f"digest_top_k must be >= 1, got "
+                                 f"{digest_top_k}")
+        self.quant = str(quant) if quant else None
+        if self.quant:
+            if self.quant not in QUANT_MODES:
+                raise ValueError(f"quant must be one of {QUANT_MODES}, "
+                                 f"got {quant!r}")
+            if not self.paged:
+                raise ValueError(
+                    "quant requires paged=True (per-row KV scales ride the "
+                    "paged pool's pages; the contiguous cache has none)")
+            self.params = quantize_llama_params(params, cfg, self.quant)
         if self.paged:
             # max_len stays the per-slot virtual cap (max_pages pages);
             # num_pages sizes the physical pool
@@ -162,7 +205,7 @@ class ServingEngine:
             self.pager = PagedKVCache(
                 cfg, self.slots, self.page_size,
                 num_pages=int(num_pages or self.slots * max_pages + 1),
-                max_pages=max_pages, device=self.device)
+                max_pages=max_pages, device=self.device, quant=self.quant)
             self._cache = None
         else:
             self.pager = None
@@ -171,6 +214,19 @@ class ServingEngine:
         # slot state on the device: position of the next write, the token
         # to feed, generations still owed
         self._pos, self._nxt, self._rem = self._slot_state()
+
+    def paged_kernel_active(self) -> bool:
+        """True when this engine's paged segments launch the
+        ``ragged_paged_attention`` kernel: a paged engine on the card. A
+        quantized pool attends through the dequantizing gather instead
+        (the paged kernel has no quant mode, in the JAX package too)."""
+        return self.paged and not self.quant and self.device.type == "cuda"
+
+    def quant_kernel_active(self) -> bool:
+        """True when this engine's quantized projections launch the
+        ``quant_matmul`` kernel: a quantized engine on the card (on the
+        CPU they take its plain version)."""
+        return bool(self.quant) and self.device.type == "cuda"
 
     def _slot_state(self):
         z = torch.zeros(self.slots, dtype=torch.int32, device=self.device)
@@ -403,6 +459,8 @@ class ServingEngine:
             if self.eos is not None and self.eos in toks:
                 toks = toks[:toks.index(self.eos) + 1]
             r.tokens = toks
+            if r.digests is not None:
+                r.digests = r.digests[:len(toks)]  # stay index-aligned
             done[r.rid] = toks
             self.last_latencies[r.rid] = r.finish_time - r.submit_time
         self._finished = []
@@ -595,14 +653,15 @@ class ServingEngine:
         for j in range(n):
             suf = fulls[j][pre_lens_l[j]:]
             prompts[j, :len(suf)] = suf
-        out, toks, aq, aslot, steps, qadm = self._run_steps(
+        out, toks, aq, aslot, steps, qadm, dig = self._run_steps(
             max_steps, n_pad, prompts, tables, pre_lens_l,
             [len(f) - p for f, p in zip(fulls, pre_lens_l)],
             [r.max_new_tokens - len(r.tokens) for r in picked])
         return _PendingSegment(picked=picked, prefix_cache=prefix_cache,
                                pre_lens=pre_lens_l, req_pages=req_pages,
                                full_prompts=fulls, out=out, toks=toks,
-                               aq=aq, aslot=aslot, steps=steps, qadm=qadm)
+                               aq=aq, aslot=aslot, steps=steps, qadm=qadm,
+                               dig=dig)
 
     @torch.no_grad()
     def _run_steps(self, max_steps: int, n_pad: int, prompts, tables,
@@ -613,10 +672,11 @@ class ServingEngine:
         slot with nothing owed (``argmin(rem)``) while one is free and
         requests remain, else runs a decode tick over every slot.
 
-        Returns (out, toks, aq, aslot, steps, qadm): the [max_steps,
+        Returns (out, toks, aq, aslot, steps, qadm, dig): the [max_steps,
         slots] device token log; the same log read step by step when EOS
         is set (else None); the host-known admit records (aq = n_pad marks
-        a decode step); the steps run and the requests admitted."""
+        a decode step); the steps run and the requests admitted; the
+        digest columns on the device (None without quality_digest)."""
         n, S = prompts.shape
         M = self.pager.max_pages
         # the segment's inputs reach the device in one copy that the host
@@ -633,16 +693,27 @@ class ServingEngine:
             (max_steps, self.slots), np.int64)
         aq = np.full((max_steps,), n_pad, np.int32)
         aslot = np.zeros((max_steps,), np.int32)
+        dig = None
+        if self.quality_digest:
+            k, dev = self.digest_top_k, self.device
+            dig = (torch.zeros((max_steps, self.slots), dtype=torch.float32,
+                               device=dev),
+                   torch.zeros((max_steps, self.slots, k), dtype=torch.int32,
+                               device=dev),
+                   torch.zeros((max_steps, self.slots, k),
+                               dtype=torch.float32, device=dev))
         rem = list(self._rem_host)
         qidx = step = 0
         while (qidx < n or any(r > 0 for r in rem)) and step < max_steps:
             if qidx < n and 0 in rem:
                 s = rem.index(0)
-                t0 = self._admit_paged(s, prompts_d[qidx:qidx + 1],
-                                       tables_d[qidx:qidx + 1],
-                                       pre_d[qidx:qidx + 1],
-                                       lens[qidx], gens[qidx])
+                t0, logits = self._admit_paged(s, prompts_d[qidx:qidx + 1],
+                                               tables_d[qidx:qidx + 1],
+                                               pre_d[qidx:qidx + 1],
+                                               lens[qidx], gens[qidx])
                 out[step, s] = t0[0]
+                if dig is not None:
+                    self._record_digest(dig, step, s, logits, t0)
                 rem[s] = gens[qidx] - 1
                 if toks is not None:
                     toks[step, s] = self._fetch(t0)[0]
@@ -651,7 +722,10 @@ class ServingEngine:
                 aq[step], aslot[step] = qidx, s
                 qidx += 1
             else:
-                out[step] = self._decode_paged()
+                out[step], logits = self._decode_paged()
+                if dig is not None:
+                    self._record_digest(dig, step, slice(None), logits,
+                                        out[step])
                 live = [r > 0 for r in rem]
                 rem = [r - 1 if r > 0 else 0 for r in rem]
                 if toks is not None:
@@ -659,15 +733,28 @@ class ServingEngine:
                     rem = [0 if lv and t == self.eos else r
                            for r, lv, t in zip(rem, live, toks[step])]
             step += 1
-        return out, toks, aq, aslot, step, qidx
+        return out, toks, aq, aslot, step, qidx, dig
+
+    def _record_digest(self, dig, step: int, s, logits, tok) -> None:
+        """Write one step's digests on the device: for the rows ``s`` of
+        the log (a slot, or every slot), the logit of the emitted token
+        ``tok`` and the top-k (ids, values) of the fp32 ``logits``."""
+        dlg, dti, dtv = dig
+        tv, ti = torch.topk(logits, self.digest_top_k, dim=-1)
+        el = torch.gather(logits, 1, tok.reshape(-1, 1))[:, 0]
+        if isinstance(s, int):
+            el, ti, tv = el[0], ti[0], tv[0]
+        dlg[step, s] = el
+        dti[step, s] = ti.to(torch.int32)
+        dtv[step, s] = tv
 
     def _admit_paged(self, s: int, prompt, table, pre_len, ln: int,
-                     gen: int) -> torch.Tensor:
+                     gen: int):
         """Prefill one picked request's suffix ([1, s_max] at context
         offset ``pre_len``) straight into its pages, and bind it to slot
         ``s``. Shared-prefix rows already sit in the shared pages, so a
         hit costs no prefill of the prefix and no row copy. Returns the
-        first token, [1], on the device."""
+        first token [1] and the fp32 logits [1, V], on the device."""
         logits, _ = llama.forward_with_pages(
             self.params, prompt, self.cfg, self.pager.pool, table, pre_len,
             logit_pos=ln - 1)
@@ -681,12 +768,12 @@ class ServingEngine:
             self._rem[s].fill_(gen - 1)
         else:
             self._rem[s] = torch.where(t0[0] == self.eos, 0, gen - 1)
-        return t0
+        return t0, logits
 
-    def _decode_paged(self) -> torch.Tensor:
+    def _decode_paged(self):
         """One ragged decode tick over every slot; dead slots (nothing
         owed) write to the trash page and repeat their token. Returns the
-        [slots] tokens on the device."""
+        [slots] tokens and the fp32 logits [slots, V], on the device."""
         live = self._rem > 0
         logits, _ = llama.forward_with_pages(
             self.params, self._nxt[:, None], self.cfg, self.pager.pool,
@@ -698,14 +785,37 @@ class ServingEngine:
             self._rem = torch.where(live & (tok == self.eos), 0, self._rem)
         self._pos = self._pos + step
         self._nxt = tok
-        return tok
+        return tok, logits
+
+    def _read_log(self, p: _PendingSegment):
+        """The segment's event log on the host: (tokens [steps, slots],
+        digests or None). The tokens and the digest columns come back in
+        ONE fetch (without EOS; with EOS the tokens were read step by step
+        and the digests take one fetch here), packed as int32 words: the
+        fp32 columns bit-cast, so nothing is rounded."""
+        if p.dig is None:
+            return (p.toks if p.toks is not None
+                    else self._fetch(p.out[:p.steps])), None
+        n, k = p.steps * self.slots, self.digest_top_k
+        dlg, dti, dtv = (t[:p.steps].reshape(-1) for t in p.dig)
+        parts = [dlg.view(torch.int32), dti, dtv.view(torch.int32)]
+        if p.toks is None:
+            parts.insert(0, p.out[:p.steps].reshape(-1).to(torch.int32))
+        flat = self._fetch(torch.cat(parts))
+        toks = p.toks
+        if toks is None:
+            toks, flat = flat[:n].reshape(p.steps, self.slots), flat[n:]
+        dig = (flat[:n].view(np.float32).reshape(p.steps, self.slots),
+               flat[n:n + n * k].reshape(p.steps, self.slots, k),
+               flat[n + n * k:].view(np.float32).reshape(p.steps,
+                                                         self.slots, k))
+        return toks, dig
 
     def _finish_segment_paged(self, p: _PendingSegment) -> dict:
         picked, n, prefix_cache = p.picked, len(p.picked), p.prefix_cache
         pgr = self.pager
         psz = self.page_size
-        toks = p.toks if p.toks is not None else self._fetch(
-            p.out[:p.steps])
+        toks, dig = self._read_log(p)
         self.last_run_ticks += p.steps
         self.last_run_chunks += 1
 
@@ -722,7 +832,7 @@ class ServingEngine:
             pgr.slot_pages[s] = []
 
         admitted, first_tokens, finished, new_tokens = self._replay_segment(
-            picked, toks, p.aq, p.aslot, p.steps, on_admit, on_retire)
+            picked, toks, p.aq, p.aslot, p.steps, on_admit, on_retire, dig)
         if p.qadm < n:
             # the step budget ran out before every picked request found a
             # slot: release their reservations and requeue them FCFS
@@ -751,13 +861,14 @@ class ServingEngine:
                 "tokens": new_tokens}
 
     def _replay_segment(self, picked, toks, aq, aslot, steps: int,
-                        on_admit, on_retire):
+                        on_admit, on_retire, dig=None):
         """Walk a segment's event log in order, tracking slot occupancy:
         an admit binds a slot and delivers its first token; a decode step
         appends one token to every slot the host knows is live (its
         ``_rem_host`` mirror), so frozen repeats are dropped. The page
         hooks run in event order, so a slot freed and re-admitted within
         the segment releases its old pages before the new list installs.
+        Each delivered token takes its digest row (``dig``, when given).
         Returns (admitted, first_tokens, finished, new_tokens)."""
         n = len(picked)
         admitted, first_tokens, finished = [], [], []
@@ -771,6 +882,8 @@ class ServingEngine:
                 on_admit(q, s)
                 t = int(toks[st, s])
                 r.tokens.append(t)
+                if dig is not None:
+                    self._append_digest(r, dig, st, s)
                 new_tokens += 1
                 admitted.append(r.rid)
                 if len(r.tokens) == 1:     # a resumed request already had
@@ -790,6 +903,8 @@ class ServingEngine:
                     continue
                 t = int(toks[st, s])
                 r.tokens.append(t)
+                if dig is not None:
+                    self._append_digest(r, dig, st, s)
                 new_tokens += 1
                 if len(r.tokens) == 1:
                     first_tokens.append(r.rid)
@@ -802,3 +917,14 @@ class ServingEngine:
                     finished.append(r.rid)
                     on_retire(r, s)
         return admitted, first_tokens, finished, new_tokens
+
+    @staticmethod
+    def _append_digest(r: Request, dig, st: int, s: int) -> None:
+        """Give request ``r`` the digest row of step ``st``, slot ``s``:
+        (emitted-token logit, top-k ids, top-k values)."""
+        dlg, dti, dtv = dig
+        if r.digests is None:
+            r.digests = []
+        r.digests.append((float(dlg[st, s]),
+                          [int(i) for i in dti[st, s]],
+                          [float(v) for v in dtv[st, s]]))

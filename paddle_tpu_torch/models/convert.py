@@ -3,7 +3,8 @@ package.
 
 The JAX package's LLaMA parameter tree, as ``{key: np.asarray(value)}``,
 becomes the port's tree with the same keys and the same stacked ``[L, ...]``
-layer weights; its AdamW state ``{"step", "m", "v"}`` becomes the port's.
+layer weights, a quantized serving tree included; its AdamW state
+``{"step", "m", "v"}`` becomes the port's.
 Tests use them to make both packages compute the same thing, from the
 start or from the middle of a trajectory; the port never reproduces
 ``jax.random``.
@@ -17,21 +18,43 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..quantization.serving import quantized_weight_keys
 from .llama import LlamaConfig, param_shapes
 
 __all__ = ["params_from_numpy", "opt_state_from_numpy"]
+
+
+def _narrow(name: str, arr: np.ndarray) -> torch.Tensor:
+    """A quantized weight as its torch dtype: int8 as int8; fp8-e4m3fn
+    (numpy's ``float8_e4m3fn`` extension type, from ml_dtypes) through its
+    bytes, viewed as uint8 and then as ``torch.float8_e4m3fn`` (the same
+    OCP format, so nothing is rounded)."""
+    if arr.dtype == np.int8:
+        return torch.from_numpy(arr.copy())
+    if arr.dtype.name == "float8_e4m3fn":
+        return torch.from_numpy(arr.view(np.uint8).copy()).view(
+            torch.float8_e4m3fn)
+    raise TypeError(f"{name}: a quantized weight must be int8 or "
+                    f"float8_e4m3fn, got {arr.dtype}")
 
 
 def params_from_numpy(np_params: Mapping[str, np.ndarray], cfg: LlamaConfig,
                       device="cuda", dtype: Optional[torch.dtype] = None
                       ) -> Dict[str, torch.Tensor]:
     """Tensors on ``device`` in ``dtype`` (default ``cfg.dtype``, the type
-    every use site computes in) from a numpy parameter tree. Raises on a
-    missing or extra key (a fused-weights or quantized tree) or a shape
-    that does not match ``cfg``."""
+    every use site computes in) from a numpy parameter tree. A quantized
+    tree (``quantize_llama_params``: every quantized weight beside its
+    ``<name>_scale``) keeps its narrow weights narrow and its scales fp32.
+    Raises on a missing or extra key (a fused-weights or partly quantized
+    tree) or a shape that does not match ``cfg``."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     shapes = param_shapes(cfg)
+    qkeys = quantized_weight_keys(cfg)
+    quantized = any(k + "_scale" in np_params for k in qkeys)
+    if quantized:
+        for k in qkeys:
+            shapes[k + "_scale"] = shapes[k][:-2] + shapes[k][-1:]
     if set(np_params) != set(shapes):
         raise KeyError(f"parameter keys {sorted(np_params)} do not match "
                        f"the LLaMA tree {sorted(shapes)}")
@@ -40,8 +63,13 @@ def params_from_numpy(np_params: Mapping[str, np.ndarray], cfg: LlamaConfig,
         arr = np.asarray(np_params[name])
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape} != {shape}")
-        out[name] = torch.tensor(arr.astype(np.float32), dtype=dtype,
-                                 device=device)
+        if quantized and name in qkeys:
+            out[name] = _narrow(name, arr).to(device)
+        elif name.endswith("_scale"):
+            out[name] = torch.tensor(arr, dtype=torch.float32, device=device)
+        else:
+            out[name] = torch.tensor(arr.astype(np.float32), dtype=dtype,
+                                     device=device)
     return out
 
 

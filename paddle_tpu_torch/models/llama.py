@@ -16,6 +16,9 @@ attention and the CE tail's dx run as the hand-written kernels of
   [0, pos] only;
 - ``ragged_paged_attention`` (CUDA C++) serves the paged decode ticks and
   the paged prefill chunks, reading each slot's pages up to its position;
+- ``quant_matmul`` (CUDA C++) runs every projection of the tick and the
+  lm_head of a quantized parameter tree (``quantization/serving.py``),
+  dequantizing the int8 or fp8 weights in the kernel;
 - the flash-attention forward, dq and dk/dv kernels (CUDA C++) serve the
   training attention and its backward, ``head_dx_softmax`` (CUDA C++) the
   softmax term of the custom CE tail's dh.
@@ -23,9 +26,11 @@ attention and the CE tail's dx run as the hand-written kernels of
 Layout follows the JAX package so the two are compared like with like:
 parameters are a dict with the same keys and stacked ``[L, ...]`` layer
 weights, the cache is ``{"k", "v"}`` of ``[L, B, max_len, Hkv, D]``, the
-pool ``{"k", "v"}`` of ``[L, num_pages, page_size, Hkv, D]``, and layers
-run as an unrolled loop. Cache and pool are updated in place, and so are
-parameters and optimizer state in ``train_step``.
+pool ``{"k", "v"}`` of ``[L, num_pages, page_size, Hkv, D]`` (a quantized
+pool adds the row-scale planes ``{"ks", "vs"}`` of ``[L, num_pages,
+page_size]``), and layers run as an unrolled loop. Cache and pool are
+updated in place, and so are parameters and optimizer state in
+``train_step``.
 """
 
 from __future__ import annotations
@@ -43,11 +48,15 @@ from ..ops.kernels import decode_attention as _da
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import head_dx as _hd
 from ..ops.kernels import paged_attention as _pa
+from ..ops.kernels import quant_matmul as _qm
 from ..ops.kernels import tick_fusion as _tf
+from ..quantization.serving import (dequantize_weight, quant_dtype,
+                                    quantize_kv_rows)
 
 __all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "init_params",
-           "init_kv_cache", "init_paged_pool", "forward_with_cache",
-           "forward_with_pages", "generate", "forward_hidden", "forward",
+           "layer_params", "init_kv_cache", "init_paged_pool",
+           "forward_with_cache", "forward_with_pages", "generate",
+           "forward_hidden", "forward",
            "loss_fn", "init_opt_state", "adamw_update", "train_step",
            "make_train_step"]
 
@@ -151,6 +160,40 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     return out
 
 
+def layer_params(params) -> Dict[str, torch.Tensor]:
+    """The stacked per-layer weights, with the ``<name>_scale`` planes of a
+    quantized tree (stacked on the same [L] axis)."""
+    out = {}
+    for kk in LAYER_KEYS:
+        out[kk] = params[kk]
+        if kk + "_scale" in params:
+            out[kk + "_scale"] = params[kk + "_scale"]
+    return out
+
+
+def _layer(layers, i: int) -> Dict[str, torch.Tensor]:
+    return {kk: w[i] for kk, w in layers.items()}
+
+
+def _w(p, name, dt):
+    """Weight ``name`` at compute dtype ``dt``; a quantized weight (with a
+    ``<name>_scale`` plane) dequantized densely, as the JAX package's
+    ``_w``: narrow times scale in fp32, then ``dt``."""
+    sc = p.get(name + "_scale")
+    return p[name] if sc is None else dequantize_weight(p[name], sc, dt)
+
+
+def _mm(h, p, name, dt):
+    """``h @ weight[name]``, the projection site shared by fp and quantized
+    trees. A 2-D ``h`` (the decode tick, lm_head) against a quantized
+    weight runs ``quant_matmul``, which dequantizes in the kernel;
+    everything else is the dense ``h @ _w(...)``, as in the JAX package."""
+    sc = p.get(name + "_scale")
+    if sc is not None and h.dim() == 2 and p[name].dim() == 2:
+        return _qm.quant_matmul(h.contiguous(), p[name], sc).to(dt)
+    return h @ _w(p, name, dt)
+
+
 # ---------------------------------------------------------------------------
 # prefill path (T > 1): plain torch, the reference's inline chains
 # ---------------------------------------------------------------------------
@@ -173,10 +216,11 @@ def _rope_at(x, theta, positions):
 def _qkv_proj(cfg: LlamaConfig, x, lp, positions):
     """rms -> q/k/v projections -> rope. q [B,S,nH,D], k/v [B,S,Hkv,D]."""
     B, S, _ = x.shape
+    dt = cfg.dtype
     h = _tf.rms_norm_plain(x, lp["ln_attn"], cfg.rms_eps)
-    q = (h @ lp["wq"]).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = (h @ lp["wk"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = (h @ lp["wv"]).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    q = _mm(h, lp, "wq", dt).reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = _mm(h, lp, "wk", dt).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = _mm(h, lp, "wv", dt).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     return (_rope_at(q, cfg.rope_theta, positions),
             _rope_at(k, cfg.rope_theta, positions), v)
 
@@ -184,9 +228,11 @@ def _qkv_proj(cfg: LlamaConfig, x, lp, positions):
 def _layer_post(cfg: LlamaConfig, x, attn, lp):
     """Output projection, residual, mlp."""
     B, S, H = x.shape
-    x = x + attn.reshape(B, S, H) @ lp["wo"]
+    dt = cfg.dtype
+    x = x + _mm(attn.reshape(B, S, H), lp, "wo", dt)
     h = _tf.rms_norm_plain(x, lp["ln_mlp"], cfg.rms_eps)
-    return x + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return x + _mm(F.silu(_mm(h, lp, "w_gate", dt)) * _mm(h, lp, "w_up", dt),
+                   lp, "w_down", dt)
 
 
 def _dense_cache_attention(cfg: Optional[LlamaConfig], q, kc, vc, positions,
@@ -220,21 +266,24 @@ def _decode_qkv(cfg: LlamaConfig, x, lp, pos_b):
     """x [B, H] -> q [B, nH, D], k/v [B, Hkv, D]: one rms launch, the three
     projection matmuls, one rope launch for q and k together."""
     B = x.shape[0]
+    dt = cfg.dtype
     h = _tf.fused_rms_norm(x, lp["ln_attn"], cfg.rms_eps)
-    zq, zk = _tf.fused_rope_qk(h @ lp["wq"], h @ lp["wk"], pos_b,
-                               cfg.head_dim, cfg.rope_theta)
+    zq, zk = _tf.fused_rope_qk(_mm(h, lp, "wq", dt), _mm(h, lp, "wk", dt),
+                               pos_b, cfg.head_dim, cfg.rope_theta)
     return (zq.reshape(B, cfg.num_heads, cfg.head_dim),
             zk.reshape(B, cfg.num_kv_heads, cfg.head_dim),
-            (h @ lp["wv"]).reshape(B, cfg.num_kv_heads, cfg.head_dim))
+            _mm(h, lp, "wv", dt).reshape(B, cfg.num_kv_heads, cfg.head_dim))
 
 
 def _decode_post(cfg: LlamaConfig, x, attn, lp):
     """x [B, H], attn [B, nH, D]: output projection, then the residual add
     and the mlp pre-norm as one launch, then the mlp."""
     B, H = x.shape
-    x2, h = _tf.fused_add_rms_norm(x, attn.reshape(B, H) @ lp["wo"],
+    dt = cfg.dtype
+    x2, h = _tf.fused_add_rms_norm(x, _mm(attn.reshape(B, H), lp, "wo", dt),
                                    lp["ln_mlp"], cfg.rms_eps)
-    return x2 + (F.silu(h @ lp["w_gate"]) * (h @ lp["w_up"])) @ lp["w_down"]
+    return x2 + _mm(F.silu(_mm(h, lp, "w_gate", dt)) * _mm(h, lp, "w_up", dt),
+                    lp, "w_down", dt)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, device
@@ -267,13 +316,14 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
         raise ValueError("per-slot pos requires single-token decode (T=1)")
     kcs, vcs = cache["k"], cache["v"]
     rows = torch.arange(B, device=x.device)
+    layers = layer_params(params)
     if T == 1:
         pos_b = (pos.to(torch.int32) if ragged else torch.full(
             (B,), int(pos), dtype=torch.int32, device=x.device))
         pos_l = pos_b.long()
         x = x[:, 0]
         for i in range(cfg.num_layers):
-            lp = {kk: params[kk][i] for kk in LAYER_KEYS}
+            lp = _layer(layers, i)
             q, k_new, v_new = _decode_qkv(cfg, x, lp, pos_b)
             # the scatter runs before the attention kernel reads row pos,
             # in order on the same stream
@@ -285,7 +335,7 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
     else:
         positions = int(pos) + torch.arange(T, device=x.device)
         for i in range(cfg.num_layers):
-            lp = {kk: params[kk][i] for kk in LAYER_KEYS}
+            lp = _layer(layers, i)
             q, k_new, v_new = _qkv_proj(cfg, x, lp, positions)
             kcs[i, :, int(pos):int(pos) + T] = k_new.to(kcs.dtype)
             vcs[i, :, int(pos):int(pos) + T] = v_new.to(vcs.dtype)
@@ -299,7 +349,7 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
             x = x[:, int(logit_pos)]
         # rmsnorm is per row: norming only the rows read equals norming all
         last = _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
-    logits = last @ params["lm_head"]
+    logits = _mm(last, params, "lm_head", cfg.dtype)
     return logits.float(), cache
 
 
@@ -308,15 +358,41 @@ def init_paged_pool(cfg: LlamaConfig, num_pages: int, page_size: int,
                     quant=None) -> Dict[str, torch.Tensor]:
     """Flat paged K/V pool: [L, num_pages, page_size, Hkv, D], zeros in
     ``dtype`` (default cfg.dtype). Page 0 is the allocator's reserved
-    trash page (``inference/paged_kv.py``). Quantized pools are not
-    ported yet."""
-    if quant is not None:
-        raise NotImplementedError("quantized paged pools are not ported yet")
+    trash page (``inference/paged_kv.py``).
+
+    ``quant`` ('int8' | 'fp8'): the pages hold the narrow dtype and the
+    pool gains fp32 row-scale planes ``ks``/``vs`` [L, num_pages,
+    page_size], one scale per cache row, keyed by physical page so page
+    copies move them with their rows."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads,
              cfg.head_dim)
-    dtype = dtype or cfg.dtype
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+    dtype = quant_dtype(quant) if quant is not None else dtype or cfg.dtype
+    pool = {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if quant is not None:
+        for name in ("ks", "vs"):
+            pool[name] = torch.zeros(shape[:3], dtype=torch.float32,
+                                     device=device)
+    return pool
+
+
+def _gather_attention(cfg: LlamaConfig, q, kc, vc, page_table, positions,
+                      ks, vs):
+    """Attention over a quantized pool, the JAX package's dequantizing
+    gather: each slot's pages and their row scales are gathered into a
+    contiguous window, both cast to the compute dtype and multiplied
+    (at bf16 the scale is rounded to bf16 first), then the dense cache
+    attention. q [B, T, nH, D]; kc/vc [P, page_size, Hkv, D]; ks/vs
+    [P, page_size]; positions [B, T]."""
+    B = q.shape[0]
+    dt = q.dtype
+    W = page_table.shape[1] * kc.shape[1]
+    idx = page_table.long()
+    gk = kc[idx].to(dt) * ks[idx][..., None, None].to(dt)
+    gv = vc[idx].to(dt) * vs[idx][..., None, None].to(dt)
+    return _dense_cache_attention(
+        cfg, q, gk.reshape(B, W, kc.shape[2], kc.shape[3]),
+        gv.reshape(B, W, vc.shape[2], vc.shape[3]), positions)
 
 
 def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
@@ -337,7 +413,13 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
     (the JAX package's ``_paged_attention``): the kernel on a CUDA
     tensor, the gather and dense plain version on a CPU one. T == 1 runs
     the tick kernels as ``forward_with_cache`` does; T > 1 the plain
-    projections with per-row positions."""
+    projections with per-row positions.
+
+    A quantized pool (``"ks"`` in ``pool``) stores each new row narrow
+    with its scale (``quantize_kv_rows``) at the same [page, row], and
+    attends through the dequantizing gather (``_gather_attention``) for
+    T == 1 and T > 1 alike: the paged kernel has no quant mode, in the
+    JAX package as here."""
     B, T = tokens.shape
     psz = pool["k"].shape[2]
     max_pages = page_table.shape[1]
@@ -353,30 +435,37 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
     if live is not None:
         writable = writable & live[:, None]
     phys = torch.where(writable, phys, 0)
-    kcs, vcs = pool["k"], pool["v"]
+    layers = layer_params(params)
+    quant = "ks" in pool
+
+    def attend(i, q, k_new, v_new):
+        """Write the rows ([B, T, Hkv, D]) at [phys, prow] of layer i, then
+        attend q [B, T, nH, D]. The scatter runs before the kernel reads
+        the rows, in order on the same stream."""
+        kc, vc = pool["k"][i], pool["v"][i]
+        if not quant:
+            kc[phys, prow] = k_new.to(kc.dtype)
+            vc[phys, prow] = v_new.to(vc.dtype)
+            return _pa.ragged_paged_attention(q, kc, vc, page_table, pos)
+        ks, vs = pool["ks"][i], pool["vs"][i]
+        kc[phys, prow], ks[phys, prow] = quantize_kv_rows(k_new, kc.dtype)
+        vc[phys, prow], vs[phys, prow] = quantize_kv_rows(v_new, vc.dtype)
+        return _gather_attention(cfg, q, kc, vc, page_table, positions,
+                                 ks, vs)
+
     if T == 1:
         x = x[:, 0]
-        phys, prow = phys[:, 0], prow[:, 0]
         for i in range(cfg.num_layers):
-            lp = {kk: params[kk][i] for kk in LAYER_KEYS}
+            lp = _layer(layers, i)
             q, k_new, v_new = _decode_qkv(cfg, x, lp, pos)
-            # the scatter runs before the kernel reads the row, in order
-            # on the same stream
-            kcs[i, phys, prow] = k_new.to(kcs.dtype)
-            vcs[i, phys, prow] = v_new.to(vcs.dtype)
-            attn = _pa.ragged_paged_attention(q[:, None], kcs[i], vcs[i],
-                                              page_table, pos)
+            attn = attend(i, q[:, None], k_new[:, None], v_new[:, None])
             x = _decode_post(cfg, x, attn[:, 0], lp)
         last = _tf.fused_rms_norm(x, params["ln_f"], cfg.rms_eps)
     else:
         for i in range(cfg.num_layers):
-            lp = {kk: params[kk][i] for kk in LAYER_KEYS}
+            lp = _layer(layers, i)
             q, k_new, v_new = _qkv_proj(cfg, x, lp, positions)
-            kcs[i, phys, prow] = k_new.to(kcs.dtype)
-            vcs[i, phys, prow] = v_new.to(vcs.dtype)
-            attn = _pa.ragged_paged_attention(q, kcs[i], vcs[i],
-                                              page_table, pos)
-            x = _layer_post(cfg, x, attn, lp)
+            x = _layer_post(cfg, x, attend(i, q, k_new, v_new), lp)
         if logit_pos is None:
             x = x[:, -1]
         elif torch.is_tensor(logit_pos) and logit_pos.dim() == 1:
@@ -385,7 +474,7 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
             x = x[:, int(logit_pos)]
         # rmsnorm is per row: norming only the rows read equals norming all
         last = _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
-    logits = last @ params["lm_head"]
+    logits = _mm(last, params, "lm_head", cfg.dtype)
     return logits.float(), pool
 
 

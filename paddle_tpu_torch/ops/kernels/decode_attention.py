@@ -7,9 +7,13 @@ it on the H100 (bytes: it reads each visible key and value once) and how
 its design keeps the bytes read proportional to ``pos`` rather than to
 ``max_len``.
 
+Quant mode (the TPU kernel's ``k_scale``/``v_scale``): an int8 or
+float8_e4m3fn cache with one fp32 scale per cache row, dequantized in the
+kernel; its launches are also counted in
+``ragged_decode_attention.quant_launches``.
+
 Dispatch: a CPU tensor takes the plain version below; a CUDA tensor
-launches the kernel or raises. The quantized-cache mode of the TPU kernel
-(``k_scale``/``v_scale``) is not ported yet.
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -23,31 +27,42 @@ import torch
 __all__ = ["ragged_decode_attention", "ragged_decode_attention_plain"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # quant mode's caches
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8  # MAX_REP in csrc/decode_attention.cu
 
 
-def ragged_decode_attention_plain(q, kc, vc, pos):
+def ragged_decode_attention_plain(q, kc, vc, pos, k_scale=None,
+                                  v_scale=None):
     """The plain PyTorch version: the same function as the kernel, with
     the same conventions (q pre-scaled in its own dtype, fp32 scores and
     softmax, probabilities rounded to the dtype before P @ V, fp32
-    accumulation). Softmax here is over the whole visible window at once
-    where the kernel runs it online tile by tile."""
+    accumulation). In quant mode each cache row is dequantized in fp32
+    with its scale and the probabilities stay fp32, as in the TPU
+    kernel. Softmax here is over the whole visible window at once where
+    the kernel runs it online tile by tile."""
     B, nH, D = q.shape
     Smax, Hkv = kc.shape[1], kc.shape[2]
     rep = nH // Hkv
     dt = q.dtype
+    quant = k_scale is not None
+    kf, vf = kc.float(), vc.float()
+    if quant:
+        kf = kf * k_scale.float()[..., None, None]
+        vf = vf * v_scale.float()[..., None, None]
     qs = (q * (1.0 / math.sqrt(D))).to(dt).reshape(B, Hkv, rep, D)
-    s = torch.einsum("bhrd,bshd->bhrs", qs.float(), kc.float())
+    s = torch.einsum("bhrd,bshd->bhrs", qs.float(), kf)
     visible = (torch.arange(Smax, device=q.device)[None, :]
                <= pos.to(torch.int64)[:, None])                # [B, Smax]
     s = s.masked_fill(~visible[:, None, None, :], float("-inf"))
-    p = torch.softmax(s, dim=-1).to(dt)
-    o = torch.einsum("bhrs,bshd->bhrd", p.float(), vc.float())
+    p = torch.softmax(s, dim=-1)
+    if not quant:
+        p = p.to(dt)
+    o = torch.einsum("bhrs,bshd->bhrd", p.float(), vf)
     return o.to(dt).reshape(B, nH, D)
 
 
-def _check(q, kc, vc, pos):
+def _check(q, kc, vc, pos, k_scale, v_scale):
     if q.dim() != 3 or kc.dim() != 4 or vc.shape != kc.shape:
         raise ValueError(f"expected q [B,nH,D] and kc/vc [B,max_len,Hkv,D], "
                          f"got {tuple(q.shape)}, {tuple(kc.shape)}, "
@@ -63,26 +78,46 @@ def _check(q, kc, vc, pos):
     if pos.shape != (B,) or pos.dtype != torch.int32:
         raise ValueError(f"pos must be int32 [{B}], got {pos.dtype} "
                          f"{tuple(pos.shape)}")
-    if q.dtype not in _DTYPE_CODES or kc.dtype != q.dtype \
-            or vc.dtype != q.dtype:
-        raise TypeError(f"q/kc/vc must share a dtype in float32/bfloat16, "
-                        f"got {q.dtype}, {kc.dtype}, {vc.dtype}")
-    devs = {t.device for t in (q, kc, vc, pos)}
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("k_scale and v_scale come together")
+    quant = k_scale is not None
+    kv_ok = (kc.dtype in _KV_CODES if quant else kc.dtype == q.dtype)
+    if q.dtype not in _DTYPE_CODES or not kv_ok or vc.dtype != kc.dtype:
+        raise TypeError(
+            f"q must be float32/bfloat16 and kc/vc share "
+            f"{'int8/float8_e4m3fn' if quant else 'its dtype'}, got "
+            f"{q.dtype}, {kc.dtype}, {vc.dtype}")
+    tensors = [q, kc, vc, pos]
+    if quant:
+        for name, sc in (("k_scale", k_scale), ("v_scale", v_scale)):
+            if sc.shape != kc.shape[:2] or sc.dtype != torch.float32:
+                raise ValueError(f"{name} must be float32 "
+                                 f"{tuple(kc.shape[:2])}, got {sc.dtype} "
+                                 f"{tuple(sc.shape)}")
+        tensors += [k_scale, v_scale]
+    devs = {t.device for t in tensors}
     if len(devs) != 1:
-        raise ValueError(f"q, kc, vc, pos lie on different devices: {devs}")
+        raise ValueError(f"q, kc, vc, pos (and the scales) lie on different "
+                         f"devices: {devs}")
+    return tensors
 
 
-def ragged_decode_attention(q, kc, vc, pos):
+def ragged_decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
     """Single-token decode attention with per-slot ragged KV reads.
 
     q: [B, nH, D]; kc/vc: [B, max_len, Hkv, D] (the slot-contiguous cache,
     or one layer's view of the stacked cache); pos: [B] int32 — keys
     [0, pos[b]] are visible to slot b (row ``pos`` holds the token being
     decoded, already scattered by the caller on the same stream). Returns
-    [B, nH, D] in q.dtype."""
-    _check(q, kc, vc, pos)
+    [B, nH, D] in q.dtype.
+
+    ``k_scale``/``v_scale`` ([B, max_len] fp32, optional): a quantized
+    cache's per-row scales (kc/vc int8 or float8_e4m3fn)."""
+    tensors = _check(q, kc, vc, pos, k_scale, v_scale)
+    quant = k_scale is not None
     if q.device.type == "cpu":
-        return ragged_decode_attention_plain(q, kc, vc, pos)
+        return ragged_decode_attention_plain(q, kc, vc, pos, k_scale,
+                                             v_scale)
     if q.device.type != "cuda":
         raise ValueError(f"no kernel for device {q.device}")
     B, nH, D = q.shape
@@ -91,25 +126,31 @@ def ragged_decode_attention(q, kc, vc, pos):
         raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS} and at "
                          f"most {_MAX_REP} query heads per kv head, got "
                          f"D={D}, {nH}/{Hkv}")
-    if not all(t.is_contiguous() for t in (q, kc, vc, pos)):
-        raise ValueError("q, kc, vc and pos must be contiguous")
+    if not all(t.is_contiguous() for t in tensors):
+        raise ValueError("q, kc, vc, pos and the scales must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, kc, vc)):
         raise ValueError("q, kc and vc must start on a 16-byte boundary "
                          "(the kernel reads rows in 16-byte loads)")
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _kernel()(
-            q.data_ptr(), kc.data_ptr(), vc.data_ptr(), pos.data_ptr(),
+            q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
+            k_scale.data_ptr() if quant else None,
+            v_scale.data_ptr() if quant else None, pos.data_ptr(),
             out.data_ptr(), B, nH, Hkv, D, Smax, _DTYPE_CODES[q.dtype],
-            1.0 / math.sqrt(D), torch.cuda.current_stream().cuda_stream)
+            _KV_CODES[kc.dtype] if quant else 0, 1.0 / math.sqrt(D),
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"ragged_decode_attention launch failed: CUDA "
                            f"error {err}")
     ragged_decode_attention.launches += 1
+    if quant:
+        ragged_decode_attention.quant_launches += 1
     return out
 
 
 ragged_decode_attention.launches = 0
+ragged_decode_attention.quant_launches = 0
 
 
 @functools.lru_cache(maxsize=None)
@@ -119,7 +160,7 @@ def _kernel():
     from ._build import load_library
 
     fn = load_library("decode_attention").ragged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -22,7 +22,9 @@ from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import head_dx as hd
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 from paddle_tpu_torch.ops.kernels import tick_fusion as tf
+from paddle_tpu_torch.quantization import serving as qs
 
 pytestmark = pytest.mark.cuda
 
@@ -414,3 +416,153 @@ def test_loss_and_grads_match_plain_path(cuda, monkeypatch):
         assert g.dtype == torch.float32
         err = ((got[1][k] - g).norm() / g.norm()).item()
         assert err <= GRAD_RTOL, (k, err)
+
+
+# quant_matmul against its plain version: fp32 sums over K in another
+# order, and the scale applied once per column after the sum instead of
+# to each weight; both are a few fp32 ulps of the sum (~sqrt(K) 2^-24
+# relative), far inside 1e-4 on outputs of magnitude ~1
+QMM_TOL = 1e-4
+
+
+class TestQuantMatmul:
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    @pytest.mark.parametrize("xdt", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B,K,N", [
+        (8, 768, 768), (8, 768, 3072), (8, 3072, 768),   # the tick's
+        (1, 768, 32000), (8, 768, 32000),                # lm_head
+        (3, 100, 200),     # ragged K (no multiple of the 256-row chunk)
+        (5, 70, 99),       # N no multiple of 8: the byte-wise loads
+        (12, 300, 130),    # more rows than one block holds
+        (2, 1000, 64),
+    ])
+    def test_matches_plain(self, cuda, mode, xdt, B, K, N):
+        gen = torch.Generator(device=cuda).manual_seed(B * K + N)
+        w, sc = qs.quantize_weight(
+            _randn(gen, K, N, dtype=torch.float32, scale=K ** -0.5), mode)
+        x = _randn(gen, B, K, dtype=xdt)
+        before = qm.quant_matmul.launches
+        out = qm.quant_matmul(x, w, sc)
+        torch.cuda.synchronize()
+        assert qm.quant_matmul.launches == before + 1
+        assert out.dtype == torch.float32 and out.shape == (B, N)
+        torch.testing.assert_close(out, qm.quant_matmul_plain(x, w, sc),
+                                   rtol=QMM_TOL, atol=QMM_TOL)
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        w, sc = qs.quantize_weight(torch.randn(64, 128, device=cuda), "int8")
+        x = torch.randn(4, 64, device=cuda)
+        with pytest.raises(TypeError, match="int8"):
+            qm.quant_matmul(x, w.to(torch.float16), sc)
+        with pytest.raises(TypeError, match="float32"):
+            qm.quant_matmul(x.half(), w, sc)
+        with pytest.raises(ValueError, match="chain"):
+            qm.quant_matmul(x[:, :32], w, sc)
+        wt, _ = qs.quantize_weight(torch.randn(128, 64, device=cuda), "int8")
+        with pytest.raises(ValueError, match="contiguous"):
+            qm.quant_matmul(x, wt.t(), sc)
+        with pytest.raises(ValueError, match="devices"):
+            qm.quant_matmul(x.cpu(), w, sc)
+
+
+class TestDecodeAttentionQuant:
+    """The decode kernel's quant mode (int8 / fp8 rows with per-row fp32
+    scales) against its plain version: dequantized in fp32, probabilities
+    kept fp32, the output rounded to q's dtype."""
+
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("nH,Hkv,D,max_len", [
+        (12, 12, 64, 384),    # the serving shape
+        (8, 4, 64, 37),       # GQA, a window that is no multiple of 32
+        (32, 32, 128, 2048),  # llama7b width
+        (8, 1, 128, 65),      # rep 8, one kv head
+    ])
+    def test_matches_plain(self, cuda, mode, dtype, nH, Hkv, D, max_len):
+        gen = torch.Generator(device=cuda).manual_seed(nH * D + max_len)
+        B = 6
+        qdt = qs.quant_dtype(mode)
+        kc, ks = qs.quantize_kv_rows(
+            _randn(gen, 2, B, max_len, Hkv, D, dtype=torch.float32), qdt)
+        vc, vs = qs.quantize_kv_rows(
+            _randn(gen, 2, B, max_len, Hkv, D, dtype=torch.float32), qdt)
+        q = _randn(gen, B, nH, D, dtype=dtype)
+        pos = torch.tensor([0, max_len - 1, max_len // 2, 1, 31 % max_len,
+                            max_len], dtype=torch.int32, device=cuda)
+        before = (da.ragged_decode_attention.launches,
+                  da.ragged_decode_attention.quant_launches)
+        out = da.ragged_decode_attention(q, kc[1], vc[1], pos, ks[1], vs[1])
+        torch.cuda.synchronize()
+        assert (da.ragged_decode_attention.launches,
+                da.ragged_decode_attention.quant_launches) == (
+                    before[0] + 1, before[1] + 1)
+        ref = da.ragged_decode_attention_plain(
+            q, kc[1], vc[1], pos.clamp(max=max_len - 1), ks[1], vs[1])
+        assert out.dtype == dtype
+        _close(out, ref, dtype)
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        q = torch.zeros(2, 4, 64, device=cuda)
+        kc = torch.zeros(2, 16, 2, 64, dtype=torch.int8, device=cuda)
+        sc = torch.ones(2, 16, device=cuda)
+        pos = torch.zeros(2, dtype=torch.int32, device=cuda)
+        with pytest.raises(ValueError, match="k_scale"):
+            da.ragged_decode_attention(q, kc, kc, pos, sc.double(), sc)
+        with pytest.raises(TypeError, match="int8"):
+            da.ragged_decode_attention(q, kc.float(), kc.float(), pos, sc,
+                                       sc)
+        with pytest.raises(ValueError, match="contiguous"):
+            da.ragged_decode_attention(q, kc, kc, pos, sc.t().contiguous()
+                                       .t(), sc)
+
+
+@pytest.mark.parametrize("mode", ["int8", "fp8"])
+def test_quant_paged_tick_matches_plain_path(cuda, monkeypatch, mode):
+    """``forward_with_pages`` of a quantized tree on a quantized pool, fp32:
+    a prefill chunk at a context offset, then a ragged tick with a dead
+    slot, through ``quant_matmul`` and the tick kernels and again with
+    every kernel swapped for its plain version: logits agree, the row
+    scales too, and each stored row within one quantization step."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2,
+                            num_heads=4, num_kv_heads=2, max_seq_len=128,
+                            dtype=torch.float32)
+    params = qs.quantize_llama_params(
+        llama.init_params(cfg, torch.Generator().manual_seed(0),
+                          device=cuda), cfg, mode)
+    rng = np.random.RandomState(1)
+    pt = torch.from_numpy(rng.permutation(np.arange(1, 33))
+                          .reshape(4, 8).astype(np.int32)).to(cuda)
+    chunk = torch.from_numpy(rng.randint(0, 512, (1, 24))).to(cuda)
+    nxt = torch.from_numpy(rng.randint(0, 512, (4, 1))).to(cuda)
+    pos = torch.tensor([40, 3, 127, 64], dtype=torch.int32, device=cuda)
+    live = torch.tensor([True, True, False, True], device=cuda)
+
+    def run():
+        pool = llama.init_paged_pool(cfg, 33, 16, cuda, quant=mode)
+        a, _ = llama.forward_with_pages(
+            params, chunk, cfg, pool, pt[:1],
+            torch.tensor([16], dtype=torch.int32, device=cuda))
+        b, _ = llama.forward_with_pages(params, nxt, cfg, pool, pt, pos,
+                                        live=live)
+        return a, b, pool
+
+    with torch.no_grad():
+        before = qm.quant_matmul.launches
+        got = run()
+        # the tick's 7 projections per layer and its lm_head, the
+        # prefill's lm_head
+        assert qm.quant_matmul.launches == before + 7 * 2 + 2
+        monkeypatch.setattr(tf, "fused_rms_norm", tf.rms_norm_plain)
+        monkeypatch.setattr(tf, "fused_add_rms_norm", tf.add_rms_norm_plain)
+        monkeypatch.setattr(tf, "fused_rope_qk", tf.rope_qk_plain)
+        monkeypatch.setattr(qm, "quant_matmul", qm.quant_matmul_plain)
+        want = run()
+    for g, w in zip(got[:2], want[:2]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-4)
+    for kk in ("k", "v"):
+        gs, ws = got[2][kk + "s"], want[2][kk + "s"]
+        torch.testing.assert_close(gs, ws, rtol=1e-5, atol=1e-9)
+        diff = (got[2][kk].float() * gs[..., None, None]
+                - want[2][kk].float() * ws[..., None, None]).abs()
+        assert (diff <= 1.01 * ws[..., None, None] + 1e-7).all()

@@ -292,10 +292,17 @@ class TestCopyOnWrite:
         assert pgr.leak_report() == []
 
     def test_mesh_and_quant_raise(self, both):
-        for kw in ({"mesh": object()}, {"quant": "int8"}):
-            with pytest.raises(NotImplementedError):
-                PagedKVCache(both[2], slots=1, page_size=8, num_pages=3,
-                             max_pages=2, device="cpu", **kw)
+        """A mesh still raises; a quantized pool now builds, with int8
+        pages and fp32 per-row scale planes ``ks``/``vs``."""
+        with pytest.raises(NotImplementedError):
+            PagedKVCache(both[2], slots=1, page_size=8, num_pages=3,
+                         max_pages=2, device="cpu", mesh=object())
+        pgr = PagedKVCache(both[2], slots=1, page_size=8, num_pages=3,
+                           max_pages=2, device="cpu", quant="int8")
+        assert set(pgr.pool) == {"k", "v", "ks", "vs"}
+        assert pgr.pool["k"].dtype == torch.int8
+        assert pgr.pool["ks"].dtype == torch.float32
+        assert pgr.pool["ks"].shape == pgr.pool["k"].shape[:3]
 
 
 class TestPagedPrefixCacheUnit:
