@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one NVIDIA
-H100.
+"""Drive the PyTorch/CUDA port's serving and training paths (LLaMA and
+ResNet-50) on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -27,9 +27,14 @@ Phases (any failed check raises and the script exits non-zero):
    beside its GEMM alone; ``quant_matmul`` (int8 and fp8 weights, bf16
    x) at the decode tick's four projection shapes with B 8, lm_head with
    B 1 and B 8, and two ragged edges, beside dequantize + ``torch.mm``;
-   and ``ragged_decode_attention``'s quant mode (int8 and fp8 caches with
+   ``ragged_decode_attention``'s quant mode (int8 and fp8 caches with
    per-row scales) at the serving shape and at llama7b width, beside
-   dequantize + SDPA;
+   dequantize + SDPA; and ``multi_tensor_update`` at ResNet-50's 161
+   parameters (one flat buffer, padding held at zero) in bf16 momentum
+   (the main path), fp32 momentum, bf16 Nesterov, bf16 sgd, O2 AdamW
+   (bf16 params, fp32 moments and master) and fp32 Lamb, beside
+   ``torch._fused_sgd_`` / ``torch._fused_adamw_`` on the shaped list, and
+   a step with skip = 1 that must leave every buffer bit-identical;
 3. serve 32 requests of the mixed workload through ``ServingEngine`` at
    ``LlamaConfig.bert_base_equiv`` width in bf16 (random weights from a
    seeded generator), check every request's tokens, and check from the
@@ -74,9 +79,22 @@ Phases (any failed check raises and the script exits non-zero):
    (the mixed workload's lengths) through the int8 and the bf16 paged
    engines with digests; the int8 serve's matched-prefix rate against the
    bf16 one must be at least 0.5, the JAX package's bar;
-6. print the kernels' JSON line, then the result line. Each path of
-   3-3e and 5b is driven with every launch count set to 0 just before it
-   and read just after; a kernel's ``launches`` is its sum over those
+6. ResNet-50 training, BASELINE config 1 (benchmarks/resnet50.py):
+   ``resnet50(num_classes=1000, data_format="NHWC")`` from the port's
+   initializers (seed 0), B 128 at 224x224 (``RandomState(0)`` images and
+   labels), Momentum(0.1, 0.9, weight decay 1e-4), AMP O2 bf16,
+   ``CrossEntropyLoss`` and ``fused_train_step``: (6.1) two steps through
+   ``multi_tensor_update`` and two through its plain version from the
+   same weights under deterministic cuDNN, losses, params and BN running
+   statistics compared; (6.2) 2 warm-up and 10 timed steps: images/s,
+   ms/step, peak memory, one profiled step's busy share and device time
+   by kind; (6.3) exactly one ``multi_tensor_update`` launch per step
+   (the 161 params are one bf16 group); (6.4) three O2
+   ``AdamW(multi_precision=True)`` steps, one adam-with-master launch
+   each;
+7. print the kernels' JSON line, then the result line. Each path of
+   3-3e, 5b and 6 is driven with every launch count set to 0 just before
+   it and read just after; a kernel's ``launches`` is its sum over those
    paths (the decode kernel's quant mode has no engine caller, as in the
    JAX package, so its count is 0 there).
 
@@ -84,6 +102,7 @@ Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX or of ``paddle_tpu``.
 """
 
+import contextlib
 import json
 import math
 import os
@@ -708,10 +727,174 @@ def decode_quant_checks(torch, F, da, qs, mode, shape, gen):
 
 
 # ---------------------------------------------------------------------------
+# phase 2: multi_tensor_update
+# ---------------------------------------------------------------------------
+
+# multi_tensor_update at ResNet-50's parameter population (161 tensors in
+# parameters() order). Kernel against plain on the same buffers: both round
+# once per operation in the buffer's type; the bias corrections (powf on
+# the card, torch.pow on the host) may differ in the last bit, so fp32 to
+# rtol 1e-6 and bf16 to one ulp (rtol 2^-7), atol 1e-7 for entries near 0
+MTU_TOL = {"torch.float32": (1e-6, 1e-7), "torch.bfloat16": (2.0 ** -7, 1e-7)}
+_ADAM = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+MTU_VARIANTS = [
+    # name, kind, hyper, param dtype, state dtype, master, library yardstick
+    ("momentum_bf16", "momentum", {"momentum": 0.9}, "bfloat16",
+     "bfloat16", False, "sgd"),
+    ("momentum_fp32", "momentum", {"momentum": 0.9}, "float32", "float32",
+     False, "sgd"),
+    ("nesterov_bf16", "momentum", {"momentum": 0.9, "nesterov": True},
+     "bfloat16", "bfloat16", False, "sgd"),
+    ("sgd_bf16", "sgd", {}, "bfloat16", None, False, "sgd"),
+    ("adamw_bf16_master", "adam", dict(_ADAM, decay=0.01, decoupled=True),
+     "bfloat16", "float32", True, "adamw"),
+    ("lamb_fp32", "lamb", dict(_ADAM, epsilon=1e-6, decay=0.01), "float32",
+     "float32", False, None),
+]
+_MTU_STATE = {"sgd": (), "momentum": ("velocity",),
+              "adam": ("moment1", "moment2"), "lamb": ("moment1", "moment2")}
+
+
+def resnet50_shapes(resnet, device_mod):
+    """ResNet-50's parameter shapes in ``parameters()`` order (built on the
+    CPU: only the shapes are kept)."""
+    prev = device_mod.set_device("cpu")
+    try:
+        model = resnet.resnet50(num_classes=1000, data_format="NHWC")
+    finally:
+        device_mod.set_device(prev)
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def _mtu_buffers(torch, plan, shapes, kind, pdt, sdt, master, gen):
+    """Params, grads and state of one group, packed by ``plan`` (tail lanes
+    and rows zero), from a seeded generator."""
+    def packed(scale, dtype, positive=False):
+        ts = [torch.randn(s, generator=gen, device=DEVICE) * scale
+              for s in shapes]
+        return plan.pack([t.abs() if positive else t for t in ts],
+                         dtype=dtype)
+
+    pbuf, gbuf = packed(0.1, pdt), packed(0.01, pdt)
+    sbufs = {k: packed(0.01, sdt, positive=True) for k in _MTU_STATE[kind]}
+    if master:
+        sbufs["master"] = pbuf.float()
+    return pbuf, gbuf, sbufs
+
+
+def _clone(bufs):
+    p, g, s = bufs
+    return p.clone(), g.clone(), {k: v.clone() for k, v in s.items()}
+
+
+def multi_tensor_checks(torch, mtu, shapes, variant, gen):
+    """One ``multi_tensor_update`` variant at ResNet-50's population: the
+    kernel against its plain version on the same buffers (padding stays
+    zero), then the kernel (in place, over and over), its plain version
+    and, where one PyTorch call makes the same update on the shaped list,
+    that call, timed. Bound: each buffer the kernel reads read once, each
+    one it writes written once."""
+    name, kind, hyper, pdt, sdt, master, lib = variant
+    pdt = getattr(torch, pdt)
+    sdt = getattr(torch, sdt) if sdt else None
+    plan = mtu.FlatPlan(shapes)
+    bufs = _mtu_buffers(torch, plan, shapes, kind, pdt, sdt, master, gen)
+    kb, pb = _clone(bufs), _clone(bufs)
+    r_k = mtu.multi_tensor_update(kind, *kb, hyper, 0.1, 3)
+    r_p = mtu.flat_update_plain(kind, *pb, hyper, 0.1, 3)
+    torch.cuda.synchronize()
+    outs = [("p", kb[0], pb[0])] + [(k, kb[2][k], pb[2][k]) for k in kb[2]]
+    if r_k is not None:
+        outs.append(("r", r_k, r_p))
+    err = 0.0
+    used = torch.zeros(plan.total_rows * plan.LANES, dtype=torch.bool,
+                       device=DEVICE)
+    for i, n in enumerate(plan.sizes):
+        r0 = int(plan.row_offsets[i]) * plan.LANES
+        used[r0:r0 + n] = True
+    for key, got, want in outs:
+        rtol, atol = MTU_TOL[str(want.dtype)]
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"{name} {key}: {m}")
+        err = max(err, (got.float() - want.float()).abs().max().item())
+        if got.reshape(-1)[~used].any():
+            raise AssertionError(f"{name} {key}: padding is not zero")
+    elems = plan.total_rows * plan.LANES
+    st = bufs[2]
+    if kind == "lamb":  # reads the master or p, writes the moments and r
+        reads = [st.get("master", bufs[0]), bufs[1], st["moment1"],
+                 st["moment2"]]
+        writes = [st["moment1"], st["moment2"], r_k]
+    else:
+        reads = [bufs[0], bufs[1], *st.values()]
+        writes = [bufs[0], *st.values()]
+    nbytes = sum(b.element_size() for b in reads + writes) * elems
+    library = None
+    if lib is not None:
+        P = [torch.randn(s, generator=gen, device=DEVICE) * 0.1
+             for s in shapes]
+        G = [torch.randn(s, generator=gen, device=DEVICE) * 0.01
+             for s in shapes]
+        if lib == "sgd":
+            P, G = [t.to(pdt) for t in P], [t.to(pdt) for t in G]
+            V = [torch.zeros_like(t) for t in P] if kind == "momentum" else []
+
+            def library(i):
+                torch._fused_sgd_(
+                    P, G, V, weight_decay=0.0,
+                    momentum=hyper.get("momentum", 0.0), lr=0.1,
+                    dampening=0.0, nesterov=bool(hyper.get("nesterov")),
+                    maximize=False, is_first_step=False)
+        else:  # AdamW on the fp32 master list: 28 B per element to our 30
+            M = [torch.zeros_like(t) for t in P]
+            V2 = [torch.zeros_like(t) for t in P]
+            steps = [torch.tensor(3.0, device=DEVICE) for _ in P]
+
+            def library(i):
+                torch._fused_adamw_(
+                    P, G, M, V2, [], steps, lr=0.1, beta1=0.9, beta2=0.999,
+                    weight_decay=0.01, eps=1e-8, amsgrad=False,
+                    maximize=False)
+    row = timed(torch, "multi_tensor_update", err,
+                lambda i: mtu.multi_tensor_update(kind, *kb, hyper, 0.1, 3),
+                lambda i: mtu.flat_update_plain(kind, *pb, hyper, 0.1, 3),
+                library, bound_ms(nbytes, 12 * elems, VECTOR_OPS),
+                plain_iters=20)
+    row.update(shape="resnet50", dtype=name, elements=elems,
+               bytes_per_element=nbytes / elems,
+               library=("torch._fused_sgd_ on the shaped list"
+                        if lib == "sgd" else
+                        "torch._fused_adamw_ on the fp32 master list"
+                        if lib == "adamw" else "none"))
+    return row
+
+
+def multi_tensor_skip_check(torch, mtu, shapes, gen):
+    """skip = 1 (a device float the kernel reads): every buffer of every
+    kind stays bit-identical."""
+    out = {}
+    for name, kind, hyper, pdt, sdt, master, _ in MTU_VARIANTS:
+        plan = mtu.FlatPlan(shapes)
+        bufs = _mtu_buffers(torch, plan, shapes, kind,
+                            getattr(torch, pdt),
+                            getattr(torch, sdt) if sdt else None, master, gen)
+        kb = _clone(bufs)
+        mtu.multi_tensor_update(kind, *kb, hyper, 0.1, 3,
+                                skip=torch.ones((), device=DEVICE))
+        torch.cuda.synchronize()
+        same = torch.equal(kb[0], bufs[0]) and all(
+            torch.equal(kb[2][k], v) for k, v in bufs[2].items())
+        if not same:
+            raise AssertionError(f"{name}: skip = 1 changed a buffer")
+        out[name] = same
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3: the engine
 # ---------------------------------------------------------------------------
 
-def counters(da, tf, pa, fa, hd, qm):
+def counters(da, tf, pa, fa, hd, qm, mtu):
     """Each kernel's wrapper and the attribute that counts its launches
     (the decode kernel's quant mode is counted apart, on the same
     wrapper)."""
@@ -730,7 +913,8 @@ def counters(da, tf, pa, fa, hd, qm):
             "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
                                         "launches"),
             "head_dx_softmax": (hd.head_dx_softmax, "launches"),
-            "quant_matmul": (qm.quant_matmul, "launches")}
+            "quant_matmul": (qm.quant_matmul, "launches"),
+            "multi_tensor_update": (mtu.multi_tensor_update, "launches")}
 
 
 def zero_counts(fns):
@@ -1410,11 +1594,12 @@ def train_vs_plain(torch, llama, fa, hd, params, cfg, tokens):
     return out
 
 
-def device_profile(torch, run):
+def device_profile(torch, run, kinds=None):
     """Device time of ``run()`` by kernel from ``torch.profiler``: total
-    ms, its split into the port's hand-written kernels, cuBLAS matmuls and
-    the rest (PyTorch's elementwise and reduction kernels), and the twelve
-    largest entries (None where the profiler saw no device time). Only
+    ms, its split by ``kinds`` (category -> substrings of kernel names, in
+    order; by default the port's hand-written kernels and cuBLAS matmuls)
+    and the rest (PyTorch's elementwise and reduction kernels), and the
+    twelve largest entries (None where the profiler saw no device time). Only
     device entries count: the host operators that launch them report the
     same time again, and the profiler's own buffer and module-loading
     records are no kernels. ``wall_ms`` is the host clock around the same
@@ -1429,24 +1614,33 @@ def device_profile(torch, run):
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows = []
+    rows, host = [], []
     for e in prof.key_averages():
         us = e.self_device_time_total
         if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
                 and not e.key.startswith(PROFILER_RECORDS)):
             rows.append((e.key, us / 1e3, e.count))
+        elif e.device_type == torch.autograd.DeviceType.CPU:
+            host.append((e.key, e.self_cpu_time_total / 1e3, e.count))
     if not rows:
         return None
     rows.sort(key=lambda r: -r[1])
-    split = {"hand_written": 0.0, "matmul": 0.0, "other": 0.0}
-    for k, ms, _ in rows:
-        part = ("hand_written" if any(n in k for n in HAND_WRITTEN)
-                else "matmul" if any(n in k for n in MATMUL) else "other")
+    host.sort(key=lambda r: -r[1])
+    kinds = kinds or {"hand_written": HAND_WRITTEN, "matmul": MATMUL}
+    split = {part: 0.0 for part in [*kinds, "other"]}
+    largest = {part: [] for part in split}
+    for k, ms, c in rows:
+        part = next((part for part, names in kinds.items()
+                     if any(n in k for n in names)), "other")
         split[part] += ms
+        if len(largest[part]) < 3:
+            largest[part].append({"name": k[:90], "ms": ms, "calls": c})
     return {"device_ms": sum(r[1] for r in rows), "wall_ms": wall_ms,
-            "split_ms": split,
+            "split_ms": split, "largest_by_kind": largest,
             "top": [{"name": k[:90], "ms": ms, "calls": c}
-                    for k, ms, c in rows[:12]]}
+                    for k, ms, c in rows[:12]],
+            "host_top": [{"name": k[:60], "self_ms": ms, "calls": c}
+                         for k, ms, c in host[:10]]}
 
 
 def train_run(torch, llama, fns, params, cfg, tokens, lr=1e-4, warmup=2,
@@ -1508,6 +1702,180 @@ def train_run(torch, llama, fns, params, cfg, tokens, lr=1e-4, warmup=2,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6: ResNet-50 training
+# ---------------------------------------------------------------------------
+
+# BASELINE config 1, as benchmarks/resnet50.py pins it: ResNet-50
+# NHWC, B 128 at 224x224, Momentum(0.1, 0.9, weight decay 1e-4), AMP O2
+# bf16, CrossEntropyLoss, fused_train_step; inputs from RandomState(0)
+RESNET_BATCH, RESNET_SIZE, RESNET_CLASSES = 128, 224, 1000
+RESNET_LR, RESNET_MOMENTUM, RESNET_WD = 0.1, 0.9, 1e-4
+# kernel path against plain path, two steps from the same weights under
+# deterministic cuDNN (TF32 off, as set for the whole script): the update
+# is the same arithmetic on both paths, so a first step that differs in
+# any bit would show; bf16 params and fp32 statistics to the phase-2
+# tolerances of the update
+RESNET_LOSS_ATOL = 1e-3
+# device kernel names by kind, for the step's time split
+RESNET_KINDS = {
+    "update": ("momentum_kernel", "adam_kernel", "sgd_kernel",
+               "lamb_kernel"),
+    "pack": ("CatArrayBatchedCopy",),
+    "conv": ("xmma", "conv", "implicit_gemm", "wgrad", "dgrad", "fprop",
+             "cutlass", "nhwcTo", "nchwTo", "Nhwc", "Nchw"),
+    "batch_norm": ("batch_norm", "bn_fw", "bn_bw", "batchnorm", "welford"),
+    "matmul": MATMUL,
+}
+
+
+def resnet_batch(torch):
+    """Batch 0 of benchmarks/resnet50.py's three prepared host batches
+    (its draws in its order: three image arrays, then three label
+    arrays), on the card."""
+    rng = np.random.RandomState(0)
+    shape = (RESNET_BATCH, RESNET_SIZE, RESNET_SIZE, 3)
+    xs = [rng.rand(*shape).astype(np.float32) for _ in range(3)]
+    ys = [rng.randint(0, RESNET_CLASSES, (RESNET_BATCH,)) for _ in range(3)]
+    return (torch.from_numpy(xs[0]).to(DEVICE),
+            torch.from_numpy(ys[0]).to(DEVICE))
+
+
+def resnet_train(port, opt_name="momentum"):
+    """The model (the port's initializers, seed 0), its optimizer under
+    ``amp.decorate`` O2 and the ``fused_train_step`` over them."""
+    port.seed(0)
+    model = port.vision.models.resnet50(num_classes=RESNET_CLASSES,
+                                        data_format="NHWC")
+    model.train()
+    opt = port.optimizer.Momentum(
+        learning_rate=RESNET_LR, momentum=RESNET_MOMENTUM,
+        parameters=model.parameters(), weight_decay=RESNET_WD)
+    model, opt = port.amp.decorate(models=model, optimizers=opt, level="O2",
+                                   dtype="bfloat16")
+    return model, opt, resnet_step(port, model, opt)
+
+
+def resnet_step(port, model, opt):
+    ce = port.nn.CrossEntropyLoss()
+
+    def loss_fn(x, y):
+        with port.amp.auto_cast(level="O2", dtype="bfloat16"):
+            return ce(model(x), y)
+    return port.jit.fused_train_step(loss_fn, opt, model=model)
+
+
+def resnet_vs_plain(torch, port, mtu, fns, x, y, steps=2):
+    """Phase 6.1: two steps through the kernel and two through its plain
+    version, each from the seed's weights, under deterministic cuDNN: the
+    losses, every updated parameter and every BN running statistic.
+    Returns the comparison and the kernel path's (model, opt, step)."""
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for plain in (False, True):
+            model, opt, step = resnet_train(port)
+            zero_counts(fns)
+            with (mock.patch.object(mtu, "multi_tensor_update",
+                                    mtu.flat_update_plain) if plain
+                  else contextlib.nullcontext()):
+                losses = [step(x, y).item() for _ in range(steps)]
+            n = read_counts(fns)["multi_tensor_update"]
+            if n != (0 if plain else steps):
+                raise AssertionError(f"{n} multi_tensor_update launches in "
+                                     f"{steps} steps of the "
+                                     f"{'plain' if plain else 'kernel'} path")
+            runs.append((losses, {k: v.detach().clone() for k, v in
+                                  model.state_dict().items()},
+                         (model, opt, step)))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, sk, kernel_path), (lp, sp, _) = runs
+    out = {"losses_kernel": lk, "losses_plain": lp,
+           "loss_abs_err": max(abs(a - b) for a, b in zip(lk, lp)),
+           "loss_atol": RESNET_LOSS_ATOL, "param_max_abs_err": 0.0,
+           "bn_stat_max_abs_err": 0.0, "bit_identical": True}
+    if not all(math.isfinite(v) for v in lk + lp):
+        raise AssertionError(f"non-finite ResNet-50 loss: {lk}, {lp}")
+    if out["loss_abs_err"] > RESNET_LOSS_ATOL:
+        raise AssertionError(f"ResNet-50 losses {lk} against the plain "
+                             f"path's {lp}")
+    for k, got in sk.items():
+        want = sp[k]
+        out["bit_identical"] &= torch.equal(got, want)
+        rtol, atol = MTU_TOL[str(want.dtype)]
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"ResNet-50 {k}: {m}")
+        key = ("bn_stat_max_abs_err" if k.endswith(("._mean", "._variance"))
+               else "param_max_abs_err")
+        out[key] = max(out[key], (got.float() - want.float()).abs().max()
+                       .item())
+    return out, kernel_path
+
+
+def resnet_run(torch, fns, step, x, y, warmup=2, steps=10):
+    """Phase 6.2-6.3: ``warmup`` then ``steps`` timed steps on the host
+    clock with every launch count at 0 before them (exactly one
+    ``multi_tensor_update`` per step: the 161 params are one bf16 group),
+    then one profiled step for the busy share and the time split."""
+    for _ in range(warmup):
+        step(x, y)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    losses = [step(x, y) for _ in range(steps)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    check_counts(launches, {"multi_tensor_update": steps},
+                 f"{steps} ResNet-50 steps")
+    peak = torch.cuda.max_memory_allocated()
+    losses = [t.item() for t in losses]
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ResNet-50 loss: {losses}")
+    prof = device_profile(torch, lambda: step(x, y), kinds=RESNET_KINDS)
+    out = {"batch": RESNET_BATCH, "size": RESNET_SIZE, "warmup_steps": warmup,
+           "timed_steps": steps, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / steps,
+           "images_per_s": RESNET_BATCH * steps / wall,
+           "peak_memory_bytes": peak, "losses": losses}
+    if prof is None:
+        out["device_ms_per_step"] = "not measured"
+    else:
+        out["device_ms_per_step"] = prof["device_ms"]
+        out["profiled_step_wall_ms"] = prof["wall_ms"]
+        out["device_busy_share"] = prof["device_ms"] / prof["wall_ms"]
+        out["device_split_ms"] = prof["split_ms"]
+        out["update_kernel_share"] = (prof["split_ms"]["update"]
+                                      / prof["device_ms"])
+        out["device_top"] = prof["top"]
+        out["device_largest_by_kind"] = prof["largest_by_kind"]
+        out["host_top"] = prof["host_top"]
+    return out, launches
+
+
+def resnet_adamw(torch, port, fns, model, x, y, steps=3):
+    """Phase 6.4: ``AdamW(multi_precision=True)`` on the O2 model, one
+    adam-with-master launch per step; its state fp32 and flat."""
+    opt = port.optimizer.AdamW(learning_rate=1e-3, weight_decay=0.01,
+                               parameters=model.parameters(),
+                               multi_precision=True)
+    step = resnet_step(port, model, opt)
+    zero_counts(fns)
+    losses = [step(x, y).item() for _ in range(steps)]
+    launches = read_counts(fns)
+    check_counts(launches, {"multi_tensor_update": steps},
+                 f"{steps} ResNet-50 AdamW steps")
+    st = opt._accumulators[id(model.parameters()[0])]
+    if not (st["master"].dtype == st["moment1"].dtype == torch.float32
+            and st["master"].dim() == 2):
+        raise AssertionError("O2 AdamW state is not fp32 and flat")
+    if not all(math.isfinite(v) for v in losses):
+        raise AssertionError(f"non-finite ResNet-50 AdamW loss: {losses}")
+    return {"steps": steps, "losses": losses}, launches
+
+
 def kernels_line(rows, by_path):
     """The kernels' JSON line: for each kernel its route, source, the
     TPU kernel it replaces, its launches summed over the driven paths
@@ -1544,10 +1912,14 @@ def kernels_line(rows, by_path):
         "quant_matmul": (
             "cuda", "paddle_tpu_torch/csrc/quant_matmul.cu",
             "paddle_tpu/ops/pallas/tick_fusion.py:213", "w_gate_w_up"),
+        "multi_tensor_update": (
+            "cuda", "paddle_tpu_torch/csrc/multi_tensor_update.cu",
+            "paddle_tpu/ops/pallas/multi_tensor_update.py:288", "resnet50"),
     }
     # the rows the line quotes: bf16 for the fp kernels, int8 weights for
-    # quant_matmul
-    line_dtype = {"quant_matmul": "int8"}
+    # quant_matmul, the main path's bf16 momentum for multi_tensor_update
+    line_dtype = {"quant_matmul": "int8",
+                  "multi_tensor_update": "momentum_bf16"}
     # the blocked TPU kernels (S > 512) that the same kernels serve
     also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
             "flash_attention_bwd_dq": ["paddle_tpu/ops/pallas/flash_attention.py:442"],
@@ -1572,6 +1944,13 @@ def kernels_line(rows, by_path):
             k["also_replaces"] = also[name]
         if name in line_dtype:
             k["shape"], k["mode"] = at, line_dtype[name]
+        if name == "multi_tensor_update":
+            # every variant held against its plain version in phase 2
+            k["variants"] = {
+                v["dtype"]: {key: v[key] for key in (
+                    "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "library")}
+                for v in rows if v["name"] == name}
         if name == "ragged_decode_attention":
             # the same kernel's quant mode (int8 pages with row scales, the
             # TPU kernel's k_scale / v_scale): no engine path calls it, in
@@ -1600,6 +1979,13 @@ def main() -> None:
     os.environ.setdefault("TRITON_CACHE_DIR", str(build_dir / "triton"))
     import torch.nn.functional as F
 
+    import paddle_tpu_torch as port
+    import paddle_tpu_torch.amp
+    import paddle_tpu_torch.jit
+    import paddle_tpu_torch.nn
+    import paddle_tpu_torch.optimizer
+    import paddle_tpu_torch.vision.models  # noqa: F401 (port.<module>)
+    from paddle_tpu_torch import device as device_mod
     from paddle_tpu_torch.inference import scheduler as sched
     from paddle_tpu_torch.inference.prefix_cache import PagedPrefixCache
     from paddle_tpu_torch.inference.serving import ServingEngine
@@ -1609,6 +1995,7 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
     from paddle_tpu_torch.ops.kernels import head_dx as hd
+    from paddle_tpu_torch.ops.kernels import multi_tensor_update as mtu
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
@@ -1697,6 +2084,21 @@ def main() -> None:
                   f"{r['library_ms']:.6g} (err "
                   f"{r['library_max_abs_err']:.3e}) bound_ms "
                   f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    mtu_shapes = resnet50_shapes(port.vision.models, device_mod)
+    for variant in MTU_VARIANTS:
+        r = multi_tensor_checks(torch, mtu, mtu_shapes, variant, gen)
+        rows.append(r)
+        lib = ("null" if r["library_ms"] is None
+               else f"{r['library_ms']:.6g}")
+        print(f"kernel {r['name']:24s} {r['shape']:8s} {r['dtype']:18s} "
+              f"{r['elements']} elements {r['bytes_per_element']:.0f} B "
+              f"each max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} "
+              f"eager_ms {r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} "
+              f"library_ms {lib} ({r['library']}) bound_ms "
+              f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    mtu_skip = multi_tensor_skip_check(torch, mtu, mtu_shapes, gen)
+    print(f"multi_tensor_update skip = 1 left every buffer bit-identical: "
+          f"{json.dumps(mtu_skip)}")
     print(f"kernel checks passed ({card})")
 
     # 3. the engine at bert_base_equiv width
@@ -1706,7 +2108,7 @@ def main() -> None:
     reqs = mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
     need = max(len(p) + g - 1 for p, g in reqs)
     max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
-    fns = counters(da, tf, pa, fa, hd, qm)
+    fns = counters(da, tf, pa, fa, hd, qm, mtu)
     stats, launches, toks_c = serve(torch, ServingEngine, fns, params, cfg,
                                     reqs, max_len)
     print(f"engine ({card}): bert_base_equiv bf16 slots 8 chunk 16 "
@@ -1874,11 +2276,51 @@ def main() -> None:
           f"{qtrained['bf16_shadow']['tokens_per_s']:.1f} tokens/s")
     print(f"launches on the trained int8 drain: {json.dumps(qtlaunches)}")
 
-    # 6. results
+    # 6. ResNet-50 training, BASELINE config 1 at full shape
+    del sparams
+    x, y = resnet_batch(torch)
+    rvp, (rmodel, ropt, rstep) = resnet_vs_plain(torch, port, mtu, fns, x,
+                                                 y)
+    print(f"ResNet-50, kernel against plain ({card}): B {RESNET_BATCH} "
+          f"{RESNET_SIZE}x{RESNET_SIZE} NHWC O2 bf16 Momentum, losses "
+          f"{rvp['losses_kernel']} / {rvp['losses_plain']} (|err| "
+          f"{rvp['loss_abs_err']:.3e} <= {RESNET_LOSS_ATOL}), largest param "
+          f"error {rvp['param_max_abs_err']:.3e}, BN statistics "
+          f"{rvp['bn_stat_max_abs_err']:.3e}, bit-identical "
+          f"{rvp['bit_identical']}")
+    rtrain, rlaunches = resnet_run(torch, fns, rstep, x, y)
+    rbusy = rtrain.get("device_busy_share")
+    print(f"ResNet-50 train ({card}): B {RESNET_BATCH} {RESNET_SIZE}x"
+          f"{RESNET_SIZE} NHWC O2 bf16, {rtrain['timed_steps']} timed "
+          f"Momentum steps: {rtrain['images_per_s']:.1f} images/s, "
+          f"{rtrain['ms_per_step']:.3f} ms/step, device "
+          f"{rtrain['device_ms_per_step']} ms in one profiled step of "
+          f"{rtrain.get('profiled_step_wall_ms', 'not measured')} ms wall "
+          f"(busy share "
+          f"{'not measured' if rbusy is None else f'{rbusy:.4f}'}), "
+          f"multi_tensor_update share of the device time "
+          f"{rtrain.get('update_kernel_share', 'not measured')}, peak "
+          f"memory {rtrain['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+          f"{', '.join(f'{v:.4f}' for v in rtrain['losses'])}")
+    print(f"launches on the ResNet-50 steps: {json.dumps(rlaunches)}")
+    print(f"ResNet-50 device time (ms/step) by kind: "
+          f"{json.dumps(rtrain.get('device_split_ms'))}; largest kernels "
+          f"of each kind: {json.dumps(rtrain.get('device_largest_by_kind'))}"
+          f"; host operators by self time (ms): "
+          f"{json.dumps(rtrain.get('host_top'))}")
+    del ropt, rstep
+    radamw, alaunches = resnet_adamw(torch, port, fns, rmodel, x, y)
+    print(f"ResNet-50 O2 AdamW(multi_precision) ({card}): "
+          f"{radamw['steps']} steps, losses "
+          f"{', '.join(f'{v:.4f}' for v in radamw['losses'])}")
+    print(f"launches on the ResNet-50 AdamW steps: {json.dumps(alaunches)}")
+
+    # 7. results
     by_path = {"contiguous_drain": launches, "paged_drain": plaunches,
                "prefix_burst": blaunches, "quant_int8_drain": qlaunches,
                "quant_fp8_drain": f8launches, "train": tlaunches,
-               "quant_int8_trained_drain": qtlaunches}
+               "quant_int8_trained_drain": qtlaunches,
+               "resnet50_train": rlaunches, "resnet50_adamw": alaunches}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -1889,7 +2331,9 @@ def main() -> None:
                    "launches": by_path,
                    "teacher_forced": tfc, "teacher_forced_paged": tfp,
                    "teacher_forced_quant": tfq, "train_vs_plain": tvp,
-                   "train": train}, f, indent=1)
+                   "train": train, "multi_tensor_skip": mtu_skip,
+                   "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
+                   "resnet50_adamw": radamw}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

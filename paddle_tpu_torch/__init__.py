@@ -11,9 +11,13 @@ Ported so far: the continuous-batching LLaMA serving engine
 on a paged pool (``inference.paged_kv``, with ``inference.prefix_cache``'s
 page-sharing prefix cache), the online scheduler over it
 (``inference.scheduler``), and the KV-cache decoder under them
-(``models.llama``).
+(``models.llama``); the LLaMA training step; and the eager framework's
+training path for ResNet (``vision.models``, ``nn``, ``amp``,
+``optimizer``, ``jit.fused_train_step``) with the multi-tensor optimizer
+update.
 """
 
-from .device import resolve_device
+from .device import get_device, resolve_device, set_device
+from .nn.initializer import seed
 
-__all__ = ["resolve_device"]
+__all__ = ["resolve_device", "set_device", "get_device", "seed"]

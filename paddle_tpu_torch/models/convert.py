@@ -5,9 +5,10 @@ The JAX package's LLaMA parameter tree, as ``{key: np.asarray(value)}``,
 becomes the port's tree with the same keys and the same stacked ``[L, ...]``
 layer weights, a quantized serving tree included; its AdamW state
 ``{"step", "m", "v"}`` becomes the port's.
-Tests use them to make both packages compute the same thing, from the
-start or from the middle of a trajectory; the port never reproduces
-``jax.random``.
+A JAX ``Layer``'s ``state_dict()`` as numpy loads into the port's layer
+of the same structure (``layer_state_from_numpy``). Tests use them to make
+both packages compute the same thing, from the start or from the middle of
+a trajectory; the port never reproduces ``jax.random``.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from ..device import resolve_device
 from ..quantization.serving import quantized_weight_keys
 from .llama import LlamaConfig, param_shapes
 
-__all__ = ["params_from_numpy", "opt_state_from_numpy"]
+__all__ = ["params_from_numpy", "opt_state_from_numpy",
+           "layer_state_from_numpy"]
 
 
 def _narrow(name: str, arr: np.ndarray) -> torch.Tensor:
@@ -84,3 +86,39 @@ def opt_state_from_numpy(np_state: Mapping[str, object], cfg: LlamaConfig,
                                  dtype=torch.int32, device=device),
             "m": params_from_numpy(np_state["m"], cfg, device, torch.float32),
             "v": params_from_numpy(np_state["v"], cfg, device, torch.float32)}
+
+
+def _tensor(name: str, arr) -> torch.Tensor:
+    """A numpy array as a tensor of its own type: fp32 and int as they
+    are, bf16 (numpy's ``bfloat16`` extension type, from ml_dtypes) through
+    its bytes, so nothing is rounded."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.uint16).copy()).view(
+            torch.bfloat16)
+    if arr.dtype.kind not in "fiub":
+        raise TypeError(f"{name}: cannot load an array of {arr.dtype}")
+    return torch.from_numpy(arr.copy())
+
+
+def layer_state_from_numpy(model, np_state: Mapping[str, object],
+                           device="cuda"):
+    """Load a JAX ``Layer``'s ``state_dict()`` (as ``{key: numpy array}``)
+    into ``model``, a port ``Layer`` of the same structure, on ``device``:
+    every parameter and buffer takes the array's values and type (bf16
+    stays bf16) and stays the same object. Raises on a missing or extra
+    key or a shape mismatch. Returns ``model``."""
+    device = resolve_device(device)
+    own = model.state_dict()
+    if set(np_state) != set(own):
+        raise KeyError(f"state keys differ: missing "
+                       f"{sorted(set(own) - set(np_state))}, extra "
+                       f"{sorted(set(np_state) - set(own))}")
+    with torch.no_grad():
+        for key, target in own.items():
+            val = _tensor(key, np_state[key])
+            if tuple(val.shape) != tuple(target.shape):
+                raise ValueError(f"{key}: shape {tuple(val.shape)} != "
+                                 f"{tuple(target.shape)}")
+            target.data = val.to(device)
+    return model

@@ -1,0 +1,83 @@
+"""Parameter initializers: the ones the ported layers use, each drawing
+from an explicit ``torch.Generator``.
+
+Counterpart of ``paddle_tpu/nn/initializer``. The JAX package draws from
+``jax.random``; the port cannot reproduce those bits, so a test that needs
+both packages to hold the same weights carries them across as numpy
+(``models.convert.layer_state_from_numpy``). Layers draw from the
+generator ``seed`` sets (the counterpart of ``paddle.seed``), on the CPU,
+then move the values to their device, so one seed gives the same weights
+on every device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple
+
+import numpy as np
+import torch
+
+__all__ = ["Initializer", "Constant", "Uniform", "XavierUniform", "seed",
+           "default_generator"]
+
+_GENERATOR = torch.Generator().manual_seed(0)
+
+
+def seed(value: int) -> torch.Generator:
+    """Reseed the generator layers draw their initial weights from."""
+    return _GENERATOR.manual_seed(int(value))
+
+
+def default_generator() -> torch.Generator:
+    return _GENERATOR
+
+
+def _fans(shape: Sequence[int]) -> Tuple[int, int]:
+    shape = tuple(shape)
+    if len(shape) == 1:
+        return shape[0], shape[0]
+    if len(shape) == 2:  # paddle's linear weight [in, out]
+        return shape[0], shape[1]
+    receptive = int(np.prod(shape[2:]))
+    return shape[1] * receptive, shape[0] * receptive
+
+
+class Initializer:
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None) -> torch.Tensor:
+        raise NotImplementedError
+
+
+class Constant(Initializer):
+    def __init__(self, value: float = 0.0):
+        self.value = value
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        return torch.full(tuple(shape), float(self.value), dtype=dtype,
+                          device=device)
+
+
+class Uniform(Initializer):
+    def __init__(self, low: float = -1.0, high: float = 1.0):
+        self.low, self.high = low, high
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        out = torch.empty(tuple(shape), dtype=torch.float32).uniform_(
+            self.low, self.high, generator=generator or _GENERATOR)
+        return out.to(device=device, dtype=dtype)
+
+
+class XavierUniform(Initializer):
+    def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        fi, fo = _fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        limit = self.gain * math.sqrt(6.0 / (fi + fo))
+        return Uniform(-limit, limit)(shape, dtype, device, generator)

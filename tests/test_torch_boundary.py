@@ -7,8 +7,11 @@ from pathlib import Path
 import pytest
 import torch
 
+from paddle_tpu_torch import device
 from paddle_tpu_torch.inference.serving import ServingEngine
 from paddle_tpu_torch.models import llama
+from paddle_tpu_torch.models.convert import layer_state_from_numpy
+from paddle_tpu_torch.vision.models import resnet
 
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
@@ -59,3 +62,22 @@ def test_entry_points_default_to_cuda(monkeypatch):
         llama.generate(params, [[1, 2, 3]], cfg, max_new_tokens=2)
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(cfg, params)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        resnet.resnet50(num_classes=1000, data_format="NHWC")
+
+
+def test_resnet_and_converter_default_to_cuda(monkeypatch):
+    """Layers build on ``device.get_device()``, CUDA unless ``set_device``
+    named another; with ``set_device("cpu")`` a model builds on the CPU,
+    and the converter without a device raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert device.get_device() == "cuda"
+    prev = device.set_device("cpu")
+    try:
+        model = resnet.resnet18(num_classes=10)
+    finally:
+        device.set_device(prev)
+    assert all(p.device.type == "cpu" for p in model.parameters())
+    state = {k: v.detach().numpy() for k, v in model.state_dict().items()}
+    with pytest.raises(RuntimeError, match="CUDA"):
+        layer_state_from_numpy(model, state)

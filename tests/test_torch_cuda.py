@@ -17,14 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from paddle_tpu_torch.device import set_device
 from paddle_tpu_torch.models import llama
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 from paddle_tpu_torch.ops.kernels import head_dx as hd
+from paddle_tpu_torch.ops.kernels import multi_tensor_update as mtu
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import quant_matmul as qm
 from paddle_tpu_torch.ops.kernels import tick_fusion as tf
 from paddle_tpu_torch.quantization import serving as qs
+from paddle_tpu_torch.vision.models import resnet
 
 pytestmark = pytest.mark.cuda
 
@@ -566,3 +569,131 @@ def test_quant_paged_tick_matches_plain_path(cuda, monkeypatch, mode):
         diff = (got[2][kk].float() * gs[..., None, None]
                 - want[2][kk].float() * ws[..., None, None]).abs()
         assert (diff <= 1.01 * ws[..., None, None] + 1e-7).all()
+
+
+# multi_tensor_update against its plain version on the same buffers: both
+# round once per operation in the buffer's type, but the bias corrections
+# (powf on the card, torch.pow on the host) may differ in their last bit:
+# fp32 to rtol 1e-6, bf16 to one ulp. Lamb's trust ratios are segment sums
+# of up to 2.4 M squares by atomics, whose order changes from run to run
+# (measured on ResNet-50's shapes: 7.5e-6 relative on 4 of 590 k entries;
+# 4.8e-7 absolute where an update cancels a parameter to ~1e-5): its
+# params to rtol 2e-5 (fp32) or one ulp (bf16) with atol 1e-6
+MTU_TOL = {torch.float32: dict(rtol=1e-6, atol=1e-7),
+           torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-7)}
+MTU_LAMB_TOL = {torch.float32: dict(rtol=2e-5, atol=1e-6),
+                torch.bfloat16: dict(rtol=2.0 ** -7, atol=1e-6)}
+MTU_MIXED = [(3, 3, 4, 8), (3, 3, 4, 8), (1, 1, 8, 4), (8,), (8,), (4,),
+             (16, 4), (5,), (4,)]
+MTU_ADAM = {"beta1": 0.9, "beta2": 0.999, "epsilon": 1e-8}
+MTU_VARIANTS = {
+    # name: kind, hyper, param dtype, state dtype, master
+    "sgd": ("sgd", {}, torch.float32, None, False),
+    "sgd_bf16": ("sgd", {}, torch.bfloat16, None, False),
+    "momentum": ("momentum", {"momentum": 0.9}, torch.float32,
+                 torch.float32, False),
+    "momentum_bf16": ("momentum", {"momentum": 0.9}, torch.bfloat16,
+                      torch.bfloat16, False),
+    "momentum_bf16_fp32_velocity": ("momentum", {"momentum": 0.9},
+                                    torch.bfloat16, torch.float32, False),
+    "nesterov_bf16": ("momentum", {"momentum": 0.9, "nesterov": True},
+                      torch.bfloat16, torch.bfloat16, False),
+    "adam": ("adam", MTU_ADAM, torch.float32, torch.float32, False),
+    "adamw": ("adam", dict(MTU_ADAM, decay=0.1, decoupled=True),
+              torch.float32, torch.float32, False),
+    "adamw_bf16": ("adam", dict(MTU_ADAM, decay=0.1, decoupled=True),
+                   torch.bfloat16, torch.bfloat16, False),
+    "adamw_bf16_master": ("adam", dict(MTU_ADAM, decay=0.1, decoupled=True),
+                          torch.bfloat16, torch.float32, True),
+    "lamb": ("lamb", dict(MTU_ADAM, epsilon=1e-6, decay=0.01),
+             torch.float32, torch.float32, False),
+    "lamb_bf16_master": ("lamb", dict(MTU_ADAM, epsilon=1e-6, decay=0.01),
+                         torch.bfloat16, torch.float32, True),
+}
+_STATE = {"sgd": (), "momentum": ("velocity",),
+          "adam": ("moment1", "moment2"), "lamb": ("moment1", "moment2")}
+
+
+def _mtu_group(cuda, name, shapes):
+    """One variant's params, grads and state on the card, from a seeded
+    generator (second moments non-negative)."""
+    kind, hyper, pdt, sdt, master = MTU_VARIANTS[name]
+    if shapes == "resnet50":
+        prev = set_device("cpu")
+        try:
+            model = resnet.resnet50(num_classes=1000, data_format="NHWC")
+        finally:
+            set_device(prev)
+        shapes = [tuple(p.shape) for p in model.parameters()]
+        del model
+    else:
+        shapes = MTU_MIXED
+    gen = torch.Generator(device=cuda).manual_seed(len(shapes))
+
+    def rand(scale, dtype, positive=False):
+        out = [_randn(gen, *s, dtype=torch.float32, scale=scale)
+               for s in shapes]
+        return [(t.abs() if positive else t).to(dtype) for t in out]
+
+    P, G = rand(0.1, pdt), rand(0.01, pdt)
+    S = [{} for _ in shapes]
+    for k in _STATE[kind]:
+        for st, t in zip(S, rand(0.01, sdt, positive=True)):
+            st[k] = t
+    if master:
+        for st, p in zip(S, P):
+            st["master"] = p.float()
+    return kind, hyper, mtu.FlatPlan(shapes), P, G, S
+
+
+class TestMultiTensorUpdate:
+    @pytest.mark.parametrize("shapes", ["mixed", "resnet50"])
+    @pytest.mark.parametrize("name", list(MTU_VARIANTS))
+    def test_matches_plain(self, cuda, monkeypatch, name, shapes):
+        """``apply_flat_update`` through the kernel and through its plain
+        version on the card: the same shaped params and flat state (lamb's
+        trust epilogue included); one launch per call."""
+        kind, hyper, plan, P, G, S = _mtu_group(cuda, name, shapes)
+        before = mtu.multi_tensor_update.launches
+        got = mtu.apply_flat_update(kind, plan, P, G, S, hyper, 0.1, 3)
+        assert mtu.multi_tensor_update.launches == before + 1
+        monkeypatch.setattr(mtu, "multi_tensor_update",
+                            mtu.flat_update_plain)
+        want = mtu.apply_flat_update(kind, plan, P, G, S, hyper, 0.1, 3)
+        torch.cuda.synchronize()
+        def tol(t):
+            return (MTU_LAMB_TOL if kind == "lamb" else MTU_TOL)[t.dtype]
+
+        for g, w in zip(got[0], want[0]):
+            assert g.dtype == w.dtype and g.shape == w.shape
+            torch.testing.assert_close(g, w, **tol(w))
+        for g, w in zip(got[1], want[1]):
+            for k in w:
+                torch.testing.assert_close(g[k], w[k], **tol(w[k]))
+
+    @pytest.mark.parametrize("name", ["sgd", "momentum_bf16", "adamw_bf16",
+                                      "adamw_bf16_master", "lamb",
+                                      "lamb_bf16_master"])
+    def test_skip_leaves_buffers_bit_identical(self, cuda, name):
+        """skip, a device float the kernel reads, > 0: every param and
+        state value stays bit-identical; 0: the update runs."""
+        kind, hyper, plan, P, G, S = _mtu_group(cuda, name, "mixed")
+        for flag, same in ((1.0, True), (0.0, False)):
+            skip = torch.tensor(flag, device=cuda)
+            new_p, new_s = mtu.apply_flat_update(kind, plan, P, G, S, hyper,
+                                                 0.1, 3, skip=skip)
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(new_p, P)) == same
+            if same:
+                for a, b in zip(new_s, S):
+                    for k in b:
+                        assert torch.equal(a[k].reshape(-1)[:b[k].numel()]
+                                           .view(b[k].shape), b[k])
+
+    def test_rejects_unaligned_and_odd_buffers(self, cuda):
+        plan = mtu.FlatPlan([(8,)])
+        p = plan.pack([torch.zeros(8, device=cuda)])
+        with pytest.raises(ValueError, match="aligned"):
+            mtu.multi_tensor_update(
+                "sgd", p.reshape(-1)[1:129].view(1, 128),
+                p.reshape(-1)[1:129].view(1, 128), {}, {}, 0.1, 1)
