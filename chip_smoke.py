@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving and training paths (LLaMA and
-ResNet-50) on one NVIDIA H100.
+ResNet-50) and its kernel experiments on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -34,7 +34,14 @@ Phases (any failed check raises and the script exits non-zero):
    (the main path), fp32 momentum, bf16 Nesterov, bf16 sgd, O2 AdamW
    (bf16 params, fp32 moments and master) and fp32 Lamb, beside
    ``torch._fused_sgd_`` / ``torch._fused_adamw_`` on the shaped list, and
-   a step with skip = 1 that must leave every buffer bit-identical;
+   a step with skip = 1 that must leave every buffer bit-identical; the
+   kernel experiments' kernels: ``blocked_matmul``'s four tile instances
+   at the lm_head dx shape (22528 x 32000 x 768) beside ``torch.mm``, every
+   flash-variant instance (``run_fwd`` / ``run_bwd`` causal and not over
+   nsplit 1, 2, 4 and exp_bf16, ``run_fwd2``'s p_bf16 and in-kernel
+   scale, the twelve ablations) at B 4 against its plain version, and the
+   main variants (forward and backward at nsplit 1 and 4, ``run_fwd2``)
+   timed at B 44, S 512, 12 heads of D 64 beside SDPA;
 3. serve 32 requests of the mixed workload through ``ServingEngine`` at
    ``LlamaConfig.bert_base_equiv`` width in bf16 (random weights from a
    seeded generator), check every request's tokens, and check from the
@@ -92,11 +99,18 @@ Phases (any failed check raises and the script exits non-zero):
    (the 161 params are one bf16 group); (6.4) three O2
    ``AdamW(multi_precision=True)`` steps, one adam-with-master launch
    each;
-7. print the kernels' JSON line, then the result line. Each path of
-   3-3e, 5b and 6 is driven with every launch count set to 0 just before
-   it and read just after; a kernel's ``launches`` is its sum over those
-   paths (the decode kernel's quant mode has no engine caller, as in the
-   JAX package, so its count is 0 there).
+7. the kernel experiments' entry points, as a user runs them
+   (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
+   at the reference's shapes): every blocked tile within two bf16 ulps
+   of ``torch.mm``, every flash variant within four bf16 ulps of the
+   largest value of the production kernels' outputs and gradients, and
+   each experiment's kernels launched;
+8. print the kernels' JSON line, then the result line. Each path of
+   3-3e, 5b, 6 and 7 is driven with every launch count set to 0 just
+   before it and read just after; a kernel's ``launches`` is its sum over
+   those paths (the decode kernel's quant mode has no engine caller, as in
+   the JAX package, so its count is 0 there; the experiments' kernels run
+   on phase 7's paths alone, as in the JAX package).
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX or of ``paddle_tpu``.
@@ -149,6 +163,15 @@ LSE_TOL = 1e-4
 # logits at scale 3 are heavy-tailed, so a tile carries more than 1/500).
 HEAD_DX_ATOL_OF_MAX = 2.0 ** -7
 HEAD_DX_FRO_RTOL = 1e-2
+# the flash variants' base-2 lse, kernel against plain: exp2/log2 on the
+# card's units and l summed in another order, on lse of magnitude ~10
+VARIANT_LSE_TOL = 1e-3
+# the experiments' parity, each flash variant against the production
+# kernels (an online softmax on unscaled q with a natural-log lse): the
+# variants round q * scale * log2(e) to bf16 and, with exp_bf16, exp2's
+# argument, so outputs and gradients may differ by a few bf16 ulps of the
+# largest value: 2^-6 of it (four ulps)
+PARITY_OF_MAX = 2.0 ** -6
 # quant_matmul against its plain version: both fp32, sums over K in
 # another order and the scale applied once per column after the sum (the
 # plain version scales each weight), a few fp32 ulps of outputs of
@@ -197,73 +220,31 @@ def smi_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def _events(torch, run):
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    run()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end)
-
-
-def time_ms(torch, fn, n_inputs=1, iters=100, warmup=5):
-    """Mean device ms per call of ``fn(i)``, cycling i over ``n_inputs``
-    input sets: ``iters`` calls are captured into one CUDA graph and the
-    replay is timed with CUDA events, so the host's launch cost is not in
-    the number (a tick-sized kernel is launched faster than Python can
-    enqueue it)."""
-    for i in range(warmup):
-        fn(i % n_inputs)
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for i in range(iters):
-            fn(i % n_inputs)
-    graph.replay()
-    ms = _events(torch, graph.replay) / iters
-    del graph
-    return ms
-
-
 def eager_ms(torch, fn, n_inputs=1, iters=100):
     """Mean ms per call of ``fn(i)`` issued eagerly, back to back: what a
     call costs the eager decode tick, the host's launch included."""
+    from paddle_tpu_torch.experiments._timing import events_ms
+
     fn(0)
     torch.cuda.synchronize()
 
     def run():
         for i in range(iters):
             fn(i % n_inputs)
-    return _events(torch, run) / iters
+    return events_ms(run) / iters
 
 
-def backward_ms(torch, forward, inputs, grad_out, iters=20, warmup=3):
-    """Device ms per call of the backward of ``forward(*inputs)`` (dx of
-    every input), timed as ``time_ms`` times the kernels: the forward is
-    captured into one CUDA graph and ``iters`` ``torch.autograd.grad``
-    calls into a second, whose replay is timed with CUDA events. As in
-    ``torch.cuda.make_graphed_callables``, the backward's operations run
-    on their forward's stream, which is the graphs' capture stream."""
-    leaves = [t.detach().requires_grad_() for t in inputs]
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        for _ in range(warmup):
-            torch.autograd.grad(forward(*leaves), leaves, grad_out)
-    torch.cuda.current_stream().wait_stream(side)
-    torch.cuda.synchronize()
-    fwd, bwd = torch.cuda.CUDAGraph(), torch.cuda.CUDAGraph()
-    with torch.cuda.graph(fwd):
-        out = forward(*leaves)
-    with torch.cuda.graph(bwd, pool=fwd.pool()):
-        for _ in range(iters):
-            torch.autograd.grad(out, leaves, grad_out, retain_graph=True)
-    fwd.replay()
-    bwd.replay()
-    ms = _events(torch, bwd.replay) / iters
-    del fwd, bwd, out
-    return ms
+# library yardsticks at one shape, timed once per run: (what, shape) -> ms
+_YARDSTICKS = {}
+
+
+def yardstick_ms(key, measure):
+    """``measure()``, the ms of a library call, taken once per run for each
+    ``key`` (phase 2's flash rows and the flash variants' rows share
+    SDPA's times at the bench shape)."""
+    if key not in _YARDSTICKS:
+        _YARDSTICKS[key] = measure()
+    return _YARDSTICKS[key]
 
 
 def bound_ms(nbytes, ops, peak):
@@ -303,14 +284,16 @@ def timed(torch, name, err, kernel, plain, library, bound, n_inputs=1,
     """One kernel's row: its error against the plain version, the device
     times of the kernel, the plain version and the library call (None
     where there is none), the kernel's eager per-call time, its bound."""
+    from paddle_tpu_torch.experiments._timing import time_ms
+
     b_ms, b_by = bound
     return dict(
-        name=name, max_abs_err=err, ms=time_ms(torch, kernel, n_inputs),
+        name=name, max_abs_err=err, ms=time_ms(kernel, n_inputs),
         eager_ms=eager_ms(torch, kernel, n_inputs),
-        plain_ms=time_ms(torch, plain, n_inputs, iters=plain_iters),
+        plain_ms=time_ms(plain, n_inputs, iters=plain_iters),
         bound_ms=b_ms, bound_by=b_by,
         library_ms=(None if library is None
-                    else time_ms(torch, library, n_inputs)))
+                    else time_ms(library, n_inputs)))
 
 
 def kernel_checks(torch, F, da, tf, shape, dtype, gen):
@@ -415,6 +398,22 @@ FLASH_SHAPES = [
 ]
 
 
+def sdpa_ms(torch, F, q, k, v, do, causal):
+    """SDPA's forward and backward ms (the flash rows' yardsticks) on
+    [B, S, H, D] inputs, once per run for each shape."""
+    from paddle_tpu_torch.experiments._timing import backward_ms, time_ms
+
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    key = (*q.shape, causal)
+    fwd = yardstick_ms(("sdpa forward", key), lambda: time_ms(
+        lambda i: F.scaled_dot_product_attention(qt, kt, vt,
+                                                 is_causal=causal)))
+    bwd = yardstick_ms(("sdpa backward", key), lambda: backward_ms(
+        lambda *t: F.scaled_dot_product_attention(*t, is_causal=causal),
+        (qt, kt, vt), do.transpose(1, 2).contiguous()))
+    return fwd, bwd
+
+
 def flash_checks(torch, F, fa, shape, gen):
     """The forward, dq and dk/dv kernels at one shape against their plain
     versions (the backward kernels get the plain forward's out, lse and
@@ -448,15 +447,11 @@ def flash_checks(torch, F, fa, shape, gen):
     n = B * S * H * D * 2
     stats = 2 * B * H * S * 4
     peak = PEAK_OPS[str(dt)]
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def sdpa(i):
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
 
     rows = [
         timed(torch, "flash_attention_fwd", err_f,
               lambda i: fa.flash_attention_fwd(q, k, v, causal),
-              lambda i: fa.flash_attention_fwd_plain(q, k, v, causal), sdpa,
+              lambda i: fa.flash_attention_fwd_plain(q, k, v, causal), None,
               bound_ms(4 * n + stats // 2, 4 * D * pairs, peak),
               plain_iters=3),
         timed(torch, "flash_attention_bwd_dq", err_q,
@@ -468,12 +463,11 @@ def flash_checks(torch, F, fa, shape, gen):
               lambda i: fa.flash_attention_bwd_dkv_plain(*bwd), None,
               bound_ms(6 * n + stats, 8 * D * pairs, peak), plain_iters=3)]
     rows[0]["lse_max_abs_err"] = lse_err
-    lib_bwd = backward_ms(
-        torch, lambda *t: F.scaled_dot_product_attention(*t, is_causal=causal),
-        (qt, kt, vt), do.transpose(1, 2).contiguous())
+    lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, do, causal)
     for r in rows[1:]:
         r["library_ms"] = lib_bwd
         r["library"] = "sdpa backward (dq, dk and dv in one call)"
+    rows[0]["library_ms"] = lib_fwd
     rows[0]["library"] = "sdpa forward"
     for r in rows:
         r["shape"], r["dtype"] = name, "bfloat16"
@@ -484,6 +478,8 @@ def head_dx_checks(torch, hd, gen, M=22528, V=32000, H=768):
     """``head_dx_softmax`` at the CE tail's shape (bench.py's B 44 x S 512
     rows, the vocabulary, the hidden width) against its plain version,
     beside the GEMM alone on precomputed bf16 probabilities."""
+    from paddle_tpu_torch.experiments._timing import time_ms
+
     dt = torch.bfloat16
     logits = (torch.randn(M, V, generator=gen, device=DEVICE) * 3).to(dt)
     m = logits.float().max(-1).values
@@ -513,7 +509,7 @@ def head_dx_checks(torch, hd, gen, M=22528, V=32000, H=768):
                 None, bound_ms(M * V * 2 + 2 * M * 4 + H * V * 2 + M * H * 2,
                                2 * M * V * H, PEAK_OPS[str(dt)]),
                 plain_iters=3)
-    row["gemm_only_ms"] = time_ms(torch, lambda i: p @ w.t(), iters=20)
+    row["gemm_only_ms"] = time_ms(lambda i: p @ w.t(), iters=20)
     row.update(shape="ce_tail", dtype="bfloat16", out_abs_max=ref_max,
                atol=atol, rtol=TOL[str(dt)][0], fro_rel_err=fro,
                fro_rtol=HEAD_DX_FRO_RTOL)
@@ -539,6 +535,8 @@ def paged_checks(torch, F, pa, shape, dtype, gen):
     """``ragged_paged_attention`` at one shape: the pool is stacked over
     enough layers to exceed twice the L2 cache, and the timed calls cycle
     the layers, as the engine's layers do."""
+    from paddle_tpu_torch.experiments._timing import time_ms
+
     name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len = shape
     dev = DEVICE
     W = max_pages * PAGE
@@ -606,7 +604,7 @@ def paged_checks(torch, F, pa, shape, dtype, gen):
     row = timed(torch, "ragged_paged_attention", err, kernel, plain, None,
                 bound_ms(nbytes, 4 * pairs * nH * D, PEAK_OPS[str(dtype)]),
                 n_inputs=L, plain_iters=20)
-    row["gather_sdpa_ms"] = time_ms(torch, gather_sdpa, L, iters=20)
+    row["gather_sdpa_ms"] = time_ms(gather_sdpa, L, iters=20)
     row["gather_sdpa_max_abs_err"] = lib_err
     row["shape"], row["dtype"] = name, str(dtype).replace("torch.", "")
     row["pages_read"] = sum(min(pa.pages_read(ctx_h[b], rows[b], PAGE),
@@ -891,31 +889,215 @@ def multi_tensor_skip_check(torch, mtu, shapes, gen):
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the engine
+# phase 2: the kernel experiments' kernels
 # ---------------------------------------------------------------------------
 
-def counters(da, tf, pa, fa, hd, qm, mtu):
-    """Each kernel's wrapper and the attribute that counts its launches
-    (the decode kernel's quant mode is counted apart, on the same
-    wrapper)."""
-    return {"ragged_decode_attention": (da.ragged_decode_attention,
-                                        "launches"),
-            "ragged_decode_attention_quant": (da.ragged_decode_attention,
-                                              "quant_launches"),
-            "fused_rms_norm": (tf.fused_rms_norm, "launches"),
-            "fused_add_rms_norm": (tf.fused_add_rms_norm, "launches"),
-            "fused_rope_qk": (tf.fused_rope_qk, "launches"),
-            "ragged_paged_attention": (pa.ragged_paged_attention,
-                                       "launches"),
-            "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
-            "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,
-                                       "launches"),
-            "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
-                                        "launches"),
-            "head_dx_softmax": (hd.head_dx_softmax, "launches"),
-            "quant_matmul": (qm.quant_matmul, "launches"),
-            "multi_tensor_update": (mtu.multi_tensor_update, "launches")}
+def blocked_matmul_checks(torch, bm, gen, M=22528, K=32000, N=768):
+    """Every tile instance of ``blocked_matmul`` at the experiment's shape
+    (the lm_head dx at the padded M) against its plain version, beside
+    ``torch.mm`` (cuBLAS)."""
+    from paddle_tpu_torch.experiments._timing import time_ms
 
+    dt = torch.bfloat16
+    a = torch.randn(M, K, generator=gen, device=DEVICE).to(dt)
+    b = torch.randn(K, N, generator=gen, device=DEVICE).to(dt)
+    mm = a @ b
+    mm_ms = time_ms(lambda i: a @ b)
+    rows = []
+    for tile in bm.TILES:
+        out = bm.blocked_matmul(a, b, *tile)
+        ref = bm.blocked_matmul_plain(a, b, tile[2])
+        torch.cuda.synchronize()
+        err = check(torch, "blocked_matmul", out, ref, dt)
+        del ref
+        row = timed(torch, "blocked_matmul", err,
+                    lambda i, t=tile: bm.blocked_matmul(a, b, *t),
+                    lambda i, t=tile: bm.blocked_matmul_plain(a, b, t[2]),
+                    None, bound_ms(2 * (M * K + K * N + M * N),
+                                   2 * M * N * K, PEAK_OPS[str(dt)]),
+                    plain_iters=2)
+        row.update(shape="lm_head_dx", dtype="bm{}_bn{}_bk{}".format(*tile),
+                   mm_max_abs_err=(out.float() - mm.float()).abs().max()
+                   .item(), library_ms=mm_ms, library="torch.mm")
+        rows.append(row)
+    return rows
+
+
+def _of_max(torch, name, out, ref):
+    """bf16 to two ulps with the atol of two ulps of the largest |ref|
+    (the ablations' outputs reach ~1e9: exp2 of unscaled scores)."""
+    rtol = TOL["torch.bfloat16"][0]
+    return check(torch, name, out, ref, torch.bfloat16,
+                 atol_floor=rtol * ref.float().abs().max().item())
+
+
+def variant_matrix(torch, fv, gen, B=4, S=512, H=12, D=64):
+    """Every flash-variant instance at B 4 against its plain version:
+    run_fwd and run_bwd (causal and not, nsplit 1, 2, 4, exp_bf16),
+    run_fwd2 (p_bf16, in-kernel scale), the twelve ablations. Returns the
+    largest errors by entry."""
+    dt = torch.bfloat16
+
+    def randn():
+        return torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(dt)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+    err = {"run_fwd": 0.0, "run_fwd_lse": 0.0, "run_bwd": 0.0,
+           "run_fwd2": 0.0, "fwd_diag": 0.0, "bwd_diag": 0.0}
+
+    def note(key, e):
+        err[key] = max(err[key], e)
+
+    for causal in (True, False):
+        for nsplit in (1, 2, 4):
+            for ebf in (False, True):
+                out, lse = fv.run_fwd(q, k, v, causal, nsplit, ebf)
+                ref, ref_lse = fv.run_fwd_plain(q, k, v, causal, nsplit, ebf)
+                torch.cuda.synchronize()
+                note("run_fwd", check(torch, "flash_variants_fwd", out, ref,
+                                      dt))
+                torch.testing.assert_close(lse, ref_lse, rtol=VARIANT_LSE_TOL,
+                                           atol=VARIANT_LSE_TOL)
+                note("run_fwd_lse", (lse - ref_lse).abs().max().item())
+                args = (q, k, v, do, ref, ref_lse, causal, nsplit, ebf)
+                note("run_bwd", check(torch, "flash_variants_bwd",
+                                      fv.run_bwd(*args),
+                                      fv.run_bwd_plain(*args), dt))
+        for p_bf16, scale_in in ((True, False), (False, True), (True, True)):
+            args = (q, k, v, causal, 1, p_bf16, scale_in)
+            out, lse = fv.run_fwd2(*args)
+            ref, ref_lse = fv.run_fwd2_plain(*args)
+            note("run_fwd2", check(torch, "flash_variants_fwd", out, ref, dt))
+            torch.testing.assert_close(lse, ref_lse, rtol=VARIANT_LSE_TOL,
+                                       atol=VARIANT_LSE_TOL)
+    for drop in fv.FWD_DROPS:
+        out, lse = fv.fwd_diag(q, k, v, drop)
+        ref, ref_lse = fv.fwd_diag_plain(q, k, v, drop)
+        note("fwd_diag", _of_max(torch, "flash_variants_fwd", out, ref))
+        torch.testing.assert_close(lse, ref_lse, rtol=VARIANT_LSE_TOL,
+                                   atol=VARIANT_LSE_TOL)
+    o, lse = fv.run_fwd_plain(q, k, v)
+    for drop in fv.BWD_DROPS:
+        args = (q, k, v, do, o, lse, drop)
+        for g, w in zip(fv.bwd_diag(*args), fv.bwd_diag_plain(*args)):
+            note("bwd_diag", _of_max(torch, "flash_variants_bwd", g, w))
+    return err
+
+
+def variant_rows(torch, F, fv, gen, B=44, S=512, H=12, D=64):
+    """The main variants at the experiments' shape (causal), timed beside
+    their plain versions and SDPA: the forward at nsplit 1 (the whole
+    square, the experiment's baseline) and 4, ``run_fwd2`` with the scale
+    in the kernel, the backward at nsplit 1 and 4."""
+    dt = torch.bfloat16
+
+    def randn():
+        return torch.randn(B, S, H, D, generator=gen, device=DEVICE).to(dt)
+
+    q, k, v, do = randn(), randn(), randn(), randn()
+    out, lse = fv.run_fwd(q, k, v)
+    ref, ref_lse = fv.run_fwd_plain(q, k, v)
+    torch.cuda.synchronize()
+    err_f = check(torch, "flash_variants_fwd", out, ref, dt)
+    lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, do, True)
+    # bound: the function's work, whatever share of the square a variant
+    # computes: inputs read once, outputs written once, the lse fp32;
+    # operations 2 * D per visible (query, key) pair and product (two
+    # products forward, five backward)
+    peak = PEAK_OPS[str(dt)]
+    pairs = B * H * S * (S + 1) // 2
+    n = B * S * H * D * 2
+    stats = B * H * S * 4
+    fwd_bound = bound_ms(4 * n + stats, 4 * D * pairs, peak)
+    bwd_bound = bound_ms(8 * n + stats, 10 * D * pairs, peak)
+    rows = []
+    for nsplit in (1, 4):
+        if nsplit == 1:
+            err = err_f
+        else:
+            err = check(torch, "flash_variants_fwd",
+                        fv.run_fwd(q, k, v, True, nsplit)[0],
+                        fv.run_fwd_plain(q, k, v, True, nsplit)[0], dt)
+        r = timed(torch, "flash_variants_fwd", err,
+                  lambda i, n_=nsplit: fv.run_fwd(q, k, v, True, n_),
+                  lambda i, n_=nsplit: fv.run_fwd_plain(q, k, v, True, n_),
+                  None, fwd_bound, plain_iters=2)
+        r.update(dtype=f"run_fwd_nsplit{nsplit}", library_ms=lib_fwd,
+                 library="sdpa forward")
+        rows.append(r)
+        args = (q, k, v, do, ref, ref_lse, True, nsplit)
+        err = check(torch, "flash_variants_bwd", fv.run_bwd(*args),
+                    fv.run_bwd_plain(*args), dt)
+        r = timed(torch, "flash_variants_bwd", err,
+                  lambda i, a=args: fv.run_bwd(*a),
+                  lambda i, a=args: fv.run_bwd_plain(*a), None, bwd_bound,
+                  plain_iters=2)
+        r.update(dtype=f"run_bwd_nsplit{nsplit}", library_ms=lib_bwd,
+                 library="sdpa backward (dq, dk and dv in one call)")
+        rows.append(r)
+    err = check(torch, "flash_variants_fwd", fv.run_fwd2(q, k, v)[0],
+                fv.run_fwd2_plain(q, k, v)[0], dt)
+    r = timed(torch, "flash_variants_fwd", err,
+              lambda i: fv.run_fwd2(q, k, v),
+              lambda i: fv.run_fwd2_plain(q, k, v), None, fwd_bound,
+              plain_iters=2)
+    r.update(dtype="run_fwd2_in_kernel_scale", library_ms=lib_fwd,
+             library="sdpa forward")
+    rows.append(r)
+    for r in rows:
+        r["shape"] = "bench"
+    return rows
+
+
+def check_launched(launches, names, what):
+    """Each kernel of ``names`` launched at least once on the path."""
+    for n in names:
+        if not launches[n] > 0:
+            raise AssertionError(f"{n}: no launch on {what}")
+
+
+def experiments(torch, fns, xdot, xfv):
+    """Phase 7: the two experiments' entry points, each with every launch
+    count set to 0 just before it and read just after; the blocked
+    kernel's error against torch.mm and each flash variant's against the
+    production kernels held to their bounds."""
+    zero_counts(fns)
+    dot = xdot.main(["20"])
+    dlaunches = read_counts(fns)
+    check_launched(dlaunches, ["blocked_matmul"], "the dot experiment")
+    blocked = [r for r in dot if "tile" in r]
+    if len(blocked) != 4:
+        raise AssertionError(f"{len(blocked)} blocked rows, wanted 4")
+    for r in blocked:
+        limit = TOL["torch.bfloat16"][0] * r["out_abs_max"]
+        if not r["max_abs_err"] <= limit:
+            raise AssertionError(f"{r['tag']}: max |err| against torch.mm "
+                                 f"{r['max_abs_err']} > {limit}")
+    if not all(math.isfinite(r["ms"]) and r["ms"] > 0 for r in dot):
+        raise AssertionError(f"a dot variant's time is not finite: {dot}")
+    zero_counts(fns)
+    flash = xfv.main([])
+    flaunches = read_counts(fns)
+    check_launched(flaunches, ["flash_variants_fwd", "flash_variants_bwd",
+                               "flash_attention_fwd", "flash_attention_bwd_dq",
+                               "flash_attention_bwd_dkv"],
+                   "the flash experiment")
+    for r in flash["parity"]:
+        for key, big in (("out_max_diff", "out_abs_max"),
+                         ("grad_max_diff", "grad_abs_max")):
+            if not r[key] <= PARITY_OF_MAX * r[big]:
+                raise AssertionError(f"flash variant parity {r}: {key} > "
+                                     f"{PARITY_OF_MAX} of {big}")
+    if not all(math.isfinite(r["ms"]) and r["ms"] > 0
+               for r in flash["timing"]):
+        raise AssertionError("a flash variant's time is not finite")
+    return {"dot_variants": dot, "flash_variants": flash}, dlaunches, \
+        flaunches
+
+
+# ---------------------------------------------------------------------------
+# phase 3: the engine
+# ---------------------------------------------------------------------------
 
 def zero_counts(fns):
     for fn, attr in fns.values():
@@ -1292,6 +1474,8 @@ def eager_and_device_ms(torch, step, iters):
     """ms per call of ``step()`` issued eagerly (host clock around
     ``iters`` calls and a synchronize), and the device ms of the same
     call captured in a CUDA graph and replayed."""
+    from paddle_tpu_torch.experiments._timing import events_ms
+
     with torch.no_grad():
         step()
         torch.cuda.synchronize()
@@ -1308,7 +1492,7 @@ def eager_and_device_ms(torch, step, iters):
         def replay():
             for _ in range(iters):
                 graph.replay()
-        device = _events(torch, replay) / iters
+        device = events_ms(replay) / iters
         del graph
     return eager, device
 
@@ -1915,15 +2099,33 @@ def kernels_line(rows, by_path):
         "multi_tensor_update": (
             "cuda", "paddle_tpu_torch/csrc/multi_tensor_update.cu",
             "paddle_tpu/ops/pallas/multi_tensor_update.py:288", "resnet50"),
+        "blocked_matmul": (
+            "cuda", "paddle_tpu_torch/csrc/blocked_matmul.cu",
+            "benchmarks/dot_variants.py:67", "lm_head_dx"),
+        "flash_variants_fwd": (
+            "cuda", "paddle_tpu_torch/csrc/flash_variants_fwd.cu",
+            "benchmarks/flash_variants.py:152", "bench"),
+        "flash_variants_bwd": (
+            "cuda", "paddle_tpu_torch/csrc/flash_variants_bwd.cu",
+            "benchmarks/flash_variants.py:182", "bench"),
     }
     # the rows the line quotes: bf16 for the fp kernels, int8 weights for
-    # quant_matmul, the main path's bf16 momentum for multi_tensor_update
+    # quant_matmul, the main path's bf16 momentum for multi_tensor_update,
+    # the fastest tile of blocked_matmul, the flash variants' baseline
+    # (nsplit 1, the whole square)
     line_dtype = {"quant_matmul": "int8",
-                  "multi_tensor_update": "momentum_bf16"}
-    # the blocked TPU kernels (S > 512) that the same kernels serve
+                  "multi_tensor_update": "momentum_bf16",
+                  "blocked_matmul": "bm128_bn256_bk32",
+                  "flash_variants_fwd": "run_fwd_nsplit1",
+                  "flash_variants_bwd": "run_bwd_nsplit1"}
+    # other TPU kernels the same kernels serve: the blocked flash kernels
+    # (S > 512), the flash experiments' fwd2 and ablations
     also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
             "flash_attention_bwd_dq": ["paddle_tpu/ops/pallas/flash_attention.py:442"],
-            "flash_attention_bwd_dkv": ["paddle_tpu/ops/pallas/flash_attention.py:458"]}
+            "flash_attention_bwd_dkv": ["paddle_tpu/ops/pallas/flash_attention.py:458"],
+            "flash_variants_fwd": ["benchmarks/flash_variants.py:352",
+                                   "benchmarks/flash_variants.py:465"],
+            "flash_variants_bwd": ["benchmarks/flash_variants.py:365"]}
     kernels = []
     for name, (route, source, replaces, at) in meta.items():
         r = next(r for r in rows if r["name"] == name and r["shape"] == at
@@ -1944,7 +2146,8 @@ def kernels_line(rows, by_path):
             k["also_replaces"] = also[name]
         if name in line_dtype:
             k["shape"], k["mode"] = at, line_dtype[name]
-        if name == "multi_tensor_update":
+        if name in ("multi_tensor_update", "blocked_matmul",
+                    "flash_variants_fwd", "flash_variants_bwd"):
             # every variant held against its plain version in phase 2
             k["variants"] = {
                 v["dtype"]: {key: v[key] for key in (
@@ -1991,9 +2194,13 @@ def main() -> None:
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.observability.quality import compare_pair
-    from paddle_tpu_torch.ops.kernels import _build
+    from paddle_tpu_torch.experiments import dot_variants as xdot
+    from paddle_tpu_torch.experiments import flash_variants as xfv
+    from paddle_tpu_torch.ops.kernels import _build, launch_counters
+    from paddle_tpu_torch.ops.kernels import blocked_matmul as bm
     from paddle_tpu_torch.ops.kernels import decode_attention as da
     from paddle_tpu_torch.ops.kernels import flash_attention as fa
+    from paddle_tpu_torch.ops.kernels import flash_variants as fv
     from paddle_tpu_torch.ops.kernels import head_dx as hd
     from paddle_tpu_torch.ops.kernels import multi_tensor_update as mtu
     from paddle_tpu_torch.ops.kernels import paged_attention as pa
@@ -2099,6 +2306,24 @@ def main() -> None:
     mtu_skip = multi_tensor_skip_check(torch, mtu, mtu_shapes, gen)
     print(f"multi_tensor_update skip = 1 left every buffer bit-identical: "
           f"{json.dumps(mtu_skip)}")
+    for r in blocked_matmul_checks(torch, bm, gen):
+        rows.append(r)
+        print(f"kernel {r['name']:24s} {r['shape']:10s} {r['dtype']:18s} "
+              f"max_abs_err {r['max_abs_err']:.3e} (torch.mm "
+              f"{r['mm_max_abs_err']:.3e}) ms {r['ms']:.6g} eager_ms "
+              f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
+              f"{r['library_ms']:.6g} (torch.mm) bound_ms "
+              f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    variant_errs = variant_matrix(torch, fv, gen)
+    print(f"flash variants, every instance at B 4 against its plain "
+          f"version, largest errors: {json.dumps(variant_errs)}")
+    for r in variant_rows(torch, F, fv, gen):
+        rows.append(r)
+        print(f"kernel {r['name']:24s} {r['shape']:6s} {r['dtype']:26s} "
+              f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} "
+              f"eager_ms {r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} "
+              f"library_ms {r['library_ms']:.6g} ({r['library']}) bound_ms "
+              f"{r['bound_ms']:.6g} ({r['bound_by']})")
     print(f"kernel checks passed ({card})")
 
     # 3. the engine at bert_base_equiv width
@@ -2108,7 +2333,7 @@ def main() -> None:
     reqs = mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
     need = max(len(p) + g - 1 for p, g in reqs)
     max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
-    fns = counters(da, tf, pa, fa, hd, qm, mtu)
+    fns = launch_counters()
     stats, launches, toks_c = serve(torch, ServingEngine, fns, params, cfg,
                                     reqs, max_len)
     print(f"engine ({card}): bert_base_equiv bf16 slots 8 chunk 16 "
@@ -2315,12 +2540,23 @@ def main() -> None:
           f"{', '.join(f'{v:.4f}' for v in radamw['losses'])}")
     print(f"launches on the ResNet-50 AdamW steps: {json.dumps(alaunches)}")
 
-    # 7. results
+    # 7. the kernel experiments' entry points, at the reference's shapes
+    del rmodel, x, y
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    exps, dlaunches, flaunches = experiments(torch, fns, xdot, xfv)
+    print(f"experiments ({card}): dot_variants and flash_variants in "
+          f"{time.perf_counter() - t0:.1f} s")
+    print(f"launches on the dot experiment: {json.dumps(dlaunches)}")
+    print(f"launches on the flash experiment: {json.dumps(flaunches)}")
+
+    # 8. results
     by_path = {"contiguous_drain": launches, "paged_drain": plaunches,
                "prefix_burst": blaunches, "quant_int8_drain": qlaunches,
                "quant_fp8_drain": f8launches, "train": tlaunches,
                "quant_int8_trained_drain": qtlaunches,
-               "resnet50_train": rlaunches, "resnet50_adamw": alaunches}
+               "resnet50_train": rlaunches, "resnet50_adamw": alaunches,
+               "dot_experiment": dlaunches, "flash_experiment": flaunches}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -2333,7 +2569,9 @@ def main() -> None:
                    "teacher_forced_quant": tfq, "train_vs_plain": tvp,
                    "train": train, "multi_tensor_skip": mtu_skip,
                    "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
-                   "resnet50_adamw": radamw}, f, indent=1)
+                   "resnet50_adamw": radamw,
+                   "flash_variant_matrix_errors": variant_errs,
+                   "experiments": exps}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,8 +3,9 @@
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with ``ctypes`` (no PyTorch
 headers, so a build takes seconds). Libraries are built at first use into
-``paddle_tpu_torch/_build/`` (git-ignored), named by a hash of the source
-and flags, so an edited source is rebuilt and an unchanged one is reused.
+``paddle_tpu_torch/_build/`` (git-ignored), named by a hash of the source,
+the shared ``csrc/*.cuh`` headers and the flags, so an edited source is
+rebuilt and an unchanged one is reused.
 """
 
 from __future__ import annotations
@@ -43,6 +44,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     src = (CSRC_DIR / f"{name}.cu").read_bytes()
+    # the shared headers too, so an edited header rebuilds its includers
+    src += b"".join(p.read_bytes() for p in sorted(CSRC_DIR.glob("*.cuh")))
     digest = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:12]}.so"
 

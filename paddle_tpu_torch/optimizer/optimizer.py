@@ -94,6 +94,10 @@ class Optimizer:
         return out
 
     def set_state_dict(self, state: Dict[str, Any]):
+        """Load the state of every parameter whose name the dict holds,
+        ignoring names no parameter has; when no name matches, map the
+        state onto the parameters by position (the dict's order against
+        the parameters')."""
         self._step_count = int(state.get("@step", 0))
         params = {p.name: p for p in self._params()}
         grouped: Dict[str, Dict[str, Any]] = {}
@@ -102,12 +106,15 @@ class Optimizer:
                 continue
             pname, _, sname = key.rpartition(".")
             grouped.setdefault(pname, {})[sname] = val
-        unknown = sorted(set(grouped) - set(params))
-        if unknown:
-            raise KeyError(f"optimizer state for unknown parameters "
-                           f"{unknown}")
-        for name, vals in grouped.items():
-            p = params[name]
+        matched = [n for n in grouped if n in params]
+        if grouped and not matched:
+            # parameter names are process-global (nn/layer/layers.py), so
+            # a rebuilt model's names have shifted: map the state onto the
+            # parameters by position, as the JAX package does
+            pairs = zip(grouped.values(), self._params())
+        else:
+            pairs = ((grouped[n], params[n]) for n in matched)
+        for vals, p in pairs:
             st = self._ensure_state(p)
             for k, v in vals.items():
                 st[k] = torch.as_tensor(

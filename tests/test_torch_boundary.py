@@ -1,5 +1,6 @@
-"""The port's boundary: it imports no JAX and nothing of the JAX package,
-and its entry points run on the card unless told otherwise."""
+"""The port's boundary: it imports no JAX, nothing of the JAX package and
+nothing of ``benchmarks/`` (whose modules import one another by bare
+name), and its entry points run on the card unless told otherwise."""
 
 import ast
 from pathlib import Path
@@ -14,7 +15,8 @@ from paddle_tpu_torch.models.convert import layer_state_from_numpy
 from paddle_tpu_torch.vision.models import resnet
 
 ROOT = Path(__file__).resolve().parents[1]
-FORBIDDEN = ("jax", "jaxlib", "paddle_tpu")
+FORBIDDEN = ("jax", "jaxlib", "paddle_tpu", "benchmarks",
+             *sorted(p.stem for p in (ROOT / "benchmarks").glob("*.py")))
 
 
 def _imports(path: Path):
@@ -44,10 +46,13 @@ def test_port_and_chip_smoke_import_no_jax():
 def test_scan_catches_a_jax_import(tmp_path):
     f = tmp_path / "m.py"
     f.write_text("import numpy\nfrom jax import numpy as jnp\n"
-                 "import paddle_tpu.models.llama\n")
+                 "import paddle_tpu.models.llama\n"
+                 "from benchmarks import dot_variants\n"
+                 "from flash_micro import timeit\n")
     assert [n for n in _imports(f) if _forbidden(n)] == [
-        "jax", "paddle_tpu.models.llama"]
+        "jax", "paddle_tpu.models.llama", "benchmarks", "flash_micro"]
     assert not _forbidden("paddle_tpu_torch.models")
+    assert not _forbidden("paddle_tpu_torch.experiments.dot_variants")
 
 
 def test_entry_points_default_to_cuda(monkeypatch):

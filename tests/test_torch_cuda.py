@@ -19,8 +19,10 @@ import torch
 
 from paddle_tpu_torch.device import set_device
 from paddle_tpu_torch.models import llama
+from paddle_tpu_torch.ops.kernels import blocked_matmul as bmm
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import flash_variants as fv
 from paddle_tpu_torch.ops.kernels import head_dx as hd
 from paddle_tpu_torch.ops.kernels import multi_tensor_update as mtu
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
@@ -697,3 +699,141 @@ class TestMultiTensorUpdate:
             mtu.multi_tensor_update(
                 "sgd", p.reshape(-1)[1:129].view(1, 128),
                 p.reshape(-1)[1:129].view(1, 128), {}, {}, 0.1, 1)
+
+
+# ---------------------------------------------------------------------------
+# the kernel experiments: blocked matmul and the flash variants
+# ---------------------------------------------------------------------------
+
+class TestBlockedMatmul:
+    @pytest.mark.parametrize("tile", bmm.TILES)
+    def test_matches_plain(self, cuda, tile):
+        """Every tile instance against the plain version's chunked fp32
+        sums, both rounded once to bf16 (outputs of magnitude ~30: one
+        bf16 ulp is 0.125-0.25)."""
+        gen = torch.Generator(device=cuda).manual_seed(0)
+        a = _randn(gen, 512, 1024, dtype=torch.bfloat16)
+        b = _randn(gen, 1024, 768, dtype=torch.bfloat16)
+        n = bmm.blocked_matmul.launches
+        out = bmm.blocked_matmul(a, b, *tile)
+        torch.cuda.synchronize()
+        assert bmm.blocked_matmul.launches == n + 1
+        assert out.dtype == torch.bfloat16 and out.shape == (512, 768)
+        _close(out, bmm.blocked_matmul_plain(a, b, tile[2]), torch.bfloat16)
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        a = torch.zeros(256, 96, dtype=torch.bfloat16, device=cuda)
+        b = torch.zeros(96, 256, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="divisible"):
+            bmm.blocked_matmul(a, b, 128, 128, 64)
+        with pytest.raises(ValueError, match="bfloat16"):
+            bmm.blocked_matmul(a.float(), b.float(), 128, 128, 32)
+        with pytest.raises(ValueError, match="contiguous"):
+            bmm.blocked_matmul(a, b.t().contiguous().t(), 128, 128, 32)
+
+    def test_timer_counts_replayed_launches(self, cuda):
+        """The experiments' timer counts the launches the device ran: the
+        warmup calls, then the captured calls once per replay (a warm
+        replay and the timed one), not the capture itself."""
+        from paddle_tpu_torch.experiments._timing import time_ms
+
+        a = torch.zeros(256, 256, dtype=torch.bfloat16, device=cuda)
+        n = bmm.blocked_matmul.launches
+        ms = time_ms(lambda i: bmm.blocked_matmul(a, a, *bmm.TILES[0]),
+                     iters=3, warmup=2)
+        assert ms > 0
+        assert bmm.blocked_matmul.launches == n + 2 + 2 * 3
+
+
+def _fv_inputs(cuda, B, S, H, D, n=4, seed=0):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return [_randn(gen, B, S, H, D, dtype=torch.bfloat16) for _ in range(n)]
+
+
+def _close_of_max(out, ref):
+    """bf16 to two ulps, with the atol of two ulps of the largest |ref|:
+    the ablations' outputs reach ~1e9 (exp2 of unscaled scores)."""
+    rtol = TOL[torch.bfloat16][0]
+    atol = max(TOL[torch.bfloat16][1],
+               rtol * ref.float().abs().max().item())
+    torch.testing.assert_close(out.float(), ref.float(), rtol=rtol,
+                               atol=atol)
+
+
+class TestFlashVariants:
+    @pytest.mark.parametrize("B,S,H,D", [(2, 256, 4, 64), (1, 192, 2, 128)])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("nsplit", [1, 2, 4])
+    @pytest.mark.parametrize("exp_bf16", [False, True])
+    def test_fwd_bwd_match_plain(self, cuda, B, S, H, D, causal, nsplit,
+                                 exp_bf16):
+        """run_fwd and run_bwd (the backward from the plain forward's out
+        and lse) against their plain versions; lse fp32 to 1e-3 (base 2,
+        exp2/log2 on the card's units, l summed in another order)."""
+        q, k, v, do = _fv_inputs(cuda, B, S, H, D)
+        n = (fv.variant_fwd.launches, fv.variant_bwd.launches)
+        out, lse = fv.run_fwd(q, k, v, causal, nsplit, exp_bf16)
+        ref, ref_lse = fv.run_fwd_plain(q, k, v, causal, nsplit, exp_bf16)
+        torch.cuda.synchronize()
+        _close(out, ref, torch.bfloat16)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+        bwd = (q, k, v, do, ref, ref_lse, causal, nsplit, exp_bf16)
+        for g, w in zip(fv.run_bwd(*bwd), fv.run_bwd_plain(*bwd)):
+            _close(g, w, torch.bfloat16)
+        assert (fv.variant_fwd.launches, fv.variant_bwd.launches) == (
+            n[0] + 1, n[1] + 1)
+
+    @pytest.mark.parametrize("B,S,H,D", [(2, 256, 4, 64), (1, 192, 2, 128)])
+    @pytest.mark.parametrize("causal", [True, False])
+    @pytest.mark.parametrize("p_bf16", [False, True])
+    @pytest.mark.parametrize("in_kernel_scale", [False, True])
+    def test_fwd2_matches_plain(self, cuda, B, S, H, D, causal, p_bf16,
+                                in_kernel_scale):
+        """run_fwd2 against its plain version; every qblocks gives the
+        same bits (it does not change the CUDA schedule)."""
+        q, k, v = _fv_inputs(cuda, B, S, H, D, n=3)
+        out, lse = fv.run_fwd2(q, k, v, causal, 1, p_bf16, in_kernel_scale)
+        ref, ref_lse = fv.run_fwd2_plain(q, k, v, causal, 1, p_bf16,
+                                         in_kernel_scale)
+        torch.cuda.synchronize()
+        _close(out, ref, torch.bfloat16)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+        for qb in (2, 4):
+            o2, l2 = fv.run_fwd2(q, k, v, causal, qb, p_bf16,
+                                 in_kernel_scale)
+            assert torch.equal(o2, out) and torch.equal(l2, lse)
+
+    @pytest.mark.parametrize("B,S,H,D", [(2, 256, 4, 64), (1, 192, 2, 128)])
+    @pytest.mark.parametrize("drop", fv.FWD_DROPS,
+                             ids=lambda d: "-".join(d) or "none")
+    def test_fwd_diag_matches_plain(self, cuda, drop, B, S, H, D):
+        q, k, v = _fv_inputs(cuda, B, S, H, D, n=3)
+        out, lse = fv.fwd_diag(q, k, v, drop)
+        ref, ref_lse = fv.fwd_diag_plain(q, k, v, drop)
+        torch.cuda.synchronize()
+        _close_of_max(out, ref)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+
+    @pytest.mark.parametrize("B,S,H,D", [(2, 256, 4, 64), (1, 192, 2, 128)])
+    @pytest.mark.parametrize("drop", fv.BWD_DROPS,
+                             ids=lambda d: "-".join(d) or "none")
+    def test_bwd_diag_matches_plain(self, cuda, drop, B, S, H, D):
+        q, k, v, do = _fv_inputs(cuda, B, S, H, D)
+        out, lse = fv.run_fwd_plain(q, k, v)
+        args = (q, k, v, do, out, lse, drop)
+        for g, w in zip(fv.bwd_diag(*args), fv.bwd_diag_plain(*args)):
+            _close_of_max(g, w)
+
+    def test_rejects_what_it_does_not_take(self, cuda):
+        q = torch.zeros(1, 100, 2, 64, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="multiple of 64"):
+            fv.run_fwd(q, q, q)
+        q = torch.zeros(1, 128, 2, 64, device=cuda)
+        with pytest.raises(ValueError, match="bfloat16"):
+            fv.run_fwd(q, q, q)
+        q = torch.zeros(1, 128, 1, 32, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="packed blocks"):
+            fv.run_fwd(q, q, q)
+        q = torch.zeros(1, 128, 4, 32, dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match="D in"):
+            fv.run_fwd(q, q, q)

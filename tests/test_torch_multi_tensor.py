@@ -518,9 +518,107 @@ def test_unported_options_raise(kwargs, exc):
         topt.Momentum(parameters=_port_params("float32"), **kwargs)
 
 
-def test_set_state_dict_rejects_unknown_names():
-    """State keyed by a name no parameter has raises instead of being
-    dropped."""
-    opt = topt.Momentum(parameters=_port_params("float32"))
-    with pytest.raises(KeyError, match="unknown"):
-        opt.set_state_dict({"nope.velocity": np.zeros(3, np.float32)})
+def _seq(pkg, state=None):
+    """``Sequential(Linear(4, 3), Linear(3, 2))`` of either package, its
+    weights set from ``state`` (numpy by state-dict key) when given."""
+    from paddle_tpu_torch.device import set_device
+    from paddle_tpu_torch.models.convert import layer_state_from_numpy
+
+    if pkg == "jax":
+        net = jnn.Sequential(jnn.Linear(4, 3), jnn.Linear(3, 2))
+        if state is not None:
+            for k, v in net.state_dict().items():
+                v._inplace_set(jnp.asarray(state[k]))
+        return net
+    prev = set_device("cpu")
+    try:
+        net = tnn.Sequential(tnn.Linear(4, 3), tnn.Linear(3, 2))
+    finally:
+        set_device(prev)
+    if state is not None:
+        layer_state_from_numpy(net, state, device="cpu")
+    return net
+
+
+def _seq_steps(pkg, net, opt, seeds):
+    """Momentum steps on numpy gradients, one per seed (the same in both
+    packages, by parameter order)."""
+    params = list(net.parameters())
+    for s in seeds:
+        for p, g in zip(params, _rand([tuple(p.shape) for p in params], s,
+                                      0.1)):
+            p.grad = (paddle.to_tensor(jnp.asarray(g)) if pkg == "jax"
+                      else torch.from_numpy(g))
+        opt.step()
+        opt.clear_grad()
+
+
+def _seq_state(net):
+    return {k: _np(v._value if hasattr(v, "_value") else v.detach())
+            for k, v in net.state_dict().items()}
+
+
+def test_set_state_dict_resumes_a_rebuilt_model():
+    """The ordinary resume: step, save the optimizer's state, rebuild the
+    same model (its parameters get new process-global names), load the
+    weights and the state, step on. No saved name matches, so the state
+    maps by position, as in the JAX package: the continued trajectory
+    equals the JAX package's over two more steps, and the port's own
+    uninterrupted one."""
+    kw = dict(learning_rate=0.1, momentum=0.9)
+    paddle.seed(0)
+    w0 = _seq_state(_seq("jax"))
+    out = {}
+    for pkg, Momentum in (("jax", paddle.optimizer.Momentum),
+                          ("port", topt.Momentum)):
+        net = _seq(pkg, w0)
+        opt = Momentum(parameters=net.parameters(), **kw)
+        _seq_steps(pkg, net, opt, (1, 2))
+        # saved as numpy, as a checkpoint is (the JAX step donates its
+        # state buffers)
+        saved = {k: v if k == "@step" or isinstance(v, dict) else _np(
+            v._value if hasattr(v, "_value") else v.detach())
+            for k, v in opt.state_dict().items()}
+        w2 = _seq_state(net)
+        net2 = _seq(pkg, w2)
+        names = {p.name for p in net.parameters()}
+        assert not names & {p.name for p in net2.parameters()}
+        opt2 = Momentum(parameters=net2.parameters(), **kw)
+        opt2.set_state_dict(saved)
+        _seq_steps(pkg, net2, opt2, (3, 4))
+        _seq_steps(pkg, net, opt, (3, 4))
+        out[pkg] = (_seq_state(net2), _seq_state(net))
+    (jres, jcont), (tres, tcont) = out["jax"], out["port"]
+    for k in jres:
+        _close(tres[k], jres[k], "float32")
+        np.testing.assert_array_equal(tres[k], tcont[k])
+    assert any(not np.array_equal(tres[k], w0[k]) for k in w0)
+
+
+def test_set_state_dict_loads_matching_names_only():
+    """Some names match: their state loads, a name no parameter has is
+    ignored and the other parameters start from zero velocity; the next
+    step equals the JAX package's."""
+    kw = dict(learning_rate=0.1, momentum=0.9)
+    vel = _rand(MIXED_SHAPES, 7, 0.1)
+    res = []
+    for params, Momentum, wrap in (
+            (_jax_params("float32"), paddle.optimizer.Momentum,
+             jnp.asarray),
+            (_port_params("float32"), topt.Momentum, torch.from_numpy)):
+        opt = Momentum(parameters=params, **kw)
+        opt.set_state_dict({f"{params[0].name}.velocity": wrap(vel[0]),
+                            f"{params[5].name}.velocity": wrap(vel[5]),
+                            "nope.velocity": wrap(vel[1]), "@step": 1})
+        with interpret():
+            for p, g in zip(params, _rand(MIXED_SHAPES, 8, 0.01)):
+                p.grad = (torch.from_numpy(g) if wrap is torch.from_numpy
+                          else paddle.to_tensor(jnp.asarray(g)))
+            opt.step()
+        res.append((params, opt.state_dict()))
+    (jp, jsd), (tp, tsd) = res
+    for i, (a, b) in enumerate(zip(tp, jp)):
+        _close(a.detach(), b.numpy(), "float32")
+        _close(tsd[f"{a.name}.velocity"], jsd[f"{b.name}.velocity"].numpy(),
+               "float32")
+    assert "nope.velocity" not in tsd and tsd["@step"] == jsd["@step"] == 2
