@@ -103,8 +103,12 @@ Phases (any failed check raises and the script exits non-zero):
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
    of ``torch.mm``, every flash variant within four bf16 ulps of the
-   largest value of the production kernels' outputs and gradients, and
-   each experiment's kernels launched;
+   largest value of the production kernels' outputs and gradients, each
+   experiment's kernels launched (the flash variants once a call: 1112
+   forward and 786 backward launches), and for each flash-variant
+   instance the experiment times, its registers, shared memory and spill
+   bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
+   spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
    3-3e, 5b, 6 and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
@@ -1049,6 +1053,63 @@ def variant_rows(torch, F, fv, gen, B=44, S=512, H=12, D=64):
     return rows
 
 
+# phase 7's flash-variant launches (a launch captured into a graph counts
+# at each replay): every timed entry is 5 warm-up calls and two replays of
+# a 30-call graph, 65 launches. Forward: 6 parity calls, the timing
+# inputs' forward, 6 run_fwd, 5 run_fwd2 and 6 ablation entries; backward:
+# 6 parity calls, 6 run_bwd and 6 ablation entries.
+FLASH_EXPERIMENT_LAUNCHES = {"flash_variants_fwd": 6 + 1 + 17 * 65,
+                             "flash_variants_bwd": 6 + 12 * 65}
+
+_FLAG_NAMES = (("causal", 1), ("exp_bf16", 2), ("p_bf16", 4),
+               ("scale_in", 8), ("diag", 16), ("-mask", 32), ("-max", 64),
+               ("-sum", 128), ("-exp", 256), ("-delta", 512), ("-ds", 1024))
+
+
+def variant_build_report(fv, _build, logs, D=64):
+    """The flash-variant instances phase 7 times, each with its registers,
+    shared memory (the launch's dynamic bytes and ptxas's static) and
+    spill bytes from the build's ``-Xptxas -v`` log; raises on spills at
+    head dim ``D``."""
+    timed = {
+        "fwd": sorted({fv.fwd_flags(True, e) for e in (False, True)}
+                      | {fv.fwd_flags(True, p_bf16=p, in_kernel_scale=sc)
+                         for p in (False, True) for sc in (False, True)}
+                      | {fv.fwd_flags(drop=d) for d in fv.FWD_DROPS}),
+        "bwd": sorted({fv.bwd_flags(True, e) for e in (False, True)}
+                      | {fv.bwd_flags(drop=d) for d in fv.BWD_DROPS})}
+    rows = []
+    for kind, flags_list in timed.items():
+        name = f"flash_variants_{kind}"
+        report = _build.ptxas_report(logs.get(name, ""))
+        smem = fv.smem_bytes(kind, D)
+        for flags in flags_list:
+            key = f"fv_{kind}ILi{D}ELi{flags}EE"
+            found = [r for k, r in report.items() if key in k]
+            if len(found) != 1:
+                raise AssertionError(f"{name}: no ptxas report for the "
+                                     f"instance {key}")
+            r = found[0]
+            rows.append(dict(kernel=name, D=D, flags=flags,
+                             variant=" ".join(n for n, b in _FLAG_NAMES
+                                              if flags & b) or "full",
+                             registers=r["registers"],
+                             smem_dynamic=smem, smem_static=r["smem"],
+                             spill_stores=r["spill_stores"],
+                             spill_loads=r["spill_loads"]))
+    for r in rows:
+        print(f"ptxas {r['kernel']} D{r['D']} flags {r['flags']} "
+              f"({r['variant']}): {r['registers']} registers, shared "
+              f"memory {r['smem_dynamic']} B dynamic + {r['smem_static']} B "
+              f"static, spill stores {r['spill_stores']} B, loads "
+              f"{r['spill_loads']} B")
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"timed flash-variant instances spill: "
+                             f"{spilled}")
+    return rows
+
+
 def check_launched(launches, names, what):
     """Each kernel of ``names`` launched at least once on the path."""
     for n in names:
@@ -1082,6 +1143,11 @@ def experiments(torch, fns, xdot, xfv):
                                "flash_attention_fwd", "flash_attention_bwd_dq",
                                "flash_attention_bwd_dkv"],
                    "the flash experiment")
+    for name, want in FLASH_EXPERIMENT_LAUNCHES.items():
+        if flaunches[name] != want:
+            raise AssertionError(f"{name}: {flaunches[name]} launches on "
+                                 f"the flash experiment, wanted {want} "
+                                 f"(one a call)")
     for r in flash["parity"]:
         for key, big in (("out_max_diff", "out_abs_max"),
                          ("grad_max_diff", "grad_abs_max")):
@@ -2218,7 +2284,8 @@ def main() -> None:
 
     # 1. build
     t0 = time.perf_counter()
-    for b in _build.build_all():
+    builds = _build.build_all()
+    for b in builds:
         print(f"built {b['name']} in {b['seconds']:.2f} s")
         for line in str(b["log"]).splitlines():
             if "registers" in line or "spill" in line or "smem" in line:
@@ -2547,6 +2614,8 @@ def main() -> None:
     exps, dlaunches, flaunches = experiments(torch, fns, xdot, xfv)
     print(f"experiments ({card}): dot_variants and flash_variants in "
           f"{time.perf_counter() - t0:.1f} s")
+    exps["flash_variants_build"] = variant_build_report(
+        fv, _build, {b["name"]: b["log"] for b in builds})
     print(f"launches on the dot experiment: {json.dumps(dlaunches)}")
     print(f"launches on the flash experiment: {json.dumps(flaunches)}")
 

@@ -13,61 +13,88 @@
 // ops/kernels/flash_variants.py (the plain versions and the variant bits
 // below). The TPU's packing of 128 / D heads per 128-lane block exists to
 // fill a lane tile; here every block reads one head's [S, D] rows of the
-// [B, S, H, D] tensors through their stride (H * D elements), and lse
+// [B, S, H, D] tensors through a TMA map (sm90_tiles.cuh), and lse
 // [B, G, hp, S] is the same memory as [B, H, S].
 //
 // The reference takes the EXACT row max before any exp2 (the whole row
 // sits in VMEM), so p = exp2(s - m) is rounded (to bf16, and with
 // exp_bf16 its argument too) against the final max; an online softmax
 // rounds against a running max, a different function. Two designs give the
-// exact max: keep a row tile's fp32 scores in shared memory (S 512 x 64
-// rows x 4 B = 128 KiB: one block per SM, and a limit on S), or two passes
-// over the keys, the first for the max alone. fv_fwd takes two passes: the
-// extra q k^T product costs tensor-core time, of which the products here
-// use a small share, and it keeps three blocks per SM and every S. So
-// dropping "max" (an ablation) drops the first pass.
+// exact max: keep a row tile's fp32 scores on chip (S 512 x 64 rows x 4 B
+// = 128 KiB: one block per SM, and a limit on S), or two passes over the
+// keys, the first for the max alone. fv_fwd takes two passes: the extra
+// q k^T product costs tensor-core time, of which the products here use a
+// small share, and it keeps several blocks per SM and every S. So
+// dropping "max" (an ablation) drops the first pass. Both passes issue the
+// same wgmma sequence on the same tiles, so their fp32 scores are bit for
+// bit the same and s - m never exceeds 0.
 //
 // Conventions: bf16 q, k, v, do, o; scores, max, sums and accumulators
 // fp32; p and ds rounded to bf16 before their products (fp32
 // accumulation); outputs rounded once. Where the variant rounds exp2's
 // argument (exp_bf16), exp2 is bf16's as XLA computes it: exp(x * ln 2)
-// in the argument's type, bf16(exp(bf16(x * bf16(ln 2)))).
+// in the argument's type, bf16(exp(bf16(x * bf16(ln 2))).
 //
 // Schedule knobs. nsplit is a run-time argument: row i computes columns
 // [0, R * (i / R + 1)) with R = S / nsplit, so nsplit = 1 computes and
 // masks the whole square (the experiment's baseline) and a larger nsplit
-// skips whole key tiles past a row tile's extent. qblocks (run_fwd2) is a
-// TPU grid split: blocks here always split q rows, one 64-row tile each.
+// skips whole key tiles past a row tile's extent; inside a tile the extent
+// is applied per row (R may be below 64). qblocks (run_fwd2) is a TPU grid
+// split: blocks here always split q rows, one 64-row tile each.
 //
 // What bounds them on the H100: at the experiments' shape (B 44, S 512,
 // 12 heads of D 64, causal) the forward moves 4 * 34.6 MB of q, k, v and
-// out, 0.042 ms at 3.35 TB/s, against 0.018 ms for the products over the
-// visible (query, key) pairs; the backward moves 8 * 34.6 MB (0.083 ms)
-// against 0.045 ms for its five products. Bytes bound both, whatever
-// share of the square a variant computes (nsplit 1 computes all of it,
-// 0.036 and 0.090 ms of products). The design is
-// that of flash_attention.cu, whose tile helpers it shares
-// (flash_tiles.cuh: a block of 4 warps per (b * h, 64-row tile), each warp
-// 16 rows; nvcuda::wmma bf16 16x16x16 products whose fp32 score tile goes
-// through shared memory, where a lane pair applies mask and softmax to one
-// row and writes the bf16 probabilities back as the next product's A
-// operand), with two changes: the forward's output accumulator stays in
-// registers (no running max, so no rescaling), and the backward is one
-// grid whose z index picks the block's role: z = 0 blocks own a query tile
-// and write dq, z = 1 blocks own a key tile and write dk and dv, each
-// recomputing the scores it needs (no atomics). delta = rowsum(do * o) is
-// computed in the kernel, as in the reference. wgmma, TMA and cp.async are
-// left for later work.
+// out, 0.042 ms at 3.35 TB/s; the backward 8 * 34.6 MB, 0.083 ms. The work
+// a variant does is larger than the function's: nsplit 1 computes the
+// whole square, the forward's max pass repeats q k^T (three products per
+// (query, key) pair, 53 GFLOP, 0.054 ms at 989 TFLOP/s) and the backward
+// recomputes the scores in both roles (seven products, 124 GFLOP, 0.125
+// ms), beside 138 M exp2 forward (the MUFU's 16 a clock per SM: 0.036
+// ms). So the tensor cores and the per-element softmax work bound them,
+// not the bytes, and the design is Hopper's:
+// - the tiles arrive by TMA. A producer's single thread loads the block's
+//   fixed tiles once, then each step's tiles into a two-stage ring, each
+//   stage guarded by a full/empty mbarrier pair; the consumer warpgroup
+//   (64 rows: wgmma's M) runs the products on a stage that has arrived
+//   while the next one loads. No thread spends registers or instructions
+//   on a copy.
+// - every product is wgmma with its fp32 accumulator in registers: scores
+//   (m64n64k16, or m64n32k16 over half a tile in the backward) from two
+//   K-major tiles in shared memory; P (or dS) from registers, packed to
+//   bf16 in the accumulator's own layout, times a tile read MN-major (the
+//   transpose bit). No score, probability or output tile passes through
+//   shared memory; row max and sums are quad shuffles.
+// - masks cost per element, so each key tile is classified once for the
+//   whole block (tile_kind): wholly visible (no test), wholly past the
+//   diagonal (p = 0 without exp2, the products still computed: nsplit 1
+//   still computes the whole square), or mixed (the per-row extent and
+//   causal tests). The dk/dv role tests a per-row lower bound, not a
+//   division by R per element.
+// - the backward is one grid whose z index picks the block's role: z = 0
+//   blocks own a query tile and write dq (ring: k, v), z = 1 blocks own a
+//   key tile and write dk and dv with the keys on the rows (ring: q, do,
+//   o and the tile's lse), each recomputing the scores it needs (no
+//   atomics, so two calls give the same bits). delta = rowsum(do * o) is
+//   computed in the kernel from the o tile, as in the reference.
+// - several blocks share an SM, so one block's softmax overlaps another's
+//   products: the forward's block is the consumers and a producer warp
+//   (~106 registers a thread at D 64, three blocks); the backward's dk/dv
+//   role holds 64 accumulators a thread, so its producer is a warpgroup
+//   that hands its registers to the consumers (setmaxnreg: 24 and 136 of
+//   80 at launch), and three blocks fit too. Overlapping the next tile's
+//   scores with this tile's softmax inside one warpgroup needs a second
+//   score set: past these budgets ptxas serializes the wgmma and spills.
 
 #pragma once
 
 #include <math.h>
 
-#include "flash_tiles.cuh"
+#include "sm90_tiles.cuh"
 
 namespace {
 
 constexpr float LN2_BF16 = 0.69140625f;  // ln 2 rounded to bf16
+constexpr int STAGES = 2;                // the ring's depth
 
 // variant bits, as ops/kernels/flash_variants.py names them
 enum : int {
@@ -90,6 +117,49 @@ __device__ __forceinline__ float vexp2(float a) {
 // the last column row i computes: its row block's causal extent
 __device__ __forceinline__ int extent(int i, int R) {
   return R * (i / R + 1);
+}
+
+// how a key tile meets a block's 64 rows, the same for every thread: every
+// element visible (inside each row's extent, none past the diagonal),
+// every element past the diagonal (and inside the extents), or mixed
+enum : int { TILE_MIXED = 0, TILE_VISIBLE = 1, TILE_MASKED = 2 };
+
+// rows r0 .. r0 + 63 (queries) against keys k0 .. k0 + 63, where row i
+// computes the columns below its extent; `causal` masks keys past the row
+__device__ __forceinline__ int tile_kind(int r0, int k0, int S, int R,
+                                         bool causal) {
+  if (k0 + TILE > min(S, extent(r0, R))) return TILE_MIXED;
+  if (!causal || k0 + TILE - 1 <= r0) return TILE_VISIBLE;
+  return k0 > r0 + TILE - 1 ? TILE_MASKED : TILE_MIXED;
+}
+
+// accumulator element e of this thread: its row's offset in the tile (0 or
+// 8 past the thread's first row) and its column in the 64-wide tile
+__device__ __forceinline__ int frag_hi(int e) { return (e >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int e) {
+  return (e >> 2) * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// store rows r and r + 8 of a 64 x D fp32 accumulator as bf16 to row0 and
+// row1 (each a row of D values), each value divided by (DIV) or times its
+// row's f0 / f1
+template <int D, bool DIV>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 64][32],
+                                          bf16* row0, bf16* row1, float f0,
+                                          float f1) {
+#pragma unroll
+  for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* a = acc[n] + 4 * j;
+      const int c = 64 * n + frag_col(4 * j);
+      *reinterpret_cast<__nv_bfloat162*>(row0 + c) =
+          DIV ? __floats2bfloat162_rn(a[0] / f0, a[1] / f0)
+              : __floats2bfloat162_rn(a[0] * f0, a[1] * f0);
+      *reinterpret_cast<__nv_bfloat162*>(row1 + c) =
+          DIV ? __floats2bfloat162_rn(a[2] / f1, a[3] / f1)
+              : __floats2bfloat162_rn(a[2] * f1, a[3] * f1);
+    }
 }
 
 bool bad_shape(int B, int H, int S, int D, int nsplit) {

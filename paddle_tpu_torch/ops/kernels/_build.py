@@ -14,6 +14,7 @@ import ctypes
 import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -22,7 +23,7 @@ from pathlib import Path
 from typing import Dict, List
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all",
-           "load_library"]
+           "load_library", "ptxas_report"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -53,10 +54,13 @@ def _lib_path(name: str) -> Path:
 def build(name: str) -> Dict[str, object]:
     """Compile ``csrc/<name>.cu`` unless an up-to-date library exists.
     Returns {"name", "path", "seconds", "log"} (``log`` holds nvcc's
-    ``-Xptxas -v`` report: registers, shared memory, spills)."""
+    ``-Xptxas -v`` report: registers, shared memory, spills; kept beside
+    the library, so a reused one reports it too)."""
     out = _lib_path(name)
+    log = out.with_suffix(".log")
     if out.exists():
-        return {"name": name, "path": str(out), "seconds": 0.0, "log": ""}
+        return {"name": name, "path": str(out), "seconds": 0.0,
+                "log": log.read_text() if log.exists() else ""}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
     cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
@@ -66,6 +70,7 @@ def build(name: str) -> Dict[str, object]:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name}.cu:\n{proc.stdout}"
                            f"{proc.stderr}")
+    log.write_text(proc.stdout + proc.stderr)
     os.replace(tmp, out)
     return {"name": name, "path": str(out), "seconds": seconds,
             "log": proc.stdout + proc.stderr}
@@ -83,3 +88,35 @@ def build_all() -> List[Dict[str, object]]:
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu`` (built if needed)."""
     return ctypes.CDLL(build(name)["path"])
+
+
+_ENTRY = re.compile(r"Compiling entry function '([^']+)'")
+_SPILLS = re.compile(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                     r"(\d+) bytes spill loads")
+_USED = re.compile(r"Used (\d+) registers(?:.*?(\d+) bytes smem)?")
+
+
+def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
+    """Per kernel (mangled name) of a build's ``-Xptxas -v`` log: its
+    registers, static shared memory, stack and spill bytes."""
+    out: Dict[str, Dict[str, int]] = {}
+    name = None
+    for line in log.splitlines():
+        m = _ENTRY.search(line)
+        if m:
+            name = m.group(1)
+            out[name] = {"registers": 0, "smem": 0, "stack": 0,
+                         "spill_stores": 0, "spill_loads": 0}
+            continue
+        if name is None:
+            continue
+        m = _SPILLS.search(line)
+        if m:
+            out[name].update(stack=int(m.group(1)),
+                             spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = _USED.search(line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            out[name]["smem"] = int(m.group(2) or 0)
+    return out

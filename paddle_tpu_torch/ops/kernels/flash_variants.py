@@ -64,7 +64,7 @@ __all__ = ["LOG2_E", "FWD_DROPS", "BWD_DROPS", "run_fwd", "run_bwd",
            "run_bwd_plain", "run_fwd2_plain", "fwd_diag_plain",
            "bwd_diag_plain", "variant_fwd", "variant_bwd",
            "variant_fwd_plain", "variant_bwd_plain", "fwd_flags",
-           "bwd_flags", "FWD_INSTANCES", "BWD_INSTANCES"]
+           "bwd_flags", "FWD_INSTANCES", "BWD_INSTANCES", "smem_bytes"]
 
 LOG2_E = math.log2(math.e)
 
@@ -272,7 +272,7 @@ def _check_kernel(*ts):
         raise ValueError("the kernels take contiguous tensors")
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("the kernels take tensors on a 16-byte boundary "
-                         "(rows are read in 16-byte loads)")
+                         "(the TMA maps need an aligned base)")
 
 
 def variant_fwd(q, k, v, flags, nsplit=1, cst=1.0):
@@ -344,6 +344,18 @@ def _kernel(name: str, n_ptrs: int, n_floats: int):
                    + [ctypes.c_float] * n_floats + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
+
+
+def smem_bytes(kernel: str, D: int) -> int:
+    """The dynamic shared memory a block of the ``kernel`` ("fwd" or
+    "bwd") instances at head dim ``D`` asks for (builds the library)."""
+    from ._build import load_library
+
+    name = f"flash_variants_{kernel}"
+    fn = getattr(load_library(name), f"{name}_smem")
+    fn.argtypes = [ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(D)
 
 
 # ---------------------------------------------------------------------------

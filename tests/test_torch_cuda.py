@@ -824,6 +824,70 @@ class TestFlashVariants:
         for g, w in zip(fv.bwd_diag(*args), fv.bwd_diag_plain(*args)):
             _close_of_max(g, w)
 
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("S,nsplit", [(512, 8), (512, 16), (64, 1),
+                                          (2048, 1), (2048, 4)])
+    def test_tilings_match_plain(self, cuda, S, nsplit, D):
+        """Tilings the TMA ring and the per-row extents must handle: R 64
+        and R 32 (two extents inside one 64-row tile) at S 512, a single
+        tile (S 64), and 32 key tiles (S 2048), causal and not."""
+        q, k, v, do = _fv_inputs(cuda, 1, S, 2, D, seed=2)
+        for causal in (True, False):
+            out, lse = fv.run_fwd(q, k, v, causal, nsplit)
+            ref, ref_lse = fv.run_fwd_plain(q, k, v, causal, nsplit)
+            torch.cuda.synchronize()
+            _close(out, ref, torch.bfloat16)
+            torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+            bwd = (q, k, v, do, ref, ref_lse, causal, nsplit)
+            for g, w in zip(fv.run_bwd(*bwd), fv.run_bwd_plain(*bwd)):
+                _close(g, w, torch.bfloat16)
+
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("flags", sorted(fv.FWD_INSTANCES))
+    def test_every_fwd_instance(self, cuda, flags, D):
+        """Each forward template instance at nsplit 2 against the plain
+        version (q prescaled, or scaled in the kernel for SCALE_IN)."""
+        q, k, v = _fv_inputs(cuda, 1, 256, 2, D, n=3, seed=3)
+        c = fv._scale(D) * fv.LOG2_E
+        if not flags & fv.SCALE_IN:
+            q = fv._prescale(q, c)
+        out, lse = fv.variant_fwd(q, k, v, flags, 2, c)
+        ref, ref_lse = fv.variant_fwd_plain(q, k, v, flags, 2, c)
+        torch.cuda.synchronize()
+        if flags & fv.DIAG:
+            _close_of_max(out, ref)
+        else:
+            _close(out, ref, torch.bfloat16)
+        torch.testing.assert_close(lse, ref_lse, rtol=1e-3, atol=1e-3)
+
+    @pytest.mark.parametrize("D", [64, 128])
+    @pytest.mark.parametrize("flags", sorted(fv.BWD_INSTANCES))
+    def test_every_bwd_instance(self, cuda, flags, D):
+        """Each backward template instance at nsplit 2 against the plain
+        version, from the plain forward's out and lse (same mask)."""
+        q, k, v, do = _fv_inputs(cuda, 1, 256, 2, D, seed=4)
+        q = fv._prescale(q, fv._scale(D) * fv.LOG2_E)
+        o, lse = fv.variant_fwd_plain(q, k, v,
+                                      flags & (fv.CAUSAL | fv.EXP_BF16), 2)
+        args = (q, k, v, do, o, lse, flags, 2, fv._scale(D), 1 / fv.LOG2_E)
+        for g, w in zip(fv.variant_bwd(*args), fv.variant_bwd_plain(*args)):
+            if flags & fv.DIAG:
+                _close_of_max(g, w)
+            else:
+                _close(g, w, torch.bfloat16)
+
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_two_calls_give_the_same_bits(self, cuda, D):
+        """No atomics and a fixed order of sums: a second call repeats
+        the first bit for bit."""
+        q, k, v, do = _fv_inputs(cuda, 2, 512, 2, D, seed=5)
+        first = fv.run_fwd(q, k, v, True, 4)
+        again = fv.run_fwd(q, k, v, True, 4)
+        assert all(torch.equal(a, b) for a, b in zip(first, again))
+        g1 = fv.run_bwd(q, k, v, do, *first, True, 4)
+        g2 = fv.run_bwd(q, k, v, do, *first, True, 4)
+        assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
     def test_rejects_what_it_does_not_take(self, cuda):
         q = torch.zeros(1, 100, 2, 64, dtype=torch.bfloat16, device=cuda)
         with pytest.raises(ValueError, match="multiple of 64"):

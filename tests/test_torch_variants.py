@@ -118,6 +118,12 @@ FWD_CASES = [  # B, S, H, D, dtype, causal, nsplit, exp_bf16
     (2, 128, 4, 64, "bfloat16", True, 1, False),
     (2, 128, 4, 64, "bfloat16", True, 2, True),
     (1, 128, 4, 64, "bfloat16", False, 4, True),
+    # more key tiles than the S 128 cases reach: R = 64 over three tiles,
+    # and R = 32, where a 64-row tile holds two extents
+    (1, 192, 2, 64, "float32", True, 3, False),
+    (1, 256, 2, 64, "float32", True, 8, False),
+    (1, 256, 2, 64, "bfloat16", True, 8, True),
+    (1, 192, 2, 128, "float32", False, 3, False),
 ]
 
 
@@ -295,6 +301,32 @@ def test_shapes_the_port_rejects():
         bm.blocked_matmul(a, torch.zeros(64, 256), 64, 64, 64)
     with pytest.raises(ValueError, match="divisible"):
         bm.blocked_matmul(a, torch.zeros(64, 192), 128, 128, 32)
+
+
+def test_ptxas_report_reads_each_kernel():
+    """A build's ``-Xptxas -v`` log, kernel by kernel: registers, static
+    shared memory, stack and spill bytes (``chip_smoke.py`` phase 7 prints
+    them for each flash-variant instance it times and fails on spills)."""
+    from paddle_tpu_torch.ops.kernels._build import ptxas_report
+
+    log = """ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_16fv_fwdILi64ELi1EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_16fv_fwdILi64ELi1EEEv14CUtensorMap_st
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 106 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_16fv_bwdILi64ELi17EEEv14CUtensorMap_st' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_16fv_bwdILi64ELi17EEEv14CUtensorMap_st
+    8 bytes stack frame, 28 bytes spill stores, 32 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 64 bytes smem, 400 bytes cmem[0]
+"""
+    rep = ptxas_report(log)
+    assert rep == {
+        "_ZN12_GLOBAL__N_16fv_fwdILi64ELi1EEEv14CUtensorMap_st": dict(
+            registers=106, smem=0, stack=0, spill_stores=0, spill_loads=0),
+        "_ZN12_GLOBAL__N_16fv_bwdILi64ELi17EEEv14CUtensorMap_st": dict(
+            registers=168, smem=64, stack=8, spill_stores=28,
+            spill_loads=32)}
+    assert ptxas_report("") == {}
 
 
 def test_experiments_need_a_gpu(monkeypatch):
