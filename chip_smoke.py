@@ -9,8 +9,9 @@ Run from the root of a checkout, with no arguments:
 Phases (any failed check raises and the script exits non-zero):
 
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per
-   source, all started together) and print the card's name and power
-   limit;
+   source, all started together), print the card's name and power
+   limit, and the registers, shared memory and spills of every
+   ``flash_attention.cu`` instance (a spill fails);
 2. hold every kernel against its plain PyTorch version on the card, in
    bf16 and fp32, and time the kernel, the plain version and, where one
    PyTorch call computes the same function, that call: the tick kernels
@@ -19,10 +20,12 @@ Phases (any failed check raises and the script exits non-zero):
    decode tick, the serving admit prefill (256 rows at context 0 and
    192), llama7b-width and GQA decode ticks and one mixed-q_len launch,
    each on a shuffled page table, beside gather + SDPA (two calls); the
-   flash-attention forward, dq and dk/dv kernels (bf16) at bench.py's
-   training shape (B 44, S 512, 12 heads of D 64, causal), at llama7b
-   width (B 1, S 2048, 32 heads of D 128, causal) and one non-causal
-   shape with a ragged edge, beside SDPA's forward and backward;
+   flash-attention forward and backward kernels (bf16; the backward in
+   one launch of both roles, bit-identical to each role launched alone,
+   and each role alone) at bench.py's training shape (B 44, S 512, 12
+   heads of D 64, causal), at llama7b width (B 1, S 2048, 32 heads of D
+   128, causal) and one non-causal shape with a ragged edge, beside
+   SDPA's forward and backward;
    ``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768)
    beside its GEMM alone; ``quant_matmul`` (int8 and fp8 weights, bf16
    x) at the decode tick's four projection shapes with B 8, lm_head with
@@ -78,8 +81,9 @@ Phases (any failed check raises and the script exits non-zero):
    (b) at B 44, S 512, two warm-up steps of ``make_train_step`` (AdamW,
    lr 1e-4), then ten timed ones: tokens/s, ms/step, peak memory, the
    device's busy share from a profiled step; (c) the loss after them is
-   below the first step's; (d) each timed step launches the forward, dq
-   and dk/dv kernels once per layer and ``head_dx_softmax`` once;
+   below the first step's; (d) each timed step launches the forward and
+   the one-launch backward once per layer (the role-only backward entries
+   never) and ``head_dx_softmax`` once;
 3e. (after 5) quantized serving's quality bar on a confident model:
    phase 5's weights trained on over its batch until the loss is below
    0.3, cast to bf16, serve 32 continuations of its training sequences
@@ -419,10 +423,12 @@ def sdpa_ms(torch, F, q, k, v, do, causal):
 
 
 def flash_checks(torch, F, fa, shape, gen):
-    """The forward, dq and dk/dv kernels at one shape against their plain
-    versions (the backward kernels get the plain forward's out, lse and
-    delta), timed beside SDPA: its forward, and its backward (dq, dk and
-    dv in one call), both as CUDA-graph replays like the kernels."""
+    """The forward kernel and the backward kernel (dq, dk and dv in one
+    launch, and each role alone) at one shape against their plain versions
+    (the backward gets the plain forward's out, lse and delta; the
+    one-launch gradients must equal the role launches' bit for bit), timed
+    beside SDPA: its forward, and its backward (dq, dk and dv in one call),
+    both as CUDA-graph replays like the kernels."""
     name, B, S, H, D, causal = shape
     dt = torch.bfloat16
 
@@ -438,12 +444,18 @@ def flash_checks(torch, F, fa, shape, gen):
     lse_err = (lse - ref_lse).abs().max().item()
     delta = fa.attention_delta(ref, do)
     bwd = (q, k, v, do, ref_lse, delta, causal)
-    err_q = check(torch, "flash_attention_bwd_dq",
-                  fa.flash_attention_bwd_dq(*bwd),
+    grads = fa.flash_attention_bwd(*bwd)
+    err_b = check(torch, "flash_attention_bwd", grads,
+                  fa.flash_attention_bwd_grads_plain(*bwd), dt)
+    dq = fa.flash_attention_bwd_dq(*bwd)
+    dkv = fa.flash_attention_bwd_dkv(*bwd)
+    err_q = check(torch, "flash_attention_bwd_dq", dq,
                   fa.flash_attention_bwd_dq_plain(*bwd), dt)
-    err_kv = check(torch, "flash_attention_bwd_dkv",
-                   fa.flash_attention_bwd_dkv(*bwd),
+    err_kv = check(torch, "flash_attention_bwd_dkv", dkv,
                    fa.flash_attention_bwd_dkv_plain(*bwd), dt)
+    if not all(torch.equal(g, r) for g, r in zip(grads, (dq, *dkv))):
+        raise AssertionError(f"flash_attention_bwd at {name}: the one-launch "
+                             f"gradients differ from the role launches'")
 
     # bound: q, k, v, do read once, outputs written once, lse and delta
     # fp32; operations 2 * D per visible (query, key) pair and product
@@ -458,6 +470,10 @@ def flash_checks(torch, F, fa, shape, gen):
               lambda i: fa.flash_attention_fwd_plain(q, k, v, causal), None,
               bound_ms(4 * n + stats // 2, 4 * D * pairs, peak),
               plain_iters=3),
+        timed(torch, "flash_attention_bwd", err_b,
+              lambda i: fa.flash_attention_bwd(*bwd),
+              lambda i: fa.flash_attention_bwd_grads_plain(*bwd), None,
+              bound_ms(7 * n + stats, 10 * D * pairs, peak), plain_iters=3),
         timed(torch, "flash_attention_bwd_dq", err_q,
               lambda i: fa.flash_attention_bwd_dq(*bwd),
               lambda i: fa.flash_attention_bwd_dq_plain(*bwd), None,
@@ -467,6 +483,7 @@ def flash_checks(torch, F, fa, shape, gen):
               lambda i: fa.flash_attention_bwd_dkv_plain(*bwd), None,
               bound_ms(6 * n + stats, 8 * D * pairs, peak), plain_iters=3)]
     rows[0]["lse_max_abs_err"] = lse_err
+    rows[1]["bit_identical_to_role_launches"] = True
     lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, do, causal)
     for r in rows[1:]:
         r["library_ms"] = lib_bwd
@@ -1066,11 +1083,36 @@ _FLAG_NAMES = (("causal", 1), ("exp_bf16", 2), ("p_bf16", 4),
                ("-sum", 128), ("-exp", 256), ("-delta", 512), ("-ds", 1024))
 
 
+def ptxas_rows(_build, log, instances, what):
+    """For each (mangled-name key, label, fields, dynamic shared memory) of
+    ``instances``: the one kernel of the build's ``-Xptxas -v`` ``log``
+    whose name holds the key, with its registers (at launch), shared memory
+    (the launch's dynamic bytes and ptxas's static) and spill bytes; prints
+    each and raises on a spill."""
+    report = _build.ptxas_report(log)
+    rows = []
+    for key, label, fields, smem in instances:
+        found = [r for k, r in report.items() if key in k]
+        if len(found) != 1:
+            raise AssertionError(f"{what}: no ptxas report for the instance "
+                                 f"{key}")
+        r = found[0]
+        rows.append(dict(**fields, registers=r["registers"],
+                         smem_dynamic=smem, smem_static=r["smem"],
+                         spill_stores=r["spill_stores"],
+                         spill_loads=r["spill_loads"]))
+        print(f"ptxas {label}: {r['registers']} registers, shared memory "
+              f"{smem} B dynamic + {r['smem']} B static, spill stores "
+              f"{r['spill_stores']} B, loads {r['spill_loads']} B")
+    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
+    if spilled:
+        raise AssertionError(f"{what} instances spill: {spilled}")
+    return rows
+
+
 def variant_build_report(fv, _build, logs, D=64):
-    """The flash-variant instances phase 7 times, each with its registers,
-    shared memory (the launch's dynamic bytes and ptxas's static) and
-    spill bytes from the build's ``-Xptxas -v`` log; raises on spills at
-    head dim ``D``."""
+    """The flash-variant instances phase 7 times, each with its ptxas
+    report (``ptxas_rows``); raises on spills at head dim ``D``."""
     timed = {
         "fwd": sorted({fv.fwd_flags(True, e) for e in (False, True)}
                       | {fv.fwd_flags(True, p_bf16=p, in_kernel_scale=sc)
@@ -1081,33 +1123,29 @@ def variant_build_report(fv, _build, logs, D=64):
     rows = []
     for kind, flags_list in timed.items():
         name = f"flash_variants_{kind}"
-        report = _build.ptxas_report(logs.get(name, ""))
         smem = fv.smem_bytes(kind, D)
+        instances = []
         for flags in flags_list:
-            key = f"fv_{kind}ILi{D}ELi{flags}EE"
-            found = [r for k, r in report.items() if key in k]
-            if len(found) != 1:
-                raise AssertionError(f"{name}: no ptxas report for the "
-                                     f"instance {key}")
-            r = found[0]
-            rows.append(dict(kernel=name, D=D, flags=flags,
-                             variant=" ".join(n for n, b in _FLAG_NAMES
-                                              if flags & b) or "full",
-                             registers=r["registers"],
-                             smem_dynamic=smem, smem_static=r["smem"],
-                             spill_stores=r["spill_stores"],
-                             spill_loads=r["spill_loads"]))
-    for r in rows:
-        print(f"ptxas {r['kernel']} D{r['D']} flags {r['flags']} "
-              f"({r['variant']}): {r['registers']} registers, shared "
-              f"memory {r['smem_dynamic']} B dynamic + {r['smem_static']} B "
-              f"static, spill stores {r['spill_stores']} B, loads "
-              f"{r['spill_loads']} B")
-    spilled = [r for r in rows if r["spill_stores"] or r["spill_loads"]]
-    if spilled:
-        raise AssertionError(f"timed flash-variant instances spill: "
-                             f"{spilled}")
+            variant = " ".join(n for n, b in _FLAG_NAMES
+                               if flags & b) or "full"
+            instances.append((f"fv_{kind}ILi{D}ELi{flags}EE",
+                              f"{name} D{D} flags {flags} ({variant})",
+                              dict(kernel=name, D=D, flags=flags,
+                                   variant=variant), smem))
+        rows += ptxas_rows(_build, logs.get(name, ""), instances,
+                           "timed flash-variant")
     return rows
+
+
+def flash_build_report(fa, _build, logs):
+    """Every instance of ``csrc/flash_attention.cu`` (forward and backward
+    at D 64 and 128; phase 2 times all four), each with its ptxas report
+    (``ptxas_rows``); raises on a spill."""
+    instances = [(f"flash_{kind}ILi{D}EE", f"flash_{kind} D{D}",
+                  dict(kernel=f"flash_{kind}", D=D), fa.smem_bytes(kind, D))
+                 for kind in ("fwd", "bwd") for D in (64, 128)]
+    return ptxas_rows(_build, logs.get("flash_attention", ""), instances,
+                      "flash_attention")
 
 
 def check_launched(launches, names, what):
@@ -1140,7 +1178,8 @@ def experiments(torch, fns, xdot, xfv):
     flash = xfv.main([])
     flaunches = read_counts(fns)
     check_launched(flaunches, ["flash_variants_fwd", "flash_variants_bwd",
-                               "flash_attention_fwd", "flash_attention_bwd_dq",
+                               "flash_attention_fwd", "flash_attention_bwd",
+                               "flash_attention_bwd_dq",
                                "flash_attention_bwd_dkv"],
                    "the flash experiment")
     for name, want in FLASH_EXPERIMENT_LAUNCHES.items():
@@ -1794,6 +1833,8 @@ def plain_kernels(fa, hd):
     """Every training kernel swapped for its plain version."""
     return [mock.patch.object(fa, "flash_attention_fwd",
                               fa.flash_attention_fwd_plain),
+            mock.patch.object(fa, "flash_attention_bwd",
+                              fa.flash_attention_bwd_grads_plain),
             mock.patch.object(fa, "flash_attention_bwd_dq",
                               fa.flash_attention_bwd_dq_plain),
             mock.patch.object(fa, "flash_attention_bwd_dkv",
@@ -1805,8 +1846,7 @@ def plain_kernels(fa, hd):
 PROFILER_RECORDS = ("Activity Buffer Request", "Runtime Triggered Module",
                     "Lazy Function Loading")
 # device kernel names: the port's training kernels, cuBLAS's matmuls
-HAND_WRITTEN = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv",
-                "head_dx_kernel")
+HAND_WRITTEN = ("flash_fwd", "flash_bwd", "head_dx_kernel")
 MATMUL = ("nvjet", "gemm", "xmma")
 
 
@@ -1920,8 +1960,9 @@ def train_run(torch, llama, fns, params, cfg, tokens, lr=1e-4, warmup=2,
     launches = read_counts(fns)
     L = cfg.num_layers
     check_counts(launches, {
-        "flash_attention_fwd": L * steps, "flash_attention_bwd_dq": L * steps,
-        "flash_attention_bwd_dkv": L * steps, "head_dx_softmax": steps},
+        "flash_attention_fwd": L * steps, "flash_attention_bwd": L * steps,
+        "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+        "head_dx_softmax": steps},
         f"{steps} train steps")
     peak = torch.cuda.max_memory_allocated()
     losses += [t.item() for t in timed_losses]
@@ -2150,12 +2191,15 @@ def kernels_line(rows, by_path):
         "flash_attention_fwd": (
             "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
             "paddle_tpu/ops/pallas/flash_attention.py:647", "bench"),
+        "flash_attention_bwd": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
         "flash_attention_bwd_dq": (
             "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
-            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
+            "paddle_tpu/ops/pallas/flash_attention.py:442", "bench"),
         "flash_attention_bwd_dkv": (
             "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
-            "paddle_tpu/ops/pallas/flash_attention.py:682", "bench"),
+            "paddle_tpu/ops/pallas/flash_attention.py:458", "bench"),
         "head_dx_softmax": (
             "cuda", "paddle_tpu_torch/csrc/head_dx.cu",
             "paddle_tpu/ops/pallas/head_dx.py:86", "ce_tail"),
@@ -2187,8 +2231,8 @@ def kernels_line(rows, by_path):
     # other TPU kernels the same kernels serve: the blocked flash kernels
     # (S > 512), the flash experiments' fwd2 and ablations
     also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
-            "flash_attention_bwd_dq": ["paddle_tpu/ops/pallas/flash_attention.py:442"],
-            "flash_attention_bwd_dkv": ["paddle_tpu/ops/pallas/flash_attention.py:458"],
+            "flash_attention_bwd": ["paddle_tpu/ops/pallas/flash_attention.py:442",
+                                    "paddle_tpu/ops/pallas/flash_attention.py:458"],
             "flash_variants_fwd": ["benchmarks/flash_variants.py:352",
                                    "benchmarks/flash_variants.py:465"],
             "flash_variants_bwd": ["benchmarks/flash_variants.py:365"]}
@@ -2210,6 +2254,10 @@ def kernels_line(rows, by_path):
             k["gemm_only_ms"] = r["gemm_only_ms"]
         if name in also:
             k["also_replaces"] = also[name]
+        if name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+            # one role of the backward kernel, launched alone; training
+            # launches both roles in one grid (flash_attention_bwd)
+            k["role_of"] = "flash_attention_bwd"
         if name in line_dtype:
             k["shape"], k["mode"] = at, line_dtype[name]
         if name in ("multi_tensor_update", "blocked_matmul",
@@ -2291,6 +2339,8 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.2f} s")
+    flash_build = flash_build_report(fa, _build,
+                                     {b["name"]: b["log"] for b in builds})
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2640,6 +2690,7 @@ def main() -> None:
                    "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
                    "resnet50_adamw": radamw,
                    "flash_variant_matrix_errors": variant_errs,
+                   "flash_attention_build": flash_build,
                    "experiments": exps}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

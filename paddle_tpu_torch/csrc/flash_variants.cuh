@@ -94,7 +94,6 @@
 namespace {
 
 constexpr float LN2_BF16 = 0.69140625f;  // ln 2 rounded to bf16
-constexpr int STAGES = 2;                // the ring's depth
 
 // variant bits, as ops/kernels/flash_variants.py names them
 enum : int {
@@ -131,35 +130,6 @@ __device__ __forceinline__ int tile_kind(int r0, int k0, int S, int R,
   if (k0 + TILE > min(S, extent(r0, R))) return TILE_MIXED;
   if (!causal || k0 + TILE - 1 <= r0) return TILE_VISIBLE;
   return k0 > r0 + TILE - 1 ? TILE_MASKED : TILE_MIXED;
-}
-
-// accumulator element e of this thread: its row's offset in the tile (0 or
-// 8 past the thread's first row) and its column in the 64-wide tile
-__device__ __forceinline__ int frag_hi(int e) { return (e >> 1) & 1; }
-__device__ __forceinline__ int frag_col(int e) {
-  return (e >> 2) * 8 + 2 * (threadIdx.x & 3) + (e & 1);
-}
-
-// store rows r and r + 8 of a 64 x D fp32 accumulator as bf16 to row0 and
-// row1 (each a row of D values), each value divided by (DIV) or times its
-// row's f0 / f1
-template <int D, bool DIV>
-__device__ __forceinline__ void store_acc(const float (&acc)[D / 64][32],
-                                          bf16* row0, bf16* row1, float f0,
-                                          float f1) {
-#pragma unroll
-  for (int n = 0; n < D / 64; ++n)
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      const float* a = acc[n] + 4 * j;
-      const int c = 64 * n + frag_col(4 * j);
-      *reinterpret_cast<__nv_bfloat162*>(row0 + c) =
-          DIV ? __floats2bfloat162_rn(a[0] / f0, a[1] / f0)
-              : __floats2bfloat162_rn(a[0] * f0, a[1] * f0);
-      *reinterpret_cast<__nv_bfloat162*>(row1 + c) =
-          DIV ? __floats2bfloat162_rn(a[2] / f1, a[3] / f1)
-              : __floats2bfloat162_rn(a[2] * f1, a[3] * f1);
-    }
 }
 
 bool bad_shape(int B, int H, int S, int D, int nsplit) {

@@ -173,30 +173,6 @@ __device__ __forceinline__ void dkv_tile_p_ds(
   }
 }
 
-// the ring's barriers and the consumers' wait for the fixed tiles
-struct Ring {
-  uint64_t* fixed;
-  uint64_t* full;
-  uint64_t* empty;
-};
-
-__device__ __forceinline__ Ring ring_init(unsigned char* bars) {
-  Ring r;
-  r.fixed = reinterpret_cast<uint64_t*>(bars);
-  r.full = r.fixed + 1;
-  r.empty = r.full + STAGES;
-  if (threadIdx.x == 0) {
-    mbar_init(r.fixed, 1);
-    for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&r.full[s], 1);
-      mbar_init(&r.empty[s], WG_THREADS);
-    }
-    mbar_init_fence();
-  }
-  __syncthreads();
-  return r;
-}
-
 // dq of one query tile: the keys stream through the ring
 template <int D, int F>
 __device__ __forceinline__ void bwd_dq(

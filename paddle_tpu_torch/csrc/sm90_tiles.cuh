@@ -1,7 +1,7 @@
 // Hopper building blocks for attention kernels over one head of a
 // [B, S, H, D] bf16 tensor, written so that any kernel of csrc/ can include
-// them (the flash-variant kernels do; flash_attention.cu still uses
-// flash_tiles.cuh's nvcuda::wmma tiles, head_dx.cu its own):
+// them (the production flash kernels of flash_attention.cu and the
+// flash-variant kernels do; head_dx.cu keeps its own):
 //
 // - host: the TMA map of one head's 64-row tiles (cuTensorMapEncodeTiled,
 //   looked up at run time with the CUDA runtime's entry-point query, so
@@ -12,8 +12,9 @@
 //   writes, m64n64k16 and m64n32k16 bf16 products with fp32 accumulators
 //   in registers, A from shared memory or from registers; setmaxnreg, to
 //   hand a producer warpgroup's registers to the consumers;
-// - accumulator-fragment helpers: quad reductions and the packing of an
-//   fp32 accumulator into the bf16 register A operand of the next product.
+// - accumulator-fragment helpers: quad reductions, the packing of an fp32
+//   accumulator into the bf16 register A operand of the next product, and
+//   the store of an accumulator's rows as bf16.
 //
 // Layouts. A tile is 64 rows of D bf16 values, stored as D / 64 boxes of
 // 64 rows x 128 bytes (8 KiB each, 1024-byte aligned) in the TMA's
@@ -192,6 +193,39 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
       "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
+}
+
+// a ring of STAGES stages: a barrier for the block's fixed tiles, then
+// full[s] (the producer's arrival with its bytes, and `full_count` - 1
+// more arrivals of threads that store into the stage) and empty[s] (one
+// arrival of each of `empty_count` consumer threads); set up by thread 0
+// before any use
+constexpr int STAGES = 2;
+
+struct Ring {
+  uint64_t* fixed;
+  uint64_t* full;
+  uint64_t* empty;
+};
+
+// the ring's 1 + 2 STAGES barriers at `bars`; a __syncthreads of the block
+__device__ __forceinline__ Ring ring_init(unsigned char* bars,
+                                          uint32_t full_count = 1,
+                                          uint32_t empty_count = WG_THREADS) {
+  Ring r;
+  r.fixed = reinterpret_cast<uint64_t*>(bars);
+  r.full = r.fixed + 1;
+  r.empty = r.full + STAGES;
+  if (threadIdx.x == 0) {
+    mbar_init(r.fixed, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&r.full[s], full_count);
+      mbar_init(&r.empty[s], empty_count);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+  return r;
 }
 
 // the consumer warpgroup's own barrier (named barrier 1, 128 threads)
@@ -409,6 +443,37 @@ __device__ __forceinline__ float quad_sum(float x) {
 __device__ __forceinline__ uint32_t pack_bf16(bf16 lo, bf16 hi) {
   return (uint32_t)__bfloat16_as_ushort(lo) |
          ((uint32_t)__bfloat16_as_ushort(hi) << 16);
+}
+
+// accumulator element e of this thread: its row's offset in the tile (0 or
+// 8 past the thread's first row) and its column in the tile
+__device__ __forceinline__ int frag_hi(int e) { return (e >> 1) & 1; }
+__device__ __forceinline__ int frag_col(int e) {
+  return (e >> 2) * 8 + 2 * (threadIdx.x & 3) + (e & 1);
+}
+
+// store rows r and r + 8 of a 64 x D fp32 accumulator as bf16 to row0 and
+// row1 (each a row of D values; a null row is not stored), each value
+// divided by (DIV) or times its row's f0 / f1
+template <int D, bool DIV>
+__device__ __forceinline__ void store_acc(const float (&acc)[D / 64][32],
+                                          bf16* row0, bf16* row1, float f0,
+                                          float f1) {
+#pragma unroll
+  for (int n = 0; n < D / 64; ++n)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float* a = acc[n] + 4 * j;
+      const int c = 64 * n + frag_col(4 * j);
+      if (row0)
+        *reinterpret_cast<__nv_bfloat162*>(row0 + c) =
+            DIV ? __floats2bfloat162_rn(a[0] / f0, a[1] / f0)
+                : __floats2bfloat162_rn(a[0] * f0, a[1] * f0);
+      if (row1)
+        *reinterpret_cast<__nv_bfloat162*>(row1 + c) =
+            DIV ? __floats2bfloat162_rn(a[2] / f1, a[3] / f1)
+                : __floats2bfloat162_rn(a[2] * f1, a[3] * f1);
+    }
 }
 
 // rowsum(a * b) in fp32 of the 64 rows of two tiles in shared memory (the

@@ -4,5 +4,7 @@ the lm_head dx product, the hand-written blocked matmul among them) and
 
 Counterparts of ``benchmarks/dot_variants.py`` and
 ``benchmarks/flash_variants.py``; run as ``python -m
-paddle_tpu_torch.experiments.<name>``. They need a CUDA device.
+paddle_tpu_torch.experiments.<name>``. ``turns`` times the training step
+and the production flash kernels of this checkout and another one in
+turns on one card. They need a CUDA device.
 """

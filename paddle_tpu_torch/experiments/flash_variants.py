@@ -4,10 +4,11 @@ of ``benchmarks/flash_variants.py`` (``main``, ``diag_main`` and
 
 ``main`` first holds every ``nsplit`` x ``exp_bf16`` variant at B 4
 against the production kernels (``ops/kernels/flash_attention.py``: the
-forward, dq and dk/dv), printing the largest difference of out and of the
-gradients (the production lse is natural-log ``[B, H, S]`` and is not
-compared), then times at ``[b, S, h, d]`` (default 44, 512, 12, 64, the
-bench shape, causal): the production forward and backward, SDPA's forward
+forward and the one-launch backward), printing the largest difference of
+out and of the gradients (the production lse is natural-log ``[B, H, S]``
+and is not compared), then times at ``[b, S, h, d]`` (default 44, 512, 12,
+64, the bench shape, causal): the production forward, its backward in one
+launch and each of the backward's roles alone, SDPA's forward
 and backward as the yardstick, every ``nsplit`` x ``exp_bf16`` forward and
 backward, the ``run_fwd2`` knobs, and the ablations of ``run_diag``
 (``diag_main``). The kernels are those of
@@ -52,9 +53,7 @@ def _max_diff(a, b):
 def _production(q, k, v, do):
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     delta = fa.attention_delta(out, do)
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
-    return out, lse, (dq, *fa.flash_attention_bwd_dkv(q, k, v, do, lse,
-                                                      delta, True))
+    return out, lse, fa.flash_attention_bwd(q, k, v, do, lse, delta, True)
 
 
 def _timed(tag, fn, rows, **extra):
@@ -132,10 +131,15 @@ def main(argv=None):
     delta0 = fa.attention_delta(out0, do)
     _timed("fwd production", lambda: fa.flash_attention_fwd(q, k, v, True),
            rows, kind="production")
-    _timed("bwd production (dq + dk/dv)", lambda: (
-        fa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0, True),
-        fa.flash_attention_bwd_dkv(q, k, v, do, lse0, delta0, True)), rows,
-        kind="production")
+    _timed("bwd production (dq, dk and dv, one launch)",
+           lambda: fa.flash_attention_bwd(q, k, v, do, lse0, delta0, True),
+           rows, kind="production")
+    _timed("bwd production, the dq role alone",
+           lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse0, delta0, True),
+           rows, kind="production")
+    _timed("bwd production, the dk/dv role alone",
+           lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse0, delta0,
+                                              True), rows, kind="production")
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     _timed("fwd sdpa", lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True), rows, kind="library")

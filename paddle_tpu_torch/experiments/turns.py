@@ -1,0 +1,122 @@
+"""The training step and the production flash kernels of this checkout and
+of another one, timed in turns on one card.
+
+    python3 -m paddle_tpu_torch.experiments.turns OTHER_ROOT [rounds]
+
+Run from the root of a checkout; ``OTHER_ROOT`` is the root of another
+checkout of the repository (an older commit, say). Each turn is a process
+of its own in one checkout's root, in the order other, this, this, other
+for each round (default 1), so that both sides share the card's state and
+a drift shows as a difference between the two turns of one side. A turn
+builds its checkout's ``flash_attention`` and ``head_dx`` kernels, times
+its flash forward and backward (the backward as its ``_FlashAttention``
+launches it: ``flash_attention_bwd`` where the checkout has it, else the dq
+and the dk/dv kernels) at bench.py's training shape (B 44, S 512, 12 heads
+of D 64, causal) and at llama7b width (B 1, S 2048, 32 heads of D 128,
+causal), then runs its ``chip_smoke.train_run`` (phase 5b: two warm-up and
+ten timed AdamW steps of ``bert_base_equiv`` at B 44 x S 512 from seed 0,
+launch counts asserted, one profiled step). Prints the card's name and
+power limit, then one JSON line per turn, then all turns as one JSON
+line.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+from ._timing import require_cuda
+
+__all__ = ["main"]
+
+ROOT = Path(__file__).resolve().parents[2]
+
+# one turn, run with its checkout's root as the working directory
+_TURN = r'''
+import json, sys
+sys.path.insert(0, ".")
+import numpy as np
+import torch
+import chip_smoke as cs
+from paddle_tpu_torch.experiments._timing import time_ms
+from paddle_tpu_torch.models import llama
+from paddle_tpu_torch.ops.kernels import _build, launch_counters
+from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+for name in ("flash_attention", "head_dx"):
+    _build.build(name)
+out = {}
+for tag, (B, S, H, D) in (("bench", (44, 512, 12, 64)),
+                          ("llama7b", (1, 2048, 32, 128))):
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v, do = (torch.randn(B, S, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    o, lse = fa.flash_attention_fwd(q, k, v, True)
+    delta = fa.attention_delta(o, do)
+    args = (q, k, v, do, lse, delta, True)
+    if hasattr(fa, "flash_attention_bwd"):
+        bwd = lambda i: fa.flash_attention_bwd(*args)
+    else:
+        bwd = lambda i: (fa.flash_attention_bwd_dq(*args),
+                         fa.flash_attention_bwd_dkv(*args))
+    out[tag] = {"fwd_ms": time_ms(lambda i: fa.flash_attention_fwd(q, k, v,
+                                                                   True)),
+                "bwd_ms": time_ms(bwd)}
+    del q, k, v, do, o, lse, delta, args
+cfg = llama.LlamaConfig.bert_base_equiv()
+params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda", dtype=torch.float32)
+rng = np.random.RandomState(0)
+rng.randint(0, cfg.vocab_size, (8, 512))  # chip_smoke's phase 5a batch
+tok = torch.from_numpy(rng.randint(0, cfg.vocab_size, (44, 512))
+                       .astype(np.int32)).to("cuda")
+train, _ = cs.train_run(torch, llama, launch_counters(), params, cfg, tok)
+out["train"] = {key: train.get(key) for key in (
+    "ms_per_step", "tokens_per_s", "event_ms_per_step", "device_ms_per_step",
+    "device_busy_share", "device_split_ms")}
+print("TURN " + json.dumps(out), flush=True)
+'''
+
+
+def _turn(root: Path) -> dict:
+    proc = subprocess.run([sys.executable, "-c", _TURN], cwd=root,
+                          capture_output=True, text=True,
+                          env={**os.environ, "PYTHONDONTWRITEBYTECODE": "1"})
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("TURN ")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise RuntimeError(f"the turn in {root} failed ({proc.returncode}):"
+                           f"\n{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    return json.loads(lines[0][len("TURN "):])
+
+
+def main(argv=None):
+    """Time both checkouts in turns; returns the turns as
+    [{"checkout": "other" or "this", ...}, ...]."""
+    argv = sys.argv[1:] if argv is None else argv
+    if not argv:
+        raise SystemExit(__doc__)
+    other = Path(argv[0]).resolve()
+    rounds = int(argv[1]) if len(argv) > 1 else 1
+    require_cuda()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    turns = []
+    for _ in range(rounds):
+        for side, root in (("other", other), ("this", ROOT), ("this", ROOT),
+                           ("other", other)):
+            t = {"checkout": side, **_turn(root)}
+            print(json.dumps(t), flush=True)
+            turns.append(t)
+    print(json.dumps({"card": smi, "turns": turns}), flush=True)
+    return turns
+
+
+if __name__ == "__main__":
+    main()

@@ -31,6 +31,7 @@ def launch_counters():
             "ragged_paged_attention": (pa.ragged_paged_attention,
                                        "launches"),
             "flash_attention_fwd": (fa.flash_attention_fwd, "launches"),
+            "flash_attention_bwd": (fa.flash_attention_bwd, "launches"),
             "flash_attention_bwd_dq": (fa.flash_attention_bwd_dq,
                                        "launches"),
             "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,

@@ -1,20 +1,27 @@
-"""Flash attention for training: forward with logsumexp, backward as dq and
-dk/dv.
+"""Flash attention for training: forward with logsumexp, and the backward
+(dq, dk and dv) in one launch.
 
 Replaces the TPU kernels of ``paddle_tpu/ops/pallas/flash_attention.py``:
 the blocked ``_pallas_flash_attention`` / ``_pallas_flash_fwd_lse`` and the
 packed ``_pallas_flash_fwd_packed`` become one forward kernel; the blocked
 ``_pallas_flash_bwd`` (its dq and dk/dv calls) and the fused packed
-``_pallas_flash_bwd_packed`` become a dq kernel and a dk/dv kernel. The
-CUDA source is ``paddle_tpu_torch/csrc/flash_attention.cu``; its header
-says what bounds the kernels on the H100 and how they are built.
+``_pallas_flash_bwd_packed`` become one backward kernel whose grid holds a
+dq role and a dk/dv role. The CUDA source is
+``paddle_tpu_torch/csrc/flash_attention.cu``; its header says what bounds
+the kernels on the H100 and how they are built.
+
+Three backward entry points launch that kernel: ``flash_attention_bwd``
+(both roles in one launch: dq, dk and dv; the training path's),
+``flash_attention_bwd_dq`` (the dq role alone) and
+``flash_attention_bwd_dkv`` (the dk/dv role alone). A role computes the
+same bits whichever entry launches it. Each counts its own launches.
 
 Layouts: q, k, v, out and their gradients are ``[B, S, H, D]`` (the JAX
 package's); ``lse`` (natural log) and ``delta = rowsum(do * o)`` are
 ``[B, H, Sq]`` fp32. Causal masking is ``tril(k=Sk-Sq)``.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises (bf16, D in {64, 128}, contiguous).
+kernel or raises (bf16, D in {64, 128}, contiguous, 16-byte aligned).
 """
 
 from __future__ import annotations
@@ -28,9 +35,10 @@ import torch
 __all__ = ["attention_probs", "attention_apply", "xla_attention",
            "attention_delta", "flash_attention_fwd_plain",
            "flash_attention_bwd_dq_plain", "flash_attention_bwd_dkv_plain",
-           "flash_attention_bwd_plain", "flash_attention_fwd",
-           "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
-           "dot_product_attention", "flash_path_active"]
+           "flash_attention_bwd_grads_plain", "flash_attention_bwd_plain", "flash_attention_fwd",
+           "flash_attention_bwd", "flash_attention_bwd_dq",
+           "flash_attention_bwd_dkv", "dot_product_attention",
+           "flash_path_active", "smem_bytes"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
 _HEAD_DIMS = (64, 128)
@@ -127,15 +135,23 @@ def flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal=False,
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
-def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
-    """(dq, dk, dv) of the attention whose forward gave ``o`` and ``lse``:
-    the flash backward written out, p = exp(s - lse), delta = rowsum(do *
-    o) in fp32, ds = p * (dp - delta)."""
-    delta = attention_delta(o, do)
+def flash_attention_bwd_grads_plain(q, k, v, do, lse, delta, causal=False,
+                                    scale=None):
+    """(dq, dk, dv) from the forward's ``lse`` and ``delta``: the plain
+    version of the one-launch backward."""
     dq = flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal, scale)
     dk, dv = flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta, causal,
                                            scale)
     return dq, dk, dv
+
+
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None):
+    """(dq, dk, dv) of the attention whose forward gave ``o`` and ``lse``:
+    the flash backward written out, p = exp(s - lse), delta = rowsum(do *
+    o) in fp32, ds = p * (dp - delta)."""
+    return flash_attention_bwd_grads_plain(q, k, v, do, lse,
+                                           attention_delta(o, do), causal,
+                                           scale)
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +195,8 @@ def _check_kernel(*ts):
         raise ValueError("the kernels take contiguous tensors")
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("the kernels take tensors on a 16-byte boundary "
-                         "(rows are read in 16-byte loads)")
+                         "(the TMA reads tiles from 16-byte aligned "
+                         "addresses)")
 
 
 def _lse_shape(q):
@@ -207,63 +224,88 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     return out, lse
 
 
-def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
-                           scale=None):
-    """dq [B, Sq, H, D] from the forward's ``lse`` and ``delta``
-    (``attention_delta(out, do)``)."""
+def _check_bwd(q, k, v, do, lse, delta, causal):
     st = _lse_shape(q)
     _check(q, k, v, causal, ("do", do, q.shape, q.dtype),
            ("lse", lse, st, torch.float32), ("delta", delta, st,
                                              torch.float32))
+
+
+def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
+    """Launch the entry ``name`` of the backward kernel, writing ``outs``
+    (dq and/or dk, dv, allocated here)."""
+    _check_kernel(q, k, v, do, lse, delta)
+    B, Sq, H, D = q.shape
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
+    with torch.cuda.device(q.device):
+        err = _kernel(name, len(ptrs))(
+            *ptrs, B, H, Sq, k.shape[1], D, int(causal), _scale(q, scale),
+            torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+
+
+def flash_attention_bwd(q, k, v, do, lse, delta, causal=False, scale=None):
+    """(dq [B, Sq, H, D], dk, dv [B, Sk, H, D]) in one launch, from the
+    forward's ``lse`` and ``delta`` (``attention_delta(out, do)``)."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_grads_plain(q, k, v, do, lse, delta,
+                                               causal, scale)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_attention_bwd", q, k, v, do, lse, delta,
+                (dq, dk, dv), causal, scale)
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
+                           scale=None):
+    """dq [B, Sq, H, D] alone (the backward kernel's dq role)."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
     if q.device.type == "cpu":
         return flash_attention_bwd_dq_plain(q, k, v, do, lse, delta, causal,
                                             scale)
-    _check_kernel(q, k, v, do, lse, delta)
-    B, Sq, H, D = q.shape
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = _kernel("flash_attention_bwd_dq", 7)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), B, H, Sq,
-            k.shape[1], D, int(causal), _scale(q, scale),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dq launch failed: CUDA "
-                           f"error {err}")
+    _launch_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,),
+                causal, scale)
     flash_attention_bwd_dq.launches += 1
     return dq
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
                             scale=None):
-    """(dk, dv) [B, Sk, H, D] from the forward's ``lse`` and ``delta``."""
-    st = _lse_shape(q)
-    _check(q, k, v, causal, ("do", do, q.shape, q.dtype),
-           ("lse", lse, st, torch.float32), ("delta", delta, st,
-                                             torch.float32))
+    """(dk, dv) [B, Sk, H, D] alone (the backward kernel's dk/dv role)."""
+    _check_bwd(q, k, v, do, lse, delta, causal)
     if q.device.type == "cpu":
         return flash_attention_bwd_dkv_plain(q, k, v, do, lse, delta,
                                              causal, scale)
-    _check_kernel(q, k, v, do, lse, delta)
-    B, Sq, H, D = q.shape
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = _kernel("flash_attention_bwd_dkv", 8)(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            B, H, Sq, k.shape[1], D, int(causal), _scale(q, scale),
-            torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"flash_attention_bwd_dkv launch failed: CUDA "
-                           f"error {err}")
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    _launch_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta,
+                (dk, dv), causal, scale)
     flash_attention_bwd_dkv.launches += 1
     return dk, dv
 
 
 flash_attention_fwd.launches = 0
+flash_attention_bwd.launches = 0
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dkv.launches = 0
+
+
+def smem_bytes(kind: str, D: int) -> int:
+    """The dynamic shared memory one block of the ``kind`` ("fwd" or
+    "bwd") kernel at head dim ``D`` asks for (builds the library)."""
+    fn = getattr(_library(), "flash_attention_smem")
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(D, int(kind == "bwd"))
+
+
+def _library():
+    from ._build import load_library
+
+    return load_library("flash_attention")
 
 
 @functools.lru_cache(maxsize=None)
@@ -272,9 +314,7 @@ def _kernel(name: str, n_ptrs: int):
     and loaded at first use: ``n_ptrs`` tensor pointers, then B, H, Sq,
     Sk, D, causal, scale and the stream; every pointer and the stream are
     ``c_void_p`` so none is cut to 32 bits."""
-    from ._build import load_library
-
-    fn = getattr(load_library("flash_attention"), name)
+    fn = getattr(_library(), name)
     fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -287,7 +327,8 @@ def _kernel(name: str, n_ptrs: int):
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel, saving (q, k, v, out, lse): O(S) residuals,
-    never the [S, S] scores; the backward is the dq and dk/dv kernels."""
+    never the [S, S] scores; the backward is one launch of the backward
+    kernel (dq, dk and dv)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
@@ -301,10 +342,8 @@ class _FlashAttention(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, out, lse = ctx.saved_tensors
         do = do.contiguous()
-        delta = attention_delta(out, do)
-        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.causal,
-                                    ctx.scale)
-        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+        dq, dk, dv = flash_attention_bwd(q, k, v, do, lse,
+                                         attention_delta(out, do),
                                          ctx.causal, ctx.scale)
         return dq, dk, dv, None, None
 

@@ -283,29 +283,38 @@ def test_paged_tick_matches_plain_path(cuda, monkeypatch):
                                    atol=1e-4)
 
 
-class TestFlashAttention:
-    """The forward, dq and dk/dv kernels against their plain versions in
-    bf16; the backward kernels get the same out, lse and delta as the plain
-    backward. lse is fp32: to 1e-4 (exp2 and log2 on the card's approximate
-    units, sums in another order)."""
+FLASH_SHAPES = [  # B, Sq, Sk, H, D, causal
+    (2, 128, 128, 4, 64, True),
+    (2, 128, 128, 4, 64, False),
+    (1, 512, 512, 4, 64, True),     # bench.py's sequence length
+    (1, 1024, 1024, 2, 64, True),   # past 512: the TPU's blocked regime
+    (1, 256, 256, 2, 128, True),    # llama7b's head width
+    (2, 200, 200, 3, 64, True),     # a ragged edge at 64-row tiles
+    (1, 40, 100, 2, 128, True),     # Sq < Sk: causal offset 60
+    (1, 72, 136, 2, 64, False),
+]
 
-    @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", [
-        (2, 128, 128, 4, 64, True),
-        (2, 128, 128, 4, 64, False),
-        (1, 512, 512, 4, 64, True),     # bench.py's sequence length
-        (1, 1024, 1024, 2, 64, True),   # past 512: the TPU's blocked regime
-        (1, 256, 256, 2, 128, True),    # llama7b's head width
-        (2, 200, 200, 3, 64, True),     # a ragged edge at 64-row tiles
-        (1, 40, 100, 2, 128, True),     # Sq < Sk: causal offset 60
-        (1, 72, 136, 2, 64, False),
-    ])
+
+def _flash_inputs(cuda, B, Sq, Sk, H, D):
+    gen = torch.Generator(device=cuda).manual_seed(Sq * 7 + Sk + D)
+    dt = torch.bfloat16
+    return (_randn(gen, B, Sq, H, D, dtype=dt),
+            _randn(gen, B, Sk, H, D, dtype=dt),
+            _randn(gen, B, Sk, H, D, dtype=dt),
+            _randn(gen, B, Sq, H, D, dtype=dt))
+
+
+class TestFlashAttention:
+    """The forward and the backward kernel (one launch of both roles, and
+    each role alone) against their plain versions in bf16; the backward
+    gets the same out, lse and delta as the plain backward. lse is fp32:
+    to 1e-4 (exp2 and log2 on the card's approximate units, sums in
+    another order)."""
+
+    @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", FLASH_SHAPES)
     def test_matches_plain(self, cuda, B, Sq, Sk, H, D, causal):
-        gen = torch.Generator(device=cuda).manual_seed(Sq * 7 + Sk + D)
         dt = torch.bfloat16
-        q = _randn(gen, B, Sq, H, D, dtype=dt)
-        k = _randn(gen, B, Sk, H, D, dtype=dt)
-        v = _randn(gen, B, Sk, H, D, dtype=dt)
-        do = _randn(gen, B, Sq, H, D, dtype=dt)
+        q, k, v, do = _flash_inputs(cuda, B, Sq, Sk, H, D)
         n0 = (fa.flash_attention_fwd.launches,
               fa.flash_attention_bwd_dq.launches,
               fa.flash_attention_bwd_dkv.launches)
@@ -331,6 +340,31 @@ class TestFlashAttention:
                 fa.flash_attention_bwd_dkv.launches) == tuple(
                     n + 1 for n in n0)
 
+    @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", FLASH_SHAPES)
+    def test_one_launch_backward(self, cuda, B, Sq, Sk, H, D, causal):
+        """``flash_attention_bwd``: dq, dk and dv within the plain versions'
+        budgets, bit-identical to the role-only launches and to a second
+        call, one launch a call."""
+        dt = torch.bfloat16
+        q, k, v, do = _flash_inputs(cuda, B, Sq, Sk, H, D)
+        ref, lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        args = (q, k, v, do, lse, fa.attention_delta(ref, do), causal)
+        n0 = fa.flash_attention_bwd.launches
+        got = fa.flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_bwd.launches == n0 + 1
+        for g, w in zip(got, fa.flash_attention_bwd_grads_plain(*args)):
+            assert torch.isfinite(g.float()).all()
+            _close(g, w, dt)
+        roles = (fa.flash_attention_bwd_dq(*args),
+                 *fa.flash_attention_bwd_dkv(*args))
+        again = fa.flash_attention_bwd(*args)
+        torch.cuda.synchronize()
+        assert fa.flash_attention_bwd.launches == n0 + 2
+        for g, r, a in zip(got, roles, again):
+            assert torch.equal(g, r)
+            assert torch.equal(g, a)
+
     def test_rejects_what_it_does_not_take(self, cuda):
         q = torch.zeros(1, 64, 2, 64, device=cuda)
         with pytest.raises(ValueError, match="bfloat16"):
@@ -342,6 +376,9 @@ class TestFlashAttention:
                         dtype=torch.bfloat16).transpose(1, 2)
         with pytest.raises(ValueError, match="contiguous"):
             fa.flash_attention_bwd_dq(
+                q, q, q, q, *[torch.zeros(1, 2, 64, device=cuda)] * 2)
+        with pytest.raises(ValueError, match="contiguous"):
+            fa.flash_attention_bwd(
                 q, q, q, q, *[torch.zeros(1, 2, 64, device=cuda)] * 2)
 
 
@@ -387,7 +424,8 @@ def test_loss_and_grads_match_plain_path(cuda, monkeypatch):
     """``loss_fn`` (the custom CE tail) and its gradients in bf16 with fp32
     master weights at D 64 (GQA, 4 over 2 heads) on the card, through the
     kernels and again with every kernel swapped for its plain version; the
-    kernels launch once per layer and the CE tail's once."""
+    forward and the one-launch backward launch once per layer (the role-only
+    backward entries never) and the CE tail's once."""
     cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
                             intermediate_size=512, num_layers=2,
                             num_heads=4, num_kv_heads=2, max_seq_len=256,
@@ -396,8 +434,9 @@ def test_loss_and_grads_match_plain_path(cuda, monkeypatch):
                                device=cuda, dtype=torch.float32)
     tok = torch.from_numpy(np.random.RandomState(0).randint(
         0, 512, (2, 256))).to(cuda)
-    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
-           fa.flash_attention_bwd_dkv, hd.head_dx_softmax)
+    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+           fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+           hd.head_dx_softmax)
 
     def run():
         leaves = {k: p.clone().requires_grad_() for k, p in params.items()}
@@ -407,9 +446,11 @@ def test_loss_and_grads_match_plain_path(cuda, monkeypatch):
 
     n0 = [f.launches for f in fns]
     got = run()
-    assert [f.launches - n for f, n in zip(fns, n0)] == [2, 2, 2, 1]
+    assert [f.launches - n for f, n in zip(fns, n0)] == [2, 2, 0, 0, 1]
     monkeypatch.setattr(fa, "flash_attention_fwd",
                         fa.flash_attention_fwd_plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd",
+                        fa.flash_attention_bwd_grads_plain)
     monkeypatch.setattr(fa, "flash_attention_bwd_dq",
                         fa.flash_attention_bwd_dq_plain)
     monkeypatch.setattr(fa, "flash_attention_bwd_dkv",

@@ -103,6 +103,35 @@ def test_plain_matches_blocked_pallas(interpret, B, S, H, D, causal):
     _close(dv, jdv)
 
 
+@pytest.mark.parametrize("kernel", ["packed", "blocked"])
+@pytest.mark.parametrize("B,S,H,D,causal", CASES)
+def test_one_launch_backward_matches_pallas(interpret, kernel, B, S, H, D,
+                                            causal):
+    """``flash_attention_bwd`` (dq, dk and dv from one call) on CPU tensors
+    against the fused packed backward and the blocked one (blocks of 128),
+    both fed JAX's own forward."""
+    q, k, v, do = _inputs(S + D + 2, B, S, H, D)
+    jq, jk, jv, jdo = map(jnp.asarray, (q, k, v, do))
+    if kernel == "packed":
+        jout, jlse = jfa._pallas_flash_fwd_packed(jq, jk, jv, causal)
+        want = jfa._pallas_flash_bwd_packed(jq, jk, jv, jdo, jout, jlse,
+                                            causal)
+        lse = (np.asarray(jlse).reshape(B, H, S)
+               / np.log2(np.e)).astype(np.float32)
+    else:
+        jout, jlse = jfa._pallas_flash_fwd_lse(jq, jk, jv, causal,
+                                               block_q=128, block_k=128)
+        want = jfa._pallas_flash_bwd(jq, jk, jv, jdo, jout, jlse, causal,
+                                     block_q=128, block_k=128)
+        lse = np.asarray(jlse).reshape(B, H, S)
+    tq, tk, tv, tdo, lse_t, out_t = _t(q, k, v, do, lse, jout)
+    got = fa.flash_attention_bwd(tq, tk, tv, tdo, lse_t,
+                                 fa.attention_delta(out_t, tdo), causal)
+    assert len(got) == 3
+    for g, w in zip(got, want):
+        _close(g, w)
+
+
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("sq,sk", [(64, 64), (48, 80)])
 def test_plain_backward_matches_autograd(causal, sq, sk):
@@ -155,20 +184,19 @@ def test_cpu_tensors_never_reach_the_kernels(monkeypatch):
     rng = np.random.RandomState(2)
     q, k, v, do = (torch.from_numpy(rng.randn(1, 64, 2, 64).astype(np.float32))
                    for _ in range(4))
-    counts = (fa.flash_attention_fwd.launches,
-              fa.flash_attention_bwd_dq.launches,
-              fa.flash_attention_bwd_dkv.launches, hd.head_dx_softmax.launches)
+    counters = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+                fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv,
+                hd.head_dx_softmax)
+    counts = [f.launches for f in counters]
     out, lse = fa.flash_attention_fwd(q, k, v, True)
     delta = fa.attention_delta(out, do)
+    fa.flash_attention_bwd(q, k, v, do, lse, delta, True)
     fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, True)
     fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, True)
     logits = torch.from_numpy(rng.randn(8, 32).astype(np.float32))
     hd.head_dx_softmax(logits, logits.max(-1).values, torch.ones(8),
                        torch.ones(16, 32))
-    assert (fa.flash_attention_fwd.launches,
-            fa.flash_attention_bwd_dq.launches,
-            fa.flash_attention_bwd_dkv.launches,
-            hd.head_dx_softmax.launches) == counts
+    assert [f.launches for f in counters] == counts
 
 
 def test_rejects_bad_inputs():
@@ -192,6 +220,67 @@ def test_rejects_bad_inputs():
     with pytest.raises(ValueError, match="scale"):
         hd.head_dx_softmax(torch.zeros(4, 8), torch.zeros(4),
                            torch.zeros(4).double(), torch.zeros(2, 8))
+
+
+@pytest.mark.parametrize("entry", ["flash_attention_bwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv"])
+def test_backward_entries_reject_the_same(entry):
+    """The one-launch backward and the two role launches check their
+    operands alike: Sq <= Sk when causal, kv heads, dtypes, lse and delta
+    shapes and dtypes, one device."""
+    fn = getattr(fa, entry)
+    q = torch.zeros(1, 8, 2, 64)
+    lse = torch.zeros(1, 2, 8)
+    with pytest.raises(ValueError, match="Sq <= Sk"):
+        fn(q, q[:, :4], q[:, :4], q, lse, lse, causal=True)
+    with pytest.raises(ValueError, match="repeat kv heads"):
+        fn(q, q[:, :, :1], q[:, :, :1], q, lse, lse)
+    with pytest.raises(TypeError, match="dtype"):
+        fn(q.double(), q.double(), q.double(), q.double(), lse, lse)
+    with pytest.raises(ValueError, match="do must be"):
+        fn(q, q, q, q[:, :4], lse, lse)
+    with pytest.raises(ValueError, match="lse"):
+        fn(q, q, q, q, lse[:, :1], lse)
+    with pytest.raises(ValueError, match="delta"):
+        fn(q, q, q, q, lse, lse.double())
+    with pytest.raises(ValueError, match="devices"):
+        fn(q, q, q, q, lse, lse.to("meta"))
+
+
+def test_dot_product_attention_backward_is_one_call(monkeypatch):
+    """``dot_product_attention``'s backward goes through
+    ``flash_attention_bwd`` once, with the forward's lse and delta =
+    rowsum(do * out), and never through the role-only entries."""
+    calls = []
+    real = fa.flash_attention_bwd
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    def role_only(*a, **kw):
+        raise AssertionError("a role-only backward entry was called")
+
+    monkeypatch.setattr(fa, "flash_attention_bwd", spy)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dq", role_only)
+    monkeypatch.setattr(fa, "flash_attention_bwd_dkv", role_only)
+    rng = np.random.RandomState(9)
+    q, k, v, do = (torch.from_numpy(rng.randn(2, 24, 3, 16)
+                                    .astype(np.float32)) for _ in range(4))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.dot_product_attention(*leaves, is_causal=True)
+    out.backward(do)
+    assert len(calls) == 1
+    _, lse = fa.flash_attention_fwd_plain(q, k, v, True)
+    cq, ck, cv, cdo, clse, cdelta, causal, scale = calls[0]
+    assert causal is True and scale is None
+    torch.testing.assert_close(clse, lse, **TOL)
+    torch.testing.assert_close(cdelta, fa.attention_delta(out.detach(), do),
+                               **TOL)
+    want = fa.flash_attention_bwd_plain(q, k, v, out.detach(), lse, do, True)
+    for g, leaf in zip(want, leaves):
+        torch.testing.assert_close(leaf.grad, g, **TOL)
 
 
 def _head_dx_inputs(seed, M, V, H):

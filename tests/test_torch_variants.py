@@ -341,6 +341,20 @@ def test_experiments_need_a_gpu(monkeypatch):
             main([])
 
 
+def test_turns_need_a_gpu_and_another_checkout(monkeypatch):
+    """``turns`` names its arguments without one, and raises without a
+    card before it starts any turn."""
+    from paddle_tpu_torch.experiments import turns
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(turns, "_turn", lambda root: pytest.fail(
+        "a turn started without a card"))
+    with pytest.raises(SystemExit, match="OTHER_ROOT"):
+        turns.main([])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        turns.main([str(ROOT)])
+
+
 def test_launch_counters_name_every_counted_wrapper():
     """``launch_counters`` lists every counter a kernel wrapper keeps (a
     function of ``ops/kernels`` with an int ``launches`` or
