@@ -11,7 +11,10 @@ Phases (any failed check raises and the script exits non-zero):
 1. build the CUDA kernels from ``paddle_tpu_torch/csrc`` (one ``nvcc`` per
    source, all started together), print the card's name and power
    limit, and the registers, shared memory and spills of every
-   ``flash_attention.cu`` instance (a spill fails);
+   instance of ``flash_attention.cu``, ``blocked_matmul.cu`` (the four
+   tiles) and ``decode_attention.cu`` (q fp32 or bf16; the cache in q's
+   type, int8 or fp8; D 64 and 128; one query head per kv head, or up to
+   eight) (a spill fails);
 2. hold every kernel against its plain PyTorch version on the card, in
    bf16 and fp32, and time the kernel, the plain version and, where one
    PyTorch call computes the same function, that call: the tick kernels
@@ -1146,6 +1149,36 @@ def flash_build_report(fa, _build, logs):
                  for kind in ("fwd", "bwd") for D in (64, 128)]
     return ptxas_rows(_build, logs.get("flash_attention", ""), instances,
                       "flash_attention")
+
+
+def rebuilt_build_report(torch, bm, da, _build, logs):
+    """Every instance of ``csrc/blocked_matmul.cu`` (the four tiles) and of
+    ``csrc/decode_attention.cu`` (q fp32 / bf16; the cache in q's type,
+    int8 or fp8; D 64 and 128; rep 1 or up to 8, at the shared memory of
+    its largest rep), each with its ptxas report (``ptxas_rows``); raises
+    on a spill."""
+    instances = [(f"blocked_mmILi{m}ELi{n}ELi{k}EE",
+                  f"blocked_matmul {m}x{n}x{k}",
+                  dict(kernel="blocked_matmul", tile=f"{m}x{n}x{k}"),
+                  bm.smem_bytes(m, n, k)) for m, n, k in bm.TILES]
+    rows = ptxas_rows(_build, logs.get("blocked_matmul", ""), instances,
+                      "blocked_matmul")
+    instances = []
+    for tc, dt in enumerate((torch.float32, torch.bfloat16)):
+        for kc, kdt in enumerate((dt, torch.int8, torch.float8_e4m3fn)):
+            for D in (64, 128):
+                for rep in (1, 8):
+                    kname = str(kdt).replace("torch.", "")
+                    qname = str(dt).replace("torch.", "")
+                    instances.append((
+                        f"decode_splitILi{tc}ELi{kc}ELi{D}ELi{rep}EE",
+                        f"ragged_decode_attention q {qname} cache {kname} "
+                        f"D{D} rep {'1' if rep == 1 else '<= 8'}",
+                        dict(kernel="ragged_decode_attention", q=qname,
+                             cache=kname, D=D, rep=rep),
+                        da.smem_bytes(dt, kdt, D, rep)))
+    return rows + ptxas_rows(_build, logs.get("decode_attention", ""),
+                             instances, "ragged_decode_attention")
 
 
 def check_launched(launches, names, what):
@@ -2339,8 +2372,9 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"build: {time.perf_counter() - t0:.2f} s")
-    flash_build = flash_build_report(fa, _build,
-                                     {b["name"]: b["log"] for b in builds})
+    logs = {b["name"]: b["log"] for b in builds}
+    flash_build = flash_build_report(fa, _build, logs)
+    rebuilt_build = rebuilt_build_report(torch, bm, da, _build, logs)
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2691,6 +2725,7 @@ def main() -> None:
                    "resnet50_adamw": radamw,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
+                   "blocked_decode_build": rebuilt_build,
                    "experiments": exps}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

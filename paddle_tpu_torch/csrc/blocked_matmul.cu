@@ -6,185 +6,247 @@
 // across the inner K axis and is rounded to bf16 once. Its blocks (512 x
 // 768 x 3200) do not map onto a CTA (a 512 x 768 fp32 accumulator alone is
 // 1.5 MB of the 227 KB a block may hold), so each template instance below
-// is a CTA tile of its own; the accumulator lives in registers across the
-// block's whole K loop, which is the TPU's sequential K axis. M, N and K
-// must be multiples of the tile (the TPU grid drops the rest rows).
+// is a CTA tile of its own, and bk is the K depth of one stage of the
+// block's ring; the accumulator lives in registers across the tile's whole
+// K loop, which is the TPU's sequential K axis. M, N and K must be
+// multiples of the tile (the TPU grid drops the rest rows).
 //
 // What bounds it on the H100: operations. At the experiment's shape (the
 // lm_head dx, M 22528, K 32000, N 768) it does 2 M N K = 1.107 TFLOP
 // against 1.49 GB of a, b and c: 1.120 ms at the dense bf16 rate of 989
-// TFLOP/s, 0.45 ms at 3.35 TB/s. The design, a plain tensor-core GEMM:
-// - 8 warps per block, 64 x (BN / (8 / (BM / 64))) output per warp as
-//   nvcuda::wmma bf16 16x16x16 fragments whose fp32 accumulators stay in
-//   registers for the whole K loop;
-// - a 3-stage ring of (BM x BK, BK x BN) tiles in shared memory filled by
-//   cp.async 16-byte copies, so the next two K steps load while the warps
-//   multiply the current one; rows padded by 16 bytes (ldmatrix without
-//   bank conflicts);
-// - the N / BN column blocks of one row block are neighbours in the launch
-//   order (blockIdx.x), so the a rows they share come from L2;
-// - the epilogue stages each fragment in shared memory and writes bf16
-//   rows in 16-byte stores.
-// wgmma with TMA is left for later work: mma.sync peaks well below the
-// card's dense rate.
+// TFLOP/s, 0.45 ms at 3.35 TB/s. The tensor cores reach that rate only
+// through wgmma fed from shared memory without the issuing threads doing
+// the copies, and only if the next k step's tiles are in place when the
+// last one's products retire. The design:
+// - a warp-specialised block of three warpgroups: one thread of the first
+//   issues every TMA copy into a ring of STAGES (a tile, b tile) stages
+//   (about 200 KB: 8 stages at 128 x 256 x 32) on full/empty mbarrier
+//   pairs; the other two consume. The a tile [BM x BK] lands K-major in
+//   the 64-byte swizzle at BK 32 (128-byte at BK 64), the b tile [BK x BN]
+//   MN-major as BN / 64 boxes of 64 columns in the 128-byte swizzle;
+// - each consumer warpgroup owns BM / 2 rows x BN of the tile and issues
+//   wgmma.mma_async m64n256k16 or m64n128k16 (two m64 products a k16 step
+//   at BM 256), bf16 into fp32 registers (up to 128 a thread: setmaxnreg
+//   hands the producer's registers to the consumers). One k step's group
+//   of products stays in flight (wgmma.wait_group 1), and a stage goes
+//   back to the producer only once the products that read it retired;
+// - a persistent grid of one block per SM walks the output tiles in a
+//   static order in which the N blocks of one row block are neighbours,
+//   so the a rows they share come from L2; the producer runs on into the
+//   block's next tile while the consumers finish this one;
+// - the epilogue rounds to bf16, gathers each row's 8 consecutive values
+//   in one thread by a transpose within each quad of lanes, and stores
+//   rows in 16-byte stores, while the next tile's stages load.
+// What may bound it next: at 128 x 256 each k16 step reads (128 + 256) x
+// 32 bytes from L2 for 2 x 128 x 256 x 16 operations, 85 operations a
+// byte: at the dense rate that is ~11.6 TB/s of L2 reads, more than L2
+// gives. The b tile is shared by the blocks of one column block, so a
+// cluster of two blocks along M could load it once and multicast it
+// (cp.async.bulk.tensor ... .multicast::cluster), halving the b traffic;
+// but then a stage is free only once both blocks' consumers have released
+// it (remote mbarrier arrivals), and that lockstep, tried on the H100,
+// cost more than the L2 traffic it saved: this one-block design stays.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
+#include "sm90_tiles.cuh"
 
 namespace {
 
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
-
-constexpr int THREADS = 256;  // 8 warps
-constexpr int STAGES = 3;
-constexpr int LDE = 20;       // epilogue staging row stride (floats)
-
-using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
-using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
-using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
+constexpr int THREADS = 3 * WG_THREADS;  // a producer and two consumers
+constexpr int PRODUCER_REGS = 40;
+constexpr int CONSUMER_REGS = 232;
+static_assert((PRODUCER_REGS + 2 * CONSUMER_REGS) * WG_THREADS <= 65536,
+              "the consumers take more registers than the SM has");
 
 template <int BM, int BN, int BK>
-struct Tile {
-  static constexpr int WARPS_M = BM / 64;           // 64 rows per warp
-  static constexpr int WARPS_N = 8 / WARPS_M;
-  static constexpr int WN = BN / WARPS_N;           // columns per warp
-  static constexpr int FM = 4, FN = WN / 16;        // fragments per warp
-  static constexpr int LDA = BK + 8, LDB = BN + 8;  // padded row strides
-  static constexpr int A_ELEMS = BM * LDA, B_ELEMS = BK * LDB;
-  static constexpr size_t SMEM = (size_t)STAGES * (A_ELEMS + B_ELEMS) * 2;
-  static_assert(WARPS_M * WARPS_N == 8 && WN % 16 == 0 && BK % 16 == 0,
-                "tile does not split over 8 warps");
+struct Gemm {
+  static constexpr int A_BYTES = BM * BK * 2;
+  static constexpr int B_BOX = BK * 128;  // BK rows of one 64-column box
+  static constexpr int STAGE = A_BYTES + BN / 64 * B_BOX;
+  static constexpr int STAGES = 200 * 1024 / STAGE;
+  static constexpr int BARS = STAGES * STAGE;
+  // 1024 more for the alignment of the swizzled tiles
+  static constexpr size_t SMEM = BARS + 2 * STAGES * 8 + 1024;
+  static constexpr int WG_ROWS = BM / 2;       // a consumer's rows
+  static constexpr int MMAS = WG_ROWS / 64;    // its m64 products a k16 step
+  static constexpr int ACC = BN / 2;           // fp32 registers a product
+  static_assert(BK == 32 || BK == 64, "the a tile's swizzle spans BK");
+  static_assert(BN == 128 || BN == 256, "a product spans BN");
+  static_assert(MMAS == 1 || MMAS == 2, "a consumer owns 64 or 128 rows");
+  static_assert(SMEM <= 232448, "the ring does not fit a block");
 };
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
+// the a operand's descriptor: K-major, 64-byte swizzle at BK 32, 128-byte
+// at BK 64
+template <int BK>
+__device__ __forceinline__ uint64_t desc_a(const void* p) {
+  return BK == 32 ? desc_k64(p) : desc_k(p);
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+// word i of w, by selects (a dynamic index would put w in local memory)
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
+  uint32_t x = w[0];
+  x = i == 1 ? w[1] : x;
+  x = i == 2 ? w[2] : x;
+  return i == 3 ? w[3] : x;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// the K step's a tile [BM, BK] and b tile [BK, BN] into one ring slot
-template <int BM, int BN, int BK>
-__device__ __forceinline__ void load_stage(bf16* sA, bf16* sB, const bf16* a,
-                                           const bf16* b, int m0, int n0,
-                                           int k0, int K, int N) {
-  using T = Tile<BM, BN, BK>;
-  for (int e = threadIdx.x; e < BM * BK / 8; e += THREADS) {
-    const int r = e / (BK / 8), c = (e % (BK / 8)) * 8;
-    cp_async16(sA + r * T::LDA + c, a + (size_t)(m0 + r) * K + k0 + c);
+// Lane t of a quad holds w[g] = columns 8 g + 2 t, + 1 (bf16x2) of one row
+// for four 8-column groups g; returns that row's 8 columns of group t.
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&w)[4]) {
+  const int t = threadIdx.x & 3;
+  uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // the partner t ^ r sends its pair of group t: columns 2 (t ^ r) ..
+    const uint32_t v =
+        __shfl_xor_sync(0xffffffffu, pick4(w, t ^ r), r);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c == (t ^ r)) o[c] = v;
   }
-  for (int e = threadIdx.x; e < BK * BN / 8; e += THREADS) {
-    const int r = e / (BN / 8), c = (e % (BN / 8)) * 8;
-    cp_async16(sB + r * T::LDB + c, b + (size_t)(k0 + r) * N + n0 + c);
-  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
-template <int BM, int BN, int BK>
-__global__ void __launch_bounds__(THREADS)
-blocked_mm(const bf16* __restrict__ a, const bf16* __restrict__ b,
-           bf16* __restrict__ c, int N, int K) {
-  using T = Tile<BM, BN, BK>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* ring = reinterpret_cast<bf16*>(smem);
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp / T::WARPS_N, wn = warp % T::WARPS_N;
-
-  FragC acc[T::FM][T::FN];
+// rows row0 and row0 + 8 of a 64 x BN fp32 accumulator as bf16, each row's
+// 8-column groups stored in 16-byte stores
+template <int BN>
+__device__ __forceinline__ void store_rows(const float (&d)[BN / 2],
+                                           bf16* row0, bf16* row1) {
+  const int t = threadIdx.x & 3;
 #pragma unroll
-  for (int i = 0; i < T::FM; ++i)
+  for (int jb = 0; jb < BN / 32; ++jb)
 #pragma unroll
-    for (int j = 0; j < T::FN; ++j) wmma::fill_fragment(acc[i][j], 0.f);
-
-  const int KT = K / BK;
+    for (int hi = 0; hi < 2; ++hi) {
+      uint32_t w[4];
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < KT) {
-      bf16* sA = ring + s * (T::A_ELEMS + T::B_ELEMS);
-      load_stage<BM, BN, BK>(sA, sA + T::A_ELEMS, a, b, m0, n0, s * BK, K,
-                             N);
+      for (int g = 0; g < 4; ++g) {
+        const float* x = d + 4 * (4 * jb + g) + 2 * hi;
+        w[g] = pack_bf16(__float2bfloat16_rn(x[0]),
+                         __float2bfloat16_rn(x[1]));
+      }
+      const uint4 u = quad_transpose(w);
+      *reinterpret_cast<uint4*>((hi ? row1 : row0) + 8 * (4 * jb + t)) = u;
     }
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<STAGES - 2>();  // step kt has landed
-    __syncthreads();              // and every warp is done with step kt - 1
-    const int nk = kt + STAGES - 1;
-    if (nk < KT) {
-      bf16* sA = ring + (nk % STAGES) * (T::A_ELEMS + T::B_ELEMS);
-      load_stage<BM, BN, BK>(sA, sA + T::A_ELEMS, a, b, m0, n0, nk * BK, K,
-                             N);
+}
+
+template <int BM, int BN, int BK>
+__global__ void __launch_bounds__(THREADS, 1)
+blocked_mm(const __grid_constant__ CUtensorMap ma,
+           const __grid_constant__ CUtensorMap mb, bf16* __restrict__ c,
+           int M, int N, int K) {
+  using G = Gemm<BM, BN, BK>;
+  constexpr int STAGES_ = G::STAGES;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align_1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + G::BARS);
+  uint64_t* empty = full + STAGES_;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES_; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 2 * WG_THREADS);
     }
-    cp_async_commit();
-    const bf16* sA = ring + (kt % STAGES) * (T::A_ELEMS + T::B_ELEMS);
-    const bf16* sB = sA + T::A_ELEMS;
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int n_blocks = N / BN;
+  const int tiles = M / BM * n_blocks;
+  const int k_steps = K / BK;
+
+  if (threadIdx.x < WG_THREADS) {  // the producer warpgroup
+    setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x == 0) {
+      int it = 0;  // the block's k steps so far, over all its tiles
+      for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+        const int m0 = t / n_blocks * BM, n0 = t % n_blocks * BN;
+        for (int kt = 0; kt < k_steps; ++kt, ++it) {
+          const int s = it % STAGES_;
+          unsigned char* st = smem + s * G::STAGE;
+          mbar_wait(&empty[s], ((it / STAGES_) & 1) ^ 1);
+          mbar_expect(&full[s], G::STAGE);
+          tma_box2(st, &ma, &full[s], kt * BK, m0);
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      FragA fa[T::FM];
-#pragma unroll
-      for (int i = 0; i < T::FM; ++i)
-        wmma::load_matrix_sync(fa[i], sA + (wm * 64 + i * 16) * T::LDA + kk,
-                               T::LDA);
-#pragma unroll
-      for (int j = 0; j < T::FN; ++j) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, sB + kk * T::LDB + wn * T::WN + j * 16,
-                               T::LDB);
-#pragma unroll
-        for (int i = 0; i < T::FM; ++i)
-          wmma::mma_sync(acc[i][j], fa[i], fb, acc[i][j]);
+          for (int nb = 0; nb < BN / 64; ++nb)
+            tma_box2(st + G::A_BYTES + nb * G::B_BOX, &mb, &full[s],
+                     n0 + 64 * nb, kt * BK);
+        }
       }
     }
+    return;
   }
-  cp_async_wait<0>();
-  __syncthreads();  // the staging below reuses the ring
 
-  float* stage = reinterpret_cast<float*>(smem) + warp * 16 * LDE;
-  const int r = lane >> 1, c8 = (lane & 1) * 8;
+  setmaxnreg_inc<CONSUMER_REGS>();
+  const int wg = threadIdx.x / WG_THREADS - 1;
+  const int tid = threadIdx.x % WG_THREADS;
+  // this thread's first row of each m64 product, and its row + 8
+  const int r0 = (tid >> 5) * 16 + ((tid & 31) >> 2);
+  float acc[G::MMAS][G::ACC];
+  int it = 0;
+  for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+    const int m0 = t / n_blocks * BM, n0 = t % n_blocks * BN;
+    for (int kt = 0; kt < k_steps; ++kt, ++it) {
+      const int s = it % STAGES_;
+      const unsigned char* st = smem + s * G::STAGE;
+      mbar_wait(&full[s], (it / STAGES_) & 1);
+      wg_fence();
 #pragma unroll
-  for (int i = 0; i < T::FM; ++i)
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint64_t b =
+            desc_mn_boxes(st + G::A_BYTES + kk * 2048, G::B_BOX);
 #pragma unroll
-    for (int j = 0; j < T::FN; ++j) {
-      wmma::store_matrix_sync(stage, acc[i][j], LDE, wmma::mem_row_major);
-      __syncwarp();
-      const float* s = stage + r * LDE + c8;
-      uint4 u;
-      __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
+        for (int mi = 0; mi < G::MMAS; ++mi)
+          wgmma_ss_mn(acc[mi],
+                      desc_a<BK>(st + (wg * G::WG_ROWS + mi * 64) * BK * 2 +
+                                 kk * 32),
+                      b, kt > 0 || kk > 0);
+      }
+      wg_commit();
 #pragma unroll
-      for (int x = 0; x < 4; ++x)
-        h[x] = __floats2bfloat162_rn(s[2 * x], s[2 * x + 1]);
-      const size_t row = (size_t)(m0 + wm * 64 + i * 16 + r);
-      *reinterpret_cast<uint4*>(c + row * N + n0 + wn * T::WN + j * 16 +
-                                c8) = u;
-      __syncwarp();
+      for (int mi = 0; mi < G::MMAS; ++mi) fence_regs(acc[mi]);
+      // the products of the step before have retired: its stage is free
+      wg_wait<1>();
+#pragma unroll
+      for (int mi = 0; mi < G::MMAS; ++mi) fence_regs(acc[mi]);
+      if (kt > 0) mbar_arrive(&empty[(it - 1) % STAGES_]);
     }
+    wg_wait<0>();
+#pragma unroll
+    for (int mi = 0; mi < G::MMAS; ++mi) fence_regs(acc[mi]);
+    mbar_arrive(&empty[(it - 1) % STAGES_]);
+
+#pragma unroll
+    for (int mi = 0; mi < G::MMAS; ++mi) {
+      const size_t row = (size_t)(m0 + wg * G::WG_ROWS + mi * 64 + r0);
+      bf16* base = c + row * N + n0;
+      store_rows<BN>(acc[mi], base, base + 8 * (size_t)N);
+    }
+  }
 }
 
 template <int BM, int BN, int BK>
 int launch(const void* a, const void* b, void* c, int M, int N, int K,
            cudaStream_t s) {
-  if (M % BM || N % BN || K % BK || M / BM > 65535)
+  if (M % BM || N % BN || K % BK)
     return static_cast<int>(cudaErrorInvalidValue);
-  using T = Tile<BM, BN, BK>;
-  static const int attr = static_cast<int>(cudaFuncSetAttribute(
-      blocked_mm<BM, BN, BK>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)T::SMEM));
+  using G = Gemm<BM, BN, BK>;
+  static const int attr = prepare(blocked_mm<BM, BN, BK>, G::SMEM);
   if (attr) return attr;
-  const dim3 grid(N / BN, M / BM);
-  blocked_mm<BM, BN, BK><<<grid, THREADS, T::SMEM, s>>>(
-      static_cast<const bf16*>(a), static_cast<const bf16*>(b),
-      static_cast<bf16*>(c), N, K);
+  CUtensorMap ma, mb;
+  int err = matrix_box_map(&ma, a, M, K, BM, BK,
+                           BK == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                    : CU_TENSOR_MAP_SWIZZLE_128B);
+  if (!err)
+    err = matrix_box_map(&mb, b, K, N, BK, 64, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err) return err;
+  int dev = 0, sms = 0;
+  err = static_cast<int>(cudaGetDevice(&dev));
+  if (!err)
+    err = static_cast<int>(
+        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
+  if (err) return err;
+  const int tiles = M / BM * (N / BN);
+  blocked_mm<BM, BN, BK><<<tiles < sms ? tiles : sms, THREADS, G::SMEM, s>>>(
+      ma, mb, static_cast<bf16*>(c), M, N, K);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -209,4 +271,18 @@ extern "C" int blocked_matmul(const void* a, const void* b, void* c, int M,
   if (bm == 128 && bn == 128 && bk == 64)
     return launch<128, 128, 64>(a, b, c, M, N, K, s);
   return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The dynamic shared memory one block of the (bm, bn, bk) instance asks
+// for; 0 for a tile that is no instance.
+extern "C" int blocked_matmul_smem(int bm, int bn, int bk) {
+  if (bm == 128 && bn == 128 && bk == 32)
+    return (int)Gemm<128, 128, 32>::SMEM;
+  if (bm == 128 && bn == 256 && bk == 32)
+    return (int)Gemm<128, 256, 32>::SMEM;
+  if (bm == 256 && bn == 128 && bk == 32)
+    return (int)Gemm<256, 128, 32>::SMEM;
+  if (bm == 128 && bn == 128 && bk == 64)
+    return (int)Gemm<128, 128, 64>::SMEM;
+  return 0;
 }

@@ -1,17 +1,20 @@
 // Hopper building blocks for attention kernels over one head of a
-// [B, S, H, D] bf16 tensor, written so that any kernel of csrc/ can include
-// them (the production flash kernels of flash_attention.cu and the
-// flash-variant kernels do; head_dx.cu keeps its own):
+// [B, S, H, D] bf16 tensor and for GEMMs over row-major bf16 matrices,
+// written so that any kernel of csrc/ can include them (the production
+// flash kernels of flash_attention.cu, the flash-variant kernels and
+// blocked_matmul.cu do; head_dx.cu keeps its own):
 //
-// - host: the TMA map of one head's 64-row tiles (cuTensorMapEncodeTiled,
-//   looked up at run time with the CUDA runtime's entry-point query, so
-//   no library links libcuda);
+// - host: the TMA map of one head's 64-row tiles and of a row-major
+//   matrix's boxes (cuTensorMapEncodeTiled, looked up at run time with the
+//   CUDA runtime's entry-point query, so no library links libcuda);
 // - an mbarrier ring: full/empty barrier pairs, TMA tile loads and bulk
 //   copies that complete on a barrier;
 // - wgmma: shared-memory descriptors for the 128-byte swizzle the TMA
 //   writes, m64n64k16 and m64n32k16 bf16 products with fp32 accumulators
-//   in registers, A from shared memory or from registers; setmaxnreg, to
-//   hand a producer warpgroup's registers to the consumers;
+//   in registers, A from shared memory or from registers; m64n256k16 and
+//   m64n128k16 products of a K-major A and an MN-major B whose 64-column
+//   boxes lie a leading byte offset apart; setmaxnreg, to hand a producer
+//   warpgroup's registers to the consumers;
 // - accumulator-fragment helpers: quad reductions, the packing of an fp32
 //   accumulator into the bf16 register A operand of the next product, and
 //   the store of an accumulator's rows as bf16.
@@ -93,6 +96,25 @@ inline int head_tile_map(CUtensorMap* map, const void* base, int B, int S,
       strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
       CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
       CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The map of a row-major [rows, cols] bf16 matrix read in boxes of
+// box_rows x box_cols (box_cols * 2 bytes at most the swizzle's span):
+// rank 2, dims {cols, rows}, byte stride {2 cols}. Returns a cudaError_t.
+inline int matrix_box_map(CUtensorMap* map, const void* base, int rows,
+                          int cols, int box_rows, int box_cols,
+                          CUtensorMapSwizzle swizzle) {
+  const EncodeTiled encode = encode_tiled();
+  if (!encode) return static_cast<int>(cudaErrorNotSupported);
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {2ull * cols};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  const cuuint32_t step[2] = {1, 1};
+  const CUresult r = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+      strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+      CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -185,6 +207,17 @@ __device__ __forceinline__ void tma_tile(unsigned char* dst,
     tma_box(dst + n * BOX_BYTES, map, bar, 64 * n, h, s0, b);
 }
 
+// one box of a matrix map {columns c0.., rows r0..} into dst
+__device__ __forceinline__ void tma_box2(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int r0) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(r0)
+      : "memory");
+}
+
 // `bytes` (a multiple of 16, both ends 16-byte aligned) of plain memory
 __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
                                           uint32_t bytes, uint64_t* bar) {
@@ -268,6 +301,22 @@ __device__ __forceinline__ uint64_t desc_k(const void* p) {
 __device__ __forceinline__ uint64_t desc_mn(const void* p) {
   return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (64ull << 16) |
          (64ull << 32) | (1ull << 62);
+}
+
+// K-major operand in the 64-byte swizzle (rows of 32 bf16): 8-row groups
+// 512 bytes apart; a k16 step is +32 bytes inside the row
+__device__ __forceinline__ uint64_t desc_k64(const void* p) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) | (1ull << 16) |
+         (32ull << 32) | (2ull << 62);
+}
+
+// MN-major operand in the 128-byte swizzle, N a multiple of 64: each
+// 64-wide N chunk is a box of its own, `box_bytes` after the last (the
+// leading byte offset); 8-row (k) groups 1024 bytes apart
+__device__ __forceinline__ uint64_t desc_mn_boxes(const void* p,
+                                                  uint32_t box_bytes) {
+  return (uint64_t)((smem_addr(p) & 0x3FFFF) >> 4) |
+         ((uint64_t)(box_bytes >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
 __device__ __forceinline__ void wg_fence() {
@@ -360,6 +409,89 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t* a,
       "}\n"
       : SM90_D32(d)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d[64 x 256] (+)= A[64 x 16] B[16 x 256], A K-major and B MN-major in
+// shared memory; `acc` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[128], uint64_t a,
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127}"
+      ", %128, %129, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(a), "l"(b), "r"(acc));
+}
+
+// d[64 x 128] (+)= A[64 x 16] B[16 x 128], A K-major and B MN-major in
+// shared memory; `acc` 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a,
+                                            uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+      ", %64, %65, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(acc));
 }
 
 #undef SM90_D32

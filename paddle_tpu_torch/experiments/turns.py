@@ -1,5 +1,6 @@
-"""The training step and the production flash kernels of this checkout and
-of another one, timed in turns on one card.
+"""The training step, the production flash kernels, the blocked matmul and
+the decode kernel of this checkout and of another one, timed in turns on
+one card.
 
     python3 -m paddle_tpu_torch.experiments.turns OTHER_ROOT [rounds]
 
@@ -8,16 +9,20 @@ checkout of the repository (an older commit, say). Each turn is a process
 of its own in one checkout's root, in the order other, this, this, other
 for each round (default 1), so that both sides share the card's state and
 a drift shows as a difference between the two turns of one side. A turn
-builds its checkout's ``flash_attention`` and ``head_dx`` kernels, times
-its flash forward and backward (the backward as its ``_FlashAttention``
-launches it: ``flash_attention_bwd`` where the checkout has it, else the dq
-and the dk/dv kernels) at bench.py's training shape (B 44, S 512, 12 heads
-of D 64, causal) and at llama7b width (B 1, S 2048, 32 heads of D 128,
-causal), then runs its ``chip_smoke.train_run`` (phase 5b: two warm-up and
-ten timed AdamW steps of ``bert_base_equiv`` at B 44 x S 512 from seed 0,
-launch counts asserted, one profiled step). Prints the card's name and
-power limit, then one JSON line per turn, then all turns as one JSON
-line.
+builds its checkout's ``flash_attention``, ``head_dx``, ``blocked_matmul``
+and ``decode_attention`` kernels, times its flash forward and backward
+(the backward as its ``_FlashAttention`` launches it:
+``flash_attention_bwd`` where the checkout has it, else the dq and the
+dk/dv kernels) at bench.py's training shape (B 44, S 512, 12 heads of D
+64, causal) and at llama7b width (B 1, S 2048, 32 heads of D 128, causal),
+``blocked_matmul``'s four tiles at the lm_head dx shape (22528 x 32000 x
+768) and ``ragged_decode_attention`` in bf16 at ``chip_smoke.SHAPES`` (as
+phase 2 times it: layers cycled, positions from seed 0 with the first
+slot at 0 and the last at max_len - 1; replayed and eager), then runs its
+``chip_smoke.train_run`` (phase 5b: two warm-up and ten timed AdamW steps
+of ``bert_base_equiv`` at B 44 x S 512 from seed 0, launch counts
+asserted, one profiled step). Prints the card's name and power limit,
+then one JSON line per turn, then all turns as one JSON line.
 """
 
 from __future__ import annotations
@@ -44,13 +49,35 @@ import chip_smoke as cs
 from paddle_tpu_torch.experiments._timing import time_ms
 from paddle_tpu_torch.models import llama
 from paddle_tpu_torch.ops.kernels import _build, launch_counters
+from paddle_tpu_torch.ops.kernels import blocked_matmul as bm
+from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
-for name in ("flash_attention", "head_dx"):
+for name in ("flash_attention", "head_dx", "blocked_matmul",
+             "decode_attention"):
     _build.build(name)
 out = {}
+gen = torch.Generator(device="cuda").manual_seed(0)
+a = torch.randn(22528, 32000, generator=gen, device="cuda").bfloat16()
+b = torch.randn(32000, 768, generator=gen, device="cuda").bfloat16()
+out["blocked_matmul"] = {"x".join(map(str, t)): time_ms(
+    lambda i, t=t: bm.blocked_matmul(a, b, *t), iters=20) for t in bm.TILES}
+del a, b
+out["decode"], out["decode_eager"] = {}, {}
+for name, B, nH, Hkv, D, max_len, L in cs.SHAPES:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    kc, vc = (torch.randn(L, B, max_len, Hkv, D, generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn(B, nH, D, generator=gen, device="cuda").bfloat16()
+    pos = torch.randint(0, max_len, (B,), generator=gen, device="cuda",
+                        dtype=torch.int32)
+    pos[0], pos[-1] = 0, max_len - 1
+    decode = lambda i: da.ragged_decode_attention(q, kc[i], vc[i], pos)
+    out["decode"][name] = time_ms(decode, L)
+    out["decode_eager"][name] = cs.eager_ms(torch, decode, L)
+    del kc, vc
 for tag, (B, S, H, D) in (("bench", (44, 512, 12, 64)),
                           ("llama7b", (1, 2048, 32, 128))):
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -9,7 +9,9 @@ x 3200) do not map onto a CTA (a 512 x 768 fp32 accumulator alone is
 whose header says what bounds it and how it is built) has CTA tiles of its
 own, one template instance per tile in ``TILES``. It keeps the reference's
 contract on divisibility strictly: M, N and K must be multiples of the
-tile asked for (the reference's grid drops the rest rows silently).
+tile asked for (the reference's grid drops the rest rows silently). The
+kernel is persistent: one block per SM walks the output tiles, a TMA ring
+feeding ``wgmma`` products (the source's header says more).
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
 kernel or raises (bf16, contiguous).
@@ -22,7 +24,8 @@ import functools
 
 import torch
 
-__all__ = ["TILES", "blocked_matmul", "blocked_matmul_plain"]
+__all__ = ["TILES", "blocked_matmul", "blocked_matmul_plain",
+           "smem_bytes"]
 
 # (bm, bn, bk): the kernel's CTA tiles, each a template instance
 TILES = ((128, 128, 32), (128, 256, 32), (256, 128, 32), (128, 128, 64))
@@ -86,13 +89,26 @@ def blocked_matmul(a, b, bm=128, bn=128, bk=32):
 blocked_matmul.launches = 0
 
 
+def smem_bytes(bm, bn, bk):
+    """The dynamic shared memory one block of the ``(bm, bn, bk)``
+    instance asks for (builds the library)."""
+    fn = _library().blocked_matmul_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(bm, bn, bk)
+
+
+def _library():
+    from ._build import load_library
+
+    return load_library("blocked_matmul")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry point, built and loaded at first use; every pointer
     and the stream are ``c_void_p`` so none is cut to 32 bits."""
-    from ._build import load_library
-
-    fn = load_library("blocked_matmul").blocked_matmul
+    fn = _library().blocked_matmul
     fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int

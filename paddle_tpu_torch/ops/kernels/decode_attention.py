@@ -3,9 +3,16 @@
 Replaces the TPU kernel ``paddle_tpu/ops/pallas/decode_attention.py``
 (``ragged_decode_attention``, body ``_make_kernel``). The CUDA kernel is
 ``paddle_tpu_torch/csrc/decode_attention.cu``; its header says what bounds
-it on the H100 (bytes: it reads each visible key and value once) and how
-its design keeps the bytes read proportional to ``pos`` rather than to
-``max_len``.
+it on the H100 (latency: it reads each visible key and value once, fewer
+bytes than one trip to memory costs) and how its design splits each slot
+over key chunks across blocks, merges them in the same launch and keeps
+the bytes read proportional to ``pos`` rather than to ``max_len``.
+
+The launch needs two buffers beside its output: a float32 workspace for
+the chunks' partial states (``torch.empty`` per call) and an int32 ticket
+per (slot, kv head), zero before the launch and left zero by it, kept
+here per device and size (``_tickets``). One ticket buffer serves one
+stream at a time, as the port runs.
 
 Quant mode (the TPU kernel's ``k_scale``/``v_scale``): an int8 or
 float8_e4m3fn cache with one fp32 scale per cache row, dequantized in the
@@ -24,12 +31,14 @@ import math
 
 import torch
 
-__all__ = ["ragged_decode_attention", "ragged_decode_attention_plain"]
+__all__ = ["ragged_decode_attention", "ragged_decode_attention_plain",
+           "smem_bytes"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # quant mode's caches
 _HEAD_DIMS = (64, 128)
 _MAX_REP = 8  # MAX_REP in csrc/decode_attention.cu
+_CHUNK = 64   # CHUNK in csrc/decode_attention.cu: keys per block
 
 
 def ragged_decode_attention_plain(q, kc, vc, pos, k_scale=None,
@@ -40,7 +49,7 @@ def ragged_decode_attention_plain(q, kc, vc, pos, k_scale=None,
     accumulation). In quant mode each cache row is dequantized in fp32
     with its scale and the probabilities stay fp32, as in the TPU
     kernel. Softmax here is over the whole visible window at once where
-    the kernel runs it online tile by tile."""
+    the kernel takes it chunk by chunk and merges the chunks."""
     B, nH, D = q.shape
     Smax, Hkv = kc.shape[1], kc.shape[2]
     rep = nH // Hkv
@@ -132,12 +141,17 @@ def ragged_decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
         raise ValueError("q, kc and vc must start on a 16-byte boundary "
                          "(the kernel reads rows in 16-byte loads)")
     out = torch.empty_like(q)
+    n_chunks = -(-Smax // _CHUNK)
+    part = torch.empty(B * Hkv * n_chunks * (nH // Hkv) * (D + 2),
+                       dtype=torch.float32, device=q.device)
+    tickets = _tickets(q.device, B * Hkv)
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), kc.data_ptr(), vc.data_ptr(),
             k_scale.data_ptr() if quant else None,
             v_scale.data_ptr() if quant else None, pos.data_ptr(),
-            out.data_ptr(), B, nH, Hkv, D, Smax, _DTYPE_CODES[q.dtype],
+            out.data_ptr(), part.data_ptr(), tickets.data_ptr(), B, nH, Hkv,
+            D, Smax, _DTYPE_CODES[q.dtype],
             _KV_CODES[kc.dtype] if quant else 0, 1.0 / math.sqrt(D),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -152,15 +166,48 @@ def ragged_decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
 ragged_decode_attention.launches = 0
 ragged_decode_attention.quant_launches = 0
 
+# (device, slots x kv heads) -> the zeroed int32 tickets of the merge
+_TICKETS = {}
+
+
+def _tickets(device, n):
+    """The ticket buffer of ``n`` (slot, kv head) pairs on ``device``:
+    made zero at its first use, outside any CUDA-graph capture (a buffer
+    made inside one would belong to the graph's pool and be zeroed only
+    when the graph replays), and left zero by every launch."""
+    key = (device.index, n)
+    if key not in _TICKETS:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("ragged_decode_attention: call it once at "
+                               "this shape before capturing it into a CUDA "
+                               "graph (its ticket buffer is made then)")
+        _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return _TICKETS[key]
+
+
+def smem_bytes(dtype, kv_dtype, D, rep=1):
+    """The dynamic shared memory one block of the kernel instance for q
+    of ``dtype``, a cache of ``kv_dtype`` and head dim ``D`` asks for at
+    ``rep`` query heads per kv head (builds the library)."""
+    fn = _library().ragged_decode_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(_DTYPE_CODES[dtype],
+              0 if kv_dtype == dtype else _KV_CODES[kv_dtype], D, rep)
+
+
+def _library():
+    from ._build import load_library
+
+    return load_library("decode_attention")
+
 
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry point, built and loaded at first use; every pointer
     and the stream are declared ``c_void_p`` so none is cut to 32 bits."""
-    from ._build import load_library
-
-    fn = load_library("decode_attention").ragged_decode_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    fn = _library().ragged_decode_attention
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 7
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

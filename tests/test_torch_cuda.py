@@ -68,6 +68,16 @@ def _close(out, ref, dtype, atol_floor=0.0):
                                atol=max(atol, atol_floor))
 
 
+def _decode_positions(cuda, max_len):
+    """Decode positions for a window of max_len: 0, the last row, a frozen
+    slot at max_len, interior ones and the edges of the kernel's key
+    chunks, each at most max_len."""
+    C = da._CHUNK
+    return torch.tensor([min(p, max_len) for p in (
+        0, max_len - 1, max_len // 2, 1, 31 % max_len, max_len, C - 1, C,
+        C + 1, 2 * C - 1, 2 * C)], dtype=torch.int32, device=cuda)
+
+
 class TestDecodeAttention:
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("nH,Hkv,D,max_len", [
@@ -79,15 +89,16 @@ class TestDecodeAttention:
     ])
     def test_matches_plain(self, cuda, dtype, nH, Hkv, D, max_len):
         """Positions 0, max_len - 1, a frozen slot at max_len (clamped to
-        the whole window) and interior ones; the cache is one layer's view
-        of a stacked [L, ...] cache, at a non-zero offset."""
+        the whole window), interior ones and the edges of the kernel's key
+        chunks (C - 1, C, C + 1, 2C - 1, 2C; slots at 0, 1 and C - 1 have
+        only chunk 0 live); the cache is one layer's view of a stacked
+        [L, ...] cache, at a non-zero offset."""
         gen = torch.Generator(device=cuda).manual_seed(nH * D + max_len)
-        B = 6
+        pos = _decode_positions(cuda, max_len)
+        B = len(pos)
         kc = _randn(gen, 2, B, max_len, Hkv, D, dtype=dtype)
         vc = _randn(gen, 2, B, max_len, Hkv, D, dtype=dtype)
         q = _randn(gen, B, nH, D, dtype=dtype)
-        pos = torch.tensor([0, max_len - 1, max_len // 2, 1, 31 % max_len,
-                            max_len], dtype=torch.int32, device=cuda)
         before = da.ragged_decode_attention.launches
         out = da.ragged_decode_attention(q, kc[1], vc[1], pos)
         torch.cuda.synchronize()
@@ -109,6 +120,49 @@ class TestDecodeAttention:
         kc = torch.zeros(2, 4, 16, 64, device=cuda).transpose(1, 2)
         with pytest.raises(ValueError, match="contiguous"):
             da.ragged_decode_attention(q[:, :4], kc, kc, pos)
+
+    @pytest.mark.parametrize("quant", [None, "int8"])
+    def test_graph_replays_on_new_positions(self, cuda, quant):
+        """One launch captured into a CUDA graph, replayed three times on
+        new positions (one slot on a single chunk, the others over up to
+        all six): each output matches the plain version, and the merge's
+        ticket buffer is left zero by every replay."""
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        B, nH, Hkv, D, max_len = 8, 12, 12, 64, 384
+        dt = torch.bfloat16
+        q = _randn(gen, B, nH, D, dtype=dt)
+        if quant is None:
+            kc = _randn(gen, B, max_len, Hkv, D, dtype=dt)
+            vc = _randn(gen, B, max_len, Hkv, D, dtype=dt)
+            scales = ()
+        else:
+            qdt = qs.quant_dtype(quant)
+            kc, ks = qs.quantize_kv_rows(
+                _randn(gen, B, max_len, Hkv, D, dtype=torch.float32), qdt)
+            vc, vs = qs.quantize_kv_rows(
+                _randn(gen, B, max_len, Hkv, D, dtype=torch.float32), qdt)
+            scales = (ks, vs)
+        pos = torch.zeros(B, dtype=torch.int32, device=cuda)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            da.ragged_decode_attention(q, kc, vc, pos, *scales)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = da.ragged_decode_attention(q, kc, vc, pos, *scales)
+        tickets = da._tickets(q.device, B * Hkv)
+        for new in ([5, 383, 64, 127, 200, 0, 300, 63],
+                    [383] * B,
+                    torch.randint(0, max_len, (B,), generator=gen,
+                                  device=cuda).tolist()):
+            pos.copy_(torch.tensor(new, dtype=torch.int32))
+            graph.replay()
+            torch.cuda.synchronize()
+            _close(out, da.ragged_decode_attention_plain(q, kc, vc, pos,
+                                                         *scales), dt)
+            assert int(tickets.abs().sum()) == 0
 
 
 class TestPagedAttention:
@@ -526,15 +580,14 @@ class TestDecodeAttentionQuant:
     ])
     def test_matches_plain(self, cuda, mode, dtype, nH, Hkv, D, max_len):
         gen = torch.Generator(device=cuda).manual_seed(nH * D + max_len)
-        B = 6
+        pos = _decode_positions(cuda, max_len)
+        B = len(pos)
         qdt = qs.quant_dtype(mode)
         kc, ks = qs.quantize_kv_rows(
             _randn(gen, 2, B, max_len, Hkv, D, dtype=torch.float32), qdt)
         vc, vs = qs.quantize_kv_rows(
             _randn(gen, 2, B, max_len, Hkv, D, dtype=torch.float32), qdt)
         q = _randn(gen, B, nH, D, dtype=dtype)
-        pos = torch.tensor([0, max_len - 1, max_len // 2, 1, 31 % max_len,
-                            max_len], dtype=torch.int32, device=cuda)
         before = (da.ragged_decode_attention.launches,
                   da.ragged_decode_attention.quant_launches)
         out = da.ragged_decode_attention(q, kc[1], vc[1], pos, ks[1], vs[1])
@@ -760,6 +813,21 @@ class TestBlockedMatmul:
         torch.cuda.synchronize()
         assert bmm.blocked_matmul.launches == n + 1
         assert out.dtype == torch.bfloat16 and out.shape == (512, 768)
+        _close(out, bmm.blocked_matmul_plain(a, b, tile[2]), torch.bfloat16)
+
+    @pytest.mark.parametrize("tile", bmm.TILES)
+    def test_persistent_grid_tail(self, cuda, tile):
+        """More output tiles than the persistent grid has blocks (one per
+        SM), and no multiple of it: some blocks walk one tile fewer."""
+        gen = torch.Generator(device=cuda).manual_seed(1)
+        M, K, N = 4864, 256, 1024
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        tiles = (M // tile[0]) * (N // tile[1])
+        assert tiles > sms and tiles % sms
+        a = _randn(gen, M, K, dtype=torch.bfloat16)
+        b = _randn(gen, K, N, dtype=torch.bfloat16)
+        out = bmm.blocked_matmul(a, b, *tile)
+        torch.cuda.synchronize()
         _close(out, bmm.blocked_matmul_plain(a, b, tile[2]), torch.bfloat16)
 
     def test_rejects_what_it_does_not_take(self, cuda):

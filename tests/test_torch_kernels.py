@@ -49,6 +49,29 @@ class TestRaggedDecodeAttention:
             np.testing.assert_allclose(out.numpy(), np.asarray(ref),
                                        rtol=2e-5, atol=2e-5)
 
+    @pytest.mark.parametrize("nH,Hkv,D", [(12, 12, 64), (16, 2, 64),
+                                          (8, 1, 128)])
+    def test_plain_matches_pallas_on_chunk_edges(self, nH, Hkv, D):
+        """The serving window (max_len 384) with positions on the edges of
+        the card kernel's key chunks (``_CHUNK`` keys a block): one key,
+        the last key of a chunk, the first of the next and the one after,
+        two chunks and the whole window; MHA, GQA and rep 8 at D 128."""
+        C = da._CHUNK
+        rng = np.random.RandomState(1)
+        Smax = 384
+        pos = np.asarray([0, C - 1, C, C + 1, 2 * C - 1, 2 * C, Smax - 1],
+                         np.int32)
+        B = len(pos)
+        q = rng.randn(B, nH, D).astype(np.float32)
+        kc = rng.randn(B, Smax, Hkv, D).astype(np.float32)
+        vc = rng.randn(B, Smax, Hkv, D).astype(np.float32)
+        ref = jda.ragged_decode_attention(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+            jnp.asarray(pos), interpret=True)
+        out = da.ragged_decode_attention(_t(q), _t(kc), _t(vc), _t(pos))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                                   atol=2e-5)
+
     def test_wrapper_rejects_bad_inputs(self):
         q = torch.zeros(2, 4, 64)
         kc = torch.zeros(2, 32, 2, 64)

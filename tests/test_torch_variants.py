@@ -261,9 +261,10 @@ def test_bwd_diag_matches_pallas(ref, interpret, drop, dtype):
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("tile", [(128, 128, 32), (128, 128, 64)])
+@pytest.mark.parametrize("tile", bm.TILES)
 def test_blocked_matmul_matches_pallas(ref, interpret, dtype, tile):
-    """bf16 out of an fp32 accumulator over K chunks of ``bk``."""
+    """bf16 out of an fp32 accumulator over K chunks of ``bk``, at every
+    tile instance of the kernel."""
     rng = np.random.RandomState(5)
     a = rng.randn(256, 192).astype(np.float32)
     b = rng.randn(192, 256).astype(np.float32)
