@@ -12,9 +12,13 @@ Phases (any failed check raises and the script exits non-zero):
    source, all started together), print the card's name and power
    limit, and the registers, shared memory and spills of every
    instance of ``flash_attention.cu``, ``blocked_matmul.cu`` (the four
-   tiles) and ``decode_attention.cu`` (q fp32 or bf16; the cache in q's
+   tiles), ``decode_attention.cu`` (q fp32 or bf16; the cache in q's
    type, int8 or fp8; D 64 and 128; one query head per kv head, or up to
-   eight) (a spill fails);
+   eight), ``paged_attention.cu`` (the split-KV decode family in fp32 and
+   bf16 at D 64 and 128 for one row or up to eight; the bf16 tensor-core
+   and fp32 prefills) and ``quant_matmul.cu`` (x fp32 or bf16, int8 or
+   fp8 weights, 32 or 128 columns a block, 16-byte or byte-wise copies)
+   (a spill fails);
 2. hold every kernel against its plain PyTorch version on the card, in
    bf16 and fp32, and time the kernel, the plain version and, where one
    PyTorch call computes the same function, that call: the tick kernels
@@ -32,7 +36,8 @@ Phases (any failed check raises and the script exits non-zero):
    ``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768)
    beside its GEMM alone; ``quant_matmul`` (int8 and fp8 weights, bf16
    x) at the decode tick's four projection shapes with B 8, lm_head with
-   B 1 and B 8, and two ragged edges, beside dequantize + ``torch.mm``;
+   B 1 and B 8, and two ragged edges, beside dequantize + ``torch.mm``
+   (the kernels line carries each shape of it and of the paged kernel);
    ``ragged_decode_attention``'s quant mode (int8 and fp8 caches with
    per-row scales) at the serving shape and at llama7b width, beside
    dequantize + SDPA; and ``multi_tensor_update`` at ResNet-50's 161
@@ -1151,34 +1156,76 @@ def flash_build_report(fa, _build, logs):
                       "flash_attention")
 
 
-def rebuilt_build_report(torch, bm, da, _build, logs):
-    """Every instance of ``csrc/blocked_matmul.cu`` (the four tiles) and of
+def rebuilt_build_report(torch, bm, da, pa, qm, _build, logs):
+    """Every instance of ``csrc/blocked_matmul.cu`` (the four tiles), of
     ``csrc/decode_attention.cu`` (q fp32 / bf16; the cache in q's type,
     int8 or fp8; D 64 and 128; rep 1 or up to 8, at the shared memory of
-    its largest rep), each with its ptxas report (``ptxas_rows``); raises
-    on a spill."""
+    its largest rep), of ``csrc/paged_attention.cu`` (the split-KV decode
+    family: fp32 / bf16, D 64 and 128, one row or up to 8; the bf16
+    tensor-core prefill and the fp32 prefill at D 64 and 128) and of
+    ``csrc/quant_matmul.cu`` (x fp32 / bf16, int8 / fp8 weights, 32 or 128
+    columns a block, 16-byte or byte-wise copies; shared memory at the
+    tick's w_down for 32 columns and lm_head for 128), each with its
+    ptxas report (``ptxas_rows``); raises on a spill."""
     instances = [(f"blocked_mmILi{m}ELi{n}ELi{k}EE",
                   f"blocked_matmul {m}x{n}x{k}",
                   dict(kernel="blocked_matmul", tile=f"{m}x{n}x{k}"),
                   bm.smem_bytes(m, n, k)) for m, n, k in bm.TILES]
     rows = ptxas_rows(_build, logs.get("blocked_matmul", ""), instances,
                       "blocked_matmul")
+    dts = (torch.float32, torch.bfloat16)
     instances = []
-    for tc, dt in enumerate((torch.float32, torch.bfloat16)):
+    for tc, dt in enumerate(dts):
         for kc, kdt in enumerate((dt, torch.int8, torch.float8_e4m3fn)):
             for D in (64, 128):
                 for rep in (1, 8):
                     kname = str(kdt).replace("torch.", "")
                     qname = str(dt).replace("torch.", "")
                     instances.append((
-                        f"decode_splitILi{tc}ELi{kc}ELi{D}ELi{rep}EE",
+                        f"8SlotRowsELi{tc}ELi{kc}ELi{D}ELi{rep}EE",
                         f"ragged_decode_attention q {qname} cache {kname} "
                         f"D{D} rep {'1' if rep == 1 else '<= 8'}",
                         dict(kernel="ragged_decode_attention", q=qname,
                              cache=kname, D=D, rep=rep),
                         da.smem_bytes(dt, kdt, D, rep)))
-    return rows + ptxas_rows(_build, logs.get("decode_attention", ""),
-                             instances, "ragged_decode_attention")
+    rows += ptxas_rows(_build, logs.get("decode_attention", ""), instances,
+                       "ragged_decode_attention")
+    instances = []
+    for tc, dt in enumerate(dts):
+        name = str(dt).replace("torch.", "")
+        for D in (64, 128):
+            for r in (1, 8):
+                instances.append((
+                    f"9PagedRowsELi{tc}ELi0ELi{D}ELi{r}EE",
+                    f"ragged_paged_attention decode {name} D{D} rows "
+                    f"{'1' if r == 1 else '<= 8'}",
+                    dict(kernel="ragged_paged_attention", family="decode",
+                         dtype=name, D=D, rows=r),
+                    pa.smem_bytes(dt, D, r)))
+            key = ("paged_prefillILi" if dt == torch.bfloat16
+                   else "paged_prefill_fp32ILi")
+            instances.append((
+                f"{key}{D}EE", f"ragged_paged_attention prefill {name} D{D}",
+                dict(kernel="ragged_paged_attention", family="prefill",
+                     dtype=name, D=D, rows=64),
+                pa.smem_bytes(dt, D, 64)))
+    rows += ptxas_rows(_build, logs.get("paged_attention", ""), instances,
+                       "ragged_paged_attention")
+    instances = []
+    for xc, xdt in enumerate(dts):
+        for wc, mode in ((1, "int8"), (2, "fp8")):
+            for nt, (K, N) in ((32, (3072, 768)), (128, (768, 32000))):
+                for vec in (1, 0):
+                    xname = str(xdt).replace("torch.", "")
+                    instances.append((
+                        f"quant_mmILi{xc}ELi{wc}ELi{nt}ELb{vec}EE",
+                        f"quant_matmul x {xname} w {mode} {nt} columns "
+                        f"{'16-byte' if vec else 'byte-wise'} copies",
+                        dict(kernel="quant_matmul", x=xname, w=mode, nt=nt,
+                             vec=bool(vec)),
+                        qm.smem_bytes(xdt, K, N)))
+    return rows + ptxas_rows(_build, logs.get("quant_matmul", ""),
+                             instances, "quant_matmul")
 
 
 def check_launched(launches, names, what):
@@ -2301,6 +2348,16 @@ def kernels_line(rows, by_path):
                     "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
                     "bound_by", "library_ms", "library")}
                 for v in rows if v["name"] == name}
+        if name in ("ragged_paged_attention", "quant_matmul"):
+            # every shape phase 2 times: the paged kernel's decode ticks and
+            # admit prefills (bf16), quant_matmul's projections (int8)
+            k["shapes"] = {
+                v["shape"]: {key: v.get(key) for key in (
+                    "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms", "gather_sdpa_ms")
+                    if key in v}
+                for v in rows if v["name"] == name
+                and v["dtype"] == line_dtype.get(name, "bfloat16")}
         if name == "ragged_decode_attention":
             # the same kernel's quant mode (int8 pages with row scales, the
             # TPU kernel's k_scale / v_scale): no engine path calls it, in
@@ -2374,7 +2431,8 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     logs = {b["name"]: b["log"] for b in builds}
     flash_build = flash_build_report(fa, _build, logs)
-    rebuilt_build = rebuilt_build_report(torch, bm, da, _build, logs)
+    rebuilt_build = rebuilt_build_report(torch, bm, da, pa, qm, _build,
+                                         logs)
 
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -2725,7 +2783,7 @@ def main() -> None:
                    "resnet50_adamw": radamw,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
-                   "blocked_decode_build": rebuilt_build,
+                   "rebuilt_build": rebuilt_build,
                    "experiments": exps}, f, indent=1)
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -1,6 +1,6 @@
-"""The training step, the production flash kernels, the blocked matmul and
-the decode kernel of this checkout and of another one, timed in turns on
-one card.
+"""The training step, the production flash kernels, the blocked matmul,
+the decode, paged and quantized-matmul kernels and the paged engine's steps
+of this checkout and of another one, timed in turns on one card.
 
     python3 -m paddle_tpu_torch.experiments.turns OTHER_ROOT [rounds]
 
@@ -9,20 +9,27 @@ checkout of the repository (an older commit, say). Each turn is a process
 of its own in one checkout's root, in the order other, this, this, other
 for each round (default 1), so that both sides share the card's state and
 a drift shows as a difference between the two turns of one side. A turn
-builds its checkout's ``flash_attention``, ``head_dx``, ``blocked_matmul``
-and ``decode_attention`` kernels, times its flash forward and backward
-(the backward as its ``_FlashAttention`` launches it:
-``flash_attention_bwd`` where the checkout has it, else the dq and the
-dk/dv kernels) at bench.py's training shape (B 44, S 512, 12 heads of D
-64, causal) and at llama7b width (B 1, S 2048, 32 heads of D 128, causal),
-``blocked_matmul``'s four tiles at the lm_head dx shape (22528 x 32000 x
-768) and ``ragged_decode_attention`` in bf16 at ``chip_smoke.SHAPES`` (as
-phase 2 times it: layers cycled, positions from seed 0 with the first
-slot at 0 and the last at max_len - 1; replayed and eager), then runs its
-``chip_smoke.train_run`` (phase 5b: two warm-up and ten timed AdamW steps
-of ``bert_base_equiv`` at B 44 x S 512 from seed 0, launch counts
-asserted, one profiled step). Prints the card's name and power limit,
-then one JSON line per turn, then all turns as one JSON line.
+builds its checkout's ``flash_attention``, ``head_dx``, ``blocked_matmul``,
+``decode_attention``, ``paged_attention`` and ``quant_matmul`` kernels,
+times its flash forward and backward (the backward as its
+``_FlashAttention`` launches it: ``flash_attention_bwd`` where the
+checkout has it, else the dq and the dk/dv kernels) at bench.py's
+training shape (B 44, S 512, 12 heads of D 64, causal) and at llama7b
+width (B 1, S 2048, 32 heads of D 128, causal), ``blocked_matmul``'s four
+tiles at the lm_head dx shape (22528 x 32000 x 768),
+``ragged_decode_attention`` in bf16 at ``chip_smoke.SHAPES`` (as phase 2
+times it: layers cycled, positions from seed 0 with the first slot at 0
+and the last at max_len - 1; replayed and eager), ``quant_matmul`` with
+int8 weights and bf16 x at ``chip_smoke.QMM_SHAPES`` and
+``ragged_paged_attention`` in bf16 at ``chip_smoke.PAGED_SHAPES`` (inputs
+as phase 2 makes them, from seed 0; replayed and eager), the paged
+engine's decode step and admit prefill in bf16 and with int8 weights and
+pool (``chip_smoke.paged_step_breakdown``: eager and replayed device ms),
+then runs its ``chip_smoke.train_run`` (phase 5b: two warm-up and ten
+timed AdamW steps of ``bert_base_equiv`` at B 44 x S 512 from seed 0,
+launch counts asserted, one profiled step). Prints the card's name and
+power limit, then one JSON line per turn, then all turns as one JSON
+line.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # one turn, run with its checkout's root as the working directory
 _TURN = r'''
-import json, sys
+import json, math, sys
 sys.path.insert(0, ".")
 import numpy as np
 import torch
@@ -52,11 +59,14 @@ from paddle_tpu_torch.ops.kernels import _build, launch_counters
 from paddle_tpu_torch.ops.kernels import blocked_matmul as bm
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import paged_attention as pa
+from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+from paddle_tpu_torch.quantization import serving as qs
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 for name in ("flash_attention", "head_dx", "blocked_matmul",
-             "decode_attention"):
+             "decode_attention", "paged_attention", "quant_matmul"):
     _build.build(name)
 out = {}
 gen = torch.Generator(device="cuda").manual_seed(0)
@@ -78,6 +88,48 @@ for name, B, nH, Hkv, D, max_len, L in cs.SHAPES:
     out["decode"][name] = time_ms(decode, L)
     out["decode_eager"][name] = cs.eager_ms(torch, decode, L)
     del kc, vc
+out["quant_matmul"], out["quant_matmul_eager"] = {}, {}
+for name, B, K, N in cs.QMM_SHAPES:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    copies = max(2, min(64, math.ceil(2 * cs.L2_BYTES / (K * N))))
+    ws = [qs.quantize_weight(torch.randn(K, N, generator=gen, device="cuda")
+                             / math.sqrt(K), "int8") for _ in range(copies)]
+    x = torch.randn(B, K, generator=gen, device="cuda").bfloat16()
+    qmm = lambda i: qm.quant_matmul(x, *ws[i])
+    out["quant_matmul"][name] = time_ms(qmm, copies)
+    out["quant_matmul_eager"][name] = cs.eager_ms(torch, qmm, copies)
+    del ws
+out["paged"], out["paged_eager"] = {}, {}
+for name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len in cs.PAGED_SHAPES:
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    W, P = max_pages * cs.PAGE, B * max_pages + 1
+    L = max(2, min(128, math.ceil(2 * cs.L2_BYTES
+                                  / (2 * P * cs.PAGE * Hkv * D * 2))))
+    kp, vp = (torch.randn(L, P, cs.PAGE, Hkv, D, generator=gen,
+                          device="cuda").bfloat16() for _ in range(2))
+    q = torch.randn(B, Tq, nH, D, generator=gen, device="cuda").bfloat16()
+    pt = (torch.randperm(P - 1, generator=gen, device="cuda")[:B * max_pages]
+          + 1).to(torch.int32).reshape(B, max_pages)
+    if ctx is None:
+        c = torch.randint(0, W, (B,), generator=gen, device="cuda")
+        c[0], c[-1] = 0, W - 1
+    else:
+        c = torch.tensor(ctx, device="cuda")
+    c = c.to(torch.int32)
+    ql = (None if q_len is None
+          else torch.tensor(q_len, dtype=torch.int32, device="cuda"))
+    paged = lambda i: pa.ragged_paged_attention(q, kp[i], vp[i], pt, c, ql)
+    out["paged"][name] = time_ms(paged, L)
+    out["paged_eager"][name] = cs.eager_ms(torch, paged, L)
+    del kp, vp
+cfg = llama.LlamaConfig.bert_base_equiv()
+params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           device="cuda")
+out["paged_steps"] = cs.paged_step_breakdown(torch, llama, params, cfg, 384)
+out["paged_steps_int8"] = cs.paged_step_breakdown(
+    torch, llama, qs.quantize_llama_params(params, cfg, "int8"), cfg, 384,
+    quant="int8")
+del params
 for tag, (B, S, H, D) in (("bench", (44, 512, 12, 64)),
                           ("llama7b", (1, 2048, 32, 128))):
     gen = torch.Generator(device="cuda").manual_seed(0)

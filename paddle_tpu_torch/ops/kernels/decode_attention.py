@@ -37,8 +37,8 @@ __all__ = ["ragged_decode_attention", "ragged_decode_attention_plain",
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # quant mode's caches
 _HEAD_DIMS = (64, 128)
-_MAX_REP = 8  # MAX_REP in csrc/decode_attention.cu
-_CHUNK = 64   # CHUNK in csrc/decode_attention.cu: keys per block
+_MAX_REP = 8  # MAX_ROWS in csrc/split_kv.cuh
+_CHUNK = 64   # CHUNK in csrc/split_kv.cuh: keys per block
 
 
 def ragged_decode_attention_plain(q, kc, vc, pos, k_scale=None,
@@ -178,9 +178,11 @@ def _tickets(device, n):
     key = (device.index, n)
     if key not in _TICKETS:
         if torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("ragged_decode_attention: call it once at "
-                               "this shape before capturing it into a CUDA "
-                               "graph (its ticket buffer is made then)")
+            raise RuntimeError("split-KV attention (ragged_decode_attention"
+                               ", ragged_paged_attention's decode): call it "
+                               "once at this shape before capturing it into "
+                               "a CUDA graph (its ticket buffer is made "
+                               "then)")
         _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
     return _TICKETS[key]
 

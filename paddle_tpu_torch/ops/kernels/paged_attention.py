@@ -4,7 +4,14 @@ Replaces the TPU kernel ``paddle_tpu/ops/pallas/paged_attention.py``
 (``ragged_paged_attention``, body ``_make_kernel``). The CUDA kernel is
 ``paddle_tpu_torch/csrc/paged_attention.cu``; its header says what bounds
 it on the H100 and how its design keeps the pages read proportional to
-each slot's position rather than to the table width.
+each slot's position rather than to the table width. Two families, chosen
+from the shape alone (``family``): a decode tick (at most 8 query rows a
+kv head) runs the split-KV kernel of ``csrc/split_kv.cuh``, 64-key chunks
+across blocks merged in the same launch by tickets, which needs a float32
+workspace (``torch.empty`` per call) and an int32 ticket per (slot, kv
+head), zero before the launch and left zero by it (the decode wrapper's
+``_tickets``, made outside any CUDA-graph capture); a prefill chunk runs
+on tensor cores in bf16 (on CUDA cores in fp32).
 
 Dispatch: a CPU tensor takes the plain version below (the JAX package's
 CPU path: gather the slot's pages into a window, then dense attention);
@@ -21,13 +28,22 @@ import math
 
 import torch
 
+from .decode_attention import _tickets
+
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
-           "pages_read"]
+           "pages_read", "family", "smem_bytes"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
-_MAX_REP = 8    # ROWS in csrc/paged_attention.cu
-_MAX_TQ = 256   # MAX_TQ in csrc/paged_attention.cu
+_MAX_REP = 8    # MAX_ROWS in csrc/split_kv.cuh: query heads a kv head
+_MAX_TQ = 256   # the largest Tq csrc/paged_attention.cu takes
+_CHUNK = 64     # CHUNK in csrc/split_kv.cuh: keys a decode block
+
+
+def family(Tq: int, rep: int) -> str:
+    """The kernel family that serves Tq query positions of rep heads a kv
+    head: "decode" (split-KV) for at most 8 rows, else "prefill"."""
+    return "decode" if Tq * rep <= _MAX_REP else "prefill"
 
 
 def pages_read(ctx_len, q_len, page_size: int):
@@ -128,13 +144,21 @@ def ragged_paged_attention(q, kp, vp, page_table, ctx_len, q_len=None,
         raise ValueError("q, kp and vp must start on a 16-byte boundary "
                          "(the kernel reads rows in 16-byte loads)")
     out = torch.empty_like(q)
+    max_pages = page_table.shape[1]
+    part = tickets = None
+    if family(Tq, nH // Hkv) == "decode":
+        n_chunks = -(-max_pages * psz // _CHUNK)
+        part = torch.empty(B * Hkv * n_chunks * Tq * (nH // Hkv) * (D + 2),
+                           dtype=torch.float32, device=q.device)
+        tickets = _tickets(q.device, B * Hkv)
     with torch.cuda.device(q.device):
         err = _kernel()(
             q.data_ptr(), kp.data_ptr(), vp.data_ptr(),
             page_table.data_ptr(), ctx_len.data_ptr(),
             None if q_len is None else q_len.data_ptr(), out.data_ptr(),
-            B, Tq, nH, Hkv, D, psz, P, page_table.shape[1],
-            _DTYPE_CODES[q.dtype],
+            None if part is None else part.data_ptr(),
+            None if tickets is None else tickets.data_ptr(),
+            B, Tq, nH, Hkv, D, psz, P, max_pages, _DTYPE_CODES[q.dtype],
             1.0 / math.sqrt(D) if scale is None else scale,
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -147,14 +171,29 @@ def ragged_paged_attention(q, kp, vp, page_table, ctx_len, q_len=None,
 ragged_paged_attention.launches = 0
 
 
+def smem_bytes(dtype, D: int, rows: int) -> int:
+    """The dynamic shared memory one block of the instance that serves
+    ``rows`` = Tq x rep query rows a kv head at head dim ``D`` asks for (0
+    for the fp32 prefill, whose shared memory is static; builds the
+    library)."""
+    fn = _library().ragged_paged_smem
+    fn.argtypes = [ctypes.c_int] * 3
+    fn.restype = ctypes.c_int
+    return fn(_DTYPE_CODES[dtype], D, rows)
+
+
+def _library():
+    from ._build import load_library
+
+    return load_library("paged_attention")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry point, built and loaded at first use; every pointer
     and the stream are declared ``c_void_p`` so none is cut to 32 bits."""
-    from ._build import load_library
-
-    fn = load_library("paged_attention").ragged_paged_attention
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 9
+    fn = _library().ragged_paged_attention
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                    + [ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn

@@ -4,8 +4,11 @@ dequantized inside the kernel.
 Replaces the TPU kernel ``paddle_tpu/ops/pallas/tick_fusion.py``
 (``quant_matmul``, body ``_quant_matmul_kernel``). The CUDA kernel is
 ``paddle_tpu_torch/csrc/quant_matmul.cu``; its header says what bounds it
-on the H100 (bytes: the narrow weight stream) and how its blocks split the
-columns and the contraction.
+on the H100 (bytes: the narrow weight stream) and how its design streams
+the weights through a shared-memory ring into tensor cores, split over K
+across the blocks of a thread-block cluster. The launch's tiling (output
+columns a block, blocks along K) is chosen here from (K, N) alone
+(``tiling``).
 
 Dispatch: a CPU tensor takes the plain version below; a CUDA tensor
 launches the kernel or raises.
@@ -18,10 +21,37 @@ import functools
 
 import torch
 
-__all__ = ["quant_matmul", "quant_matmul_plain"]
+__all__ = ["quant_matmul", "quant_matmul_plain", "tiling", "blocks",
+           "smem_bytes"]
 
 _X_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _W_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}
+_SROWS = 64      # SROWS in csrc/quant_matmul.cu: rows of K a ring stage
+_MAX_SPLITS = 8  # MAX_SPLITS: blocks of a cluster along K
+_BT = 8          # BT: batch rows a block
+_SMS = 132       # the H100's SMs: the blocks a projection should reach
+_STAGES_A_SPLIT = 6  # the stages a 32-column block should walk, at most
+
+
+def tiling(K: int, N: int):
+    """The launch's (output columns a block, blocks along K) at K x N.
+    Weights wide enough to put 128-column strips on the card's 132 SMs
+    (lm_head) take them whole, one block a strip over all of K, its warps
+    splitting the columns. The others take 32-column tiles, their warps
+    splitting K, and as many splits of K (at most 8, and at most the
+    64-row stages of K) as reach 132 blocks or hold a split to 6 stages,
+    whichever is more: a block walks its stages one after another."""
+    stages = -(-K // _SROWS)
+    if -(-N // 128) >= _SMS:
+        return 128, 1
+    splits = max(-(-_SMS // -(-N // 32)), -(-stages // _STAGES_A_SPLIT))
+    return 32, max(1, min(_MAX_SPLITS, stages, splits))
+
+
+def blocks(B: int, K: int, N: int) -> int:
+    """The blocks of the launch at B x K x N."""
+    nt, splits = tiling(K, N)
+    return splits * -(-N // nt) * -(-B // _BT)
 
 
 def quant_matmul_plain(x, w, scale):
@@ -65,11 +95,12 @@ def quant_matmul(x, w, scale):
         raise ValueError("x, w and scale must be contiguous")
     B, K = x.shape
     N = w.shape[1]
+    nt, splits = tiling(K, N)
     out = torch.empty((B, N), dtype=torch.float32, device=x.device)
     with torch.cuda.device(x.device):
         err = _kernel()(x.data_ptr(), w.data_ptr(), scale.data_ptr(),
                         out.data_ptr(), B, K, N, _X_CODES[x.dtype],
-                        _W_CODES[w.dtype],
+                        _W_CODES[w.dtype], nt, splits,
                         torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"quant_matmul launch failed: CUDA error {err}")
@@ -80,14 +111,28 @@ def quant_matmul(x, w, scale):
 quant_matmul.launches = 0
 
 
+def smem_bytes(x_dtype, K: int, N: int) -> int:
+    """The dynamic shared memory of the launch at K x N for x of
+    ``x_dtype`` (builds the library)."""
+    nt, splits = tiling(K, N)
+    fn = _library().quant_matmul_smem
+    fn.argtypes = [ctypes.c_int] * 4
+    fn.restype = ctypes.c_int
+    return fn(_X_CODES[x_dtype], K, nt, splits)
+
+
+def _library():
+    from ._build import load_library
+
+    return load_library("quant_matmul")
+
+
 @functools.lru_cache(maxsize=None)
 def _kernel():
     """The C entry point, built and loaded at first use; every pointer and
     the stream are declared ``c_void_p`` so none is cut to 32 bits."""
-    from ._build import load_library
-
-    fn = load_library("quant_matmul").quant_matmul
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [
+    fn = _library().quant_matmul
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [
         ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn

@@ -170,7 +170,40 @@ class TestPagedAttention:
     slot's pages, then dense attention) on a shuffled page table. The
     plain version scales the fp32 scores where the kernel pre-scales q in
     its own dtype; in bf16 at D 128 (a scale that is no power of two)
-    that is about one bf16 ulp of a score, inside the bf16 tolerance."""
+    that is about one bf16 ulp of a score, inside the bf16 tolerance.
+    At most 8 query rows a kv head take the split-KV decode family, more
+    the prefill family (tensor cores in bf16)."""
+
+    @staticmethod
+    def _case(cuda, dtype, B, Tq, nH, Hkv, D, max_pages, ctx, q_len,
+              psz=16, seed=0):
+        gen = torch.Generator(device=cuda).manual_seed(
+            B * Tq + nH + psz + seed)
+        P = B * max_pages + 3
+        kp = _randn(gen, 2, P, psz, Hkv, D, dtype=dtype)
+        vp = _randn(gen, 2, P, psz, Hkv, D, dtype=dtype)
+        q = _randn(gen, B, Tq, nH, D, dtype=dtype)
+        pt = (torch.randperm(P - 1, generator=gen, device=cuda)[
+            :B * max_pages] + 1).to(torch.int32).reshape(B, max_pages)
+        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
+        ql = (None if q_len is None
+              else torch.tensor(q_len, dtype=torch.int32, device=cuda))
+        # the pool is one layer's view of a stacked [2, ...] pool
+        return q, kp[1], vp[1], pt, ctx_t, ql
+
+    def _check(self, cuda, dtype, B, Tq, nH, Hkv, D, max_pages, ctx, q_len,
+               psz=16):
+        q, kp, vp, pt, ctx_t, ql = self._case(cuda, dtype, B, Tq, nH, Hkv,
+                                              D, max_pages, ctx, q_len, psz)
+        before = pa.ragged_paged_attention.launches
+        out = pa.ragged_paged_attention(q, kp, vp, pt, ctx_t, ql)
+        torch.cuda.synchronize()
+        assert pa.ragged_paged_attention.launches == before + 1
+        ref = pa.ragged_paged_attention_plain(q, kp, vp, pt, ctx_t)
+        assert torch.isfinite(out.float()).all()
+        rows = [Tq] * B if q_len is None else q_len
+        for b in range(B):  # rows past q_len are padding
+            _close(out[b, :rows[b]], ref[b, :rows[b]], dtype)
 
     @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
     @pytest.mark.parametrize("case", [
@@ -183,29 +216,85 @@ class TestPagedAttention:
         ("gqa_decode", 8, 1, 32, 8, 128, 128,
          [0, 2047, 2048, 5, 700, 1023, 1024, 64], None),
         ("rep8_prefill", 2, 12, 8, 1, 128, 6, [3, 40], [12, 5]),
+        # at most 8 rows a kv head: the decode family with rows at
+        # several positions
+        ("two_positions_rep4", 3, 2, 8, 2, 128, 8, [0, 63, 126], [2, 1, 2]),
+        ("eight_positions", 2, 8, 4, 4, 64, 8, [64, 3], [8, 6]),
     ])
     def test_matches_plain(self, cuda, dtype, case):
         name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len = case
-        psz = 16
-        gen = torch.Generator(device=cuda).manual_seed(B * Tq + nH)
-        P = B * max_pages + 3
-        kp = _randn(gen, 2, P, psz, Hkv, D, dtype=dtype)
-        vp = _randn(gen, 2, P, psz, Hkv, D, dtype=dtype)
-        q = _randn(gen, B, Tq, nH, D, dtype=dtype)
-        pt = (torch.randperm(P - 1, generator=gen, device=cuda)[
-            :B * max_pages] + 1).to(torch.int32).reshape(B, max_pages)
-        ctx_t = torch.tensor(ctx, dtype=torch.int32, device=cuda)
-        ql = (None if q_len is None
-              else torch.tensor(q_len, dtype=torch.int32, device=cuda))
-        before = pa.ragged_paged_attention.launches
-        out = pa.ragged_paged_attention(q, kp[1], vp[1], pt, ctx_t, ql)
+        self._check(cuda, dtype, B, Tq, nH, Hkv, D, max_pages, ctx, q_len)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("psz", [8, 16, 32])
+    @pytest.mark.parametrize("nH,Hkv,D", [(12, 12, 64), (4, 4, 128),
+                                          (8, 2, 128), (8, 1, 128)])
+    def test_decode_on_chunk_edges(self, cuda, dtype, psz, nH, Hkv, D):
+        """Decode ticks with contexts on the 64-key chunk edges (0, 63, 64,
+        65, 127, 128 and the window's last row), pages of 8, 16 and 32,
+        rep 1, 4 and 8 at D 128."""
+        max_pages = 384 // psz
+        ctx = [0, 63, 64, 65, 127, 128, 383, 200]
+        self._check(cuda, dtype, len(ctx), 1, nH, Hkv, D, max_pages, ctx,
+                    None, psz)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("psz", [8, 16, 32])
+    @pytest.mark.parametrize("Tq", [64, 256])
+    @pytest.mark.parametrize("nH,Hkv,D", [(12, 12, 64), (8, 2, 128),
+                                          (8, 1, 128)])
+    def test_prefill_at_page_boundaries(self, cuda, dtype, psz, Tq, nH, Hkv,
+                                        D):
+        """Prefill chunks of 64 and 256 rows at context 0 and at a page
+        boundary (and one whose window passes the table's width, which
+        the clamp pins), with a ragged q_len."""
+        max_pages = 512 // psz
+        ctx = [0, 4 * psz, 512 - Tq // 2]
+        q_len = [Tq, Tq - 5, Tq]
+        self._check(cuda, dtype, 3, Tq, nH, Hkv, D, max_pages, ctx, q_len,
+                    psz)
+
+    @pytest.mark.parametrize("Tq", [1, 64])
+    def test_two_launches_give_the_same_bits(self, cuda, Tq):
+        case = self._case(cuda, torch.bfloat16, 8, Tq, 12, 12, 64, 24,
+                          [0, 383, 64, 127, 200, 5, 300, 63], None)
+        a = pa.ragged_paged_attention(*case)
+        b = pa.ragged_paged_attention(*case)
         torch.cuda.synchronize()
-        assert pa.ragged_paged_attention.launches == before + 1
-        ref = pa.ragged_paged_attention_plain(q, kp[1], vp[1], pt, ctx_t)
-        assert torch.isfinite(out.float()).all()
-        rows = [Tq] * B if q_len is None else q_len
-        for b in range(B):  # rows past q_len are padding
-            _close(out[b, :rows[b]], ref[b, :rows[b]], dtype)
+        assert torch.equal(a, b)
+
+    @pytest.mark.parametrize("Tq", [1, 64])
+    def test_graph_replays_on_new_contexts_and_tables(self, cuda, Tq):
+        """One launch captured into a CUDA graph, replayed on new contexts
+        and new page tables (copied into the captured tensors): each
+        output matches the plain version, and the decode family's
+        tickets are left zero by every replay."""
+        dt = torch.bfloat16
+        B, nH, Hkv, D, max_pages = 8, 12, 12, 64, 24
+        q, kp, vp, pt, ctx, ql = self._case(cuda, dt, B, Tq, nH, Hkv, D,
+                                            max_pages, [0] * B, None)
+        gen = torch.Generator(device=cuda).manual_seed(11)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            pa.ragged_paged_attention(q, kp, vp, pt, ctx)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pa.ragged_paged_attention(q, kp, vp, pt, ctx)
+        tickets = da._tickets(q.device, B * Hkv)
+        W = max_pages * 16
+        for new in ([5, 383, 64, 127, 200, 0, 300, 63], [W - Tq] * B,
+                    torch.randint(0, W, (B,), generator=gen,
+                                  device=cuda).tolist()):
+            ctx.copy_(torch.tensor(new, dtype=torch.int32))
+            pt.copy_(pt[torch.randperm(B, generator=gen, device=cuda)])
+            graph.replay()
+            torch.cuda.synchronize()
+            ref = pa.ragged_paged_attention_plain(q, kp, vp, pt, ctx)
+            _close(out, ref, dt)
+            assert int(tickets.abs().sum()) == 0
 
     def test_rejects_what_it_does_not_take(self, cuda):
         pt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
@@ -531,10 +620,18 @@ class TestQuantMatmul:
     @pytest.mark.parametrize("B,K,N", [
         (8, 768, 768), (8, 768, 3072), (8, 3072, 768),   # the tick's
         (1, 768, 32000), (8, 768, 32000),                # lm_head
-        (3, 100, 200),     # ragged K (no multiple of the 256-row chunk)
-        (5, 70, 99),       # N no multiple of 8: the byte-wise loads
+        (3, 100, 200),     # ragged K (no multiple of a 64-row stage)
+        (5, 70, 99),       # N no multiple of 16: the byte-wise loads
         (12, 300, 130),    # more rows than one block holds
         (2, 1000, 64),
+        # the K splits' edges: the deepest tick shape, K no multiple of a
+        # split's stages, N no multiple of a column tile, B across the
+        # 8-row batch tiles
+        (1, 3072, 768), (9, 3072, 768), (17, 770, 999), (8, 770, 999),
+        (9, 770, 256), (1, 770, 999),
+        # 128-column strips (the warps split the columns): a ragged last
+        # strip, then N odd (the byte-wise copies)
+        (3, 200, 17040), (9, 770, 20001),
     ])
     def test_matches_plain(self, cuda, mode, xdt, B, K, N):
         gen = torch.Generator(device=cuda).manual_seed(B * K + N)
@@ -548,6 +645,45 @@ class TestQuantMatmul:
         assert out.dtype == torch.float32 and out.shape == (B, N)
         torch.testing.assert_close(out, qm.quant_matmul_plain(x, w, sc),
                                    rtol=QMM_TOL, atol=QMM_TOL)
+
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    @pytest.mark.parametrize("B,K,N", [(8, 3072, 768), (8, 768, 3072),
+                                       (17, 770, 999)])
+    def test_two_launches_give_the_same_bits(self, cuda, mode, B, K, N):
+        """The K splits merge in rank order: no run-to-run difference."""
+        gen = torch.Generator(device=cuda).manual_seed(K + N)
+        w, sc = qs.quantize_weight(
+            _randn(gen, K, N, dtype=torch.float32, scale=K ** -0.5), mode)
+        x = _randn(gen, B, K, dtype=torch.bfloat16)
+        a = qm.quant_matmul(x, w, sc)
+        b = qm.quant_matmul(x, w, sc)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+    def test_graph_replays_on_new_x(self, cuda):
+        """One launch captured into a CUDA graph (the cluster merge keeps
+        no state between launches), replayed on new x: equal to the plain
+        version each time."""
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        K, N = 3072, 768
+        w, sc = qs.quantize_weight(
+            _randn(gen, K, N, dtype=torch.float32, scale=K ** -0.5), "int8")
+        x = _randn(gen, 8, K, dtype=torch.bfloat16)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            qm.quant_matmul(x, w, sc)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = qm.quant_matmul(x, w, sc)
+        for _ in range(3):
+            x.copy_(_randn(gen, 8, K, dtype=torch.bfloat16))
+            graph.replay()
+            torch.cuda.synchronize()
+            torch.testing.assert_close(out, qm.quant_matmul_plain(x, w, sc),
+                                       rtol=QMM_TOL, atol=QMM_TOL)
 
     def test_rejects_what_it_does_not_take(self, cuda):
         w, sc = qs.quantize_weight(torch.randn(64, 128, device=cuda), "int8")

@@ -90,6 +90,58 @@ class TestRaggedPagedAttention:
         for b in range(B):  # rows past q_len are padding
             _close(out[b, :qlen[b]], ref[b, :qlen[b]], rtol=2e-5, atol=2e-5)
 
+    @staticmethod
+    def _against_pallas(rng, B, Tq, nH, Hkv, D, psz, max_pages, ctx, qlen):
+        P = B * max_pages + 1
+        q = rng.randn(B, Tq, nH, D).astype(np.float32)
+        kp = rng.randn(P, psz, Hkv, D).astype(np.float32)
+        vp = rng.randn(P, psz, Hkv, D).astype(np.float32)
+        pt = rng.permutation(np.arange(1, P)).reshape(
+            B, max_pages).astype(np.int32)
+        ctx = np.asarray(ctx, np.int32)
+        qlen = np.asarray(qlen, np.int32)
+        ref = np.asarray(jpa.ragged_paged_attention(
+            jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp),
+            jnp.asarray(pt), jnp.asarray(ctx), jnp.asarray(qlen),
+            interpret=True))
+        t = [torch.from_numpy(a) for a in (q, kp, vp, pt, ctx, qlen)]
+        out = pa.ragged_paged_attention(*t).numpy()
+        for b in range(B):  # rows past q_len are padding
+            _close(out[b, :qlen[b]], ref[b, :qlen[b]], rtol=2e-5, atol=2e-5)
+
+    @pytest.mark.parametrize("psz,nH,Hkv,D", [(8, 4, 2, 64), (32, 4, 2, 64),
+                                              (16, 8, 1, 128)])
+    def test_plain_matches_pallas_on_chunk_edges(self, psz, nH, Hkv, D):
+        """Decode ticks with contexts on the edges of the card kernel's
+        64-key chunks (one key, the last key of a chunk, the first of the
+        next and the one after, two chunks, the window's last row), on
+        pages of 8 and 32 and with GQA rep 8 at D 128."""
+        C, W = pa._CHUNK, 192
+        ctx = [0, C - 1, C, C + 1, 2 * C - 1, 2 * C, W - 1]
+        self._against_pallas(np.random.RandomState(psz + D), len(ctx), 1,
+                             nH, Hkv, D, psz, W // psz, ctx, [1] * len(ctx))
+
+    @pytest.mark.parametrize("psz,nH,Hkv,D", [(8, 4, 2, 64), (32, 4, 2, 64),
+                                              (16, 8, 1, 128)])
+    def test_plain_matches_pallas_prefill_at_page_boundaries(self, psz, nH,
+                                                             Hkv, D):
+        """Prefill chunks (more query rows a kv head than the card's decode
+        family takes) at context 0, at a page boundary, and ending on the
+        window's last row, one with a ragged q_len."""
+        W, Tq = 128, 16
+        self._against_pallas(np.random.RandomState(psz + D + 1), 3, Tq, nH,
+                             Hkv, D, psz, W // psz, [0, 2 * psz, W - Tq],
+                             [Tq, 9, Tq])
+        assert pa.family(Tq, nH // Hkv) == "prefill"
+
+    def test_family_by_rows_a_kv_head(self):
+        """At most 8 query rows a kv head take the split-KV decode family,
+        more the prefill family."""
+        assert pa.family(1, 1) == pa.family(1, 8) == "decode"
+        assert pa.family(2, 4) == pa.family(8, 1) == "decode"
+        assert pa.family(3, 4) == pa.family(9, 1) == "prefill"
+        assert pa.family(256, 1) == pa.family(64, 8) == "prefill"
+
     def test_cpu_tensor_takes_plain_version(self, monkeypatch):
         def no_kernel():
             raise AssertionError("the CUDA kernel was reached on the CPU")

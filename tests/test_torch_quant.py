@@ -183,6 +183,38 @@ class TestQuantMatmul:
         assert out.dtype == torch.float32 and out.shape == (B, N)
         _close(out.numpy(), ref, rtol=1e-4, atol=1e-4)
 
+    @pytest.mark.parametrize("mode", MODES)
+    @pytest.mark.parametrize("B", [1, 9])
+    def test_plain_matches_pallas_past_the_splits(self, mode, B):
+        """K 770: no multiple of the card kernel's 64-row stages, which its
+        splits share unevenly; B 1 (the admit's lm_head) and 9 (past one
+        8-row batch tile)."""
+        K, N = 770, 256
+        nt, splits = qm.tiling(K, N)
+        assert K % 64 and -(-K // 64) % splits
+        rng = np.random.RandomState(B + 7)
+        w = rng.randn(K, N).astype(np.float32)
+        x = rng.randn(B, K).astype(np.float32)
+        jw, js = jq.quantize_weight(jnp.asarray(w), mode)
+        ref = jtf.quant_matmul(jnp.asarray(x), jw, js, interpret=True)
+        out = qm.quant_matmul(torch.from_numpy(x), _t(jw), _t(js))
+        assert out.dtype == torch.float32 and out.shape == (B, N)
+        _close(out.numpy(), ref, rtol=1e-4, atol=1e-4)
+
+    def test_tiling_fills_the_card_on_every_tick_shape(self):
+        """The wrapper's tiling from (K, N) alone: every projection of the
+        decode tick and the lm_head, at B 8 and B 1, reaches the H100's
+        132 SMs; splits stay within the cluster (8) and K's stages."""
+        for K, N in [(768, 768), (768, 3072), (3072, 768), (768, 32000)]:
+            nt, splits = qm.tiling(K, N)
+            assert nt in (32, 128)
+            assert 1 <= splits <= min(8, -(-K // 64))
+            assert qm.blocks(8, K, N) >= 132 and qm.blocks(1, K, N) >= 132
+        assert qm.tiling(64, 128) == (32, 1)   # one stage: no split
+        assert qm.tiling(768, 32000) == (128, 1)  # lm_head: whole strips
+        assert qm.tiling(3072, 768) == (32, 8)  # 6 stages a split
+        assert qm.blocks(17, 770, 999) == 3 * qm.blocks(8, 770, 999)
+
     def test_cpu_tensors_take_the_plain_version(self, monkeypatch):
         def no_kernel():
             raise AssertionError("the CUDA kernel was reached on the CPU")
