@@ -13,20 +13,27 @@ Phases (any failed check raises and the script exits non-zero):
    limit, and the registers, shared memory and spills of every
    instance of ``flash_attention.cu``, ``blocked_matmul.cu`` (the four
    tiles), ``decode_attention.cu`` (q fp32 or bf16; the cache in q's
-   type, int8 or fp8; D 64 and 128; one query head per kv head, or up to
-   eight), ``paged_attention.cu`` (the split-KV decode family in fp32 and
-   bf16 at D 64 and 128 for one row or up to eight; the bf16 tensor-core
-   and fp32 prefills) and ``quant_matmul.cu`` (x fp32 or bf16, int8 or
-   fp8 weights, 32 or 128 columns a block, 16-byte or byte-wise copies)
-   (a spill fails);
+   type, int8 or fp8; exact instances at D 64 and 128 for one query head
+   per kv head or up to eight, padded ones at widths 32, 64 and 128 for
+   the other head dims of 8s, a one-byte cache's with 8-byte pieces),
+   ``paged_attention.cu`` (the split-KV decode family in fp32 and bf16,
+   exact and padded; the bf16 tensor-core prefill exact at 64 and 128 and
+   padded at 32, 64 and 128, the fp32 prefill at 64 and 128 both ways),
+   ``quant_matmul.cu`` (x fp32 or bf16, int8 or fp8 weights, 32
+   or 128 columns a block, 16-byte or byte-wise copies), ``head_dx.cu``
+   and ``rope.cu`` (fp32 or bf16, 16-byte or one-value loads) (a spill
+   fails);
 2. hold every kernel against its plain PyTorch version on the card, in
    bf16 and fp32, and time the kernel, the plain version and, where one
    PyTorch call computes the same function, that call: the tick kernels
    and ``ragged_decode_attention`` at the serving shape, a llama7b-width
-   shape and a GQA shape; ``ragged_paged_attention`` on the serving
-   decode tick, the serving admit prefill (256 rows at context 0 and
-   192), llama7b-width and GQA decode ticks and one mixed-q_len launch,
-   each on a shuffled page table, beside gather + SDPA (two calls); the
+   shape, a GQA shape and two head dims off 64 and 128 (cpu_small's D 16,
+   D 96 in GQA); ``ragged_paged_attention`` on the serving decode tick,
+   the serving admit prefill (256 rows at context 0 and 192),
+   llama7b-width and GQA decode ticks, one mixed-q_len launch, admits of
+   512 and 2048 rows at llama7b width, and decode ticks and prefills at D
+   16 and 96, each on a shuffled page table, beside gather + SDPA (two
+   calls); the
    flash-attention forward and backward kernels (bf16; the backward in
    one launch of both roles, bit-identical to each role launched alone,
    and each role alone) at bench.py's training shape (B 44, S 512, 12
@@ -66,6 +73,13 @@ Phases (any failed check raises and the script exits non-zero):
    prefix, 32-token tails) through ``OnlineScheduler`` with a
    ``PagedPrefixCache``: prefix hits by page reference, no COW break, no
    leak;
+3f. a long admit: ``ServingEngine(paged=True, max_len=2048)`` with
+   buckets up to 1024 serves a 1000-token prompt (one 1024-row prefill
+   chunk through ``ragged_paged_attention``), and the same admit and four
+   ticks teacher-forced against the plain path within the bf16 logit
+   tolerance; then ``LlamaConfig.cpu_small`` (8 heads of D 16, fp32) end
+   to end: the mixed workload through the contiguous and the paged
+   engine (3's and 3b's checks) and 4's and 4b's teacher-forced ticks;
 3d. quantized serving: the 32 requests through
    ``ServingEngine(paged=True, quant="int8", quality_digest=True)``, every
    tick projection and lm_head through ``quant_matmul`` (7 L + 1 per
@@ -122,7 +136,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3e, 5b, 6 and 7 is driven with every launch count set to 0 just
+   3-3f, 5b, 6 and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -292,6 +306,10 @@ SHAPES = [
     ("serving", 8, 12, 12, 64, 384, 12),
     ("llama7b", 8, 32, 32, 128, 2048, 4),
     ("gqa", 8, 32, 8, 128, 2048, 4),
+    # head dims off 64 and 128: cpu_small's 8 heads of D 16, and D 96 in
+    # GQA (the kernels' 32- and 128-wide instances)
+    ("d16", 8, 8, 8, 16, 512, 16),
+    ("d96", 8, 16, 4, 96, 1024, 8),
 ]
 
 
@@ -555,6 +573,14 @@ PAGED_SHAPES = [
     ("gqa_decode", 8, 1, 32, 8, 128, 128, None, None),
     ("mixed_q_len", 4, 16, 12, 12, 64, 24, [0, 5, 200, 370],
      [1, 16, 9, 1]),
+    # admits past 256 rows (an engine at max_len 2048), at llama7b width
+    ("llama7b_prefill_512", 1, 512, 32, 32, 128, 40, [0], None),
+    ("llama7b_prefill_2048", 1, 2048, 32, 32, 128, 128, [0], None),
+    # head dims off 64 and 128, decode ticks and prefills past a page
+    ("d16_decode", 8, 1, 8, 8, 16, 32, None, None),
+    ("d16_prefill", 1, 256, 8, 8, 16, 32, [64], None),
+    ("d96_decode", 8, 1, 16, 4, 96, 64, None, None),
+    ("d96_prefill", 1, 256, 16, 4, 96, 64, [64], None),
 ]
 PAGE = 16
 L2_BYTES = 50e6
@@ -1156,16 +1182,21 @@ def flash_build_report(fa, _build, logs):
                       "flash_attention")
 
 
-def rebuilt_build_report(torch, bm, da, pa, qm, _build, logs):
+def rebuilt_build_report(torch, bm, da, pa, qm, hd, _build, logs):
     """Every instance of ``csrc/blocked_matmul.cu`` (the four tiles), of
     ``csrc/decode_attention.cu`` (q fp32 / bf16; the cache in q's type,
-    int8 or fp8; D 64 and 128; rep 1 or up to 8, at the shared memory of
-    its largest rep), of ``csrc/paged_attention.cu`` (the split-KV decode
-    family: fp32 / bf16, D 64 and 128, one row or up to 8; the bf16
-    tensor-core prefill and the fp32 prefill at D 64 and 128) and of
-    ``csrc/quant_matmul.cu`` (x fp32 / bf16, int8 / fp8 weights, 32 or 128
-    columns a block, 16-byte or byte-wise copies; shared memory at the
-    tick's w_down for 32 columns and lm_head for 128), each with its
+    int8 or fp8; exact D 64 and 128 at rep 1 or up to 8, and padded
+    widths 32, 64 and 128 at up to 8, a one-byte cache's with 8-byte
+    pieces; shared memory at the instance's largest rep), of
+    ``csrc/paged_attention.cu`` (the split-KV decode family: fp32 / bf16,
+    exact D 64 and 128 for one row or up to 8, padded widths 32, 64 and
+    128 for up to 8; the bf16 tensor-core prefill, exact and padded, at
+    32, 64 and 128, the fp32 prefill at 64 and 128), of
+    ``csrc/quant_matmul.cu`` (x fp32 / bf16, int8 / fp8 weights, 32 or
+    128 columns a block, 16-byte or byte-wise copies; shared memory at
+    the tick's w_down for 32 columns and lm_head for 128), of
+    ``csrc/head_dx.cu`` and of ``csrc/rope.cu`` (fp32 / bf16, 16-byte or
+    one-value loads; shared memory at D 64), each with its
     ptxas report (``ptxas_rows``); raises on a spill."""
     instances = [(f"blocked_mmILi{m}ELi{n}ELi{k}EE",
                   f"blocked_matmul {m}x{n}x{k}",
@@ -1174,43 +1205,69 @@ def rebuilt_build_report(torch, bm, da, pa, qm, _build, logs):
     rows = ptxas_rows(_build, logs.get("blocked_matmul", ""), instances,
                       "blocked_matmul")
     dts = (torch.float32, torch.bfloat16)
+    # the main path's head dims have exact instances; every other head dim
+    # of 8s takes a padded one of its width (up to 8 rows)
+    kinds = [(64, 1), (128, 1), (32, 0), (64, 0), (128, 0)]
     instances = []
     for tc, dt in enumerate(dts):
+        qname = str(dt).replace("torch.", "")
         for kc, kdt in enumerate((dt, torch.int8, torch.float8_e4m3fn)):
-            for D in (64, 128):
-                for rep in (1, 8):
-                    kname = str(kdt).replace("torch.", "")
-                    qname = str(dt).replace("torch.", "")
+            kname = str(kdt).replace("torch.", "")
+            for dp, exact in kinds:
+                # a padded one-byte cache copies 8-byte pieces
+                pb = 8 if kc and not exact else 16
+                for rep in ((1, 8) if exact else (8,)):
                     instances.append((
-                        f"8SlotRowsELi{tc}ELi{kc}ELi{D}ELi{rep}EE",
+                        f"8SlotRowsELi{tc}ELi{kc}ELi{dp}ELi{rep}ELi{pb}"
+                        f"ELb{exact}EE",
                         f"ragged_decode_attention q {qname} cache {kname} "
-                        f"D{D} rep {'1' if rep == 1 else '<= 8'}",
+                        f"{'D' if exact else 'D<='}{dp} rep "
+                        f"{'1' if rep == 1 else '<= 8'} {pb}-byte pieces",
                         dict(kernel="ragged_decode_attention", q=qname,
-                             cache=kname, D=D, rep=rep),
-                        da.smem_bytes(dt, kdt, D, rep)))
+                             cache=kname, width=dp, exact=bool(exact),
+                             rep=rep, piece=pb),
+                        da.smem_bytes(dt, kdt, dp, rep)))
     rows += ptxas_rows(_build, logs.get("decode_attention", ""), instances,
                        "ragged_decode_attention")
     instances = []
     for tc, dt in enumerate(dts):
         name = str(dt).replace("torch.", "")
-        for D in (64, 128):
-            for r in (1, 8):
+        for dp, exact in kinds:
+            width = f"{'D' if exact else 'D<='}{dp}"
+            for r in ((1, 8) if exact else (8,)):
                 instances.append((
-                    f"9PagedRowsELi{tc}ELi0ELi{D}ELi{r}EE",
-                    f"ragged_paged_attention decode {name} D{D} rows "
+                    f"9PagedRowsELi{tc}ELi0ELi{dp}ELi{r}ELi16ELb{exact}EE",
+                    f"ragged_paged_attention decode {name} {width} rows "
                     f"{'1' if r == 1 else '<= 8'}",
                     dict(kernel="ragged_paged_attention", family="decode",
-                         dtype=name, D=D, rows=r),
-                    pa.smem_bytes(dt, D, r)))
+                         dtype=name, width=dp, exact=bool(exact), rows=r),
+                    pa.smem_bytes(dt, dp, r)))
+            if dt == torch.float32 and dp == 32:
+                continue  # the fp32 prefill's narrowest width is 64
             key = ("paged_prefillILi" if dt == torch.bfloat16
                    else "paged_prefill_fp32ILi")
             instances.append((
-                f"{key}{D}EE", f"ragged_paged_attention prefill {name} D{D}",
+                f"{key}{dp}ELb{exact}EE",
+                f"ragged_paged_attention prefill {name} {width}",
                 dict(kernel="ragged_paged_attention", family="prefill",
-                     dtype=name, D=D, rows=64),
-                pa.smem_bytes(dt, D, 64)))
+                     dtype=name, width=dp, exact=bool(exact), rows=64),
+                pa.smem_bytes(dt, dp, 64)))
     rows += ptxas_rows(_build, logs.get("paged_attention", ""), instances,
                        "ragged_paged_attention")
+    rows += ptxas_rows(_build, logs.get("head_dx", ""), [(
+        "head_dx_kernel", "head_dx_softmax (128 x 256 tiles, 4 stages)",
+        dict(kernel="head_dx_softmax"), hd.smem_bytes())], "head_dx_softmax")
+    instances = []
+    for key, dt, vec in (("rope_qkIfLi4EE", "float32", 4),
+                         ("rope_qkIfLi1EE", "float32", 1),
+                         ("rope_qkI13__nv_bfloat16Li8EE", "bfloat16", 8),
+                         ("rope_qkI13__nv_bfloat16Li1EE", "bfloat16", 1)):
+        # dynamic shared memory: a row's cos and sin in fp32 at D 64
+        instances.append((key, f"fused_rope_qk {dt} {vec} a load",
+                          dict(kernel="fused_rope_qk", dtype=dt, vec=vec),
+                          4 * 64))
+    rows += ptxas_rows(_build, logs.get("rope", ""), instances,
+                       "fused_rope_qk")
     instances = []
     for xc, xdt in enumerate(dts):
         for wc, mode in ((1, "int8"), (2, "fp8")):
@@ -1740,6 +1797,123 @@ def tick_breakdown(torch, llama, params, cfg, max_len, rows, iters=50):
 
 
 # ---------------------------------------------------------------------------
+# phase 3f: a long admit, and a narrow head dim served end to end
+# ---------------------------------------------------------------------------
+
+# phase 3f's engine: max_len 2048 with a 1024 bucket, so a ~1000-token
+# prompt is admitted as one [1, 1024] prefill chunk
+LONG_MAX_LEN = 2048
+LONG_BUCKETS = (64, 128, 256, 512, 1024)
+LONG_PROMPT = 1000
+
+
+def long_admit(torch, llama, pa, tf, ServingEngine, fns, params, cfg,
+               new_tokens=16, ticks=4):
+    """Phase 3f (1): ``ServingEngine(paged=True, max_len=2048)`` with a
+    1024 bucket serves a 1000-token prompt (every launch count at 0 just
+    before, read just after: the admit's 1024-row chunk and the ticks all
+    through ``ragged_paged_attention``); then the same admit and ``ticks``
+    ticks teacher-forced through the kernels and through their plain
+    versions side by side, logits within ``LOGIT_ATOL``."""
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                              LONG_PROMPT)
+    eng = ServingEngine(cfg, params, slots=8, max_len=LONG_MAX_LEN,
+                        chunk=16, prompt_buckets=LONG_BUCKETS, paged=True,
+                        page_size=PAGE, device=DEVICE)
+    rid = eng.add_request(prompt, new_tokens)
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    out = eng.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    check_tokens(out, [rid], [(prompt, new_tokens)], cfg)
+    steps = eng.last_run_ticks
+    check_counts(launches, paged_counts(cfg.num_layers, steps, steps - 1),
+                 f"a {LONG_PROMPT}-token admit and {steps - 1} ticks")
+    if eng.pager.leak_report():
+        raise AssertionError("the long admit leaked pages")
+
+    max_pages = LONG_MAX_LEN // PAGE
+    pt = torch.from_numpy(np.random.RandomState(4).permutation(
+        np.arange(1, max_pages + 1)).astype(np.int32)[None]).to(DEVICE)
+    bucket = LONG_BUCKETS[-1]
+    tok = torch.zeros(1, bucket, dtype=torch.int64, device=DEVICE)
+    tok[0, :LONG_PROMPT] = torch.from_numpy(prompt)
+    zero = torch.zeros(1, dtype=torch.int32, device=DEVICE)
+    plain = [mock.patch.object(tf, "fused_rms_norm", tf.rms_norm_plain),
+             mock.patch.object(tf, "fused_add_rms_norm",
+                               tf.add_rms_norm_plain),
+             mock.patch.object(tf, "fused_rope_qk", tf.rope_qk_plain),
+             mock.patch.object(pa, "ragged_paged_attention",
+                               pa.ragged_paged_attention_plain)]
+
+    def run(feed):
+        """The admit, then the ticks fed ``feed`` (None: the path's own
+        greedy tokens, returned for the other path to be fed)."""
+        pool = llama.init_paged_pool(cfg, max_pages + 1, PAGE, DEVICE)
+        logits = [llama.forward_with_pages(params, tok, cfg, pool, pt, zero,
+                                           logit_pos=LONG_PROMPT - 1)[0]]
+        fed = []
+        for t in range(ticks):
+            nxt = (logits[-1].argmax(-1)[:, None] if feed is None
+                   else feed[t])
+            fed.append(nxt)
+            pos = torch.full((1,), LONG_PROMPT + t, dtype=torch.int32,
+                             device=DEVICE)
+            logits.append(llama.forward_with_pages(params, nxt, cfg, pool,
+                                                   pt, pos)[0])
+        return torch.cat(logits), fed
+
+    with torch.no_grad():
+        got, fed = run(None)  # the kernel path is the teacher
+        for p in plain:
+            p.start()
+        try:
+            want, _ = run(fed)
+        finally:
+            for p in plain:
+                p.stop()
+    if not torch.isfinite(got).all():
+        raise AssertionError("non-finite logits on the long admit")
+    err = (got - want).abs().max().item()
+    if err > LOGIT_ATOL:
+        raise AssertionError(f"long admit: teacher-forced logits differ by "
+                             f"{err} > {LOGIT_ATOL}")
+    return {"prompt_tokens": LONG_PROMPT, "bucket": bucket,
+            "max_len": LONG_MAX_LEN, "new_tokens": new_tokens,
+            "steps": steps, "wall_s": wall,
+            "teacher_forced_positions": 1 + ticks,
+            "max_abs_logit_err": err, "logit_atol": LOGIT_ATOL}, launches
+
+
+def cpu_small_serve(torch, llama, da, pa, tf, ServingEngine, fns,
+                    max_len=384):
+    """Phase 3f (2): ``LlamaConfig.cpu_small`` (8 heads of D 16, fp32,
+    random weights from seed 0) served on the card: the mixed workload's
+    32 requests (vocab 2048) through the contiguous engine and the paged
+    engine, each drain with its launches counted (phases 3 and 3b's
+    checks), then phase 4's and 4b's teacher-forced ticks on it."""
+    cfg = llama.LlamaConfig.cpu_small()
+    params = llama.init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), device=DEVICE)
+    reqs = mixed_workload(np.random.RandomState(1), 32, cfg.vocab_size)
+    stats, launches, toks_c = serve(torch, ServingEngine, fns, params, cfg,
+                                    reqs, max_len)
+    pstats, plaunches, toks_p = serve_paged(torch, ServingEngine, fns,
+                                            params, cfg, reqs, max_len)
+    tfc = teacher_forced(torch, llama, da, tf, params, cfg, reqs, max_len,
+                         ticks=8)
+    tfp = teacher_forced_paged(torch, llama, pa, tf, params, cfg, reqs,
+                               max_len, ticks=8)
+    same = sum(a == b for a, b in zip(toks_c, toks_p))
+    return {"config": "cpu_small", "head_dim": cfg.head_dim,
+            "dtype": "float32", "contiguous": stats, "paged": pstats,
+            "requests_identical": same, "teacher_forced": tfc,
+            "teacher_forced_paged": tfp}, launches, plaunches
+
+
+# ---------------------------------------------------------------------------
 # phase 4: teacher-forced ticks, kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -2262,7 +2436,7 @@ def kernels_line(rows, by_path):
             "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
             "paddle_tpu/ops/pallas/tick_fusion.py:111", "serving"),
         "fused_rope_qk": (
-            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
+            "cuda", "paddle_tpu_torch/csrc/rope.cu",
             "paddle_tpu/ops/pallas/tick_fusion.py:159", "serving"),
         "ragged_paged_attention": (
             "cuda", "paddle_tpu_torch/csrc/paged_attention.cu",
@@ -2415,11 +2589,20 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    # each phase's seconds, from its mark to the next one's
+    laps, last = {}, [None, t_start]
+
+    def lap(name):
+        now = time.perf_counter()
+        if last[0] is not None:
+            laps[last[0]] = round(now - last[1], 1)
+        last[:] = [name, now]
     card = smi_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}")
 
+    lap("1")
     # 1. build
     t0 = time.perf_counter()
     builds = _build.build_all()
@@ -2431,9 +2614,10 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     logs = {b["name"]: b["log"] for b in builds}
     flash_build = flash_build_report(fa, _build, logs)
-    rebuilt_build = rebuilt_build_report(torch, bm, da, pa, qm, _build,
+    rebuilt_build = rebuilt_build_report(torch, bm, da, pa, qm, hd, _build,
                                          logs)
 
+    lap("2")
     # 2. kernels against their plain versions
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
@@ -2535,6 +2719,7 @@ def main() -> None:
               f"{r['bound_ms']:.6g} ({r['bound_by']})")
     print(f"kernel checks passed ({card})")
 
+    lap("3")
     # 3. the engine at bert_base_equiv width
     cfg = llama.LlamaConfig.bert_base_equiv()
     params = llama.init_params(
@@ -2554,6 +2739,7 @@ def main() -> None:
     tick = tick_breakdown(torch, llama, params, cfg, max_len, rows)
     print(f"decode tick ({card}): {json.dumps(tick)}")
 
+    lap("3b")
     # 3b. the paged engine, same requests
     pstats, plaunches, toks_p = serve_paged(torch, ServingEngine, fns,
                                             params, cfg, reqs, max_len)
@@ -2584,6 +2770,7 @@ def main() -> None:
     psteps = paged_step_breakdown(torch, llama, params, cfg, max_len)
     print(f"paged steps ({card}): {json.dumps(psteps)}")
 
+    lap("3c")
     # 3c. the shared-prefix burst through the online scheduler
     burst, blaunches = prefix_burst(torch, sched, PagedPrefixCache,
                                     ServingEngine, fns, params, cfg)
@@ -2598,6 +2785,7 @@ def main() -> None:
           f"({burst['decode_steps']} decode)")
     print(f"launches on the prefix burst: {json.dumps(blaunches)}")
 
+    lap("3d")
     # 3d. quantized serving, scored against a bf16 shadow
     quant, qlaunches, f8launches = quant_serve(
         torch, ServingEngine, compare_pair, fns, params, cfg, reqs, max_len)
@@ -2627,6 +2815,33 @@ def main() -> None:
     print(f"launches on the int8 drain: {json.dumps(qlaunches)}")
     print(f"launches on the fp8 drain: {json.dumps(f8launches)}")
 
+    lap("3f")
+    # 3f. a long admit at max_len 2048, then cpu_small (D 16) end to end
+    longa, llaunches = long_admit(torch, llama, pa, tf, ServingEngine, fns,
+                                  params, cfg)
+    print(f"long admit ({card}): bert_base_equiv bf16 paged max_len "
+          f"{LONG_MAX_LEN}: a {longa['prompt_tokens']}-token prompt admitted "
+          f"at bucket {longa['bucket']} and {longa['new_tokens']} tokens in "
+          f"{longa['wall_s']:.3f} s ({longa['steps']} steps); teacher-forced "
+          f"logits within {longa['max_abs_logit_err']:.4f} of the plain path "
+          f"(<= {LOGIT_ATOL}) over {longa['teacher_forced_positions']} "
+          f"positions")
+    print(f"launches on the long admit: {json.dumps(llaunches)}")
+    small, slaunches, splaunches = cpu_small_serve(
+        torch, llama, da, pa, tf, ServingEngine, fns)
+    print(f"cpu_small ({card}): fp32 8 heads of D 16: contiguous "
+          f"{small['contiguous']['new_tokens']} tokens at "
+          f"{small['contiguous']['tokens_per_s']:.1f} tokens/s, paged "
+          f"{small['paged']['tokens_per_s']:.1f} tokens/s, "
+          f"{small['requests_identical']}/32 requests identical; "
+          f"teacher-forced logits within "
+          f"{small['teacher_forced']['max_abs_logit_err']:.3e} (contiguous) "
+          f"and {small['teacher_forced_paged']['max_abs_logit_err']:.3e} "
+          f"(paged) of the plain path (<= {LOGIT_ATOL})")
+    print(f"launches on the cpu_small drains: {json.dumps(slaunches)} / "
+          f"{json.dumps(splaunches)}")
+
+    lap("4")
     # 4. teacher-forced ticks, contiguous cache and paged pool
     tfc = teacher_forced(torch, llama, da, tf, params, cfg, reqs, max_len,
                          ticks=16)
@@ -2638,6 +2853,7 @@ def main() -> None:
                                max_len, ticks=16)
     print(f"teacher-forced quantized paged ({card}): {json.dumps(tfq)}")
 
+    lap("5")
     # 5. training at bert_base_equiv width, fp32 master weights
     del params
     tcfg = llama.LlamaConfig.bert_base_equiv()
@@ -2674,6 +2890,7 @@ def main() -> None:
           f"{json.dumps(train.get('device_split_ms'))}; largest kernels: "
           f"{json.dumps(train.get('device_top'))}")
 
+    lap("3e")
     # 3e. the quality bar of quantized serving, on a memorized model served
     # continuations of its training sequences (the mixed workload's
     # prompt and generation lengths)
@@ -2710,6 +2927,7 @@ def main() -> None:
           f"{qtrained['bf16_shadow']['tokens_per_s']:.1f} tokens/s")
     print(f"launches on the trained int8 drain: {json.dumps(qtlaunches)}")
 
+    lap("6")
     # 6. ResNet-50 training, BASELINE config 1 at full shape
     del sparams
     x, y = resnet_batch(torch)
@@ -2749,6 +2967,7 @@ def main() -> None:
           f"{', '.join(f'{v:.4f}' for v in radamw['losses'])}")
     print(f"launches on the ResNet-50 AdamW steps: {json.dumps(alaunches)}")
 
+    lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
     del rmodel, x, y
     torch.cuda.empty_cache()
@@ -2761,9 +2980,13 @@ def main() -> None:
     print(f"launches on the dot experiment: {json.dumps(dlaunches)}")
     print(f"launches on the flash experiment: {json.dumps(flaunches)}")
 
+    lap("8")
     # 8. results
     by_path = {"contiguous_drain": launches, "paged_drain": plaunches,
-               "prefix_burst": blaunches, "quant_int8_drain": qlaunches,
+               "prefix_burst": blaunches, "long_admit": llaunches,
+               "cpu_small_contiguous_drain": slaunches,
+               "cpu_small_paged_drain": splaunches,
+               "quant_int8_drain": qlaunches,
                "quant_fp8_drain": f8launches, "train": tlaunches,
                "quant_int8_trained_drain": qtlaunches,
                "resnet50_train": rlaunches, "resnet50_adamw": alaunches,
@@ -2774,6 +2997,7 @@ def main() -> None:
         json.dump({"card": card, "kernel_rows": rows, "engine": stats,
                    "tick": tick, "paged_engine": pstats,
                    "paged_steps": psteps, "prefix_burst": burst,
+                   "long_admit": longa, "cpu_small": small,
                    "quant": quant, "quant_trained": qtrained,
                    "launches": by_path,
                    "teacher_forced": tfc, "teacher_forced_paged": tfp,
@@ -2785,6 +3009,8 @@ def main() -> None:
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,
                    "experiments": exps}, f, indent=1)
+    lap(None)
+    print(f"seconds by phase: {json.dumps(laps)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -82,31 +82,6 @@ __device__ __forceinline__ uint64_t desc_a(const void* p) {
   return BK == 32 ? desc_k64(p) : desc_k(p);
 }
 
-// word i of w, by selects (a dynamic index would put w in local memory)
-__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
-  uint32_t x = w[0];
-  x = i == 1 ? w[1] : x;
-  x = i == 2 ? w[2] : x;
-  return i == 3 ? w[3] : x;
-}
-
-// Lane t of a quad holds w[g] = columns 8 g + 2 t, + 1 (bf16x2) of one row
-// for four 8-column groups g; returns that row's 8 columns of group t.
-__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&w)[4]) {
-  const int t = threadIdx.x & 3;
-  uint32_t o[4] = {0u, 0u, 0u, 0u};
-#pragma unroll
-  for (int r = 0; r < 4; ++r) {
-    // the partner t ^ r sends its pair of group t: columns 2 (t ^ r) ..
-    const uint32_t v =
-        __shfl_xor_sync(0xffffffffu, pick4(w, t ^ r), r);
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-      if (c == (t ^ r)) o[c] = v;
-  }
-  return make_uint4(o[0], o[1], o[2], o[3]);
-}
-
 // rows row0 and row0 + 8 of a 64 x BN fp32 accumulator as bf16, each row's
 // 8-column groups stored in 16-byte stores
 template <int BN>

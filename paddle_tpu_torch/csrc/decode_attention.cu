@@ -68,28 +68,49 @@
 // The kernel itself lives in split_kv.cuh, shared with the paged decode
 // (paged_attention.cu); this file gives it the slot-contiguous addressing
 // (SlotRows: key j of slot b is cache row b * max_len + j, one position a
-// slot) and the quant mode's narrow caches.
+// slot) and the quant mode's narrow caches. Every head dim D % 8 == 0 up to
+// 128 is served: 64 and 128 by exact instances, the others by instances at
+// the padded widths 32, 64 and 128 that take the true D at run time
+// (split_kv.cuh), where a one-byte cache is copied in 8-byte pieces.
 
 #include "split_kv.cuh"
 
 namespace {
 
-// one query head per kv head (MHA) has an instance of its own, whose rows'
-// loops know their bound when compiled (no branch per row); GQA takes the
-// instance of up to MAX_ROWS rows
-template <int TC, int KC, int D>
-int launch(const void* q, const void* kc, const void* vc, const void* ks,
-           const void* vs, const void* pos, void* out, void* part,
-           void* tickets, int B, int nH, int Hkv, int max_len, int n_chunks,
-           float scale, cudaStream_t stream) {
+// The main path's head dims (64, 128) have exact instances (D known when
+// compiled), and among them one query head per kv head (MHA) has an
+// instance of its own, whose rows' loops know their bound when compiled (no
+// branch per row); GQA takes the instance of up to MAX_ROWS rows. Every
+// other head dim takes the padded instance of its width, of up to MAX_ROWS
+// rows; a one-byte cache copies 8-byte pieces there (its head rows start
+// on 8-byte boundaries where D % 16 == 8), one instance where 8- and
+// 16-byte pieces would take two off the main path.
+template <int TC, int KC, int DP>
+int launch_exact(const void* q, const void* kc, const void* vc,
+                 const void* ks, const void* vs, const void* pos, void* out,
+                 void* part, void* tickets, int B, int nH, int Hkv,
+                 int max_len, int n_chunks, float scale,
+                 cudaStream_t stream) {
   const SlotRows keys{static_cast<const int32_t*>(pos), max_len};
   if (nH == Hkv)
-    return launch_split<SlotRows, TC, KC, D, 1>(q, kc, vc, ks, vs, keys, out,
-                                                part, tickets, B, nH, Hkv, 1,
-                                                n_chunks, scale, stream);
-  return launch_split<SlotRows, TC, KC, D, MAX_ROWS>(
-      q, kc, vc, ks, vs, keys, out, part, tickets, B, nH, Hkv, 1, n_chunks,
-      scale, stream);
+    return launch_split<SlotRows, TC, KC, DP, 1, 16, true>(
+        q, kc, vc, ks, vs, keys, out, part, tickets, B, nH, Hkv, DP, 1,
+        n_chunks, scale, stream);
+  return launch_split<SlotRows, TC, KC, DP, MAX_ROWS, 16, true>(
+      q, kc, vc, ks, vs, keys, out, part, tickets, B, nH, Hkv, DP, 1,
+      n_chunks, scale, stream);
+}
+
+template <int TC, int KC, int DP, int PB>
+int launch_padded(const void* q, const void* kc, const void* vc,
+                  const void* ks, const void* vs, const void* pos, void* out,
+                  void* part, void* tickets, int B, int nH, int Hkv, int D,
+                  int max_len, int n_chunks, float scale,
+                  cudaStream_t stream) {
+  const SlotRows keys{static_cast<const int32_t*>(pos), max_len};
+  return launch_split<SlotRows, TC, KC, DP, MAX_ROWS, PB, false>(
+      q, kc, vc, ks, vs, keys, out, part, tickets, B, nH, Hkv, D, 1,
+      n_chunks, scale, stream);
 }
 
 template <int TC, int KC>
@@ -98,11 +119,27 @@ int launch_d(const void* q, const void* kc, const void* vc, const void* ks,
              void* tickets, int B, int nH, int Hkv, int D, int max_len,
              int n_chunks, float scale, cudaStream_t s) {
   if (D == 64)
-    return launch<TC, KC, 64>(q, kc, vc, ks, vs, pos, out, part, tickets, B,
-                              nH, Hkv, max_len, n_chunks, scale, s);
+    return launch_exact<TC, KC, 64>(q, kc, vc, ks, vs, pos, out, part,
+                                    tickets, B, nH, Hkv, max_len, n_chunks,
+                                    scale, s);
   if (D == 128)
-    return launch<TC, KC, 128>(q, kc, vc, ks, vs, pos, out, part, tickets, B,
-                               nH, Hkv, max_len, n_chunks, scale, s);
+    return launch_exact<TC, KC, 128>(q, kc, vc, ks, vs, pos, out, part,
+                                     tickets, B, nH, Hkv, max_len, n_chunks,
+                                     scale, s);
+  constexpr int PB = KC == 0 ? 16 : 8;  // a padded instance's pieces
+  const int dp = padded_dim(D);
+  if (dp == 32)
+    return launch_padded<TC, KC, 32, PB>(q, kc, vc, ks, vs, pos, out, part,
+                                         tickets, B, nH, Hkv, D, max_len,
+                                         n_chunks, scale, s);
+  if (dp == 64)
+    return launch_padded<TC, KC, 64, PB>(q, kc, vc, ks, vs, pos, out, part,
+                                         tickets, B, nH, Hkv, D, max_len,
+                                         n_chunks, scale, s);
+  if (dp == 128)
+    return launch_padded<TC, KC, 128, PB>(q, kc, vc, ks, vs, pos, out, part,
+                                          tickets, B, nH, Hkv, D, max_len,
+                                          n_chunks, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -125,13 +162,19 @@ int launch_kv(const void* q, const void* kc, const void* vc, const void* ks,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// the piece size does not change the shared memory
+template <typename KT>
+int smem_dp(int dp, int rep) {
+  if (dp == 32) return Smem<KT, 32>::bytes(rep);
+  if (dp == 64) return Smem<KT, 64>::bytes(rep);
+  return Smem<KT, 128>::bytes(rep);
+}
+
 template <int TC>
 int smem_kv(int kv_code, int D, int rep) {
   typedef typename CacheType<TC, 0>::type T;
-  if (kv_code == 0)
-    return D == 64 ? Smem<T, 64>::bytes(rep) : Smem<T, 128>::bytes(rep);
-  return D == 64 ? Smem<int8_t, 64>::bytes(rep)
-                 : Smem<int8_t, 128>::bytes(rep);
+  const int dp = padded_dim(D);
+  return kv_code == 0 ? smem_dp<T>(dp, rep) : smem_dp<int8_t>(dp, rep);
 }
 
 }  // namespace
@@ -145,7 +188,7 @@ int smem_kv(int kv_code, int D, int rep) {
 // the cudaError_t of the launch (0 = success); cudaErrorInvalidValue for a
 // shape or dtype the kernel does not take. Pointers are device pointers
 // aligned to 16 bytes; q/out [B, nH, D], kc/vc [B, max_len, Hkv, D], pos
-// [B] int32, all contiguous.
+// [B] int32, all contiguous; D % 8 == 0 and 8 <= D <= 128.
 extern "C" int ragged_decode_attention(const void* q, const void* kc,
                                        const void* vc, const void* ks,
                                        const void* vs, const void* pos,
@@ -157,7 +200,7 @@ extern "C" int ragged_decode_attention(const void* q, const void* kc,
   const int n_chunks = (max_len + CHUNK - 1) / CHUNK;
   if (B < 1 || Hkv < 1 || max_len < 1 || nH % Hkv != 0 ||
       nH / Hkv > MAX_ROWS || B > 65535 || n_chunks > 65535 ||
-      part == nullptr || tickets == nullptr)
+      padded_dim(D) == 0 || part == nullptr || tickets == nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0)
@@ -169,12 +212,12 @@ extern "C" int ragged_decode_attention(const void* q, const void* kc,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// The dynamic shared memory one block of the (dtype_code, kv_code, D)
-// instance asks for at rep query heads per kv head; 0 for an instance that
-// does not exist.
+// The dynamic shared memory one block of the instance that serves
+// (dtype_code, kv_code, D) asks for at rep query heads per kv head; 0 for
+// an instance that does not exist.
 extern "C" int ragged_decode_smem(int dtype_code, int kv_code, int D,
                                   int rep) {
-  if ((D != 64 && D != 128) || kv_code < 0 || kv_code > 2 || rep < 1 ||
+  if (padded_dim(D) == 0 || kv_code < 0 || kv_code > 2 || rep < 1 ||
       rep > MAX_ROWS)
     return 0;
   if (dtype_code == 0) return smem_kv<0>(kv_code, D, rep);

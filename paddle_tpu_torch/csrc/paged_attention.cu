@@ -39,8 +39,9 @@
 //   at psz 16; inside one page when psz > 64), K then V staged by cp.async,
 //   the chunks merged in the same launch by tickets. A block whose chunk
 //   starts past the slot's last visible key exits before any read.
-// - Prefill, Tq * rep > 8, bf16 (an admit: up to 256 rows against up to
-//   384 keys a kv head): the first version's CUDA-core dot products, one
+// - Prefill, Tq * rep > 8, bf16 (an admit: up to max_len rows against up
+//   to max_len keys a kv head): the first version's CUDA-core dot products,
+//   one
 //   key a lane, bound it. Here the products run on tensor cores
 //   (mma.sync m16n8k16, bf16 in, fp32 accumulate): one block of four warps
 //   a (kv head, slot, 64 rows), each warp 16 rows; K and V gathered 64 keys
@@ -53,13 +54,25 @@
 //   ldmatrix.trans). A block
 //   walks keys only up to its last row's limit, a warp computes only the
 //   tiles its rows see, and masks only tiles that pass its first row's
-//   limit. mma.sync and not wgmma: the work is small (<= 256 rows x <= 384
-//   keys a head) and latency, not the tensor-core rate, bounds it: an
-//   admit's 48 blocks leave one warp on each SM quarter, whose dependent
-//   steps show in full (32-row tiles, twice the blocks, measured slower).
+//   limit. mma.sync and not wgmma: at the serving admit the work is small
+//   (256 rows x <= 384 keys a head) and latency, not the tensor-core rate,
+//   bounds it: an admit's 48 blocks leave one warp on each SM quarter,
+//   whose dependent steps show in full (32-row tiles, twice the blocks,
+//   measured slower). Nothing in it depends on Tq but the grid's z extent
+//   (one block a 64 rows), so it serves any Tq up to 64 x 65535 rows a kv
+//   head; a long chunk's blocks each walk their keys alone.
 // - Prefill in fp32 (no engine caller): tensor cores would make it TF32,
 //   so it keeps the first version's CUDA-core kernel: one block a (kv head,
 //   slot, 8 rows), the warps splitting the key tiles, merged at the end.
+//
+// Head dims: every D % 8 == 0 up to 128. The main path's 64 and 128 have
+// exact instances (D known when compiled); the others take instances at
+// the padded widths of split_kv.cuh (32, 64, 128; the fp32 prefill at 64
+// and 128, a lane owning two or four columns) with the true D at run time.
+// Pieces of K and V past D are zero-filled by cp.async's source size, q's
+// are zeros, so the padded columns add exact zeros to the scores; a bf16
+// prefill skips the k16 steps and n16 tiles wholly past D, and no column
+// past D is stored.
 
 #include "split_kv.cuh"
 
@@ -104,12 +117,13 @@ constexpr int PF_THREADS = PF_WARPS * 32;
 constexpr int PF_ROWS = 16 * PF_WARPS;  // query rows a block
 constexpr int PF_KEYS = 64;             // keys a tile
 
-// q rows, then two stages of K rows, then two of V rows; rows padded by 16
-// bytes, so the eight 16-byte rows of an ldmatrix land in distinct banks
-template <int D>
+// q rows, then two stages of K rows, then two of V rows, DP values each;
+// rows padded by 16 bytes, so the eight 16-byte rows of an ldmatrix land in
+// distinct banks
+template <int DP>
 struct PfSmem {
-  static constexpr int ROW = D * 2 + 16;
-  static constexpr int PIECES = D * 2 / 16;  // 16-byte copies a row
+  static constexpr int ROW = DP * 2 + 16;
+  static constexpr int PIECES = DP * 2 / 16;  // 16-byte copies a row
   static constexpr int K = PF_ROWS * ROW;
   static constexpr int V = K + 2 * PF_KEYS * ROW;
   static constexpr int BYTES = V + 2 * PF_KEYS * ROW;
@@ -149,16 +163,17 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<const uint32_t*>(&v);
 }
 
-template <int D>
+template <int DP, bool EXACT>
 __global__ void __launch_bounds__(PF_THREADS)
 paged_prefill(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ kp,
               const __nv_bfloat16* __restrict__ vp, PagedRows keys,
               __nv_bfloat16* __restrict__ out, int Tq, int nH, int Hkv,
-              float scale) {
-  typedef PfSmem<D> S;
-  constexpr int KD = D / 16;  // k-steps of q k^T
-  constexpr int ND = D / 8;   // n-tiles of the output
+              int d, float scale) {
+  const int D = EXACT ? DP : d;  // the true head dim
+  typedef PfSmem<DP> S;
+  constexpr int KD = DP / 16;  // k-steps of q k^T (past D: skipped)
+  constexpr int ND = DP / 8;   // n-tiles of the output
   constexpr int PER = PF_KEYS * S::PIECES / PF_THREADS;  // copies a thread
   extern __shared__ __align__(16) unsigned char smem[];
 
@@ -172,50 +187,53 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
   const int kend = lim_of(row0 + PF_ROWS - 1);  // the block's last key
   const int n_tiles = kend / PF_KEYS + 1;
   auto qrow = [&](int r) {
-    return ((size_t)(b * Tq + r / rep) * nH + (size_t)h * rep + r % rep) * D;
+    return (((size_t)b * Tq + r / rep) * nH + (size_t)h * rep + r % rep) * D;
   };
 
   // a tile's K and V rows, piece pc of key rows j0, j0 + PF_THREADS /
   // PIECES, ...: the pages looked up first, then the copies (keys past
-  // kend zero-filled: they score 0 and are masked; V's zeros keep P V
-  // finite)
+  // kend and pieces past D zero-filled: they score 0 and are masked or add
+  // 0; V's zeros keep P V finite)
   const int pc = tid % S::PIECES, j0 = tid / S::PIECES;
+  const bool in_d = pc * 8 < D;  // the piece's 8 columns hold values
   const size_t row_bytes = (size_t)Hkv * D * 2;
   const unsigned char* kb =
-      reinterpret_cast<const unsigned char*>(kp + (size_t)h * D) + pc * 16;
+      reinterpret_cast<const unsigned char*>(kp + (size_t)h * D) +
+      (in_d ? pc * 16 : 0);
   const unsigned char* vb =
-      reinterpret_cast<const unsigned char*>(vp + (size_t)h * D) + pc * 16;
+      reinterpret_cast<const unsigned char*>(vp + (size_t)h * D) +
+      (in_d ? pc * 16 : 0);
   auto load_tile = [&](int kt, int stage) {
     size_t off[PER];
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int key = kt * PF_KEYS + j0 + i * (PF_THREADS / S::PIECES);
-      off[i] = key <= kend ? view.row(key) * row_bytes : 0;
+      off[i] = key <= kend && in_d ? view.row(key) * row_bytes : 0;
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int j = j0 + i * (PF_THREADS / S::PIECES);
       cp_async16_zfill(
           smem + S::K + (stage * PF_KEYS + j) * S::ROW + pc * 16,
-          kb + off[i], kt * PF_KEYS + j <= kend ? 16 : 0);
+          kb + off[i], kt * PF_KEYS + j <= kend && in_d ? 16 : 0);
     }
 #pragma unroll
     for (int i = 0; i < PER; ++i) {
       const int j = j0 + i * (PF_THREADS / S::PIECES);
       cp_async16_zfill(
           smem + S::V + (stage * PF_KEYS + j) * S::ROW + pc * 16,
-          vb + off[i], kt * PF_KEYS + j <= kend ? 16 : 0);
+          vb + off[i], kt * PF_KEYS + j <= kend && in_d ? 16 : 0);
     }
     cp_async_commit();
   };
   load_tile(0, 0);
 
-  // q rows pre-scaled in bf16 (rows past the slot's last are zeros), then
-  // each warp's 16 rows as A fragments
+  // q rows pre-scaled in bf16 (rows past the slot's last and columns past
+  // D are zeros), then each warp's 16 rows as A fragments
   for (int e = tid; e < PF_ROWS * S::PIECES; e += PF_THREADS) {
     const int i = e / S::PIECES, c = e % S::PIECES;
     uint4 u = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + i < rows) {
+    if (row0 + i < rows && c * 8 < D) {
       const uint4 x =
           *reinterpret_cast<const uint4*>(q + qrow(row0 + i) + c * 8);
       u.x = pack_bf16(bf16_lo(x.x) * scale, bf16_hi(x.x) * scale);
@@ -228,9 +246,12 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
   uint32_t qa[KD][4];
 #pragma unroll
-  for (int kk = 0; kk < KD; ++kk)
-    ldsm_x4(qa[kk], smem + (warp * 16 + (lane & 15)) * S::ROW +
-                        (kk * 16 + (lane >> 4) * 8) * 2);
+  for (int kk = 0; kk < KD; ++kk) {
+    qa[kk][0] = qa[kk][1] = qa[kk][2] = qa[kk][3] = 0u;
+    if (kk * 16 < D)
+      ldsm_x4(qa[kk], smem + (warp * 16 + (lane & 15)) * S::ROW +
+                          (kk * 16 + (lane >> 4) * 8) * 2);
+  }
 
   // this thread's rows: g and g + 8 of the warp's 16
   const int wr0 = row0 + warp * 16;
@@ -262,6 +283,7 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
       for (int n2 = 0; n2 < 4; ++n2) {
 #pragma unroll
         for (int kk = 0; kk < KD; ++kk) {
+          if (kk * 16 >= D) break;  // the k16 steps wholly past D
           uint32_t kf[4];
           ldsm_x4(kf, kst + (n2 * 16 + (lane & 7) + ((lane >> 4) << 3)) *
                                 S::ROW +
@@ -323,6 +345,7 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
                                 pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
 #pragma unroll
         for (int dn = 0; dn < ND / 2; ++dn) {
+          if (dn * 16 >= D) break;  // the n16 tiles wholly past D
           uint32_t vf[4];
           ldsm_x4_t(vf, vst + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
                                   S::ROW +
@@ -348,8 +371,9 @@ paged_prefill(const __nv_bfloat16* __restrict__ q,
       __nv_bfloat16* dst = out + qrow(r) + 2 * tq;
 #pragma unroll
       for (int dn = 0; dn < ND; ++dn)
-        *reinterpret_cast<uint32_t*>(dst + dn * 8) =
-            pack_bf16(o[dn][2 * hr] / l[hr], o[dn][2 * hr + 1] / l[hr]);
+        if (dn * 8 < D)
+          *reinterpret_cast<uint32_t*>(dst + dn * 8) =
+              pack_bf16(o[dn][2 * hr] / l[hr], o[dn][2 * hr + 1] / l[hr]);
     }
   }
 }
@@ -366,22 +390,25 @@ constexpr int CC_ROWS = 8;   // query rows per block
 // one block per (kv head, slot, group of CC_ROWS rows); its warps split the
 // key tiles round-robin (lane t owns key t0 + t: it looks its physical row
 // up in the page table and dots it with the rows' q in shared memory; for
-// P V lane t owns D / 32 output columns), each warp keeps its own online
-// softmax state in registers, and the warps merge once at the end
-template <int D>
+// P V lane t owns DP / 32 output columns), each warp keeps its own online
+// softmax state in registers, and the warps merge once at the end; d <= DP
+// is the true head dim (a lane whose columns lie past it reads nothing), DP
+// itself in an EXACT instance
+template <int DP, bool EXACT>
 __global__ void __launch_bounds__(CC_THREADS, 2)
 paged_prefill_fp32(const float* __restrict__ q, const float* __restrict__ kp,
                    const float* __restrict__ vp, PagedRows keys,
-                   float* __restrict__ out, int Tq, int nH, int Hkv,
+                   float* __restrict__ out, int Tq, int nH, int Hkv, int d,
                    float scale) {
-  constexpr int CH = 4;       // values per 16-byte key load
-  constexpr int DL = D / 32;  // output columns per lane
-  __shared__ __align__(16) float q_s[CC_ROWS][D];
+  const int D = EXACT ? DP : d;
+  constexpr int CH = 4;        // values per 16-byte key load
+  constexpr int DL = DP / 32;  // output columns per lane
+  __shared__ __align__(16) float q_s[CC_ROWS][DP];
   __shared__ float p_s[CC_WARPS][CC_ROWS][CC_TILE];
   __shared__ size_t krow_s[CC_WARPS][CC_TILE];
   __shared__ float m_w[CC_WARPS][CC_ROWS];
   __shared__ float l_w[CC_WARPS][CC_ROWS];
-  __shared__ float acc_w[CC_WARPS][CC_ROWS][D];
+  __shared__ float acc_w[CC_WARPS][CC_ROWS][DP];
 
   const int h = blockIdx.x;
   const int b = blockIdx.y;
@@ -396,7 +423,7 @@ paged_prefill_fp32(const float* __restrict__ q, const float* __restrict__ kp,
   // out[b, t, h * rep + r] for block row i, with t * rep + r = row0 + i
   auto out_off = [&](int i) {
     const int row = row0 + i;
-    return ((size_t)(b * Tq + row / rep) * nH + h * rep + row % rep) * D;
+    return (((size_t)b * Tq + row / rep) * nH + h * rep + row % rep) * D;
   };
   int lim[CC_ROWS];
 #pragma unroll
@@ -404,13 +431,16 @@ paged_prefill_fp32(const float* __restrict__ q, const float* __restrict__ kp,
     lim[i] = view.lim((row0 + min(i, nr - 1)) / rep);
   const int kend = lim[CC_ROWS - 1];  // the last row's limit is the largest
 
-  for (int e = tid; e < nr * D; e += CC_THREADS)
-    q_s[e / D][e % D] = q[out_off(e / D) + e % D] * scale;
+  for (int e = tid; e < nr * DP; e += CC_THREADS) {
+    const int c = e % DP;
+    q_s[e / DP][c] = c < D ? q[out_off(e / DP) + c] * scale : 0.f;
+  }
   __syncthreads();
 
   const size_t row_stride = (size_t)Hkv * D;  // elements between pool rows
+  const bool lane_d = lane * DL < D;  // this lane's output columns hold values
   const float* kb = kp + (size_t)h * D;
-  const float* vb = vp + (size_t)h * D + lane * DL;
+  const float* vb = vp + (size_t)h * D + (lane_d ? lane * DL : 0);
   const int n_tiles = kend / CC_TILE + 1;
 
   float m[CC_ROWS], l[CC_ROWS], acc[CC_ROWS][DL];
@@ -435,7 +465,8 @@ paged_prefill_fp32(const float* __restrict__ q, const float* __restrict__ kp,
     if (in_range) {
       const float* kr = kb + krow * row_stride;
 #pragma unroll
-      for (int c = 0; c < D; c += CH) {
+      for (int c = 0; c < DP; c += CH) {
+        if (c >= D) break;
         float kf[CH];
         load_f<float, CH>(kr + c, kf);
 #pragma unroll
@@ -479,7 +510,12 @@ paged_prefill_fp32(const float* __restrict__ q, const float* __restrict__ kp,
 #pragma unroll 4
     for (int t = 0; t < n_keys; ++t) {
       float vf[DL];
-      load_f<float, DL>(vb + krow_s[warp][t] * row_stride, vf);
+      if (lane_d) {
+        load_f<float, DL>(vb + krow_s[warp][t] * row_stride, vf);
+      } else {
+#pragma unroll
+        for (int e = 0; e < DL; ++e) vf[e] = 0.f;
+      }
 #pragma unroll
       for (int i = 0; i < CC_ROWS; ++i) {
         if (i < nr) {
@@ -525,69 +561,82 @@ paged_prefill_fp32(const float* __restrict__ q, const float* __restrict__ kp,
 // launches
 // ---------------------------------------------------------------------------
 
-template <int TC, int D>
+template <int TC, int DP, bool EXACT>
 int launch_decode(const void* q, const void* kp, const void* vp,
                   PagedRows keys, void* out, void* part, void* tickets, int B,
-                  int Tq, int nH, int Hkv, int n_chunks, float scale,
+                  int Tq, int nH, int Hkv, int D, int n_chunks, float scale,
                   cudaStream_t s) {
-  if (Tq * (nH / Hkv) == 1)
-    return launch_split<PagedRows, TC, 0, D, 1>(q, kp, vp, nullptr, nullptr,
-                                                keys, out, part, tickets, B,
-                                                nH, Hkv, Tq, n_chunks, scale,
-                                                s);
-  return launch_split<PagedRows, TC, 0, D, MAX_ROWS>(
-      q, kp, vp, nullptr, nullptr, keys, out, part, tickets, B, nH, Hkv, Tq,
-      n_chunks, scale, s);
+  if constexpr (EXACT) {  // one row a (slot, kv head): its own instance
+    if (Tq * (nH / Hkv) == 1)
+      return launch_split<PagedRows, TC, 0, DP, 1, 16, true>(
+          q, kp, vp, nullptr, nullptr, keys, out, part, tickets, B, nH, Hkv,
+          D, Tq, n_chunks, scale, s);
+  }
+  return launch_split<PagedRows, TC, 0, DP, MAX_ROWS, 16, EXACT>(
+      q, kp, vp, nullptr, nullptr, keys, out, part, tickets, B, nH, Hkv, D,
+      Tq, n_chunks, scale, s);
 }
 
-template <int D>
+// blocks of a prefill launch along z: one a PF_ROWS (bf16) or CC_ROWS
+// (fp32) rows of a kv head
+inline long long prefill_blocks(int dtype_code, long long rows) {
+  const int per = dtype_code == 1 ? PF_ROWS : CC_ROWS;
+  return (rows + per - 1) / per;
+}
+
+template <int DP, bool EXACT>
 int launch_prefill(const void* q, const void* kp, const void* vp,
                    PagedRows keys, void* out, int B, int Tq, int nH, int Hkv,
-                   float scale, cudaStream_t s) {
+                   int D, float scale, cudaStream_t s) {
   static const int attr = static_cast<int>(
-      cudaFuncSetAttribute(paged_prefill<D>,
+      cudaFuncSetAttribute(paged_prefill<DP, EXACT>,
                            cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           PfSmem<D>::BYTES));
+                           PfSmem<DP>::BYTES));
   if (attr) return attr;
-  const dim3 grid(Hkv, B, (Tq * (nH / Hkv) + PF_ROWS - 1) / PF_ROWS);
-  paged_prefill<D><<<grid, PF_THREADS, PfSmem<D>::BYTES, s>>>(
+  const dim3 grid(Hkv, B, (int)prefill_blocks(1, (long long)Tq * (nH / Hkv)));
+  paged_prefill<DP, EXACT><<<grid, PF_THREADS, PfSmem<DP>::BYTES, s>>>(
       static_cast<const __nv_bfloat16*>(q),
       static_cast<const __nv_bfloat16*>(kp),
       static_cast<const __nv_bfloat16*>(vp), keys,
-      static_cast<__nv_bfloat16*>(out), Tq, nH, Hkv, scale);
+      static_cast<__nv_bfloat16*>(out), Tq, nH, Hkv, D, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int DP, bool EXACT>
 int launch_prefill_fp32(const void* q, const void* kp, const void* vp,
                         PagedRows keys, void* out, int B, int Tq, int nH,
-                        int Hkv, float scale, cudaStream_t s) {
-  const dim3 grid(Hkv, B, (Tq * (nH / Hkv) + CC_ROWS - 1) / CC_ROWS);
-  paged_prefill_fp32<D><<<grid, CC_THREADS, 0, s>>>(
+                        int Hkv, int D, float scale, cudaStream_t s) {
+  const dim3 grid(Hkv, B, (int)prefill_blocks(0, (long long)Tq * (nH / Hkv)));
+  paged_prefill_fp32<DP, EXACT><<<grid, CC_THREADS, 0, s>>>(
       static_cast<const float*>(q), static_cast<const float*>(kp),
       static_cast<const float*>(vp), keys, static_cast<float*>(out), Tq, nH,
-      Hkv, scale);
+      Hkv, D, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// the instances of width DP: EXACT when D == DP
+template <int DP, bool EXACT>
 int launch_d(const void* q, const void* kp, const void* vp, PagedRows keys,
              void* out, void* part, void* tickets, int B, int Tq, int nH,
-             int Hkv, int n_chunks, int dtype_code, float scale,
+             int Hkv, int D, int n_chunks, int dtype_code, float scale,
              cudaStream_t s) {
   if (Tq * (nH / Hkv) <= MAX_ROWS) {
     if (part == nullptr || tickets == nullptr)
       return static_cast<int>(cudaErrorInvalidValue);
     if (dtype_code == 0)
-      return launch_decode<0, D>(q, kp, vp, keys, out, part, tickets, B, Tq,
-                                 nH, Hkv, n_chunks, scale, s);
-    return launch_decode<1, D>(q, kp, vp, keys, out, part, tickets, B, Tq,
-                               nH, Hkv, n_chunks, scale, s);
+      return launch_decode<0, DP, EXACT>(q, kp, vp, keys, out, part, tickets,
+                                         B, Tq, nH, Hkv, D, n_chunks, scale,
+                                         s);
+    return launch_decode<1, DP, EXACT>(q, kp, vp, keys, out, part, tickets, B,
+                                       Tq, nH, Hkv, D, n_chunks, scale, s);
   }
   if (dtype_code == 1)
-    return launch_prefill<D>(q, kp, vp, keys, out, B, Tq, nH, Hkv, scale, s);
-  return launch_prefill_fp32<D>(q, kp, vp, keys, out, B, Tq, nH, Hkv, scale,
-                                s);
+    return launch_prefill<DP, EXACT>(q, kp, vp, keys, out, B, Tq, nH, Hkv, D,
+                                     scale, s);
+  // the fp32 prefill's lanes own DP / 32 columns, two at least
+  constexpr int DF = DP < 64 ? 64 : DP;
+  return launch_prefill_fp32<DF, EXACT>(q, kp, vp, keys, out, B, Tq, nH, Hkv,
+                                        D, scale, s);
 }
 
 }  // namespace
@@ -597,8 +646,10 @@ int launch_d(const void* q, const void* kp, const void* vp, PagedRows keys,
 // kernel does not take. Device pointers, all contiguous, q/kp/vp/out
 // aligned to 16 bytes: q/out [B, Tq, nH, D], kp/vp [P, psz, Hkv, D],
 // page_table [B, max_pages] int32, ctx [B] int32, qlen [B] int32 or null
-// (every row live). The decode family (Tq * nH / Hkv <= 8) needs part, a
-// float32 workspace of B * Hkv * n_chunks * Tq * (nH / Hkv) * (D + 2)
+// (every row live); D % 8 == 0 and 8 <= D <= 128; any Tq >= 1 whose Tq *
+// nH / Hkv rows a kv head need at most 65535 prefill blocks (8 rows a block
+// in fp32, 64 in bf16). The decode family (Tq * nH / Hkv <= 8) needs part,
+// a float32 workspace of B * Hkv * n_chunks * Tq * (nH / Hkv) * (D + 2)
 // values with n_chunks = ceil(max_pages * psz / 64), and tickets, B * Hkv
 // int32, zero before the launch and left zero by it (one stream at a
 // time); the prefill families take neither (null).
@@ -612,22 +663,34 @@ extern "C" int ragged_paged_attention(const void* q, const void* kp,
                                       void* stream) {
   const long long window = (long long)max_pages * psz;
   const long long n_chunks = (window + CHUNK - 1) / CHUNK;
-  if (B < 1 || B > 65535 || Tq < 1 || Tq > 256 || Hkv < 1 ||
-      nH % Hkv != 0 || nH / Hkv > MAX_ROWS || psz < 1 || psz % 8 != 0 ||
-      P < 1 || max_pages < 1 || (long long)P * psz > 0x7fffffffLL ||
+  if (B < 1 || B > 65535 || Tq < 1 || Hkv < 1 || nH % Hkv != 0 ||
+      nH / Hkv > MAX_ROWS || psz < 1 || psz % 8 != 0 || P < 1 ||
+      max_pages < 1 || (long long)P * psz > 0x7fffffffLL ||
       window > 0x7fffffffLL || n_chunks > 65535 ||
-      (dtype_code != 0 && dtype_code != 1))
+      (dtype_code != 0 && dtype_code != 1) ||
+      prefill_blocks(dtype_code, (long long)Tq * (nH / Hkv)) > 65535)
     return static_cast<int>(cudaErrorInvalidValue);
   const PagedRows keys{static_cast<const int32_t*>(page_table),
                        static_cast<const int32_t*>(ctx),
                        static_cast<const int32_t*>(qlen), psz, P, max_pages};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nc = (int)n_chunks;
   if (D == 64)
-    return launch_d<64>(q, kp, vp, keys, out, part, tickets, B, Tq, nH, Hkv,
-                        (int)n_chunks, dtype_code, scale, s);
+    return launch_d<64, true>(q, kp, vp, keys, out, part, tickets, B, Tq, nH,
+                              Hkv, D, nc, dtype_code, scale, s);
   if (D == 128)
-    return launch_d<128>(q, kp, vp, keys, out, part, tickets, B, Tq, nH, Hkv,
-                         (int)n_chunks, dtype_code, scale, s);
+    return launch_d<128, true>(q, kp, vp, keys, out, part, tickets, B, Tq,
+                               nH, Hkv, D, nc, dtype_code, scale, s);
+  const int dp = padded_dim(D);
+  if (dp == 32)
+    return launch_d<32, false>(q, kp, vp, keys, out, part, tickets, B, Tq,
+                               nH, Hkv, D, nc, dtype_code, scale, s);
+  if (dp == 64)
+    return launch_d<64, false>(q, kp, vp, keys, out, part, tickets, B, Tq,
+                               nH, Hkv, D, nc, dtype_code, scale, s);
+  if (dp == 128)
+    return launch_d<128, false>(q, kp, vp, keys, out, part, tickets, B, Tq,
+                                nH, Hkv, D, nc, dtype_code, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -635,17 +698,20 @@ extern "C" int ragged_paged_attention(const void* q, const void* kp,
 // (dtype_code, D, rows = Tq * nH / Hkv) asks for; 0 for the fp32 prefill
 // (static shared memory only) and for a shape the kernel does not take.
 extern "C" int ragged_paged_smem(int dtype_code, int D, int rows) {
-  if ((D != 64 && D != 128) || (dtype_code != 0 && dtype_code != 1) ||
-      rows < 1)
-    return 0;
+  const int dp = padded_dim(D);
+  if (dp == 0 || (dtype_code != 0 && dtype_code != 1) || rows < 1) return 0;
   if (rows <= MAX_ROWS) {
     if (dtype_code == 0)
-      return D == 64 ? Smem<float, 64>::bytes(rows)
-                     : Smem<float, 128>::bytes(rows);
-    return D == 64 ? Smem<__nv_bfloat16, 64>::bytes(rows)
-                   : Smem<__nv_bfloat16, 128>::bytes(rows);
+      return dp == 32   ? Smem<float, 32>::bytes(rows)
+             : dp == 64 ? Smem<float, 64>::bytes(rows)
+                        : Smem<float, 128>::bytes(rows);
+    return dp == 32   ? Smem<__nv_bfloat16, 32>::bytes(rows)
+           : dp == 64 ? Smem<__nv_bfloat16, 64>::bytes(rows)
+                      : Smem<__nv_bfloat16, 128>::bytes(rows);
   }
   if (dtype_code == 1)
-    return D == 64 ? PfSmem<64>::BYTES : PfSmem<128>::BYTES;
+    return dp == 32   ? PfSmem<32>::BYTES
+           : dp == 64 ? PfSmem<64>::BYTES
+                      : PfSmem<128>::BYTES;
   return 0;
 }

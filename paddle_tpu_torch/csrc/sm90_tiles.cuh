@@ -1,8 +1,8 @@
 // Hopper building blocks for attention kernels over one head of a
 // [B, S, H, D] bf16 tensor and for GEMMs over row-major bf16 matrices,
 // written so that any kernel of csrc/ can include them (the production
-// flash kernels of flash_attention.cu, the flash-variant kernels and
-// blocked_matmul.cu do; head_dx.cu keeps its own):
+// flash kernels of flash_attention.cu, the flash-variant kernels,
+// blocked_matmul.cu and head_dx.cu do):
 //
 // - host: the TMA map of one head's 64-row tiles and of a row-major
 //   matrix's boxes (cuTensorMapEncodeTiled, looked up at run time with the
@@ -13,11 +13,13 @@
 //   writes, m64n64k16 and m64n32k16 bf16 products with fp32 accumulators
 //   in registers, A from shared memory or from registers; m64n256k16 and
 //   m64n128k16 products of a K-major A and an MN-major B whose 64-column
-//   boxes lie a leading byte offset apart; setmaxnreg, to hand a producer
-//   warpgroup's registers to the consumers;
+//   boxes lie a leading byte offset apart; m64n256k16 of a register A and
+//   a K-major B (a row-major [N, K] matrix read through its rows);
+//   setmaxnreg, to hand a producer warpgroup's registers to the consumers;
 // - accumulator-fragment helpers: quad reductions, the packing of an fp32
-//   accumulator into the bf16 register A operand of the next product, and
-//   the store of an accumulator's rows as bf16.
+//   accumulator into the bf16 register A operand of the next product, the
+//   store of an accumulator's rows as bf16, and the transpose within a quad
+//   that gathers a row's 8 consecutive columns into one thread.
 //
 // Layouts. A tile is 64 rows of D bf16 values, stored as D / 64 boxes of
 // 64 rows x 128 bytes (8 KiB each, 1024-byte aligned) in the TMA's
@@ -494,6 +496,61 @@ __device__ __forceinline__ void wgmma_ss_mn(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(acc));
 }
 
+// d[64 x 256] (+)= A[64 x 16] B[16 x 256], A the four bf16x2 registers of
+// the thread's fragment, B K-major in shared memory (its 256 N rows of 16 k
+// values each, as a row-major [N, K] matrix's rows lie); `acc` 0 overwrites
+// d
+__device__ __forceinline__ void wgmma_rs_k(float (&d)[128], const uint32_t* a,
+                                           uint64_t b, int acc) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+      "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+      "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+      "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+      "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+      "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+      "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+      "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+      "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+      "%127"
+      "}"
+      ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
+}
+
 #undef SM90_D32
 #undef SM90_R32
 #undef SM90_D16
@@ -606,6 +663,32 @@ __device__ __forceinline__ void store_acc(const float (&acc)[D / 64][32],
             DIV ? __floats2bfloat162_rn(a[2] / f1, a[3] / f1)
                 : __floats2bfloat162_rn(a[2] * f1, a[3] * f1);
     }
+}
+
+// word i of w, by selects (a dynamic index would put w in local memory)
+__device__ __forceinline__ uint32_t pick4(const uint32_t (&w)[4], int i) {
+  uint32_t x = w[0];
+  x = i == 1 ? w[1] : x;
+  x = i == 2 ? w[2] : x;
+  return i == 3 ? w[3] : x;
+}
+
+// Lane t of a quad holds w[g] = columns 8 g + 2 t, + 1 (bf16x2) of one row
+// for four 8-column groups g; returns that row's 8 columns of group t.
+// Every lane of the warp takes part (shuffles).
+__device__ __forceinline__ uint4 quad_transpose(const uint32_t (&w)[4]) {
+  const int t = threadIdx.x & 3;
+  uint32_t o[4] = {0u, 0u, 0u, 0u};
+#pragma unroll
+  for (int r = 0; r < 4; ++r) {
+    // the partner t ^ r sends its pair of group t: columns 2 (t ^ r) ..
+    const uint32_t v =
+        __shfl_xor_sync(0xffffffffu, pick4(w, t ^ r), r);
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+      if (c == (t ^ r)) o[c] = v;
+  }
+  return make_uint4(o[0], o[1], o[2], o[3]);
 }
 
 // rowsum(a * b) in fp32 of the 64 rows of two tiles in shared memory (the

@@ -48,6 +48,16 @@
 // are fp32; the unnormalised probabilities are rounded to T before P V
 // (quant mode: kept fp32, with the value row's scale folded in); the output
 // is acc / l rounded to T.
+//
+// Head dims: an instance is compiled at a width DP (32, 64 or 128,
+// padded_dim below). An exact instance (EXACT, D == DP: the main path's 64
+// and 128) knows D when compiled. A padded one takes any true D with D % 8
+// == 0 and D <= DP at run time: shared-memory rows are DP wide, the copies
+// of the pieces past D are zero-filled (cp.async's source size 0), so the
+// scores and P V run over DP columns whose tail adds exact zeros, and
+// columns past D are neither merged nor stored. A piece is PB bytes: 16,
+// or 8 for a padded one-byte cache, whose head rows start on 8-byte
+// boundaries only where D % 16 == 8.
 
 #pragma once
 
@@ -63,7 +73,17 @@ constexpr int THREADS = 128;
 constexpr int WARPS = THREADS / 32;
 constexpr int CHUNK = 64;    // keys per block
 constexpr int MAX_ROWS = 8;  // query rows per block
+constexpr int MAX_D = 128;   // the widest head dim an instance takes
 static_assert(THREADS == 2 * CHUNK, "two threads score each key");
+
+// the padded width whose instances serve head dim D (D % 8 == 0, 8 <= D <=
+// MAX_D), 0 for a head dim no instance takes
+__host__ __device__ constexpr int padded_dim(int D) {
+  return D < 8 || D > MAX_D || D % 8 != 0 ? 0
+         : D <= 32                         ? 32
+         : D <= 64                         ? 64
+                                           : 128;
+}
 
 // dtype codes: q / out (0 fp32, 1 bf16); the cache (0 q's type, 1 int8,
 // 2 fp8-e4m3fn)
@@ -208,6 +228,22 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src,
                : "memory");
 }
 
+// PB bytes (8 or 16), of which the first n (0 or PB) are read and the rest
+// zeroed
+template <int PB>
+__device__ __forceinline__ void cp_async_zfill(void* dst, const void* src,
+                                               int n) {
+  if constexpr (PB == 16) {
+    cp_async16_zfill(dst, src, n);
+  } else {
+    static_assert(PB == 8, "pieces of 8 or 16 bytes");
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(
+                     smem_addr(dst)),
+                 "l"(src), "r"(n)
+                 : "memory");
+  }
+}
+
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                    smem_addr(dst)),
@@ -257,22 +293,22 @@ struct SlotRows {
   }
 };
 
-// the block's shared memory: K rows and V rows (padded by 16 bytes, an odd
-// number of 16-byte units a row), the key and value scales, then, sized by
-// the rows: q rows (fp32), scores then probabilities, each row's chunk max
-// and sum, the P V key groups' sums
-template <typename KT, int D>
+// the block's shared memory: K rows and V rows of DP values (padded by 16
+// bytes, an odd number of 16-byte units a row), the key and value scales,
+// then, sized by the rows: q rows (fp32), scores then probabilities, each
+// row's chunk max and sum, the P V key groups' sums
+template <typename KT, int DP, int PB = 16>
 struct Smem {
-  static constexpr int ROW = D * (int)sizeof(KT) + 16;
-  static constexpr int PIECES = D * (int)sizeof(KT) / 16;  // copies a row
+  static constexpr int ROW = DP * (int)sizeof(KT) + 16;
+  static constexpr int PIECES = DP * (int)sizeof(KT) / PB;  // copies a row
   static constexpr int V = CHUNK * ROW;
   static constexpr int KS = 2 * V;
   static constexpr int VS = KS + CHUNK * 4;
   static constexpr int Q = VS + CHUNK * 4;
-  // q, p, m, l and the P V groups' sums (2 THREADS / D of D each) of one
+  // q, p, m, l and the P V groups' sums (2 THREADS / DP of DP each) of one
   // query row
   static constexpr int per_row() {
-    return (D + CHUNK + 2) * 4 + 8 * THREADS;
+    return (DP + CHUNK + 2) * 4 + 8 * THREADS;
   }
   static constexpr int bytes(int rows) { return Q + rows * per_row(); }
   static_assert((ROW / 16) % 2 == 1, "a padded row is an odd number of "
@@ -283,8 +319,10 @@ struct Smem {
 // q / out [B, Tq, nH, D]; the cache kc / vc [rows, Hkv, D] as the Keys
 // policy addresses it (ks / vs its rows' fp32 scales in quant mode); part:
 // the fp32 workspace of B * Hkv * n_chunks * rows * (D + 2) values; tickets:
-// B * Hkv int32, zero before the launch and left zero by it
-template <typename Keys, int TC, int KC, int D, int ROWS>
+// B * Hkv int32, zero before the launch and left zero by it. d is the true
+// head dim (d % 8 == 0, d <= DP; d * sizeof(KT) a multiple of PB), DP
+// itself in an EXACT instance.
+template <typename Keys, int TC, int KC, int DP, int ROWS, int PB, bool EXACT>
 __global__ void __launch_bounds__(THREADS)
 decode_split(const typename QType<TC>::type* __restrict__ q,
              const typename CacheType<TC, KC>::type* __restrict__ kc,
@@ -292,10 +330,11 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
              const float* __restrict__ ks, const float* __restrict__ vs,
              Keys keys, typename QType<TC>::type* __restrict__ out,
              float* __restrict__ part, int32_t* __restrict__ tickets, int nH,
-             int Hkv, int Tq, int n_chunks, float scale) {
+             int Hkv, int d, int Tq, int n_chunks, float scale) {
+  const int D = EXACT ? DP : d;
   typedef typename QType<TC>::type T;
   typedef typename CacheType<TC, KC>::type KT;
-  typedef Smem<KT, D> S;
+  typedef Smem<KT, DP, PB> S;
   constexpr bool QUANT = KC != 0;
   constexpr int CH = 16 / (int)sizeof(KT);  // values per 16-byte read
   constexpr int PER = CHUNK * S::PIECES / THREADS;  // copies a thread
@@ -316,36 +355,44 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
   float* ks_s = reinterpret_cast<float*>(smem + S::KS);
   float* vs_s = reinterpret_cast<float*>(smem + S::VS);
   float* q_s = reinterpret_cast<float*>(smem + S::Q);
-  float* p_s = q_s + rows * D;
+  float* p_s = q_s + rows * DP;
   float* m_s = p_s + rows * CHUNK;
   float* l_s = m_s + rows;
-  float* red_s = l_s + rows;  // [THREADS / (D / 2)][rows][D]
+  float* red_s = l_s + rows;  // [THREADS / (DP / 2)][rows][DP]
 
   // q / out row of block row r
   auto qrow = [&](int r) {
-    return ((size_t)(b * Tq + r / rep) * nH + (size_t)h * rep + r % rep) * D;
+    return (((size_t)b * Tq + r / rep) * nH + (size_t)h * rep + r % rep) * D;
   };
 
   // 1. the cache rows of this thread's copies (each thread copies piece pc
-  // of rows j0, j0 + THREADS / PIECES, ...), then the chunk's K rows (and
-  // both rows' scales), then its V rows, as two groups of copies; q while
-  // they fly
+  // of rows j0, j0 + THREADS / PIECES, ...; a piece past D is zero-filled),
+  // then the chunk's K rows (and both rows' scales), then its V rows, as
+  // two groups of copies; q while they fly
   const int pc = tid % S::PIECES, j0 = tid / S::PIECES;
+  const int pb = pc * PB < D * (int)sizeof(KT) ? PB : 0;  // bytes read
   const size_t row_bytes = (size_t)Hkv * D * sizeof(KT);
   size_t off[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int j = j0 + i * (THREADS / S::PIECES);
-    off[i] = j < n ? view.row(c0 + j) * row_bytes + pc * 16 : 0;
+    off[i] = j < n && pb ? view.row(c0 + j) * row_bytes + pc * PB : 0;
   }
   const unsigned char* kb =
       reinterpret_cast<const unsigned char*>(kc + (size_t)h * D);
   const unsigned char* vb =
       reinterpret_cast<const unsigned char*>(vc + (size_t)h * D);
+  // a piece of one of the chunk's rows: read, or past D zero-filled
+  auto copy = [&](unsigned char* dst, const unsigned char* src) {
+    if constexpr (EXACT)
+      cp_async16(dst, src);
+    else
+      cp_async_zfill<PB>(dst, src, pb);
+  };
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int j = j0 + i * (THREADS / S::PIECES);
-    if (j < n) cp_async16(smem + j * S::ROW + pc * 16, kb + off[i]);
+    if (j < n) copy(smem + j * S::ROW + pc * PB, kb + off[i]);
   }
   if constexpr (QUANT) {
     if (tid < n) {
@@ -358,15 +405,17 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
     const int j = j0 + i * (THREADS / S::PIECES);
-    if (j < n) cp_async16(smem + S::V + j * S::ROW + pc * 16, vb + off[i]);
+    if (j < n) copy(smem + S::V + j * S::ROW + pc * PB, vb + off[i]);
   }
   cp_async_commit();
-  for (int e = tid; e < rows * D; e += THREADS)
-    q_s[e] = round_to<T>(to_f(q[qrow(e / D) + e % D]) * scale);
+  for (int e = tid; e < rows * DP; e += THREADS) {
+    const int c = e % DP;
+    q_s[e] = c < D ? round_to<T>(to_f(q[qrow(e / DP) + c]) * scale) : 0.f;
+  }
   cp_async_wait<1>();  // this thread's K copies have landed
   __syncthreads();     // and everyone's
 
-  // 2. scores: two threads a key, each half of D for every row, two
+  // 2. scores: two threads a key, each half of DP for every row, two
   // partial sums each (short chains), joined by a shuffle
   {
     const int j = tid >> 1, half = tid & 1;
@@ -375,10 +424,10 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
     for (int r = 0; r < ROWS; ++r) s[r][0] = s[r][1] = 0.f;
     if (j < n) {
       const KT* kr =
-          reinterpret_cast<const KT*>(smem + j * S::ROW) + half * (D / 2);
-      const float* qh = q_s + half * (D / 2);
+          reinterpret_cast<const KT*>(smem + j * S::ROW) + half * (DP / 2);
+      const float* qh = q_s + half * (DP / 2);
 #pragma unroll
-      for (int c = 0; c < D / 2; c += CH) {
+      for (int c = 0; c < DP / 2; c += CH) {
         float kf[CH];
         load_f<KT, CH>(kr + c, kf);
 #pragma unroll
@@ -387,7 +436,7 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
 #pragma unroll
             for (int e = 0; e < CH; e += 4) {
               const float4 qv =
-                  *reinterpret_cast<const float4*>(qh + r * D + c + e);
+                  *reinterpret_cast<const float4*>(qh + r * DP + c + e);
               float& a = s[r][(c / CH + e / 4) & 1];
               a += qv.x * kf[e];
               a += qv.y * kf[e + 1];
@@ -448,7 +497,8 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
   // 4. P V: a thread owns output columns 2 cc, 2 cc + 1 of every row over
   // the keys of its group kg (kg, kg + G2, ...); the groups' sums meet in
   // shared memory, where a thread takes the columns of rows g2, g2 + G2, ...
-  constexpr int CP = D / 2;
+  // (a pair past D is computed on zeros and never stored)
+  constexpr int CP = DP / 2;
   constexpr int G2 = THREADS / CP;
   constexpr int RPT = (ROWS + G2 - 1) / G2;
   const int cc = tid % CP, g2 = tid / CP;
@@ -474,7 +524,7 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
       if (r < rows)
-        *reinterpret_cast<float2*>(red_s + (g2 * rows + r) * D + 2 * cc) =
+        *reinterpret_cast<float2*>(red_s + (g2 * rows + r) * DP + 2 * cc) =
             make_float2(a[r][0], a[r][1]);
   }
   __syncthreads();
@@ -487,18 +537,19 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
 #pragma unroll
       for (int kg = 0; kg < G2; ++kg) {
         const float2 u = *reinterpret_cast<const float2*>(
-            red_s + (kg * rows + r) * D + 2 * cc);
+            red_s + (kg * rows + r) * DP + 2 * cc);
         acc[i][0] += u.x;
         acc[i][1] += u.y;
       }
     }
   }
 
+  const bool mine_d = 2 * cc < D;  // this thread's columns are stored
   if (live == 1) {  // the slot's keys fit this chunk: no merge
 #pragma unroll
     for (int i = 0; i < RPT; ++i) {
       const int r = g2 + i * G2;
-      if (r < rows) {
+      if (r < rows && mine_d) {
         // key 0 is visible, so l >= exp(0) > 0
         T* o = out + qrow(r) + 2 * cc;
         o[0] = from_f<T>(acc[i][0] / l_s[r]);
@@ -515,7 +566,7 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
 #pragma unroll
   for (int i = 0; i < RPT; ++i) {
     const int r = g2 + i * G2;
-    if (r < rows)
+    if (r < rows && mine_d)
       *reinterpret_cast<float2*>(mine + r * D + 2 * cc) =
           make_float2(acc[i][0], acc[i][1]);
   }
@@ -531,7 +582,7 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
     if (last) tickets[bh] = 0;  // every live chunk has taken its ticket
   }
   __syncthreads();
-  if (!last) return;
+  if (!last || !mine_d) return;
 
   // 6. the last chunk merges the live chunks' partials online, MERGE of
   // them at a time, whose loads are all in flight together (read past L1:
@@ -581,27 +632,27 @@ decode_split(const typename QType<TC>::type* __restrict__ q,
 
 // the launch of one instance: its dynamic shared memory at this launch's
 // rows (the attribute set once, at the instance's largest)
-template <typename Keys, int TC, int KC, int D, int ROWS>
+template <typename Keys, int TC, int KC, int DP, int ROWS, int PB, bool EXACT>
 int launch_split(const void* q, const void* kc, const void* vc, const void* ks,
                  const void* vs, Keys keys, void* out, void* part,
-                 void* tickets, int B, int nH, int Hkv, int Tq, int n_chunks,
-                 float scale, cudaStream_t stream) {
+                 void* tickets, int B, int nH, int Hkv, int D, int Tq,
+                 int n_chunks, float scale, cudaStream_t stream) {
   typedef typename QType<TC>::type T;
   typedef typename CacheType<TC, KC>::type KT;
+  typedef Smem<KT, DP, PB> S;
   static const int attr = static_cast<int>(cudaFuncSetAttribute(
-      decode_split<Keys, TC, KC, D, ROWS>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize,
-      Smem<KT, D>::bytes(ROWS)));
+      decode_split<Keys, TC, KC, DP, ROWS, PB, EXACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, S::bytes(ROWS)));
   if (attr) return attr;
   const int rows = ROWS == 1 ? 1 : Tq * (nH / Hkv);
   const dim3 grid(Hkv, B, n_chunks);
-  decode_split<Keys, TC, KC, D, ROWS>
-      <<<grid, THREADS, Smem<KT, D>::bytes(rows), stream>>>(
+  decode_split<Keys, TC, KC, DP, ROWS, PB, EXACT>
+      <<<grid, THREADS, S::bytes(rows), stream>>>(
           static_cast<const T*>(q), static_cast<const KT*>(kc),
           static_cast<const KT*>(vc), static_cast<const float*>(ks),
           static_cast<const float*>(vs), keys, static_cast<T*>(out),
           static_cast<float*>(part), static_cast<int32_t*>(tickets), nH, Hkv,
-          Tq, n_chunks, scale);
+          D, Tq, n_chunks, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -1,5 +1,6 @@
 """The training step, the production flash kernels, the blocked matmul,
-the decode, paged and quantized-matmul kernels and the paged engine's steps
+the CE tail's head_dx, the tick's rope, the decode, paged and
+quantized-matmul kernels, the bf16 decode tick and the paged engine's steps
 of this checkout and of another one, timed in turns on one card.
 
     python3 -m paddle_tpu_torch.experiments.turns OTHER_ROOT [rounds]
@@ -10,8 +11,11 @@ of its own in one checkout's root, in the order other, this, this, other
 for each round (default 1), so that both sides share the card's state and
 a drift shows as a difference between the two turns of one side. A turn
 builds its checkout's ``flash_attention``, ``head_dx``, ``blocked_matmul``,
-``decode_attention``, ``paged_attention`` and ``quant_matmul`` kernels,
-times its flash forward and backward (the backward as its
+``decode_attention``, ``paged_attention``, ``quant_matmul`` and (where the
+checkout has it) ``rope`` kernels, times ``head_dx_softmax`` at the CE
+tail's shape (M 22528, V 32000, H 768) and ``fused_rope_qk`` at the
+serving tick (B 8, 12 + 12 heads of D 64, bf16), replayed and eager, its
+flash forward and backward (the backward as its
 ``_FlashAttention`` launches it: ``flash_attention_bwd`` where the
 checkout has it, else the dq and the dk/dv kernels) at bench.py's
 training shape (B 44, S 512, 12 heads of D 64, causal) and at llama7b
@@ -25,9 +29,11 @@ int8 weights and bf16 x at ``chip_smoke.QMM_SHAPES`` and
 as phase 2 makes them, from seed 0; replayed and eager), the paged
 engine's decode step and admit prefill in bf16 and with int8 weights and
 pool (``chip_smoke.paged_step_breakdown``: eager and replayed device ms),
-then runs its ``chip_smoke.train_run`` (phase 5b: two warm-up and ten
-timed AdamW steps of ``bert_base_equiv`` at B 44 x S 512 from seed 0,
-launch counts asserted, one profiled step). Prints the card's name and
+the contiguous engine's bf16 decode tick (8 slots, max_len 384: eager and
+replayed device ms), then runs its ``chip_smoke.train_run`` (phase 5b:
+two warm-up and ten timed AdamW steps of ``bert_base_equiv`` at B 44 x S
+512 from seed 0, launch counts asserted, one profiled step). Prints the
+card's name and
 power limit, then one JSON line per turn, then all turns as one JSON
 line.
 """
@@ -59,16 +65,37 @@ from paddle_tpu_torch.ops.kernels import _build, launch_counters
 from paddle_tpu_torch.ops.kernels import blocked_matmul as bm
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
+from paddle_tpu_torch.ops.kernels import head_dx as hd
 from paddle_tpu_torch.ops.kernels import paged_attention as pa
 from paddle_tpu_torch.ops.kernels import quant_matmul as qm
+from paddle_tpu_torch.ops.kernels import tick_fusion as tf
 from paddle_tpu_torch.quantization import serving as qs
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 for name in ("flash_attention", "head_dx", "blocked_matmul",
-             "decode_attention", "paged_attention", "quant_matmul"):
-    _build.build(name)
+             "decode_attention", "paged_attention", "quant_matmul", "rope"):
+    if (_build.CSRC_DIR / f"{name}.cu").exists():  # rope.cu: since PR 11
+        _build.build(name)
 out = {}
+gen = torch.Generator(device="cuda").manual_seed(0)
+M, V, H = 22528, 32000, 768  # the CE tail's head_dx_softmax
+logits = (torch.randn(M, V, generator=gen, device="cuda") * 3).bfloat16()
+m = logits.float().max(-1).values
+scale = (torch.rand(M, generator=gen, device="cuda")
+         / torch.exp(logits.float() - m[:, None]).sum(-1))
+w = (torch.randn(H, V, generator=gen, device="cuda") / math.sqrt(H)).bfloat16()
+dx = lambda i: hd.head_dx_softmax(logits, m, scale, w)
+out["head_dx"] = {"ms": time_ms(dx, iters=20), "eager_ms": cs.eager_ms(
+    torch, dx, iters=20)}
+del logits, m, scale, w
+gen = torch.Generator(device="cuda").manual_seed(0)
+zq = (torch.randn(8, 768, generator=gen, device="cuda") * 2).bfloat16()
+zk = (torch.randn(8, 768, generator=gen, device="cuda") * 2).bfloat16()
+pos = torch.randint(0, 384, (8,), generator=gen, device="cuda",
+                    dtype=torch.int32)
+rope = lambda i: tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
+out["rope"] = {"ms": time_ms(rope), "eager_ms": cs.eager_ms(torch, rope)}
 gen = torch.Generator(device="cuda").manual_seed(0)
 a = torch.randn(22528, 32000, generator=gen, device="cuda").bfloat16()
 b = torch.randn(32000, 768, generator=gen, device="cuda").bfloat16()
@@ -125,6 +152,13 @@ for name, B, Tq, nH, Hkv, D, max_pages, ctx, q_len in cs.PAGED_SHAPES:
 cfg = llama.LlamaConfig.bert_base_equiv()
 params = llama.init_params(cfg, torch.Generator(device="cuda").manual_seed(0),
                            device="cuda")
+cache = llama.init_kv_cache(cfg, 8, 384, "cuda")
+nxt = torch.arange(8, device="cuda")[:, None]
+tpos = torch.linspace(0, 383, 8, device="cuda").to(torch.int32)
+eager, device = cs.eager_and_device_ms(
+    torch, lambda: llama.forward_with_cache(params, nxt, cfg, cache, tpos), 50)
+out["decode_tick"] = {"eager_ms": eager, "device_ms": device}
+del cache
 out["paged_steps"] = cs.paged_step_breakdown(torch, llama, params, cfg, 384)
 out["paged_steps_int8"] = cs.paged_step_breakdown(
     torch, llama, qs.quantize_llama_params(params, cfg, "int8"), cfg, 384,

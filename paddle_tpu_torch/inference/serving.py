@@ -72,6 +72,7 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama
+from ..ops.kernels.decode_attention import check_heads
 from ..quantization.serving import QUANT_MODES, quantize_llama_params
 from .paged_kv import PagedKVCache
 
@@ -147,6 +148,11 @@ class ServingEngine:
                  quality_digest: bool = False, digest_top_k: int = 4,
                  quant: Optional[str] = None, device="cuda"):
         self.device = resolve_device(device)
+        if self.device.type == "cuda" and not quant:
+            # the decode and paged kernels' shapes, refused here rather
+            # than at the first tick (a quantized pool attends through the
+            # dequantizing gather instead)
+            check_heads(cfg.num_heads, cfg.num_kv_heads, cfg.head_dim)
         for name, t in params.items():
             if t.device != self.device or t.dtype != cfg.dtype:
                 raise ValueError(

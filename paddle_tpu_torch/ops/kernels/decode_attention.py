@@ -19,6 +19,10 @@ float8_e4m3fn cache with one fp32 scale per cache row, dequantized in the
 kernel; its launches are also counted in
 ``ragged_decode_attention.quant_launches``.
 
+Head dims: every ``D % 8 == 0`` from 8 to 128 (``check_heads``): 64 and
+128 by instances compiled for them, the others by instances at the padded
+widths 32, 64 and 128 with the true D at run time.
+
 Dispatch: a CPU tensor takes the plain version below; a CUDA tensor
 launches the kernel or raises.
 """
@@ -32,13 +36,38 @@ import math
 import torch
 
 __all__ = ["ragged_decode_attention", "ragged_decode_attention_plain",
-           "smem_bytes"]
+           "check_heads", "padded_dim", "smem_bytes"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_CODES = {torch.int8: 1, torch.float8_e4m3fn: 2}  # quant mode's caches
-_HEAD_DIMS = (64, 128)
+_MAX_HEAD_DIM = 128  # MAX_D in csrc/split_kv.cuh
 _MAX_REP = 8  # MAX_ROWS in csrc/split_kv.cuh
 _CHUNK = 64   # CHUNK in csrc/split_kv.cuh: keys per block
+
+
+def padded_dim(D: int) -> int:
+    """The width whose kernel instances serve head dim ``D`` (32, 64 or
+    128; ``padded_dim`` in csrc/split_kv.cuh), 0 for a head dim no
+    instance takes."""
+    if D < 8 or D > _MAX_HEAD_DIM or D % 8:
+        return 0
+    return 32 if D <= 32 else 64 if D <= 64 else 128
+
+
+def check_heads(nH: int, Hkv: int, D: int) -> None:
+    """Raise ``ValueError`` unless the split-KV decode and the paged
+    kernels take ``nH`` query heads over ``Hkv`` kv heads of dim ``D``:
+    ``D % 8 == 0`` with ``8 <= D <= 128``, and at most 8 query heads a kv
+    head. A ``ServingEngine`` built on the card checks its model with it,
+    so a shape the kernels refuse fails at build, not at the first
+    tick."""
+    if not padded_dim(D):
+        raise ValueError(f"the attention kernels take head_dim a multiple "
+                         f"of 8 from 8 to {_MAX_HEAD_DIM}, got D={D}")
+    if nH % Hkv or nH // Hkv > _MAX_REP:
+        raise ValueError(f"the attention kernels take at most {_MAX_REP} "
+                         f"query heads per kv head (num_heads a multiple of "
+                         f"num_kv_heads), got {nH}/{Hkv}")
 
 
 def ragged_decode_attention_plain(q, kc, vc, pos, k_scale=None,
@@ -131,10 +160,7 @@ def ragged_decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
         raise ValueError(f"no kernel for device {q.device}")
     B, nH, D = q.shape
     Smax, Hkv = kc.shape[1], kc.shape[2]
-    if D not in _HEAD_DIMS or nH // Hkv > _MAX_REP:
-        raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS} and at "
-                         f"most {_MAX_REP} query heads per kv head, got "
-                         f"D={D}, {nH}/{Hkv}")
+    check_heads(nH, Hkv, D)
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("q, kc, vc, pos and the scales must be contiguous")
     if any(t.data_ptr() % 16 for t in (q, kc, vc)):

@@ -4,8 +4,11 @@ Replaces the TPU kernel ``paddle_tpu/ops/pallas/head_dx.py``
 (``head_dx_softmax``): ``dh_soft = (exp(logits - m) * scale) @ W^T``,
 the softmax recomputed from the natural-layout logits inside the product,
 so no [M, V] probability tensor is written. The CUDA source is
-``paddle_tpu_torch/csrc/head_dx.cu``; its header says what bounds it on
-the H100 and how its design follows.
+``paddle_tpu_torch/csrc/head_dx.cu``: a warp-specialised ``wgmma`` GEMM
+fed by a TMA ring, whose A operand (the probabilities) its consumer
+warpgroups make in registers from the logits box while the step before's
+products run; its header says what bounds it on the H100 and how its
+design follows.
 
 Unlike the TPU kernel, which takes a pre-transposed ``wt = W^T [V, H]``,
 this one takes the lm head ``w [H, V]`` as the model stores it and reads
@@ -22,7 +25,7 @@ import functools
 
 import torch
 
-__all__ = ["head_dx_softmax", "head_dx_softmax_plain"]
+__all__ = ["head_dx_softmax", "head_dx_softmax_plain", "smem_bytes"]
 
 
 def head_dx_softmax_plain(logits, m, scale, w):
@@ -85,6 +88,17 @@ def head_dx_softmax(logits, m, scale, w):
 
 
 head_dx_softmax.launches = 0
+
+
+def smem_bytes() -> int:
+    """The dynamic shared memory one block of the kernel asks for (its
+    ring of logits and W boxes; builds the library)."""
+    from ._build import load_library
+
+    fn = load_library("head_dx").head_dx_smem
+    fn.argtypes = []
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 @functools.lru_cache(maxsize=None)

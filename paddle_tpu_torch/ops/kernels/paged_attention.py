@@ -18,6 +18,10 @@ CPU path: gather the slot's pages into a window, then dense attention);
 a CUDA tensor launches the kernel or raises. The quantized pool of the
 TPU engine takes a dequantizing gather there, not this kernel, and is not
 ported yet.
+
+Shapes: every head dim ``D % 8 == 0`` from 8 to 128 (``check_heads`` of
+the decode module) and any ``Tq >= 1`` up to ``max_rows`` query rows a kv
+head, as the JAX kernel (no bound on Tq but the grid's).
 """
 
 from __future__ import annotations
@@ -28,22 +32,30 @@ import math
 
 import torch
 
-from .decode_attention import _tickets
+from .decode_attention import _tickets, check_heads
 
 __all__ = ["ragged_paged_attention", "ragged_paged_attention_plain",
-           "pages_read", "family", "smem_bytes"]
+           "pages_read", "family", "max_rows", "smem_bytes"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
 _MAX_REP = 8    # MAX_ROWS in csrc/split_kv.cuh: query heads a kv head
-_MAX_TQ = 256   # the largest Tq csrc/paged_attention.cu takes
 _CHUNK = 64     # CHUNK in csrc/split_kv.cuh: keys a decode block
+_MAX_BLOCKS_Z = 65535  # a grid's z extent: the prefill's row blocks
+_ROWS_A_BLOCK = {torch.bfloat16: 64, torch.float32: 8}  # PF_ROWS, CC_ROWS
 
 
 def family(Tq: int, rep: int) -> str:
     """The kernel family that serves Tq query positions of rep heads a kv
     head: "decode" (split-KV) for at most 8 rows, else "prefill"."""
     return "decode" if Tq * rep <= _MAX_REP else "prefill"
+
+
+def max_rows(dtype) -> int:
+    """The most query rows a kv head (Tq x rep) one launch takes in
+    ``dtype``: the prefill's row blocks fill at most a grid's z extent
+    (4194240 rows in bf16, 524280 in fp32; an engine's chunk is at most
+    its max_len)."""
+    return _MAX_BLOCKS_Z * _ROWS_A_BLOCK[dtype]
 
 
 def pages_read(ctx_len, q_len, page_size: int):
@@ -128,14 +140,14 @@ def ragged_paged_attention(q, kp, vp, page_table, ctx_len, q_len=None,
         raise ValueError(f"no kernel for device {q.device}")
     B, Tq, nH, D = q.shape
     P, psz, Hkv = kp.shape[0], kp.shape[1], kp.shape[2]
-    if D not in _HEAD_DIMS or nH // Hkv > _MAX_REP:
-        raise ValueError(f"the kernel takes head_dim in {_HEAD_DIMS} and at "
-                         f"most {_MAX_REP} query heads per kv head, got "
-                         f"D={D}, {nH}/{Hkv}")
-    if psz % 8 or not 1 <= Tq <= _MAX_TQ:
-        raise ValueError(f"the kernel takes page_size a multiple of 8 and "
-                         f"1 <= Tq <= {_MAX_TQ}, got page_size={psz}, "
-                         f"Tq={Tq}")
+    check_heads(nH, Hkv, D)
+    if psz % 8:
+        raise ValueError(f"the kernel takes page_size a multiple of 8, got "
+                         f"page_size={psz}")
+    if not 1 <= Tq * (nH // Hkv) <= max_rows(q.dtype):
+        raise ValueError(f"the kernel takes Tq >= 1 with at most "
+                         f"{max_rows(q.dtype)} query rows a kv head (Tq x "
+                         f"{nH // Hkv}), got Tq={Tq}")
     ts = [t for t in (q, kp, vp, page_table, ctx_len, q_len) if t is not None]
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("q, kp, vp, page_table, ctx_len and q_len must be "

@@ -8,16 +8,22 @@ one launch.
 
 What bounds them on the H100: bytes, and below that the launch itself.
 The tick's tensors are tiny ([slots, hidden] = [8, 768] at the serving
-shape), so each kernel reads its inputs once and writes its outputs once,
-with one Triton program per row (the block is the next power of two of
-the row width, masked): the row reduction of the rmsnorm and the rope's
-in-kernel cos/sin never leave registers.
+shape), so each kernel reads its inputs once and writes its outputs once.
+The two norms are Triton kernels (``tick_fusion_triton``), one program
+per row (the block is the next power of two of the row width, masked):
+the row reduction never leaves registers. The rope is CUDA C++
+(``paddle_tpu_torch/csrc/rope.cu``, loaded with ctypes): a block a row
+and a group of heads, the row's D / 2 angles computed once, each value
+read once; its header says why.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
-the Triton kernel (``tick_fusion_triton``) or raises.
+the kernel or raises.
 """
 
 from __future__ import annotations
+
+import ctypes
+import functools
 
 import torch
 
@@ -25,6 +31,8 @@ __all__ = ["fused_rms_norm", "fused_add_rms_norm", "fused_rope_qk",
            "rms_norm_plain", "add_rms_norm_plain", "rope_qk_plain"]
 
 _DTYPES = (torch.float32, torch.bfloat16)
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+_ROPE_MAX_D = 8192  # MAX_D in csrc/rope.cu
 
 
 # ---------------------------------------------------------------------------
@@ -147,7 +155,8 @@ def fused_add_rms_norm(x, y, w, eps: float):
 def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
     """Rope both projections in one launch. zq: [B, nH*D]; zk: [B, Hkv*D];
     pos: [B] int32, each row at its own position. cos/sin are computed in
-    the kernel from ``pos``."""
+    the kernel from ``pos`` (in fp32, rounded to the dtype, as
+    ``rope_qk_plain``)."""
     if (zq.dim() != 2 or zk.dim() != 2 or zk.shape[0] != zq.shape[0]
             or head_dim % 2 or zq.shape[1] % head_dim
             or zk.shape[1] % head_dim):
@@ -166,20 +175,35 @@ def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
         return rope_qk_plain(zq, zk, pos, head_dim, theta)
     if not all(t.is_contiguous() for t in (zq, zk, pos)):
         raise ValueError("fused_rope_qk: inputs must be contiguous")
-    import triton
-
-    from . import tick_fusion_triton as k
-
-    NQ, NK = zq.shape[1], zk.shape[1]
+    if head_dim > _ROPE_MAX_D:
+        raise ValueError(f"fused_rope_qk: the kernel takes head_dim at most "
+                         f"{_ROPE_MAX_D}, got {head_dim}")
     oq = torch.empty_like(zq)
     ok = torch.empty_like(zk)
-    bq, bk = triton.next_power_of_2(NQ), triton.next_power_of_2(NK)
     with torch.cuda.device(zq.device):
-        k.rope_qk_kernel[(B,)](zq, zk, oq, ok, pos, NQ, NK, float(theta),
-                               D=head_dim, BQ=bq, BK=bk,
-                               num_warps=_row_warps(max(bq, bk)))
+        err = _rope_kernel()(
+            zq.data_ptr(), zk.data_ptr(), oq.data_ptr(), ok.data_ptr(),
+            pos.data_ptr(), B, zq.shape[1] // head_dim,
+            zk.shape[1] // head_dim, head_dim, _DTYPE_CODES[zq.dtype],
+            theta, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_rope_qk launch failed: CUDA error {err}")
     fused_rope_qk.launches += 1
     return oq, ok
+
+
+@functools.lru_cache(maxsize=None)
+def _rope_kernel():
+    """The C entry point of ``csrc/rope.cu``, built and loaded at first
+    use; every pointer and the stream are ``c_void_p`` so none is cut to
+    32 bits."""
+    from ._build import load_library
+
+    fn = load_library("rope").fused_rope_qk
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+                   + [ctypes.c_float, ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    return fn
 
 
 fused_rms_norm.launches = 0

@@ -1,4 +1,5 @@
-"""Triton kernels of the fused decode-tick epilogue (see ``tick_fusion``).
+"""Triton kernels of the fused decode-tick epilogue's two norms (see
+``tick_fusion``; its rope is CUDA C++, ``csrc/rope.cu``).
 
 This module imports ``triton`` at its top, so only the launching wrappers
 in ``tick_fusion`` import it, inside the call that launches a kernel.
@@ -6,8 +7,7 @@ in ``tick_fusion`` import it, inside the call that launches a kernel.
 Rounding follows the JAX reference: the mean square is fp32, the normed
 value is rounded to the tensor's dtype, then multiplied by the gain in
 that dtype. A product of two bf16 values is exact in fp32, so computing it
-in fp32 and rounding once gives the bf16 product; the same holds for the
-rope's products and sums, each rounded where the reference rounds.
+in fp32 and rounding once gives the bf16 product.
 """
 
 import triton
@@ -45,40 +45,3 @@ def add_rms_kernel(x_ptr, y_ptr, w_ptr, s_ptr, o_ptr, H, eps,
     w = tl.load(w_ptr + cols, mask=mask, other=0.0)
     out = normed.to(tl.float32) * w.to(tl.float32)
     tl.store(o_ptr + row * H + cols, out.to(x.dtype), mask=mask)
-
-
-@triton.jit
-def _rotate_row(z_ptr, o_ptr, N, p, theta, D: tl.constexpr,
-                BLOCK: tl.constexpr):
-    """Rotate-half rope on one flat row of N = heads * D values at
-    position ``p`` (fp32)."""
-    HALF: tl.constexpr = D // 2
-    c = tl.arange(0, BLOCK)
-    mask = c < N
-    d = c % D
-    first = d < HALF
-    partner = tl.where(first, c + HALF, c - HALF)
-    x = tl.load(z_ptr + c, mask=mask, other=0.0)
-    xp = tl.load(z_ptr + partner, mask=mask, other=0.0)
-    i2 = ((d % HALF) * 2).to(tl.float32)
-    base = tl.zeros([BLOCK], dtype=tl.float32) + theta
-    ang = p * libdevice.pow(base, -i2 / D)
-    # cos/sin are rounded to the dtype, as the reference casts them
-    cos = libdevice.cos(ang).to(x.dtype).to(tl.float32)
-    sin = libdevice.sin(ang).to(x.dtype).to(tl.float32)
-    xf = x.to(tl.float32)
-    pf = xp.to(tl.float32)
-    # first half: x1*cos - x2*sin (x = x1); second: x1*sin + x2*cos (x = x2)
-    a = tl.where(first, xf * cos, pf * sin).to(x.dtype).to(tl.float32)
-    b = tl.where(first, pf * sin, xf * cos).to(x.dtype).to(tl.float32)
-    out = tl.where(first, a - b, a + b)
-    tl.store(o_ptr + c, out.to(x.dtype), mask=mask)
-
-
-@triton.jit
-def rope_qk_kernel(zq_ptr, zk_ptr, oq_ptr, ok_ptr, pos_ptr, NQ, NK, theta,
-                   D: tl.constexpr, BQ: tl.constexpr, BK: tl.constexpr):
-    row = tl.program_id(0)
-    p = tl.load(pos_ptr + row).to(tl.float32)
-    _rotate_row(zq_ptr + row * NQ, oq_ptr + row * NQ, NQ, p, theta, D, BQ)
-    _rotate_row(zk_ptr + row * NK, ok_ptr + row * NK, NK, p, theta, D, BK)

@@ -68,6 +68,11 @@ def _close(out, ref, dtype, atol_floor=0.0):
                                atol=max(atol, atol_floor))
 
 
+# the head dims of 8s, besides 64 and 128, that the decode and paged
+# kernels serve at their padded widths (cpu_small is D 16)
+HEAD_DIMS = [16, 24, 32, 48, 80, 96, 112]
+
+
 def _decode_positions(cuda, max_len):
     """Decode positions for a window of max_len: 0, the last row, a frozen
     slot at max_len, interior ones and the edges of the kernel's key
@@ -107,12 +112,33 @@ class TestDecodeAttention:
             q, kc[1], vc[1], pos.clamp(max=max_len - 1))
         _close(out, ref, dtype)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("D", HEAD_DIMS)
+    @pytest.mark.parametrize("nH,Hkv", [(8, 8), (8, 2)])
+    def test_head_dims(self, cuda, dtype, D, nH, Hkv):
+        """Every head dim of 8s the padded instances serve (32, 64, 128
+        wide, the true D at run time), MHA and GQA, on the chunk edges."""
+        gen = torch.Generator(device=cuda).manual_seed(D + nH + Hkv)
+        max_len = 200
+        pos = _decode_positions(cuda, max_len)
+        B = len(pos)
+        kc = _randn(gen, 2, B, max_len, Hkv, D, dtype=dtype)
+        vc = _randn(gen, 2, B, max_len, Hkv, D, dtype=dtype)
+        q = _randn(gen, B, nH, D, dtype=dtype)
+        before = da.ragged_decode_attention.launches
+        out = da.ragged_decode_attention(q, kc[1], vc[1], pos)
+        torch.cuda.synchronize()
+        assert da.ragged_decode_attention.launches == before + 1
+        _close(out, da.ragged_decode_attention_plain(
+            q, kc[1], vc[1], pos.clamp(max=max_len - 1)), dtype)
+
     def test_rejects_what_it_does_not_take(self, cuda):
-        q = torch.zeros(2, 4, 96, device=cuda)
-        kc = torch.zeros(2, 16, 4, 96, device=cuda)
         pos = torch.zeros(2, dtype=torch.int32, device=cuda)
-        with pytest.raises(ValueError, match="head_dim"):
-            da.ragged_decode_attention(q, kc, kc, pos)
+        for D in (100, 136, 4):  # no multiple of 8, past 128, below 8
+            q = torch.zeros(2, 4, D, device=cuda)
+            kc = torch.zeros(2, 16, 4, D, device=cuda)
+            with pytest.raises(ValueError, match="head_dim"):
+                da.ragged_decode_attention(q, kc, kc, pos)
         q = torch.zeros(2, 32, 64, device=cuda)
         kc = torch.zeros(2, 16, 2, 64, device=cuda)
         with pytest.raises(ValueError, match="query heads"):
@@ -254,6 +280,37 @@ class TestPagedAttention:
         self._check(cuda, dtype, 3, Tq, nH, Hkv, D, max_pages, ctx, q_len,
                     psz)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("Tq", [512, 1024, 2048])
+    @pytest.mark.parametrize("nH,Hkv,D", [(12, 12, 64), (32, 32, 128),
+                                          (32, 8, 128)])
+    def test_long_prefill(self, cuda, dtype, Tq, nH, Hkv, D):
+        """Prefill chunks past 256 rows, as an engine at max_len 2048
+        admits them: at bert_base_equiv width, llama7b width and its GQA,
+        one slot at context 0 and one past a page boundary (ctx 37, a
+        ragged q_len)."""
+        max_pages = (Tq + 48) // 16
+        self._check(cuda, dtype, 2, Tq, nH, Hkv, D, max_pages, [0, 37],
+                    [Tq, Tq - 11])
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("D", HEAD_DIMS)
+    @pytest.mark.parametrize("nH,Hkv", [(8, 8), (8, 2)])
+    @pytest.mark.parametrize("Tq", [1, 40])
+    def test_head_dims(self, cuda, dtype, D, nH, Hkv, Tq):
+        """Every head dim of 8s the padded instances serve, MHA and GQA:
+        decode ticks (the split-KV family) on the chunk edges, and prefill
+        chunks (the tensor-core family in bf16, whose k16 steps pad D to
+        16) at context 0, past a page boundary and near the window's end,
+        with a ragged q_len."""
+        max_pages = 12
+        if Tq == 1:
+            ctx, q_len = [0, 63, 64, 65, 127, 128, 191, 100], None
+        else:
+            ctx, q_len = [0, 17, 150], [Tq, Tq - 3, 1]
+        self._check(cuda, dtype, len(ctx), Tq, nH, Hkv, D, max_pages, ctx,
+                    q_len)
+
     @pytest.mark.parametrize("Tq", [1, 64])
     def test_two_launches_give_the_same_bits(self, cuda, Tq):
         case = self._case(cuda, torch.bfloat16, 8, Tq, 12, 12, 64, 24,
@@ -305,14 +362,17 @@ class TestPagedAttention:
             kp = torch.zeros(9, psz, Hkv, D, device=cuda)
             return pa.ragged_paged_attention(q, kp, kp, pt, ctx)
 
-        with pytest.raises(ValueError, match="head_dim"):
-            call(D=96)
+        for D in (100, 136, 4):  # no multiple of 8, past 128, below 8
+            with pytest.raises(ValueError, match="head_dim"):
+                call(D=D)
         with pytest.raises(ValueError, match="query heads"):
             call(nH=32, Hkv=2)
         with pytest.raises(ValueError, match="page_size"):
             call(psz=12)
+        # more rows a kv head than the prefill's grid holds (fp32: 8 rows a
+        # block, 65535 blocks)
         with pytest.raises(ValueError, match="Tq"):
-            call(Tq=257)
+            call(Tq=pa.max_rows(torch.float32) // 2 + 1, D=8)
 
 
 class TestTickFusion:
@@ -333,23 +393,70 @@ class TestTickFusion:
         assert (tf.fused_rms_norm.launches,
                 tf.fused_add_rms_norm.launches) == (n0[0] + 1, n0[1] + 1)
 
-    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("nH,Hkv,D,max_len", [(12, 12, 64, 384),
-                                                  (32, 8, 128, 2048)])
-    def test_rope_matches_plain(self, cuda, dtype, nH, Hkv, D, max_len):
-        gen = torch.Generator(device=cuda).manual_seed(D)
+    @staticmethod
+    def _rope_case(cuda, dtype, nH, Hkv, D, max_len, seed=0):
+        gen = torch.Generator(device=cuda).manual_seed(D + nH + seed)
         zq = _randn(gen, 8, nH * D, dtype=dtype, scale=2.0)
         zk = _randn(gen, 8, Hkv * D, dtype=dtype, scale=2.0)
         pos = torch.tensor([0, 1, 5, 64, 100, 200, max_len - 2, max_len - 1],
                            dtype=torch.int32, device=cuda)
-        oq, ok = tf.fused_rope_qk(zq, zk, pos, D, 10000.0)
+        return zq, zk, pos
+
+    @staticmethod
+    def _rope_close(zq, zk, pos, D, max_len, dtype, got):
         rq, rk = tf.rope_qk_plain(zq, zk, pos, D, 10000.0)
         # angles near max_len carry one fp32 ulp of max_len; a one-ulp
         # difference in the frequency moves them by that much
         ulp = 2.0 ** (math.floor(math.log2(max_len - 1)) - 23)
         floor = 2 * ulp * max(zq.abs().max().item(), zk.abs().max().item())
-        _close(oq, rq, dtype, floor)
-        _close(ok, rk, dtype, floor)
+        _close(got[0], rq, dtype, floor)
+        _close(got[1], rk, dtype, floor)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("nH,Hkv,D,max_len", [
+        (12, 12, 64, 384), (32, 8, 128, 2048),
+        (8, 8, 16, 512),     # cpu_small: D 16
+        (4, 2, 32, 384),
+        (20, 5, 64, 384),    # 25 heads: no multiple of a block's group
+        (6, 3, 24, 300),     # D / 2 no multiple of the 16-byte vector
+    ])
+    def test_rope_matches_plain(self, cuda, dtype, nH, Hkv, D, max_len):
+        zq, zk, pos = self._rope_case(cuda, dtype, nH, Hkv, D, max_len)
+        before = tf.fused_rope_qk.launches
+        got = tf.fused_rope_qk(zq, zk, pos, D, 10000.0)
+        torch.cuda.synchronize()
+        assert tf.fused_rope_qk.launches == before + 1
+        self._rope_close(zq, zk, pos, D, max_len, dtype, got)
+
+    def test_rope_two_launches_give_the_same_bits(self, cuda):
+        zq, zk, pos = self._rope_case(cuda, torch.bfloat16, 12, 12, 64, 384)
+        a = tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
+        b = tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
+        torch.cuda.synchronize()
+        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+    def test_rope_graph_replays_on_new_positions(self, cuda):
+        """One launch captured into a CUDA graph, replayed on new
+        positions copied into the captured tensor: each matches the plain
+        version."""
+        dt, max_len = torch.bfloat16, 384
+        zq, zk, pos = self._rope_case(cuda, dt, 12, 12, 64, max_len)
+        gen = torch.Generator(device=cuda).manual_seed(3)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            got = tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
+        for _ in range(3):
+            pos.copy_(torch.randint(0, max_len, (8,), generator=gen,
+                                    device=cuda, dtype=torch.int32))
+            graph.replay()
+            torch.cuda.synchronize()
+            self._rope_close(zq, zk, pos, 64, max_len, dt, got)
 
 
 def test_decode_tick_matches_plain_path(cuda, monkeypatch):
@@ -424,6 +531,128 @@ def test_paged_tick_matches_plain_path(cuda, monkeypatch):
     for kk in ("k", "v"):
         torch.testing.assert_close(got[2][kk], want[2][kk], rtol=1e-4,
                                    atol=1e-4)
+
+
+def test_engine_refuses_head_dims_the_kernels_do_not_take(cuda):
+    """A ServingEngine built on the card checks its model's heads against
+    the decode and paged kernels' set at build, before any tick."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    for hidden, heads in ((80, 4), (272, 2)):  # D 20, then D 136
+        cfg = llama.LlamaConfig.tiny(hidden_size=hidden, num_heads=heads,
+                                     num_kv_heads=heads)
+        for paged in (False, True):
+            with pytest.raises(ValueError, match="head_dim"):
+                ServingEngine(cfg, {}, max_len=64, prompt_buckets=(32,),
+                              paged=paged, device=cuda)
+
+
+def _plain_kernels(monkeypatch):
+    """Every serving kernel of the tick swapped for its plain version."""
+    monkeypatch.setattr(tf, "fused_rms_norm", tf.rms_norm_plain)
+    monkeypatch.setattr(tf, "fused_add_rms_norm", tf.add_rms_norm_plain)
+    monkeypatch.setattr(tf, "fused_rope_qk", tf.rope_qk_plain)
+    monkeypatch.setattr(da, "ragged_decode_attention",
+                        da.ragged_decode_attention_plain)
+    monkeypatch.setattr(pa, "ragged_paged_attention",
+                        pa.ragged_paged_attention_plain)
+
+
+def test_long_admit_matches_plain_path(cuda, monkeypatch):
+    """A paged engine at max_len 2048 with a 1024 bucket admits a
+    1000-token prompt (one [1, 1024] prefill chunk through the paged
+    kernel) and serves it; the same prefill and four ticks, teacher
+    forced at bert_base_equiv width (two layers), through the kernels and
+    through their plain versions: logits within 0.15 (chip_smoke's
+    LOGIT_ATOL: bf16 residual streams rounded at other points)."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg = llama.LlamaConfig.bert_base_equiv(num_layers=2)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=cuda)
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, 1000)
+    eng = ServingEngine(cfg, params, slots=2, max_len=2048,
+                        prompt_buckets=(64, 128, 256, 512, 1024),
+                        paged=True, device=cuda)
+    before = pa.ragged_paged_attention.launches
+    rid = eng.add_request(prompt, 8)
+    out = eng.run()
+    assert len(out[rid]) == 8
+    assert pa.ragged_paged_attention.launches > before
+
+    pt = torch.arange(1, 129, dtype=torch.int32, device=cuda)[None]
+    tok = torch.zeros(1, 1024, dtype=torch.int64, device=cuda)
+    tok[0, :1000] = torch.from_numpy(prompt)
+    zero = torch.zeros(1, dtype=torch.int32, device=cuda)
+
+    def run():
+        pool = llama.init_paged_pool(cfg, 129, 16, cuda)
+        logits = [llama.forward_with_pages(params, tok, cfg, pool, pt, zero,
+                                           logit_pos=999)[0]]
+        nxt = torch.tensor([[int(prompt[-1])]], device=cuda)
+        for t in range(4):
+            pos = torch.tensor([1000 + t], dtype=torch.int32, device=cuda)
+            logits.append(llama.forward_with_pages(params, nxt, cfg, pool,
+                                                   pt, pos)[0])
+            nxt = torch.tensor([[100 + t]], device=cuda)
+        return torch.stack(logits)
+
+    with torch.no_grad():
+        got = run()
+        _plain_kernels(monkeypatch)
+        want = run()
+    assert torch.isfinite(got).all()
+    assert (got - want).abs().max().item() <= 0.15
+
+
+@pytest.mark.parametrize("paged", [False, True])
+def test_cpu_small_serves_on_the_card(cuda, monkeypatch, paged):
+    """``LlamaConfig.cpu_small`` (8 heads of D 16, fp32) on the card: a
+    drain through the engine gives every request its tokens through the
+    kernels, and a teacher-forced tick's logits match the plain path's
+    (fp32: 1e-4, as the other fp32 tick tests)."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg = llama.LlamaConfig.cpu_small()
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=cuda)
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, cfg.vocab_size, n), g)
+            for n, g in ((40, 16), (100, 24), (17, 9), (64, 30), (128, 5))]
+    eng = ServingEngine(cfg, params, slots=4, max_len=256,
+                        prompt_buckets=(64, 128), paged=paged, device=cuda)
+    attn = pa.ragged_paged_attention if paged else da.ragged_decode_attention
+    before = (attn.launches, tf.fused_rope_qk.launches)
+    rids = [eng.add_request(p, g) for p, g in reqs]
+    out = eng.run()
+    assert [len(out[r]) for r in rids] == [g for _, g in reqs]
+    assert attn.launches > before[0] and tf.fused_rope_qk.launches > before[1]
+
+    B, max_len = 4, 256
+    prompt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, 48))).to(
+        cuda)
+    pos = torch.tensor([48, 3, 17, 200], dtype=torch.int32, device=cuda)
+    nxt = torch.from_numpy(rng.randint(0, cfg.vocab_size, (B, 1))).to(cuda)
+    pt = torch.from_numpy(rng.permutation(np.arange(1, 65)).reshape(
+        B, 16).astype(np.int32)).to(cuda)
+
+    def tick():
+        if paged:
+            pool = llama.init_paged_pool(cfg, 65, 16, cuda)
+            llama.forward_with_pages(params, prompt, cfg, pool, pt,
+                                     torch.zeros(B, dtype=torch.int32,
+                                                 device=cuda))
+            return llama.forward_with_pages(params, nxt, cfg, pool, pt,
+                                            pos)[0]
+        cache = llama.init_kv_cache(cfg, B, max_len, cuda)
+        llama.forward_with_cache(params, prompt, cfg, cache, 0)
+        return llama.forward_with_cache(params, nxt, cfg, cache, pos)[0]
+
+    with torch.no_grad():
+        got = tick()
+        _plain_kernels(monkeypatch)
+        want = tick()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
 FLASH_SHAPES = [  # B, Sq, Sk, H, D, causal
@@ -525,32 +754,88 @@ class TestFlashAttention:
                 q, q, q, q, *[torch.zeros(1, 2, 64, device=cuda)] * 2)
 
 
+def _head_dx_inputs(cuda, M, V, H, seed=0):
+    """The CE tail's inputs: logits at scale 3, m their row max, scale =
+    weight / sumexp, W at scale 1/sqrt(H) (its init) or 1."""
+    gen = torch.Generator(device=cuda).manual_seed(M + V + H + seed)
+    logits = _randn(gen, M, V, dtype=torch.bfloat16, scale=3.0)
+    m = logits.float().max(-1).values
+    se = torch.exp(logits.float() - m[:, None]).sum(-1)
+    scale = torch.rand(M, generator=gen, device=cuda) / se
+    w = _randn(gen, H, V, dtype=torch.bfloat16)
+    return logits, m, scale, w
+
+
+def _head_dx_close(out, ref):
+    """The outputs are small beside the shared bf16 atol (a row's
+    probabilities sum to at most 1), so the limit is tied to their size:
+    atol 2^-7 of the largest |output| (two bf16 ulps there), and the
+    relative Frobenius error within 1e-2 (the output's own bf16 rounding
+    is ~2^-9 of it; a dropped V tile moves it more)."""
+    out, ref = out.float(), ref.float()
+    torch.testing.assert_close(out, ref, rtol=TOL[torch.bfloat16][0],
+                               atol=2.0 ** -7 * ref.abs().max().item())
+    assert ((out - ref).norm() / ref.norm()).item() <= 1e-2
+
+
 class TestHeadDx:
-    @pytest.mark.parametrize("M,V,H", [(300, 1000, 64), (256, 4096, 256),
-                                       (130, 520, 200)])
+    @pytest.mark.parametrize("M,V,H", [
+        (300, 1000, 64), (256, 4096, 256), (130, 520, 200),
+        (22528, 32000, 768),   # the CE tail's (bench.py's 44 x 512 rows)
+        (22529, 32000, 768),   # a ragged last row tile
+        (1000, 32000, 64), (1000, 32000, 200),  # H below one column tile
+    ])
     def test_matches_plain(self, cuda, M, V, H):
-        """Rows past a 128-row tile, V past a 32-column step and H past a
-        128-column tile are masked; scale = weight / sumexp, as the CE
+        """Rows past a 128-row tile, V past a 64-column step and H past a
+        256-column tile are masked; scale = weight / sumexp, as the CE
         tail passes it."""
-        gen = torch.Generator(device=cuda).manual_seed(M + V + H)
-        logits = _randn(gen, M, V, dtype=torch.bfloat16, scale=3.0)
-        m = logits.float().max(-1).values
-        se = torch.exp(logits.float() - m[:, None]).sum(-1)
-        scale = torch.rand(M, generator=gen, device=cuda) / se
-        w = _randn(gen, H, V, dtype=torch.bfloat16)
+        logits, m, scale, w = _head_dx_inputs(cuda, M, V, H)
         n0 = hd.head_dx_softmax.launches
-        out = hd.head_dx_softmax(logits, m, scale, w).float()
+        out = hd.head_dx_softmax(logits, m, scale, w)
         torch.cuda.synchronize()
         assert hd.head_dx_softmax.launches == n0 + 1
-        # the outputs are small beside the shared bf16 atol (a row's
-        # probabilities sum to at most 1), so the limit is tied to their
-        # size: atol 2^-7 of the largest |output| (two bf16 ulps there),
-        # and the relative Frobenius error within 1e-2 (the output's own
-        # bf16 rounding is ~2^-9 of it; a dropped V tile moves it more)
-        ref = hd.head_dx_softmax_plain(logits, m, scale, w).float()
-        torch.testing.assert_close(out, ref, rtol=TOL[torch.bfloat16][0],
-                                   atol=2.0 ** -7 * ref.abs().max().item())
-        assert ((out - ref).norm() / ref.norm()).item() <= 1e-2
+        _head_dx_close(out, hd.head_dx_softmax_plain(logits, m, scale, w))
+
+    def test_negative_and_zero_scales(self, cuda):
+        """A row's scale carries the cotangent's sign and its weight: rows
+        of negative, zero and positive scale, and an m below a row's max
+        (where the clamp at 0 binds), all as the plain version."""
+        logits, m, scale, w = _head_dx_inputs(cuda, 700, 4096, 200)
+        scale[::3] *= -1.0
+        scale[1::7] = 0.0
+        m[5::11] -= 2.0
+        _head_dx_close(hd.head_dx_softmax(logits, m, scale, w),
+                       hd.head_dx_softmax_plain(logits, m, scale, w))
+
+    def test_two_launches_give_the_same_bits(self, cuda):
+        args = _head_dx_inputs(cuda, 2000, 32000, 768)
+        a = hd.head_dx_softmax(*args)
+        b = hd.head_dx_softmax(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(a, b)
+
+    def test_graph_replays_on_new_logits(self, cuda):
+        """One launch captured into a CUDA graph (its TMA maps are kernel
+        parameters), replayed on new logits, m and scale copied into the
+        captured tensors: each matches the plain version."""
+        logits, m, scale, w = _head_dx_inputs(cuda, 1000, 4096, 768)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            hd.head_dx_softmax(logits, m, scale, w)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = hd.head_dx_softmax(logits, m, scale, w)
+        for seed in (1, 2):
+            new = _head_dx_inputs(cuda, 1000, 4096, 768, seed=seed)
+            for t, n in zip((logits, m, scale), new[:3]):
+                t.copy_(n)
+            graph.replay()
+            torch.cuda.synchronize()
+            _head_dx_close(out, hd.head_dx_softmax_plain(logits, m, scale,
+                                                         w))
 
     def test_rejects_what_it_does_not_take(self, cuda):
         m = torch.zeros(4, device=cuda)
@@ -735,6 +1020,30 @@ class TestDecodeAttentionQuant:
             q, kc[1], vc[1], pos.clamp(max=max_len - 1), ks[1], vs[1])
         assert out.dtype == dtype
         _close(out, ref, dtype)
+
+    @pytest.mark.parametrize("mode", ["int8", "fp8"])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("D", HEAD_DIMS)
+    @pytest.mark.parametrize("nH,Hkv", [(8, 8), (8, 2)])
+    def test_head_dims(self, cuda, mode, dtype, D, nH, Hkv):
+        """Every head dim of 8s in quant mode, MHA and GQA: the padded
+        instances copy one-byte rows in 8-byte pieces (rows of D % 16 ==
+        8, 24, 80 and 112, start on 8-byte boundaries)."""
+        gen = torch.Generator(device=cuda).manual_seed(D * nH + Hkv)
+        max_len = 200
+        pos = _decode_positions(cuda, max_len)
+        B = len(pos)
+        qdt = qs.quant_dtype(mode)
+        kc, ks = qs.quantize_kv_rows(
+            _randn(gen, 2, B, max_len, Hkv, D, dtype=torch.float32), qdt)
+        vc, vs = qs.quantize_kv_rows(
+            _randn(gen, 2, B, max_len, Hkv, D, dtype=torch.float32), qdt)
+        q = _randn(gen, B, nH, D, dtype=dtype)
+        out = da.ragged_decode_attention(q, kc[1], vc[1], pos, ks[1], vs[1])
+        torch.cuda.synchronize()
+        _close(out, da.ragged_decode_attention_plain(
+            q, kc[1], vc[1], pos.clamp(max=max_len - 1), ks[1], vs[1]),
+            dtype)
 
     def test_rejects_what_it_does_not_take(self, cuda):
         q = torch.zeros(2, 4, 64, device=cuda)

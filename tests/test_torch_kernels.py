@@ -72,6 +72,27 @@ class TestRaggedDecodeAttention:
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
                                    atol=2e-5)
 
+    @pytest.mark.parametrize("nH,Hkv,D", [(8, 8, 16), (8, 4, 32),
+                                          (16, 8, 16)])
+    def test_plain_matches_pallas_small_head_dims(self, nH, Hkv, D):
+        """Head dims below 64 (cpu_small's 8 heads of D 16, and D 32 in
+        GQA), which the card kernel serves at its 32-wide instances, on
+        the chunk edges; Hkv * D is the reference's 128 lanes."""
+        C = da._CHUNK
+        rng = np.random.RandomState(D + nH)
+        Smax = 256
+        pos = np.asarray([0, C - 1, C, C + 1, 2 * C, Smax - 1], np.int32)
+        B = len(pos)
+        q = rng.randn(B, nH, D).astype(np.float32)
+        kc = rng.randn(B, Smax, Hkv, D).astype(np.float32)
+        vc = rng.randn(B, Smax, Hkv, D).astype(np.float32)
+        ref = jda.ragged_decode_attention(
+            jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+            jnp.asarray(pos), interpret=True)
+        out = da.ragged_decode_attention(_t(q), _t(kc), _t(vc), _t(pos))
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), rtol=2e-5,
+                                   atol=2e-5)
+
     def test_wrapper_rejects_bad_inputs(self):
         q = torch.zeros(2, 4, 64)
         kc = torch.zeros(2, 32, 2, 64)

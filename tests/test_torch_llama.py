@@ -145,3 +145,40 @@ class TestGenerate:
         with pytest.raises(ValueError, match="max_len"):
             tl.generate(tparams, np.zeros((1, 10), np.int32), tcfg,
                         max_new_tokens=8, max_len=16, device="cpu")
+
+
+class TestCpuSmallTick:
+    def test_tick_rope_matches_pallas_at_d16(self, monkeypatch):
+        """``LlamaConfig.cpu_small`` (8 heads of D 16): a decode tick's
+        q and k projections at ragged positions, roped by the port's
+        ``fused_rope_qk`` (its plain version on the CPU) and by the JAX
+        package's Pallas kernel in interpret mode; the tick's own q and k
+        (``_decode_qkv``) are those values. rtol 2e-4: XLA's float32
+        cos/sin are fast approximations."""
+        import paddle_tpu.ops.pallas.tick_fusion as jtf
+        from paddle_tpu_torch.ops.kernels import tick_fusion as tf
+
+        monkeypatch.setattr(jtf, "FORCE_INTERPRET", True)
+        set_mesh(None)
+        cfg, _, tcfg, tparams = _pair(jl.LlamaConfig.cpu_small())
+        D = tcfg.head_dim
+        assert D == 16
+        rng = np.random.RandomState(4)
+        B = 4
+        x = torch.from_numpy(rng.randn(B, tcfg.hidden_size)
+                             .astype(np.float32))
+        pos = torch.tensor([0, 7, 300, 511], dtype=torch.int32)
+        lp = tl._layer(tl.layer_params(tparams), 1)
+        h = tf.rms_norm_plain(x, lp["ln_attn"], tcfg.rms_eps)
+        zq = tl._mm(h, lp, "wq", tcfg.dtype)
+        zk = tl._mm(h, lp, "wk", tcfg.dtype)
+        oq, ok = tf.fused_rope_qk(zq, zk, pos, D, tcfg.rope_theta)
+        rq, rk = jtf.fused_rope_qk(jnp.asarray(zq.numpy()),
+                                   jnp.asarray(zk.numpy()),
+                                   jnp.asarray(pos.numpy()), D,
+                                   cfg.rope_theta)
+        _close(oq.numpy(), rq)
+        _close(ok.numpy(), rk)
+        q, k, _ = tl._decode_qkv(tcfg, x, lp, pos)
+        torch.testing.assert_close(q.reshape(B, -1), oq)
+        torch.testing.assert_close(k.reshape(B, -1), ok)

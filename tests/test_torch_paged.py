@@ -134,6 +134,29 @@ class TestRaggedPagedAttention:
                              [Tq, 9, Tq])
         assert pa.family(Tq, nH // Hkv) == "prefill"
 
+    def test_plain_matches_pallas_long_prefill(self):
+        """A 512-row prefill chunk (past the 256 rows the card kernel
+        once took; an engine at max_len 2048 admits up to its largest
+        bucket) at context 0 and past a page boundary, ragged q_len."""
+        self._against_pallas(np.random.RandomState(5), 2, 512, 4, 2, 64,
+                             16, 40, [0, 100], [512, 400])
+        assert pa.max_rows(torch.float32) >= 2048 * 8
+
+    @pytest.mark.parametrize("nH,Hkv,D", [(8, 8, 16), (8, 4, 32)])
+    @pytest.mark.parametrize("Tq", [1, 16])
+    def test_plain_matches_pallas_small_head_dims(self, nH, Hkv, D, Tq):
+        """cpu_small's 8 heads of D 16, and D 32 in GQA (Hkv * D the
+        reference's 128 lanes): decode ticks on the chunk edges and
+        prefill chunks past a page boundary."""
+        C, W = pa._CHUNK, 192
+        if Tq == 1:
+            ctx = [0, C - 1, C, C + 1, 2 * C, W - 1]
+            qlen = [1] * len(ctx)
+        else:
+            ctx, qlen = [0, 20, W - Tq], [Tq, 9, Tq]
+        self._against_pallas(np.random.RandomState(D + Tq), len(ctx), Tq,
+                             nH, Hkv, D, 16, W // 16, ctx, qlen)
+
     def test_family_by_rows_a_kv_head(self):
         """At most 8 query rows a kv head take the split-KV decode family,
         more the prefill family."""

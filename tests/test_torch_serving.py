@@ -122,3 +122,38 @@ class TestValidation:
         half = {k: v.to(torch.bfloat16) for k, v in tparams.items()}
         with pytest.raises(ValueError, match="bfloat16"):
             ServingEngine(tcfg, half, device="cpu")
+
+    @pytest.mark.parametrize("paged", [False, True])
+    def test_cuda_engine_refuses_head_dims_the_kernels_do_not_take(
+            self, monkeypatch, paged):
+        """An engine on the card checks its heads against the decode and
+        paged kernels' set (``check_heads``) at build, before any tensor
+        is made, so the check runs here with the device's resolution
+        stubbed; a quantized engine attends through the gather and is
+        not held to it."""
+        from paddle_tpu_torch.inference import serving
+
+        monkeypatch.setattr(serving, "resolve_device",
+                            lambda d: torch.device("cuda", 0))
+        for hidden, heads, kv in ((80, 4, 4), (272, 2, 2), (64, 16, 1)):
+            cfg = tl.LlamaConfig.tiny(hidden_size=hidden, num_heads=heads,
+                                      num_kv_heads=kv)
+            with pytest.raises(ValueError, match="head_dim|query heads"):
+                ServingEngine(cfg, {}, max_len=64, prompt_buckets=(32,),
+                              paged=paged, device="cuda")
+
+    def test_check_heads_takes_every_dim_of_8s_to_128(self):
+        from paddle_tpu_torch.ops.kernels import decode_attention as da
+
+        for D in range(8, 129, 8):
+            da.check_heads(8, 2, D)
+            assert da.padded_dim(D) == (32 if D <= 32 else 64 if D <= 64
+                                        else 128)
+        da.check_heads(8, 8, tl.LlamaConfig.cpu_small().head_dim)
+        for D in (4, 12, 20, 100, 136, 256):
+            with pytest.raises(ValueError, match="head_dim"):
+                da.check_heads(8, 8, D)
+            assert da.padded_dim(D) == 0
+        for nH, Hkv in ((16, 1), (12, 8)):
+            with pytest.raises(ValueError, match="query heads"):
+                da.check_heads(nH, Hkv, 64)
