@@ -21,20 +21,22 @@ Phases (any failed check raises and the script exits non-zero):
    padded at 32, 64 and 128, the fp32 prefill at 64 and 128 both ways),
    ``quant_matmul.cu`` (x fp32 or bf16, int8 or fp8 weights, 32
    or 128 columns a block, 16-byte or byte-wise copies), ``head_dx.cu``
-   and ``rope.cu`` (fp32 or bf16, 16-byte or one-value loads) (a spill
-   fails);
+   ``rope.cu`` (fp32 or bf16, 16-byte or one-value loads) and
+   ``rms_norm.cu`` (both norms in fp32 or bf16, 16-byte or one-value
+   loads, the row in registers or a strided loop) (a spill fails);
 2. hold every kernel against its plain PyTorch version on the card, in
    bf16 and fp32, and time the kernel, the plain version and, where one
    PyTorch call computes the same function, that call: the tick kernels
    and ``ragged_decode_attention`` at the serving shape, a llama7b-width
    shape, a GQA shape and two head dims off 64 and 128 (cpu_small's D 16,
-   D 96 in GQA); ``ragged_paged_attention`` on the serving decode tick,
-   the serving admit prefill (256 rows at context 0 and 192),
-   llama7b-width and GQA decode ticks, one mixed-q_len launch, admits of
-   512 and 2048 rows at llama7b width, and decode ticks and prefills at D
-   16 and 96, each on a shuffled page table, beside gather + SDPA (two
-   calls); the
-   flash-attention forward and backward kernels (bf16; the backward in
+   D 96 in GQA), beside the launch floor (an empty kernel through the
+   norms' ctypes path, replayed and eager); ``ragged_paged_attention`` on
+   the serving decode tick, the serving admit prefill (256 rows at
+   context 0 and 192), llama7b-width and GQA decode ticks, one
+   mixed-q_len launch, admits of 512 and 2048 rows at llama7b width, and
+   decode ticks and prefills at D 16 and 96, each on a shuffled page
+   table, beside gather + SDPA (two calls); the flash-attention forward
+   and backward kernels (bf16; the backward in
    one launch of both roles, bit-identical to each role launched alone,
    and each role alone) at bench.py's training shape (B 44, S 512, 12
    heads of D 64, causal), at llama7b width (B 1, S 2048, 32 heads of D
@@ -328,6 +330,27 @@ def timed(torch, name, err, kernel, plain, library, bound, n_inputs=1,
         bound_ms=b_ms, bound_by=b_by,
         library_ms=(None if library is None
                     else time_ms(library, n_inputs)))
+
+
+def launch_floor(torch, tf):
+    """An empty kernel launched through the norms' host path
+    (``tick_fusion.empty_launch``: the stream, one ctypes call, the error
+    check): its device ms per launch in CUDA-graph replay (with
+    programmatic dependent launch, as the norms, and without) and its
+    eager ms per call, the least any launch of the tick's small kernels
+    costs."""
+    from paddle_tpu_torch.experiments._timing import time_ms
+
+    dev = torch.cuda.current_device()
+
+    def empty(i):
+        tf.empty_launch(dev)
+    row = {"name": "launch_floor", "shape": "empty", "dtype": "none",
+           "ms": time_ms(empty), "eager_ms": eager_ms(torch, empty)}
+    tf.set_pdl(False)  # a plain launch: no overlap with the one ahead
+    row["ms_without_pdl"] = time_ms(empty)
+    tf.set_pdl(True)
+    return row
 
 
 def kernel_checks(torch, F, da, tf, shape, dtype, gen):
@@ -1195,8 +1218,11 @@ def rebuilt_build_report(torch, bm, da, pa, qm, hd, _build, logs):
     ``csrc/quant_matmul.cu`` (x fp32 / bf16, int8 / fp8 weights, 32 or
     128 columns a block, 16-byte or byte-wise copies; shared memory at
     the tick's w_down for 32 columns and lm_head for 128), of
-    ``csrc/head_dx.cu`` and of ``csrc/rope.cu`` (fp32 / bf16, 16-byte or
-    one-value loads; shared memory at D 64), each with its
+    ``csrc/head_dx.cu``, of ``csrc/rope.cu`` (fp32 / bf16, 16-byte or
+    one-value loads; shared memory at D 64) and of ``csrc/rms_norm.cu``
+    (both norms, fp32 / bf16, 16-byte or one-value loads, the row in
+    registers at one or four pieces a thread, or a strided loop), each
+    with its
     ptxas report (``ptxas_rows``); raises on a spill."""
     instances = [(f"blocked_mmILi{m}ELi{n}ELi{k}EE",
                   f"blocked_matmul {m}x{n}x{k}",
@@ -1268,6 +1294,20 @@ def rebuilt_build_report(torch, bm, da, pa, qm, hd, _build, logs):
                           4 * 64))
     rows += ptxas_rows(_build, logs.get("rope", ""), instances,
                        "fused_rope_qk")
+    instances = []
+    for t, dt, vec in (("f", "float32", 4), ("f", "float32", 1),
+                       ("13__nv_bfloat16", "bfloat16", 8),
+                       ("13__nv_bfloat16", "bfloat16", 1)):
+        for add, name in ((0, "fused_rms_norm"), (1, "fused_add_rms_norm")):
+            for key, family in ((f"norm_regsI{t}Li{vec}ELi1E", "regs 1"),
+                                (f"norm_regsI{t}Li{vec}ELi4E", "regs 4"),
+                                (f"norm_streamI{t}Li{vec}E", "loop")):
+                instances.append((
+                    f"{key}Lb{add}EE",
+                    f"{name} {dt} {vec} a load, row in {family}",
+                    dict(kernel=name, dtype=dt, vec=vec, family=family), 0))
+    rows += ptxas_rows(_build, logs.get("rms_norm", ""), instances,
+                       "rms_norm")
     instances = []
     for xc, xdt in enumerate(dts):
         for wc, mode in ((1, "int8"), (2, "fp8")):
@@ -2430,10 +2470,10 @@ def kernels_line(rows, by_path):
             "cuda", "paddle_tpu_torch/csrc/decode_attention.cu",
             "paddle_tpu/ops/pallas/decode_attention.py:220", "serving"),
         "fused_rms_norm": (
-            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
+            "cuda", "paddle_tpu_torch/csrc/rms_norm.cu",
             "paddle_tpu/ops/pallas/tick_fusion.py:88", "serving"),
         "fused_add_rms_norm": (
-            "triton", "paddle_tpu_torch/ops/kernels/tick_fusion_triton.py",
+            "cuda", "paddle_tpu_torch/csrc/rms_norm.cu",
             "paddle_tpu/ops/pallas/tick_fusion.py:111", "serving"),
         "fused_rope_qk": (
             "cuda", "paddle_tpu_torch/csrc/rope.cu",
@@ -2556,8 +2596,6 @@ def main() -> None:
     if not (ROOT / "paddle_tpu_torch" / "csrc").is_dir():
         fail(f"{ROOT} is not a checkout of the repository")
     sys.path.insert(0, str(ROOT))
-    build_dir = ROOT / "paddle_tpu_torch" / "_build"
-    os.environ.setdefault("TRITON_CACHE_DIR", str(build_dir / "triton"))
     import torch.nn.functional as F
 
     import paddle_tpu_torch as port
@@ -2632,6 +2670,11 @@ def main() -> None:
                       f"ms {r['ms']:.6g} eager_ms {r['eager_ms']:.6g} "
                       f"plain_ms {r['plain_ms']:.6g} library_ms {lib} "
                       f"bound_ms {r['bound_ms']:.6g} ({r['bound_by']})")
+    r = launch_floor(torch, tf)
+    rows.append(r)
+    print(f"launch floor (an empty kernel through the norms' ctypes path) "
+          f"ms {r['ms']:.6g} (without programmatic dependent launch "
+          f"{r['ms_without_pdl']:.6g}) eager_ms {r['eager_ms']:.6g}")
     for shape in PAGED_SHAPES:
         for dtype in (torch.bfloat16, torch.float32):
             r = paged_checks(torch, F, pa, shape, dtype, gen)

@@ -3,7 +3,7 @@
 The JAX package ``paddle_tpu`` stays the reference; this package mirrors
 its layout module by module. Plain tensor code is PyTorch; every Pallas
 kernel on a ported path is a hand-written Hopper kernel (CUDA C++ under
-``csrc/`` or Triton) under ``ops/kernels/``, each with a plain PyTorch
+``csrc/``, wrapped under ``ops/kernels/``), each with a plain PyTorch
 version that CPU tensors take.
 
 Ported so far: the continuous-batching LLaMA serving engine

@@ -1,5 +1,5 @@
 """The training step, the production flash kernels, the blocked matmul,
-the CE tail's head_dx, the tick's rope, the decode, paged and
+the CE tail's head_dx, the tick's rope and norms, the decode, paged and
 quantized-matmul kernels, the bf16 decode tick and the paged engine's steps
 of this checkout and of another one, timed in turns on one card.
 
@@ -11,11 +11,18 @@ of its own in one checkout's root, in the order other, this, this, other
 for each round (default 1), so that both sides share the card's state and
 a drift shows as a difference between the two turns of one side. A turn
 builds its checkout's ``flash_attention``, ``head_dx``, ``blocked_matmul``,
-``decode_attention``, ``paged_attention``, ``quant_matmul`` and (where the
-checkout has it) ``rope`` kernels, times ``head_dx_softmax`` at the CE
-tail's shape (M 22528, V 32000, H 768) and ``fused_rope_qk`` at the
-serving tick (B 8, 12 + 12 heads of D 64, bf16), replayed and eager, its
-flash forward and backward (the backward as its
+``decode_attention``, ``paged_attention``, ``quant_matmul`` and (where
+the checkout has them) ``rope`` and ``rms_norm`` kernels, times
+``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768),
+``fused_rope_qk`` at the serving tick (B 8, 12 + 12 heads of D 64, bf16)
+and both norms at the serving tick (B 8, H 768, bf16) and at llama7b
+width (B 8, H 4096), replayed and eager, with a cProfile of the norms'
+eager calls and each after the matmul that feeds it on the tick, and,
+where the checkout has them, the launch floor
+(``tick_fusion.empty_launch``), each step of a norm's host path timed
+alone, and the norms, the floor and the decode tick with programmatic
+dependent launch off (``tick_fusion.set_pdl``) beside on, its flash
+forward and backward (the backward as its
 ``_FlashAttention`` launches it: ``flash_attention_bwd`` where the
 checkout has it, else the dq and the dk/dv kernels) at bench.py's
 training shape (B 44, S 512, 12 heads of D 64, causal) and at llama7b
@@ -54,7 +61,7 @@ ROOT = Path(__file__).resolve().parents[2]
 
 # one turn, run with its checkout's root as the working directory
 _TURN = r'''
-import json, math, sys
+import cProfile, json, math, pstats, sys, time
 sys.path.insert(0, ".")
 import numpy as np
 import torch
@@ -74,8 +81,9 @@ from paddle_tpu_torch.quantization import serving as qs
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
 for name in ("flash_attention", "head_dx", "blocked_matmul",
-             "decode_attention", "paged_attention", "quant_matmul", "rope"):
-    if (_build.CSRC_DIR / f"{name}.cu").exists():  # rope.cu: since PR 11
+             "decode_attention", "paged_attention", "quant_matmul", "rope",
+             "rms_norm"):
+    if (_build.CSRC_DIR / f"{name}.cu").exists():  # older trees lack some
         _build.build(name)
 out = {}
 gen = torch.Generator(device="cuda").manual_seed(0)
@@ -96,6 +104,100 @@ pos = torch.randint(0, 384, (8,), generator=gen, device="cuda",
                     dtype=torch.int32)
 rope = lambda i: tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
 out["rope"] = {"ms": time_ms(rope), "eager_ms": cs.eager_ms(torch, rope)}
+out["norms"], norm_inputs = {}, {}
+for H in (768, 4096):  # the serving tick's width and llama7b's
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    x, y = ((torch.randn(8, H, generator=gen, device="cuda") * 2).bfloat16()
+            for _ in range(2))
+    w = (1 + 0.1 * torch.randn(H, generator=gen, device="cuda")).bfloat16()
+    rms = lambda i: tf.fused_rms_norm(x, w, 1e-6)
+    add = lambda i: tf.fused_add_rms_norm(x, y, w, 1e-6)
+    norm_inputs[H] = x, y, w
+    out["norms"][H] = {
+        "rms_ms": time_ms(rms), "rms_eager_ms": cs.eager_ms(torch, rms),
+        "add_ms": time_ms(add), "add_eager_ms": cs.eager_ms(torch, add)}
+    if hasattr(tf, "set_pdl"):  # back to back without the early launch
+        tf.set_pdl(False)
+        out["norms"][H].update(rms_ms_without_pdl=time_ms(rms),
+                               add_ms_without_pdl=time_ms(add))
+        tf.set_pdl(True)
+# each norm after the matmul that feeds it on the tick (8 x 768 @ 768 x
+# 768), so a launch that overlaps the kernel ahead shows as it would there
+gen = torch.Generator(device="cuda").manual_seed(0)
+a = torch.randn(8, 768, generator=gen, device="cuda").bfloat16()
+W = (torch.randn(768, 768, generator=gen, device="cuda") / 28).bfloat16()
+x, y, w = norm_inputs[768]
+out["norms_after_mm"] = {
+    "mm_ms": time_ms(lambda i: torch.mm(a, W)),
+    "mm_rms_ms": time_ms(lambda i: tf.fused_rms_norm(torch.mm(a, W), w,
+                                                     1e-6)),
+    "mm_add_ms": time_ms(lambda i: tf.fused_add_rms_norm(torch.mm(a, W), y,
+                                                         w, 1e-6))}
+# the norms' host path at the serving tick: the largest entries of a
+# cProfile of 2000 eager calls each (own time per call, us), and, where the
+# checkout launches through ctypes, each step of the call timed alone
+out["norm_host_profile"] = {}
+for tag, fn in (("rms", lambda: tf.fused_rms_norm(x, w, 1e-6)),
+                ("add", lambda: tf.fused_add_rms_norm(x, y, w, 1e-6))):
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(2000):
+        fn()
+    prof.disable()
+    torch.cuda.synchronize()
+    own = sorted(((v[2] / 2000 * 1e6, f"{k[0].split('/')[-1]}:{k[1]}({k[2]})")
+                  for k, v in pstats.Stats(prof).stats.items()),
+                 reverse=True)[:12]
+    out["norm_host_profile"][tag] = [[name, us] for us, name in own]
+if hasattr(tf, "empty_launch"):
+    dev = torch.cuda.current_device()
+    floor = lambda i: tf.empty_launch(dev)
+    out["launch_floor"] = {"ms": time_ms(floor),
+                           "eager_ms": cs.eager_ms(torch, floor)}
+    tf.set_pdl(False)
+    out["launch_floor"]["ms_without_pdl"] = time_ms(floor)
+    tf.set_pdl(True)
+
+    def host_us(fn, n=5000):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        us = 1e6 * (time.perf_counter() - t0) / n
+        torch.cuda.synchronize()
+        return us
+    s_, o_ = torch.empty_like(x), torch.empty_like(x)
+    entry = tf._entry("rms_norm", "fused_add_rms_norm")
+    empty = tf._entry("rms_norm", "empty_launch")
+    stream = tf._stream(dev)
+    ptrs = (x.data_ptr(), y.data_ptr(), w.data_ptr(), s_.data_ptr(),
+            o_.data_ptr())
+
+    def device_ctx():
+        with torch.cuda.device(x.device):
+            pass
+    out["norm_host_steps_us"] = {
+        "whole fused_add_rms_norm": host_us(
+            lambda: tf.fused_add_rms_norm(x, y, w, 1e-6)),
+        "whole fused_rms_norm": host_us(lambda: tf.fused_rms_norm(x, w,
+                                                                  1e-6)),
+        "checks": host_us(lambda: tf._check_norm("fused_add_rms_norm", x, w,
+                                                 y)),
+        "two empty_like": host_us(lambda: (torch.empty_like(x),
+                                           torch.empty_like(x))),
+        "five data_ptr": host_us(lambda: (x.data_ptr(), y.data_ptr(),
+                                          w.data_ptr(), s_.data_ptr(),
+                                          o_.data_ptr())),
+        "entry lookup": host_us(lambda: tf._entry("rms_norm",
+                                                  "fused_add_rms_norm")),
+        "raw stream": host_us(lambda: tf._stream(dev)),
+        "ctypes call with launch": host_us(
+            lambda: entry(*ptrs, 8, 768, 1, 1e-6, dev, stream)),
+        "ctypes empty launch": host_us(lambda: empty(dev, stream)),
+        "torch.cuda.device context": host_us(device_ctx),
+        "current_stream().cuda_stream": host_us(
+            lambda: torch.cuda.current_stream().cuda_stream)}
 gen = torch.Generator(device="cuda").manual_seed(0)
 a = torch.randn(22528, 32000, generator=gen, device="cuda").bfloat16()
 b = torch.randn(32000, 768, generator=gen, device="cuda").bfloat16()
@@ -158,6 +260,13 @@ tpos = torch.linspace(0, 383, 8, device="cuda").to(torch.int32)
 eager, device = cs.eager_and_device_ms(
     torch, lambda: llama.forward_with_cache(params, nxt, cfg, cache, tpos), 50)
 out["decode_tick"] = {"eager_ms": eager, "device_ms": device}
+if hasattr(tf, "set_pdl"):  # in turns: on (above), off, off, on
+    tick = lambda: llama.forward_with_cache(params, nxt, cfg, cache, tpos)
+    ticks = []
+    for on in (False, False, True):
+        tf.set_pdl(on)
+        ticks.append(cs.eager_and_device_ms(torch, tick, 50)[1])
+    out["decode_tick_device_ms_pdl_on_off_off_on"] = [device] + ticks
 del cache
 out["paged_steps"] = cs.paged_step_breakdown(torch, llama, params, cfg, 384)
 out["paged_steps_int8"] = cs.paged_step_breakdown(

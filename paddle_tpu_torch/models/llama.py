@@ -10,8 +10,8 @@ AdamW, ``make_train_step``). The tick's between-matmul chains, every
 attention and the CE tail's dx run as the hand-written kernels of
 ``ops/kernels``:
 
-- ``fused_rms_norm`` / ``fused_add_rms_norm`` (Triton) and
-  ``fused_rope_qk`` (CUDA C++) replace the inline rmsnorm,
+- ``fused_rms_norm`` / ``fused_add_rms_norm`` and ``fused_rope_qk``
+  (CUDA C++) replace the inline rmsnorm,
   residual+rmsnorm and rope chains;
 - ``ragged_decode_attention`` (CUDA C++) reads each slot's cache rows
   [0, pos] only;

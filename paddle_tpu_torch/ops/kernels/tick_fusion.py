@@ -9,12 +9,14 @@ one launch.
 What bounds them on the H100: bytes, and below that the launch itself.
 The tick's tensors are tiny ([slots, hidden] = [8, 768] at the serving
 shape), so each kernel reads its inputs once and writes its outputs once.
-The two norms are Triton kernels (``tick_fusion_triton``), one program
-per row (the block is the next power of two of the row width, masked):
-the row reduction never leaves registers. The rope is CUDA C++
-(``paddle_tpu_torch/csrc/rope.cu``, loaded with ctypes): a block a row
+All three are CUDA C++ behind plain C entry points loaded with ctypes, so
+a call's host path is its checks, its outputs' allocation and one ctypes
+call. The norms (``paddle_tpu_torch/csrc/rms_norm.cu``) give each thread
+a 16-byte piece of the row, every load issued before the reduction, the
+row's sum by warp shuffles, launched with programmatic dependent launch;
+the rope (``csrc/rope.cu``) a block a row
 and a group of heads, the row's D / 2 angles computed once, each value
-read once; its header says why.
+read once. Each source's header says why.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches
 the kernel or raises.
@@ -108,8 +110,9 @@ def _check_norm(name, x, w, *more):
         raise ValueError(f"{name}: inputs must be contiguous")
 
 
-def _row_warps(block: int) -> int:
-    return 4 if block <= 1024 else 8
+def _launched(name, err):
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
 
 
 def fused_rms_norm(x, w, eps: float):
@@ -117,16 +120,12 @@ def fused_rms_norm(x, w, eps: float):
     _check_norm("fused_rms_norm", x, w)
     if x.device.type == "cpu":
         return rms_norm_plain(x, w, eps)
-    import triton
-
-    from . import tick_fusion_triton as k
-
     B, H = x.shape
     out = torch.empty_like(x)
-    block = triton.next_power_of_2(H)
-    with torch.cuda.device(x.device):
-        k.rms_kernel[(B,)](x, w, out, H, float(eps), BLOCK=block,
-                           num_warps=_row_warps(block))
+    dev = x.device.index
+    _launched("fused_rms_norm", _entry("rms_norm", "fused_rms_norm")(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(), B, H,
+        _DTYPE_CODES[x.dtype], eps, dev, _stream(dev)))
     fused_rms_norm.launches += 1
     return out
 
@@ -137,19 +136,33 @@ def fused_add_rms_norm(x, y, w, eps: float):
     _check_norm("fused_add_rms_norm", x, w, y)
     if x.device.type == "cpu":
         return add_rms_norm_plain(x, y, w, eps)
-    import triton
-
-    from . import tick_fusion_triton as k
-
     B, H = x.shape
     s = torch.empty_like(x)
     out = torch.empty_like(x)
-    block = triton.next_power_of_2(H)
-    with torch.cuda.device(x.device):
-        k.add_rms_kernel[(B,)](x, y, w, s, out, H, float(eps), BLOCK=block,
-                               num_warps=_row_warps(block))
+    dev = x.device.index
+    _launched("fused_add_rms_norm", _entry("rms_norm", "fused_add_rms_norm")(
+        x.data_ptr(), y.data_ptr(), w.data_ptr(), s.data_ptr(),
+        out.data_ptr(), B, H, _DTYPE_CODES[x.dtype], eps, dev, _stream(dev)))
     fused_add_rms_norm.launches += 1
     return s, out
+
+
+def empty_launch(device_index: int):
+    """An empty kernel on CUDA device ``device_index``, launched through
+    the norms' host path (the stream, one ctypes call, the error check):
+    the launch floor the tick's small kernels are measured against. On no
+    path, and counted nowhere."""
+    _launched("empty_launch", _entry("rms_norm", "empty_launch")(
+        device_index, _stream(device_index)))
+
+
+def set_pdl(on: bool) -> bool:
+    """Launch the norms (and ``empty_launch``) with programmatic dependent
+    launch (Hopper: a norm's blocks start while the kernel ahead of it
+    drains and wait for it in the kernel), which is on unless set off here;
+    ``experiments.turns`` times the decode tick both ways. Returns the
+    previous setting."""
+    return bool(_entry("rms_norm", "set_pdl")(int(on)))
 
 
 def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
@@ -181,29 +194,51 @@ def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
     oq = torch.empty_like(zq)
     ok = torch.empty_like(zk)
     with torch.cuda.device(zq.device):
-        err = _rope_kernel()(
+        _launched("fused_rope_qk", _entry("rope", "fused_rope_qk")(
             zq.data_ptr(), zk.data_ptr(), oq.data_ptr(), ok.data_ptr(),
             pos.data_ptr(), B, zq.shape[1] // head_dim,
             zk.shape[1] // head_dim, head_dim, _DTYPE_CODES[zq.dtype],
-            theta, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_rope_qk launch failed: CUDA error {err}")
+            theta, torch.cuda.current_stream().cuda_stream))
     fused_rope_qk.launches += 1
     return oq, ok
 
 
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C entry points of csrc/<library>.cu this module calls, with their
+# argument types (every pointer and the stream ``c_void_p``, so none is
+# cut to 32 bits); the tests hold them to the sources' signatures
+ENTRIES = {
+    "rms_norm": {
+        # x, w, out, B, H, dtype code, eps, device, stream
+        "fused_rms_norm": [_P] * 3 + [_I] * 3 + [_F, _I, _P],
+        # x, y, w, s, out, B, H, dtype code, eps, device, stream
+        "fused_add_rms_norm": [_P] * 5 + [_I] * 3 + [_F, _I, _P],
+        "empty_launch": [_I, _P],
+        "set_pdl": [_I],
+    },
+    "rope": {
+        # zq, zk, oq, ok, pos, B, nH, Hkv, D, dtype code, theta, stream
+        "fused_rope_qk": [_P] * 5 + [_I] * 5 + [_F, _P],
+    },
+}
+
+
 @functools.lru_cache(maxsize=None)
-def _rope_kernel():
-    """The C entry point of ``csrc/rope.cu``, built and loaded at first
-    use; every pointer and the stream are ``c_void_p`` so none is cut to
-    32 bits."""
+def _entry(library, name):
+    """The C entry point ``name`` of ``csrc/<library>.cu``, built and
+    loaded at first use."""
     from ._build import load_library
 
-    fn = load_library("rope").fused_rope_qk
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
-                   + [ctypes.c_float, ctypes.c_void_p])
+    fn = getattr(load_library(library), name)
+    fn.argtypes = ENTRIES[library][name]
     fn.restype = ctypes.c_int
     return fn
+
+
+def _stream(device_index):
+    """The current stream of a CUDA device, as an int: the raw handle,
+    without the ``torch.cuda.Stream`` object ``current_stream()`` builds."""
+    return torch._C._cuda_getCurrentRawStream(device_index)
 
 
 fused_rms_norm.launches = 0

@@ -376,22 +376,119 @@ class TestPagedAttention:
 
 
 class TestTickFusion:
-    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-    @pytest.mark.parametrize("H", [768, 4096, 100])
-    def test_norms_match_plain(self, cuda, dtype, H):
-        gen = torch.Generator(device=cuda).manual_seed(H)
-        x = _randn(gen, 8, H, dtype=dtype, scale=2.0)
-        y = _randn(gen, 8, H, dtype=dtype, scale=2.0)
+    # the norms against their plain versions: s = x + y is one rounding of
+    # the same sum, so it must be bit-identical; out goes through the row's
+    # mean square, summed in another order than torch.mean's, so out may
+    # sit one ulp of T from the plain version's (TOL: fp32 1e-5, bf16 two
+    # ulps)
+    @staticmethod
+    def _norm_inputs(cuda, dtype, B, H, seed=0):
+        gen = torch.Generator(device=cuda).manual_seed(seed + B * H)
+        x = _randn(gen, B, H, dtype=dtype, scale=2.0)
+        y = _randn(gen, B, H, dtype=dtype, scale=2.0)
         w = (1 + 0.1 * torch.randn(H, generator=gen, device=cuda)).to(dtype)
-        n0 = tf.fused_rms_norm.launches, tf.fused_add_rms_norm.launches
-        _close(tf.fused_rms_norm(x, w, 1e-6), tf.rms_norm_plain(x, w, 1e-6),
-               dtype)
+        return x, y, w
+
+    @staticmethod
+    def _norms_close(x, y, w, dtype):
+        out = tf.fused_rms_norm(x, w, 1e-6)
         s, o = tf.fused_add_rms_norm(x, y, w, 1e-6)
+        torch.cuda.synchronize()
+        _close(out, tf.rms_norm_plain(x, w, 1e-6), dtype)
         rs, ro = tf.add_rms_norm_plain(x, y, w, 1e-6)
-        _close(s, rs, dtype)
+        assert torch.equal(s, rs)
         _close(o, ro, dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("B", [1, 8, 300])
+    # the tick's widths (768, 128, 4096, 1536), 100 (no multiple of the
+    # 16-byte piece: one value at a time), 8192 (the last width a row keeps
+    # in registers in fp32), 2049 (one value at a time past 2048: the
+    # strided loop) and 10000 (fp32: the strided loop; bf16: 10 warps)
+    @pytest.mark.parametrize("H", [100, 128, 768, 1536, 4096, 8192, 2049,
+                                   10000])
+    def test_norms_match_plain(self, cuda, dtype, B, H):
+        x, y, w = self._norm_inputs(cuda, dtype, B, H)
+        n0 = tf.fused_rms_norm.launches, tf.fused_add_rms_norm.launches
+        self._norms_close(x, y, w, dtype)
         assert (tf.fused_rms_norm.launches,
                 tf.fused_add_rms_norm.launches) == (n0[0] + 1, n0[1] + 1)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("off", ["x", "y", "w"])
+    def test_norms_off_a_16_byte_boundary(self, cuda, dtype, off):
+        """One input a contiguous view one element (2 bytes in bf16, 4 in
+        fp32) past a 16-byte boundary: the kernel reads one value at a
+        time."""
+        B, H = 8, 768
+        x, y, w = self._norm_inputs(cuda, dtype, B, H, seed=1)
+        src = {"x": x, "y": y, "w": w}[off]
+        buf = torch.empty(src.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(src.shape)
+        view.copy_(src)
+        assert view.is_contiguous() and view.data_ptr() % 16 != 0
+        args = {"x": x, "y": y, "w": w, off: view}
+        self._norms_close(args["x"], args["y"], args["w"], dtype)
+
+    def test_norms_graph_replay_equals_eager(self, cuda):
+        """Both norms captured into one CUDA graph and replayed on new
+        inputs copied into the captured tensors give the eager calls'
+        outputs bit for bit."""
+        dt = torch.bfloat16
+        x, y, w = self._norm_inputs(cuda, dt, 8, 768)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):  # warm up off the capture stream
+            tf.fused_rms_norm(x, w, 1e-6)
+            tf.fused_add_rms_norm(x, y, w, 1e-6)
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tf.fused_rms_norm(x, w, 1e-6)
+            s, o = tf.fused_add_rms_norm(x, y, w, 1e-6)
+        for seed in range(3):
+            nx, ny, nw = self._norm_inputs(cuda, dt, 8, 768, seed=seed + 2)
+            x.copy_(nx)
+            y.copy_(ny)
+            w.copy_(nw)
+            graph.replay()
+            torch.cuda.synchronize()
+            assert torch.equal(out, tf.fused_rms_norm(x, w, 1e-6))
+            es, eo = tf.fused_add_rms_norm(x, y, w, 1e-6)
+            assert torch.equal(s, es) and torch.equal(o, eo)
+
+    def test_norms_same_bits_without_programmatic_launch(self, cuda):
+        """``set_pdl(False)`` launches the same kernels without
+        programmatic dependent launch: the same outputs, bit for bit."""
+        x, y, w = self._norm_inputs(cuda, torch.bfloat16, 8, 768)
+        on = (tf.fused_rms_norm(x, w, 1e-6),
+              *tf.fused_add_rms_norm(x, y, w, 1e-6))
+        assert tf.set_pdl(False)
+        try:
+            off = (tf.fused_rms_norm(x, w, 1e-6),
+                   *tf.fused_add_rms_norm(x, y, w, 1e-6))
+        finally:
+            assert not tf.set_pdl(True)
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(on, off))
+
+    def test_norms_reject_what_they_do_not_take(self, cuda):
+        x, y, w = self._norm_inputs(cuda, torch.bfloat16, 8, 64)
+        with pytest.raises(ValueError, match="contiguous"):
+            tf.fused_rms_norm(x.t().contiguous().t(), w, 1e-6)
+        with pytest.raises(ValueError, match="contiguous"):
+            tf.fused_add_rms_norm(x, y.t().contiguous().t(), w, 1e-6)
+        with pytest.raises(TypeError, match="dtype"):
+            tf.fused_rms_norm(x.half(), w.half(), 1e-6)
+        with pytest.raises(TypeError, match="dtype"):
+            tf.fused_add_rms_norm(x.half(), y.half(), w.half(), 1e-6)
+
+    def test_norms_of_no_rows(self, cuda):
+        x, y, w = self._norm_inputs(cuda, torch.bfloat16, 8, 768)
+        assert tf.fused_rms_norm(x[:0], w, 1e-6).shape == (0, 768)
+        s, o = tf.fused_add_rms_norm(x[:0], y[:0], w, 1e-6)
+        assert s.shape == o.shape == (0, 768)
 
     @staticmethod
     def _rope_case(cuda, dtype, nH, Hkv, D, max_len, seed=0):

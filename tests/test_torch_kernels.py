@@ -7,6 +7,10 @@ same numpy inputs. Tolerances are those of tests/test_decode_attention.py:
 XLA's float32 transcendentals are fast approximations, so its rtol is 2e-4.
 """
 
+import ctypes
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +20,8 @@ import paddle_tpu.ops.pallas.decode_attention as jda
 import paddle_tpu.ops.pallas.tick_fusion as jtf
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import tick_fusion as tf
+
+CSRC = Path(tf.__file__).resolve().parents[2] / "csrc"
 
 
 @pytest.fixture
@@ -175,3 +181,46 @@ class TestTickFusion:
             tf.fused_rope_qk(x, x, torch.zeros(2), 16, 1e4)
         with pytest.raises(ValueError, match="even"):
             tf.fused_rope_qk(x, x, torch.zeros(2, dtype=torch.int32), 7, 1e4)
+
+
+def _c_signatures(library):
+    """Each ``extern "C"`` function of ``csrc/<library>.cu`` -> the kinds
+    of its parameters in order: "pointer", "int" or "float"."""
+    src = (CSRC / f"{library}.cu").read_text()
+    sigs = {}
+    for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', src):
+        kinds = []
+        for param in params.split(","):
+            param = " ".join(param.split())
+            if "*" in param:
+                kinds.append("pointer")
+            elif re.match(r"(const )?float \w+$", param):
+                kinds.append("float")
+            elif re.match(r"(const )?int \w+$", param):
+                kinds.append("int")
+            else:
+                raise AssertionError(f"{name}: unparsed parameter {param!r}")
+        sigs[name] = kinds
+    return sigs
+
+
+_KIND = {ctypes.c_void_p: "pointer", ctypes.c_int: "int",
+         ctypes.c_float: "float"}
+
+
+class TestEntryPoints:
+    """The wrappers' ctypes argument types against the C sources'
+    signatures, so a mismatch fails here and not only on the card (ctypes
+    would pass a wrong count or kind without a word)."""
+
+    @pytest.mark.parametrize("library,name", [
+        (lib, name) for lib, names in sorted(tf.ENTRIES.items())
+        for name in sorted(names)])
+    def test_argtypes_match_the_source(self, library, name):
+        sigs = _c_signatures(library)
+        assert name in sigs, f"csrc/{library}.cu has no entry point {name}"
+        assert [_KIND[t] for t in tf.ENTRIES[library][name]] == sigs[name]
+
+    @pytest.mark.parametrize("library", sorted(tf.ENTRIES))
+    def test_every_entry_point_has_argtypes(self, library):
+        assert sorted(_c_signatures(library)) == sorted(tf.ENTRIES[library])

@@ -359,14 +359,13 @@ def test_turns_need_a_gpu_and_another_checkout(monkeypatch):
 def test_launch_counters_name_every_counted_wrapper():
     """``launch_counters`` lists every counter a kernel wrapper keeps (a
     function of ``ops/kernels`` with an int ``launches`` or
-    ``quant_launches``), each once. ``tick_fusion_triton`` holds Triton
-    kernels, not wrappers, and imports ``triton`` at its top."""
+    ``quant_launches``), each once."""
     import paddle_tpu_torch.ops.kernels as kernels
 
     listed = {(fn, attr) for fn, attr in kernels.launch_counters().values()}
     found = set()
     for path in (ROOT / "paddle_tpu_torch/ops/kernels").glob("*.py"):
-        if path.stem.startswith("_") or path.stem == "tick_fusion_triton":
+        if path.stem.startswith("_"):
             continue
         mod = importlib.import_module(f"{kernels.__name__}.{path.stem}")
         for fn in vars(mod).values():
