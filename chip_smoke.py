@@ -64,8 +64,9 @@ Phases (any failed check raises and the script exits non-zero):
    timed at B 44, S 512, 12 heads of D 64 beside SDPA;
 3. serve 32 requests of the mixed workload through ``ServingEngine`` at
    ``LlamaConfig.bert_base_equiv`` width in bf16 (random weights from a
-   seeded generator), check every request's tokens, and check from the
-   launch counters that every decode tick went through the four kernels;
+   seeded generator) with its windowed drain (``run(fused=False)``),
+   check every request's tokens, and check from the launch counters that
+   every decode tick went through the four kernels;
 3b. the same 32 requests through ``ServingEngine(paged=True)``: every
    attention through ``ragged_paged_attention`` (L per segment step),
    the tick kernels L or L + 1 times per decode step, no page leaked,
@@ -82,6 +83,22 @@ Phases (any failed check raises and the script exits non-zero):
    tolerance; then ``LlamaConfig.cpu_small`` (8 heads of D 16, fp32) end
    to end: the mixed workload through the contiguous and the paged
    engine (3's and 3b's checks) and 4's and 4b's teacher-forced ticks;
+3g. the contiguous engine's other paths at the same width: (a) the same
+   32 requests through its fused drain (``run()``): every request's
+   count, the tick kernels L (the norm L + 1) times a decode tick, one
+   fetch, and the share of requests whose tokens equal phase 3's (bf16
+   admits batch differently, so it is printed); (b) phase 3c's burst
+   through ``OnlineScheduler`` on the contiguous engine's segments with a
+   row-copy ``PrefixCache(block=32)`` (at least one hit) and without a
+   cache, each a warm pass then a measured one, TTFT and end-to-end
+   percentiles printed side by side; (c) ``beam_search_generate`` (B 2,
+   a 64-token prompt, 32 tokens, 4 beams, without and with EOS) and
+   sampled ``generate`` (T 0.8, top-k 50, top-p 0.9): tokens in the
+   vocabulary, one seed twice gives one stream, ``top_k=1`` equals greedy
+   up to a tied top logit, and one tick a token; (d) preemption between
+   segments and resume with a prefix cache, then ``abort`` with a
+   segment in flight and resume, on both engines: every request's count,
+   the kernels' launches, no page leaked;
 3d. quantized serving: the 32 requests through
    ``ServingEngine(paged=True, quant="int8", quality_digest=True)``, every
    tick projection and lm_head through ``quant_matmul`` (7 L + 1 per
@@ -1390,10 +1407,13 @@ def read_counts(fns):
     return {n: getattr(fn, attr) for n, (fn, attr) in fns.items()}
 
 
-def serve(torch, ServingEngine, fns, params, cfg, reqs, max_len):
-    """Serve ``reqs`` once to warm up, then again with every launch count
-    at 0; returns the timed run's stats, the launch counts and the tokens
-    of each request."""
+def serve(torch, ServingEngine, fns, params, cfg, reqs, max_len,
+          fused=False):
+    """Phase 3 (the windowed drain, ``run(fused=False)``) and 3g (a) (the
+    fused drain, ``run()``): serve ``reqs`` once to warm up, then again
+    with every launch count at 0; returns the timed run's stats, the
+    launch counts and the tokens of each request. The fused drain must
+    read the device once."""
     def engine():
         return ServingEngine(cfg, params, slots=8, max_len=max_len,
                              chunk=16, prompt_buckets=(64, 128, 256),
@@ -1402,32 +1422,45 @@ def serve(torch, ServingEngine, fns, params, cfg, reqs, max_len):
     warm = engine()
     for p, g in reqs[:8]:
         warm.add_request(p, g)
-    warm.run()
+    warm.run(fused=fused)
     torch.cuda.synchronize()
 
     eng = engine()
     rids = [eng.add_request(p, g) for p, g in reqs]
     zero_counts(fns)
+    f0 = eng.fetches
     t0 = time.perf_counter()
-    out = eng.run()
+    out = eng.run(fused=fused)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = read_counts(fns)
 
     check_tokens(out, rids, reqs, cfg)
     ticks = eng.last_run_ticks
-    L = cfg.num_layers
-    check_counts(launches, {
-        "ragged_decode_attention": L * ticks,
-        "fused_rms_norm": (L + 1) * ticks,
-        "fused_add_rms_norm": L * ticks, "fused_rope_qk": L * ticks,
-        "ragged_paged_attention": 0}, f"{ticks} ticks")
+    check_counts(launches, tick_counts(cfg.num_layers, ticks),
+                 f"{ticks} ticks")
+    fetches = eng.fetches - f0
+    if fused and fetches != 1:
+        raise AssertionError(f"the fused drain read the device {fetches} "
+                             f"times, wanted once")
     new_tokens = sum(g for _, g in reqs)
+    steps = ticks + len(reqs) if fused else None   # every admit a step
     return {"requests": len(reqs), "new_tokens": new_tokens,
             "wall_s": wall, "tokens_per_s": new_tokens / wall,
             "ticks": ticks, "chunks": eng.last_run_chunks,
-            "ms_per_tick": 1e3 * wall / max(1, ticks)}, launches, \
+            "fetches": fetches, "ms_per_tick": 1e3 * wall / max(1, ticks),
+            "steps": steps,
+            "ms_per_step": steps and 1e3 * wall / steps}, launches, \
         [out[r] for r in rids]
+
+
+def tick_counts(L, ticks):
+    """The launches ``ticks`` decode ticks on the contiguous cache need:
+    the decode attention, rope and residual norm once a layer, the norm
+    once more for the final norm."""
+    return {"ragged_decode_attention": L * ticks,
+            "fused_rms_norm": (L + 1) * ticks,
+            "fused_add_rms_norm": L * ticks, "fused_rope_qk": L * ticks}
 
 
 def check_tokens(out, rids, reqs, cfg):
@@ -1518,22 +1551,24 @@ def serve_paged(torch, ServingEngine, fns, params, cfg, reqs, max_len):
             "pages": eng.pager.stats()}, launches, [out[r] for r in rids]
 
 
-def prefix_burst(torch, sched, PagedPrefixCache, ServingEngine, fns,
-                 params, cfg):
-    """Phase 3c: the serving benchmark's shared-prefix burst (16 requests
-    of a 192-token prefix and a 32-token tail, 32 generated tokens each,
-    all at t = 0) through ``OnlineScheduler`` with a paged prefix cache.
-    The warm pass of ``serve(warm=True)`` runs first as its own call, so
-    the launch counts cover the measured pass alone."""
+def prefix_burst(torch, sched, ServingEngine, fns, params, cfg, paged,
+                 make_cache):
+    """Phase 3c (a paged engine and a ``PagedPrefixCache``) and 3g (b) (a
+    contiguous engine with a row-copy ``PrefixCache``, and without a
+    cache): the serving benchmark's shared-prefix burst (16 requests of a
+    192-token prefix and a 32-token tail, 32 generated tokens each, all at
+    t = 0) through ``OnlineScheduler``. ``make_cache(engine)`` gives the
+    cache, or None. The warm pass of ``serve(warm=True)`` runs first as
+    its own call, so the launch counts cover the measured pass alone."""
     prefix = np.random.RandomState(0).randint(
         0, cfg.vocab_size, (192,)).astype(np.int32)
     arrivals = sched.staggered_arrivals(0, 16, 0.0, cfg.vocab_size,
                                         prompt_lens=(32,), gen_lens=(32,),
                                         prefix=prefix)
     eng = ServingEngine(cfg, params, slots=8, max_len=384,
-                        prompt_buckets=(32, 64, 128, 256), paged=True,
+                        prompt_buckets=(32, 64, 128, 256), paged=paged,
                         page_size=PAGE, device=DEVICE)
-    pc = PagedPrefixCache(eng.pager, capacity_pages=512)
+    pc = make_cache(eng)
     sch = sched.OnlineScheduler(eng, seg_steps=16, prefix_cache=pc)
     sch.serve(arrivals)             # serve(warm=True) is this, reset, serve
     torch.cuda.synchronize()
@@ -1543,23 +1578,27 @@ def prefix_burst(torch, sched, PagedPrefixCache, ServingEngine, fns,
     torch.cuda.synchronize()
     launches = read_counts(fns)
     res = sch.results()
+    what = "paged" if paged else "contiguous"
     if sorted(len(t) for t in res.values()) != [32] * 16:
-        raise AssertionError("prefix burst: a request got the wrong count")
-    if rep.prefix["hits"] < 1 or eng.pager.cow_breaks != 0:
-        raise AssertionError(f"prefix burst: {rep.prefix['hits']} hits, "
-                             f"{eng.pager.cow_breaks} COW breaks")
+        raise AssertionError(f"{what} prefix burst: a request got the "
+                             f"wrong count")
+    if pc is not None and rep.prefix["hits"] < 1:
+        raise AssertionError(f"{what} prefix burst: no prefix hit")
+    if paged and eng.pager.cow_breaks != 0:
+        raise AssertionError(f"prefix burst: {eng.pager.cow_breaks} COW "
+                             f"breaks")
     steps = rep.ticks
     decode = steps - len(arrivals)  # every request is admitted once
     L = cfg.num_layers
-    check_counts(launches, {
-        "ragged_paged_attention": L * steps, "ragged_decode_attention": 0,
-        "fused_rms_norm": (L + 1) * decode,
-        "fused_add_rms_norm": L * decode, "fused_rope_qk": L * decode},
-        f"prefix burst: {steps} steps, {decode} decode steps")
-    pc.clear()
-    leaks = eng.pager.leak_report()
-    if leaks:
-        raise AssertionError(f"prefix burst leaked pages: {leaks}")
+    check_counts(launches, paged_counts(L, steps, decode) if paged
+                 else tick_counts(L, decode),
+                 f"{what} prefix burst: {steps} steps, {decode} decode "
+                 f"steps")
+    if paged:
+        pc.clear()
+        leaks = eng.pager.leak_report()
+        if leaks:
+            raise AssertionError(f"prefix burst leaked pages: {leaks}")
     out = {k: getattr(rep, k) for k in (
         "n_requests", "total_tokens", "makespan_s", "throughput_tok_s",
         "ttft_p50_s", "ttft_p99_s", "e2e_p50_s", "e2e_p99_s",
@@ -1951,6 +1990,206 @@ def cpu_small_serve(torch, llama, da, pa, tf, ServingEngine, fns,
             "dtype": "float32", "contiguous": stats, "paged": pstats,
             "requests_identical": same, "teacher_forced": tfc,
             "teacher_forced_paged": tfp}, launches, plaunches
+
+
+# ---------------------------------------------------------------------------
+# phase 3g: the contiguous engine's fused drain and segments, generation,
+# preemption and abort
+# ---------------------------------------------------------------------------
+
+def timed_launches(torch, fns, run):
+    """``run()`` with every launch count at 0 just before it: returns its
+    result, the host seconds it took (to a synchronize) and the counts."""
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, read_counts(fns)
+
+
+def generation(torch, llama, fns, params, cfg, B=2, S=64, T=32, beams=4):
+    """Phase 3g (c): ``beam_search_generate`` (B 2, a 64-token prompt, 32
+    tokens, 4 beams) without and with an EOS that the first run's best
+    beam emits, and sampled ``generate`` (T 0.8, top-k 50, top-p 0.9)
+    twice from one seed: tokens in the vocabulary, the seed replayed, and
+    every decode tick through the tick kernels (beam search runs one a
+    token, the first on the prompt's last token again; generate one a
+    token after the first). Then sampling with ``top_k=1`` against greedy
+    ``generate``: equal, or first apart where the step's top logit is
+    tied (bf16 logits at vocab 32000 tie often, and top-k keeps ties), the
+    sampled token one of the tied maxima. Returns (stats, {path:
+    launches})."""
+    from paddle_tpu_torch.models import llama as lmod
+
+    prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, (B, S))
+    L = cfg.num_layers
+    out, launches = {}, {}
+
+    def in_vocab(t, what):
+        if not bool(((t >= 0) & (t < cfg.vocab_size)).all()):
+            raise AssertionError(f"{what}: token out of vocab")
+
+    eos = None
+    for name in ("beam", "beam_eos"):
+        toks, wall, n = timed_launches(torch, fns, lambda: (
+            llama.beam_search_generate(params, prompt, cfg,
+                                       max_new_tokens=T, num_beams=beams,
+                                       eos_token_id=eos, device=DEVICE)))
+        in_vocab(toks, name)
+        check_counts(n, tick_counts(L, T), f"{name}: {T} ticks")
+        out[name] = {"ms_per_token": 1e3 * wall / T,
+                     "eos_token_id": eos,
+                     "tokens_row0": toks[0].tolist()}
+        launches[f"generate_{name}"] = n
+        eos = int(toks[0, 4])
+    kw = dict(max_new_tokens=T, temperature=0.8, top_k=50, top_p=0.9,
+              seed=0, device=DEVICE)
+    first, wall, n = timed_launches(torch, fns, lambda: llama.generate(
+        params, prompt, cfg, **kw))
+    check_counts(n, tick_counts(L, T - 1), f"sampled: {T - 1} ticks")
+    launches["generate_sampled"] = n
+    again = llama.generate(params, prompt, cfg, **kw)
+    in_vocab(first, "sampled")
+    if not torch.equal(first, again):
+        raise AssertionError("sampled generate: one seed gave two streams")
+    out["sampled"] = {"ms_per_token": 1e3 * wall / T,
+                      "seed_replayed": True,
+                      "tokens_row0": first[0].tolist()}
+    greedy = llama.generate(params, prompt, cfg, max_new_tokens=T,
+                            device=DEVICE)
+    seen = []
+    sample = lmod._sample
+
+    def spy(logits, *args, **kwargs):
+        seen.append(logits)
+        return sample(logits, *args, **kwargs)
+
+    with mock.patch.object(lmod, "_sample", spy):
+        k1 = llama.generate(params, prompt, cfg, max_new_tokens=T,
+                            temperature=0.8, top_k=1, seed=0, device=DEVICE)
+    ties = 0
+    for b in range(B):
+        apart = (k1[b] != greedy[b]).nonzero()
+        if len(apart) == 0:
+            continue
+        t = int(apart[0, 0])
+        row = seen[t][b]
+        top = row.max()
+        g, k = int(greedy[b, t]), int(k1[b, t])
+        if not (row[g] == top and row[k] == top):
+            raise AssertionError(
+                f"top_k=1 sampling left greedy at row {b} step {t} where "
+                f"the top logit is not tied ({float(row[g])} / "
+                f"{float(row[k])} / max {float(top)})")
+        ties += 1
+    out["top_k_1"] = {"rows_equal_to_greedy": B - ties,
+                      "rows_apart_at_a_tie": ties}
+    return out, launches
+
+
+def preempt_and_abort(torch, ServingEngine, PrefixCache, PagedPrefixCache,
+                      fns, params, cfg, reqs, max_len, paged):
+    """Phase 3g (d), on one engine: 12 of the mixed requests through
+    segments of 32 steps with a prefix cache; after the first segment the
+    two live slots with the shortest prompt and tokens so far are
+    preempted (their prompt and tokens parked in the cache) and requeued
+    at the head, and the drain goes on; at least one resume must ride its
+    parked prefix. Then 8 requests, one segment run and the next
+    dispatched and never read: ``abort`` must return every request still
+    owed, which then resume on the same engine. Every request gets its
+    count, each decode tick (and, paged, each step) launches its kernels,
+    and a paged pool leaks nothing. Returns (stats, {path: launches})."""
+    what = "paged" if paged else "contiguous"
+    eng = ServingEngine(cfg, params, slots=8, max_len=max_len, chunk=16,
+                        prompt_buckets=(64, 128, 256), paged=paged,
+                        page_size=PAGE, device=DEVICE)
+    pc = (PagedPrefixCache(eng.pager, capacity_pages=512) if paged
+          else PrefixCache(block=32))
+    L = cfg.num_layers
+
+    def want(steps, decode):
+        return (paged_counts(L, steps, decode) if paged
+                else tick_counts(L, decode))
+
+    def drain(tally):
+        while eng._queue or eng.free_slot_count() < eng.slots:
+            ev = eng.run_segment(32, prefix_cache=pc)
+            tally[0] += ev["steps"]
+            tally[1] += len(ev["admitted"])
+        return eng.collect_finished()
+
+    sub = reqs[:12]
+    tally = [0, 0]
+
+    def preempted_run():
+        rids = [eng.add_request(p, g) for p, g in sub]
+        ev = eng.run_segment(32, prefix_cache=pc)
+        tally[0], tally[1] = ev["steps"], len(ev["admitted"])
+        # the two shortest resume views: a contiguous admit drops its hits
+        # when the prefix and the segment's widest suffix overflow max_len
+        live = sorted((s for s in range(eng.slots) if eng.can_preempt(s)),
+                      key=lambda s: len(eng._active[s].resume_view()[0]))
+        if len(live) < 2:
+            raise AssertionError(f"{what} preemption: {len(live)} "
+                                 f"preemptible slots after a segment")
+        victims = [eng.preempt_slot(s, prefix_cache=pc) for s in live[:2]]
+        eng._queue[:0] = victims
+        return rids, victims, drain(tally)
+
+    (rids, victims, res), wall, n_pre = timed_launches(torch, fns,
+                                                      preempted_run)
+    check_tokens(res, rids, sub, cfg)
+    check_counts(n_pre, want(tally[0], tally[0] - tally[1]),
+                 f"{what} preemption: {tally[0]} steps, {tally[1]} admits")
+    resumed_on_hit = sum(v.prefix_hit_len > 0 for v in victims)
+    if resumed_on_hit < 1:
+        raise AssertionError(f"{what} preemption: no resume rode the "
+                             f"parked prefix")
+    out = {"requests": len(sub), "preempted": [v.rid for v in victims],
+           "resumed_on_a_parked_prefix": resumed_on_hit,
+           "steps": tally[0], "admits": tally[1], "wall_s": wall,
+           "prefix": pc.stats()}
+    if paged:
+        pc.clear()
+        leaks = eng.pager.leak_report()
+        if leaks:
+            raise AssertionError(f"paged preemption leaked pages: {leaks}")
+        pc = PagedPrefixCache(eng.pager, capacity_pages=512)
+
+    sub = reqs[12:20]
+    tally = [0, 0]
+
+    def aborted_run():
+        rids = [eng.add_request(p, g) for p, g in sub]
+        ev = eng.run_segment(32, prefix_cache=pc)
+        tally[0], tally[1] = ev["steps"], len(ev["admitted"])
+        done = eng.collect_finished()
+        pending = eng.dispatch_segment(32, prefix_cache=pc)
+        tally[0] += pending.steps          # issued, its log never read
+        tally[1] += pending.qadm
+        orphans = eng.abort()
+        owed = sorted(r for r in rids if r not in done)
+        if sorted(r.rid for r in orphans) != owed:
+            raise AssertionError(f"{what} abort returned "
+                                 f"{sorted(r.rid for r in orphans)}, owed "
+                                 f"{owed}")
+        eng._queue.extend(orphans)
+        done.update(drain(tally))
+        return rids, len(orphans), done
+
+    (rids, n_orphans, res), wall, n_abort = timed_launches(torch, fns,
+                                                           aborted_run)
+    check_tokens(res, rids, sub, cfg)
+    check_counts(n_abort, want(tally[0], tally[0] - tally[1]),
+                 f"{what} abort: {tally[0]} steps, {tally[1]} admits")
+    out["abort"] = {"requests": len(sub), "orphans": n_orphans,
+                    "steps": tally[0], "admits": tally[1], "wall_s": wall}
+    if paged:
+        pc.clear()
+        leaks = eng.pager.leak_report()
+        if leaks:
+            raise AssertionError(f"paged abort leaked pages: {leaks}")
+    return out, {f"preempt_{what}": n_pre, f"abort_{what}": n_abort}
 
 
 # ---------------------------------------------------------------------------
@@ -2606,7 +2845,8 @@ def main() -> None:
     import paddle_tpu_torch.vision.models  # noqa: F401 (port.<module>)
     from paddle_tpu_torch import device as device_mod
     from paddle_tpu_torch.inference import scheduler as sched
-    from paddle_tpu_torch.inference.prefix_cache import PagedPrefixCache
+    from paddle_tpu_torch.inference.prefix_cache import (PagedPrefixCache,
+                                                         PrefixCache)
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.observability.quality import compare_pair
@@ -2815,8 +3055,9 @@ def main() -> None:
 
     lap("3c")
     # 3c. the shared-prefix burst through the online scheduler
-    burst, blaunches = prefix_burst(torch, sched, PagedPrefixCache,
-                                    ServingEngine, fns, params, cfg)
+    burst, blaunches = prefix_burst(
+        torch, sched, ServingEngine, fns, params, cfg, True,
+        lambda eng: PagedPrefixCache(eng.pager, capacity_pages=512))
     print(f"prefix burst ({card}): {burst['total_tokens']} tokens, "
           f"{burst['throughput_tok_s']:.1f} tokens/s, ttft p50/p99 "
           f"{burst['ttft_p50_s']:.4f}/{burst['ttft_p99_s']:.4f} s, e2e "
@@ -2883,6 +3124,66 @@ def main() -> None:
           f"(paged) of the plain path (<= {LOGIT_ATOL})")
     print(f"launches on the cpu_small drains: {json.dumps(slaunches)} / "
           f"{json.dumps(splaunches)}")
+
+    lap("3g")
+    # 3g. the contiguous engine's fused drain, its segments under the
+    # online scheduler with a row-copy prefix cache, generation, and
+    # preemption and abort on both engines
+    fstats, flaunches_3g, toks_f = serve(torch, ServingEngine, fns, params,
+                                         cfg, reqs, max_len, fused=True)
+    fstats["requests_identical_to_windowed"] = sum(
+        a == b for a, b in zip(toks_f, toks_c))
+    print(f"fused drain ({card}): bert_base_equiv bf16 slots 8 max_len "
+          f"{max_len}: {fstats['new_tokens']} tokens in "
+          f"{fstats['wall_s']:.3f} s = {fstats['tokens_per_s']:.1f} "
+          f"tokens/s, {fstats['steps']} steps ({fstats['ticks']} ticks, "
+          f"{len(reqs)} admits), {fstats['ms_per_step']:.3f} ms/step, "
+          f"{fstats['fetches']} fetch; windowed (phase 3) "
+          f"{stats['tokens_per_s']:.1f} tokens/s, {stats['fetches']} "
+          f"fetches; requests identical to the windowed drain's: "
+          f"{fstats['requests_identical_to_windowed']}/{len(reqs)}")
+    print(f"launches on the fused drain: {json.dumps(flaunches_3g)}")
+    cbursts, cblaunches = {}, {}
+    for key, make in (("prefix_cache", lambda eng: PrefixCache(block=32)),
+                      ("no_cache", lambda eng: None)):
+        cbursts[key], cblaunches[key] = prefix_burst(
+            torch, sched, ServingEngine, fns, params, cfg, False, make)
+    cb = cbursts["prefix_cache"]
+    print(f"contiguous prefix burst ({card}): PrefixCache(block=32) "
+          f"{cb['throughput_tok_s']:.1f} tokens/s, ttft p50/p99 "
+          f"{cb['ttft_p50_s']:.4f}/{cb['ttft_p99_s']:.4f} s, e2e p50/p99 "
+          f"{cb['e2e_p50_s']:.4f}/{cb['e2e_p99_s']:.4f} s, "
+          f"{cb['requests_admitted_on_a_hit']}/{cb['n_requests']} requests "
+          f"admitted on a prefix hit ({cb['prefix']['hits']} matches, "
+          f"{cb['prefix']['hit_tokens']} hit tokens), {cb['ticks']} steps; "
+          f"without a cache: "
+          f"{cbursts['no_cache']['throughput_tok_s']:.1f} tokens/s, ttft "
+          f"p50/p99 {cbursts['no_cache']['ttft_p50_s']:.4f}/"
+          f"{cbursts['no_cache']['ttft_p99_s']:.4f} s, e2e p50/p99 "
+          f"{cbursts['no_cache']['e2e_p50_s']:.4f}/"
+          f"{cbursts['no_cache']['e2e_p99_s']:.4f} s, "
+          f"{cbursts['no_cache']['ticks']} steps")
+    print(f"launches on the contiguous prefix bursts: "
+          f"{json.dumps(cblaunches)}")
+    gen_stats, glaunches = generation(torch, llama, fns, params, cfg)
+    print(f"generation ({card}): beam search (B 2, prompt 64, 32 tokens, 4 "
+          f"beams) {gen_stats['beam']['ms_per_token']:.3f} ms/token, with "
+          f"EOS {gen_stats['beam_eos']['eos_token_id']} "
+          f"{gen_stats['beam_eos']['ms_per_token']:.3f}; sampled (T 0.8, "
+          f"top-k 50, top-p 0.9) {gen_stats['sampled']['ms_per_token']:.3f} "
+          f"ms/token, its seed replayed; top_k=1 against greedy: "
+          f"{json.dumps(gen_stats['top_k_1'])}")
+    print(f"launches on generation: {json.dumps(glaunches)}")
+    preempt, plaunches3g = {}, {}
+    for paged in (False, True):
+        st, n = preempt_and_abort(torch, ServingEngine, PrefixCache,
+                                  PagedPrefixCache, fns, params, cfg, reqs,
+                                  max_len, paged)
+        preempt["paged" if paged else "contiguous"] = st
+        plaunches3g.update(n)
+        print(f"preemption ({card}, {'paged' if paged else 'contiguous'}):"
+              f" {json.dumps(st)}")
+    print(f"launches on preemption and abort: {json.dumps(plaunches3g)}")
 
     lap("4")
     # 4. teacher-forced ticks, contiguous cache and paged pool
@@ -3033,13 +3334,20 @@ def main() -> None:
                "quant_fp8_drain": f8launches, "train": tlaunches,
                "quant_int8_trained_drain": qtlaunches,
                "resnet50_train": rlaunches, "resnet50_adamw": alaunches,
-               "dot_experiment": dlaunches, "flash_experiment": flaunches}
+               "dot_experiment": dlaunches, "flash_experiment": flaunches,
+               "fused_drain": flaunches_3g,
+               "contiguous_prefix_burst": cblaunches["prefix_cache"],
+               "contiguous_burst_no_cache": cblaunches["no_cache"],
+               **glaunches, **plaunches3g}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "kernel_rows": rows, "engine": stats,
                    "tick": tick, "paged_engine": pstats,
                    "paged_steps": psteps, "prefix_burst": burst,
+                   "fused_drain": fstats,
+                   "contiguous_prefix_bursts": cbursts,
+                   "generation": gen_stats, "preemption": preempt,
                    "long_admit": longa, "cpu_small": small,
                    "quant": quant, "quant_trained": qtrained,
                    "launches": by_path,

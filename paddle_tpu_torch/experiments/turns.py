@@ -4,6 +4,7 @@ quantized-matmul kernels, the bf16 decode tick and the paged engine's steps
 of this checkout and of another one, timed in turns on one card.
 
     python3 -m paddle_tpu_torch.experiments.turns OTHER_ROOT [rounds]
+    python3 -m paddle_tpu_torch.experiments.turns --drains [rounds]
 
 Run from the root of a checkout; ``OTHER_ROOT`` is the root of another
 checkout of the repository (an older commit, say). Each turn is a process
@@ -43,6 +44,9 @@ two warm-up and ten timed AdamW steps of ``bert_base_equiv`` at B 44 x S
 card's name and
 power limit, then one JSON line per turn, then all turns as one JSON
 line.
+
+``--drains`` times the contiguous engine's two offline drains of this
+checkout against each other instead (``drains``), in one process.
 """
 
 from __future__ import annotations
@@ -51,7 +55,10 @@ import json
 import os
 import subprocess
 import sys
+import time
 from pathlib import Path
+
+import torch
 
 from ._timing import require_cuda
 
@@ -316,12 +323,94 @@ def _turn(root: Path) -> dict:
     return json.loads(lines[0][len("TURN "):])
 
 
+def drains(rounds: int = 2) -> list:
+    """The contiguous engine's fused drain (``run()``) against its windowed
+    drain (``run(fused=False)``), in turns in one process: chip_smoke's 32
+    mixed requests at ``bert_base_equiv`` width in bf16 on phase 3's engine
+    (8 slots, chunk 16, buckets 64/128/256), after one warm-up drain of
+    each kind, in the order windowed, fused, fused, windowed for each
+    round. Each turn is a fresh engine: tokens/s, wall ms per tick and per
+    step (a step is a decode tick or an admit's prefill: one a request
+    fused, one a wave windowed) and the engine's fetches. The first turn
+    of each kind is followed by a drain of that kind under
+    ``torch.profiler``, whose device time gives every turn's busy share
+    (over the turn's wall time). Returns the turns."""
+    import numpy as np
+
+    sys.path.insert(0, str(ROOT))
+    import chip_smoke as cs
+    from ..inference.serving import ServingEngine
+    from ..models import llama
+
+    require_cuda()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, timeout=60).stdout.strip()
+    print(f"card: {smi}", flush=True)
+    cfg = llama.LlamaConfig.bert_base_equiv()
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    reqs = cs.mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
+    max_len = min(cfg.max_seq_len,
+                  -(-max(len(p) + g - 1 for p, g in reqs) // 128) * 128)
+
+    def drain(fused, n=len(reqs)):
+        eng = ServingEngine(cfg, params, slots=8, max_len=max_len, chunk=16,
+                            prompt_buckets=(64, 128, 256), device="cuda")
+        waves = [0]
+        admit = eng._admit
+
+        def counted(*args):
+            waves[0] += 1
+            return admit(*args)
+
+        eng._admit = counted
+        for p, g in reqs[:n]:
+            eng.add_request(p, g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eng.run(fused=fused)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tokens = sum(len(t) for t in out.values())
+        steps = eng.last_run_ticks + (n if fused else waves[0])
+        return {"tokens_per_s": tokens / wall, "wall_s": wall,
+                "ticks": eng.last_run_ticks, "steps": steps,
+                "ms_per_tick": 1e3 * wall / eng.last_run_ticks,
+                "ms_per_step": 1e3 * wall / steps,
+                "fetches": eng.fetches}
+
+    for fused in (True, False):
+        drain(fused, 8)
+    device_ms, turns = {}, []
+    for _ in range(rounds):
+        for fused in (False, True, True, False):
+            t = {"drain": "fused" if fused else "windowed", **drain(fused)}
+            if fused not in device_ms:
+                # a drain's device work is fixed (its device time varied
+                # by < 2 % over 13 profiled drains of each kind), and a
+                # profiled drain costs ~50 s of trace processing, so one
+                # of each kind serves every turn
+                prof = cs.device_profile(torch, lambda: drain(fused))
+                device_ms[fused] = prof and prof["device_ms"]
+            t["device_ms"] = device_ms[fused]
+            t["device_busy_share"] = device_ms[fused] and (
+                device_ms[fused] / (1e3 * t["wall_s"]))
+            print(json.dumps(t), flush=True)
+            turns.append(t)
+    print(json.dumps({"card": smi, "drain_turns": turns}), flush=True)
+    return turns
+
+
 def main(argv=None):
     """Time both checkouts in turns; returns the turns as
-    [{"checkout": "other" or "this", ...}, ...]."""
+    [{"checkout": "other" or "this", ...}, ...]. With ``--drains``, the
+    fused and windowed drains of this checkout (``drains``)."""
     argv = sys.argv[1:] if argv is None else argv
     if not argv:
         raise SystemExit(__doc__)
+    if argv[0] == "--drains":
+        return drains(int(argv[1]) if len(argv) > 1 else 2)
     other = Path(argv[0]).resolve()
     rounds = int(argv[1]) if len(argv) > 1 else 1
     require_cuda()

@@ -1,4 +1,4 @@
-"""Online request-lifecycle scheduler over the paged serving engine.
+"""Online request-lifecycle scheduler over the serving engine.
 
 Port of ``OnlineScheduler`` in ``paddle_tpu/inference/scheduler.py``:
 requests arrive over time from a clocked trace, and each turn of the
@@ -15,9 +15,12 @@ slots and decodes up to ``seg_steps`` steps.
 * Measured telemetry: per-request arrival / admit / first-token / finish
   stamps, taken on the host clock right after the segment read that
   surfaced each event, so TTFT and end-to-end latency are measurements.
-* Shared-prefix reuse: pass a ``PagedPrefixCache``.
+* Shared-prefix reuse: pass the engine's prefix cache (a ``PrefixCache``
+  on the slot-contiguous engine, a ``PagedPrefixCache`` on the paged one;
+  ``prefix_cache.make_prefix_cache`` builds the one that fits).
 
-The loop reads the device only through the engine's per-segment fetch.
+Either engine serves: the loop needs only its segments. The loop reads
+the device only through the engine's per-segment fetch.
 Out of this port so far: the journal, tracing spans, the SLO, perf and
 capacity monitors, the report's meter and tier sections, and
 ``SLOScheduler``.
@@ -115,14 +118,15 @@ class OnlineReport:
     ticks: int                     # segment steps, admits included
     backpressure_events: int       # polls that refused an arrival
     backpressure_pages: int = 0    # segments that deferred for pages
-    pages: Optional[dict] = None   # PagedKVCache.stats()
-    prefix: Optional[dict] = None  # PagedPrefixCache.stats()
+    pages: Optional[dict] = None   # PagedKVCache.stats() (paged engine)
+    prefix: Optional[dict] = None  # the prefix cache's stats()
     retry_after_s: Optional[float] = None  # the last hint handed out
     per_request: List[dict] = field(default_factory=list)
 
 
 class OnlineScheduler:
-    """Drive a paged ``ServingEngine`` under a clocked arrival trace.
+    """Drive a ``ServingEngine`` (either layout) under a clocked arrival
+    trace.
 
     ``seg_steps`` is the control-latency knob: the host regains control
     (to ingest arrivals and stamp times) every ``seg_steps`` steps."""

@@ -2,43 +2,55 @@
 
 Port of ``paddle_tpu/inference/serving.py``. A fixed pool of decode slots
 shares one KV store; finished requests hand their slot to queued ones so
-the batch stays full. Two layouts, as in the JAX engine:
+the batch stays full. Two layouts, as in the JAX engine: slot-contiguous
+(``paged=False``, one ``[L, slots, max_len, Hkv, D]`` cache) and paged
+(``paged=True``, one flat page pool and per-slot page tables,
+``inference/paged_kv.py``; admission is gated on pages free).
 
-**Slot-contiguous** (``paged=False``, the JAX engine's windowed loop
-``run(fused=False)``): one ``[L, slots, max_len, Hkv, D]`` cache.
+**Segments** (``run_segment`` = ``dispatch_segment`` + ``finish_segment``,
+both layouts; the online scheduler's loop). A segment picks queued
+requests FCFS (up to ``n_pad``), then runs up to ``max_steps`` steps.
+Each step either admits the next picked request into the first slot with
+nothing owed (a ``[1, s_max]`` prefill of its prompt past any prefix-cache
+hit) or runs one ragged decode tick over every slot; a slot freezes on
+the device the tick its remaining count reaches 0 or it emits EOS. The
+JAX engine makes that choice inside one compiled ``while_loop``; here the
+host makes it from its mirror of the slots' remaining counts, which
+without EOS are known from the generation lengths alone, so the steps are
+issued back to back and the segment's event log comes back in ONE counted
+fetch (``_fetch``). With ``eos_token_id`` set the schedule depends on the
+tokens, so each step's tokens are fetched once before the next step is
+chosen. The host then replays the event log (the same admitted /
+first-token / finished lists, in the same order, as the JAX engine),
+requeues what the step budget did not admit and harvests each slot's
+latest admitted prompt into the prefix cache. The layouts differ in the
+admit alone:
 
-* Admission groups queued requests by prompt bucket and prefills each
-  group as one ``[nb, bucket]`` batch (sub-waves of ``_WAVE_WIDTHS``),
-  reading logits at each row's true last token, then scatters the rows
-  into the slots' cache and slot state (``pos``, ``nxt``, ``rem``).
-* Decode runs chunks of ``chunk`` ragged ticks over all slots: each slot
-  attends and writes at its own ``pos``; a slot freezes on the device the
-  tick its remaining count reaches 0 or it emits EOS.
-* Windowed host loop: decode chunks are issued up to the next point where
-  the host knows the refill hysteresis would admit, and the window's
-  tokens come back in ONE device-to-host copy.
+* contiguous: the prefill runs over a temporary cache of ``pre_max +
+  s_max`` rows that holds the hit's rows (a ``PrefixCache`` of row
+  copies), then its rows are copied into the slot. The engine picks up to
+  ``n_pad`` requests whatever the free slots, since slots free within the
+  segment; harvesting copies the slot's rows.
+* paged: the prefill writes straight into the request's pages, which were
+  reserved at picking with any ``PagedPrefixCache`` hit shared by
+  reference; picking stops at the first request the pool cannot hold.
+  Harvesting retains the prompt's pages.
 
-**Paged** (``paged=True``, the JAX engine's segments, ``run_segment``):
-one flat page pool and per-slot page tables (``inference/paged_kv.py``);
-admission is gated on pages free, and a ``PagedPrefixCache`` hit maps
-shared pages into the new slot by reference.
+**Offline drains** (``run()``). A paged engine drains through segments.
+The contiguous engine's ``run(fused=True)`` (the default, the JAX engine's
+``_drain_prog``) runs the whole queue as one run of segment steps from
+empty slots, longest generation first, every prefill at the bucket of the
+longest prompt: one fetch for the whole drain without EOS. Its
+``run(fused=False)`` is the windowed loop: admission groups queued
+requests by prompt bucket and prefills each group as one ``[nb, bucket]``
+batch (sub-waves of ``_WAVE_WIDTHS``), decode runs chunks of ``chunk``
+ticks up to the next point where the host knows the refill hysteresis
+would admit, and each window's tokens come back in ONE fetch.
 
-* A segment picks queued requests FCFS (up to ``n_pad``), reserves their
-  page lists, then runs up to ``max_steps`` steps. Each step either admits
-  the next picked request into the first free slot (a ``[1, s_max]``
-  prefill at context offset ``pre_len``, straight into its pages) or runs
-  one ragged decode tick over every slot; dead slots write to the trash
-  page. The JAX engine makes that choice inside one compiled
-  ``while_loop``; here the host makes it from its mirror of the slots'
-  remaining counts, which without EOS are known from the generation
-  lengths alone, so the steps are issued back to back and the segment's
-  event log comes back in ONE counted fetch (``_fetch``). With
-  ``eos_token_id`` set the schedule depends on the tokens, so each step's
-  tokens are fetched once before the next step is chosen.
-* The host then replays the event log (the same admitted / first-token /
-  finished lists, in the same order, as the JAX engine), installs and
-  releases page lists, harvests admitted prompts into the prefix cache
-  and requeues what the step budget did not admit.
+**Preemption and abort**: ``preempt_slot`` frees a slot between segments
+and returns its request to be requeued (its prompt and generated tokens
+parked in the prefix cache, so the resume prefills only the tail);
+``abort`` returns every request the engine still owes.
 
 Two options of the paged engine, as in the JAX engine:
 
@@ -55,10 +67,9 @@ Two options of the paged engine, as in the JAX engine:
   shadow.
 
 Greedy decoding only, like the JAX engine's default. Out of this port so
-far: the fused drain, the contiguous engine's segments and its row-copy
-prefix cache, chunked prefill, speculative/sampled decoding, the
-quantized engine's program space and journal replay, sequence
-parallelism, meshes, preemption and abort, and telemetry.
+far: chunked prefill, speculative and sampled segments, sequence
+parallelism, the quantized engine's program space and journal replay,
+meshes, the host tier, meters and telemetry.
 """
 
 from __future__ import annotations
@@ -119,13 +130,14 @@ class Request:
 
 @dataclass
 class _PendingSegment:
-    """A paged segment whose steps are issued and whose event log is not
-    yet read: the picked requests, their reservations and admission views,
-    and the host-known half of the log (admit records, step counts)."""
+    """A segment whose steps are issued and whose event log is not yet
+    read: the picked requests, their reservations and admission views, and
+    the host-known half of the log (admit records, step counts)."""
+    paged: bool
     picked: List[Request]
     prefix_cache: object
     pre_lens: List[int]            # reused-prefix rows per request
-    req_pages: List[List[int]]     # page reservations per request
+    req_pages: List[List[int]]     # page reservations per request (paged)
     full_prompts: List[np.ndarray]  # the spans the admits prefill
     out: torch.Tensor              # [max_steps, slots] tokens, on device
     toks: Optional[np.ndarray]     # the same log, already read (EOS)
@@ -305,26 +317,33 @@ class ServingEngine:
     def _decode_chunk(self):
         """``chunk`` ragged decode ticks over every slot. Returns the
         [chunk, slots] tokens, left on the device."""
-        toks = []
-        pos, nxt, rem = self._pos, self._nxt, self._rem
-        for _ in range(self.chunk):
-            live = rem > 0
-            # a frozen slot may sit at pos == max_len (its last token was
-            # never written back); it still runs the tick, so its write
-            # lands on its own last row, and its output is discarded
-            at = torch.clamp(pos, max=self.max_len - 1)
-            logits, _ = llama.forward_with_cache(
-                self.params, nxt[:, None], self.cfg, self._cache, at)
-            tok = torch.argmax(logits, dim=-1)
-            tok = torch.where(live, tok, nxt)  # frozen slots idle
-            pos = pos + live.to(torch.int32)
-            rem = rem - live.to(torch.int32)
-            if self.eos is not None:
-                rem = torch.where(live & (tok == self.eos), 0, rem)
-            nxt = tok
-            toks.append(tok)
-        self._pos, self._nxt, self._rem = pos, nxt, rem
-        return torch.stack(toks)
+        return torch.stack([self._decode_dense()[0]
+                            for _ in range(self.chunk)])
+
+    def _decode_dense(self):
+        """One ragged decode tick over every slot of the contiguous cache;
+        frozen slots (nothing owed) repeat their token. Returns the [slots]
+        tokens and the fp32 logits [slots, V], on the device."""
+        live = self._rem > 0
+        # a frozen slot may sit at pos == max_len (its last token was never
+        # written back); it still runs the tick, so its write lands on its
+        # own last row, and its output is discarded
+        at = torch.clamp(self._pos, max=self.max_len - 1)
+        logits, _ = llama.forward_with_cache(
+            self.params, self._nxt[:, None], self.cfg, self._cache, at)
+        tok = torch.where(live, torch.argmax(logits, dim=-1), self._nxt)
+        self._advance(live, tok)
+        return tok, logits
+
+    def _advance(self, live, tok) -> None:
+        """Slot state after a decode tick that emitted ``tok``: live slots
+        step their position and owe one token less (none after EOS)."""
+        step = live.to(torch.int32)
+        self._rem = self._rem - step
+        if self.eos is not None:
+            self._rem = torch.where(live & (tok == self.eos), 0, self._rem)
+        self._pos = self._pos + step
+        self._nxt = tok
 
     # --- scheduling -------------------------------------------------------
     def _bucket_for(self, n: int) -> int:
@@ -494,13 +513,85 @@ class ServingEngine:
         if self.paged:
             self.pager.reset()
 
+    # --- preemption and abort ---------------------------------------------
+    def can_preempt(self, slot: int) -> bool:
+        """Whether ``slot``'s request could be preempted and resumed here:
+        its resume view (prompt + generated tokens) must still fit the
+        largest prompt bucket, or it could not be prefilled again."""
+        r = self._active[slot]
+        return (r is not None
+                and len(r.prompt) + len(r.tokens) <= max(self.buckets))
+
+    def preempt_slot(self, slot: int, prefix_cache=None) -> Request:
+        """Take ``slot``'s request off the engine between segments and
+        return it for the caller to requeue (it resumes from its prompt and
+        generated tokens). The device sees one write (the slot owes
+        nothing, so it freezes and, paged, writes to the trash page) and
+        no read. With ``prefix_cache``, the block-aligned rows the slot has
+        written (its prompt and tokens but the last) are parked in it
+        first, so the resume prefills only the tail: by page reference on
+        a paged engine, as row copies on the contiguous one.
+        A paged slot's pages are then released."""
+        if self._pending_seg is not None:
+            raise RuntimeError("preempt_slot with a dispatched segment in "
+                               "flight: finish_segment must run first")
+        r = self._active[slot]
+        if r is None:
+            raise ValueError(f"preempt_slot of empty slot {slot}")
+        self._rem[slot].fill_(0)
+        self._rem_host[slot] = 0
+        self._active[slot] = None
+        r.preemptions += 1
+        fp, _ = r.resume_view()
+        if prefix_cache is not None:
+            # the last generated token was never fed, so its row is not
+            # written: park the aligned rows before it (the JAX engine
+            # parks round_down(len(fp)), a stale row when that is all of
+            # fp, which a second preemption within the block then reads)
+            plen_b = prefix_cache.round_down(len(fp) - 1)
+            if plen_b:
+                self._harvest(prefix_cache, fp[:plen_b], slot,
+                              self.pager.slot_pages[slot] if self.paged
+                              else None)
+        if self.paged:
+            self.pager.free_slot(slot)
+        return r
+
+    def abort(self) -> List[Request]:
+        """Tear the engine down (a replica lost) and return every request
+        it still owes, in order: the picked requests of a dispatched
+        segment whose log was never read (their host state never advanced,
+        so each resumes from its last read token), the live slots, then
+        the queue. Slot state and the page pool reset, so the engine
+        serves again from empty."""
+        orphans: List[Request] = []
+        p, self._pending_seg = self._pending_seg, None
+        if p is not None:
+            for pages in p.req_pages:
+                self.pager.release_pages(pages)
+            for r in p.picked:
+                r.admit_time = 0.0
+            orphans += p.picked
+        orphans += [r for r in self._active if r is not None]
+        orphans += self._queue
+        self._queue = []
+        self._active = [None] * self.slots
+        self._rem_host = [0] * self.slots
+        self._pos, self._nxt, self._rem = self._slot_state()
+        if self.paged:
+            self.pager.reset()
+        return orphans
+
     # --- the engine loop --------------------------------------------------
-    def run(self) -> Dict[int, List[int]]:
+    def run(self, fused: bool = True) -> Dict[int, List[int]]:
         """Drain the queue: continuous batching until every request is
         served. Returns rid -> generated tokens (greedy, including the
         token chosen at prefill). A paged engine drains through segments
-        of ``4 * chunk`` steps, one counted fetch each (without EOS); the
-        contiguous engine's host reads are one copy per admission window."""
+        of ``4 * chunk`` steps, one counted fetch each without EOS
+        (``fused`` does not apply). On the contiguous engine, ``fused``
+        (when every slot is free) runs the whole queue as one run of steps
+        with one fetch without EOS (``_run_fused``); otherwise the
+        windowed loop reads the device once per admission window."""
         if self.paged:
             self.last_run_ticks = 0
             self.last_run_chunks = 0
@@ -508,6 +599,8 @@ class ServingEngine:
             while self._queue or any(r is not None for r in self._active):
                 self.run_segment(4 * self.chunk)
             return self.collect_finished()
+        if fused and self._queue and all(r is None for r in self._active):
+            return self._run_fused()
         self.last_run_chunks = 0
         self.last_latencies = {}
         admits: List[tuple] = []
@@ -524,7 +617,56 @@ class ServingEngine:
         self.last_run_ticks = self.last_run_chunks * self.chunk
         return self.collect_finished()
 
-    # --- paged segments ---------------------------------------------------
+    def _run_fused(self) -> Dict[int, List[int]]:
+        """The whole queue, longest generation first (a stable sort), as
+        one run of segment steps from empty slots: each step admits the
+        next request into the first free slot, its prompt padded to the
+        bucket of the longest prompt, or runs a decode tick. Every request
+        is served from its prompt. ``last_run_ticks`` counts the decode
+        ticks and ``last_run_chunks`` them in chunks. The drain has no
+        host clock per request: each finishes at its step's share of the
+        drain's measured wall time, the JAX engine's uniform-step
+        estimate (an admit and a tick each stream the weights once)."""
+        self._queue.sort(key=lambda r: -r.max_new_tokens)
+        picked, self._queue = self._queue, []
+        n = len(picked)
+        p_max = self._bucket_for(max(len(r.prompt) for r in picked))
+        gens = [r.max_new_tokens for r in picked]
+        prompts = np.zeros((n, p_max), np.int32)
+        for j, r in enumerate(picked):
+            prompts[j, :len(r.prompt)] = r.prompt
+            r.tokens = []
+        t0 = time.perf_counter()
+        prompts_d = self._upload(prompts.reshape(-1)).view(n, p_max)
+
+        def admit(q, s):
+            return self._admit_dense(s, prompts_d[q:q + 1], None, 0, 0,
+                                     len(picked[q].prompt), gens[q])
+
+        # every decode tick retires at least one owed token, so the step
+        # budget cannot run out; n marks a decode step in the admit log
+        out, toks, aq, aslot, steps, _, _ = self._run_steps(
+            n + sum(g - 1 for g in gens), n, gens, admit)
+        if toks is None:
+            toks = self._fetch(out[:steps])
+        wall = time.perf_counter() - t0
+        fin = {}
+
+        def on_retire(r, s, st):
+            fin[r.rid] = st
+
+        self._replay_segment(picked, toks, aq, aslot, steps,
+                             on_retire=on_retire)
+        ticks = steps - n
+        self.last_run_ticks = ticks
+        self.last_run_chunks = -(-ticks // self.chunk)
+        self.last_latencies = {}
+        per_step = wall / max(steps, 1)
+        for r in picked:
+            r.finish_time = r.submit_time + (fin[r.rid] + 1) * per_step
+        return self.collect_finished()
+
+    # --- segments ---------------------------------------------------------
     @staticmethod
     def _pow2(n: int, lo: int = 1) -> int:
         p = lo
@@ -535,10 +677,10 @@ class ServingEngine:
     def run_segment(self, max_steps: int, prefix_cache=None,
                     n_pad: Optional[int] = None,
                     now: Optional[float] = None) -> dict:
-        """One continuous-batching segment: admit FCFS from the queue into
-        free slots (at most ``n_pad`` requests), run up to ``max_steps``
-        steps, read the event log back, and replay it on the host to
-        distribute tokens and retire requests.
+        """One continuous-batching segment: admit from the queue into free
+        slots (at most ``n_pad`` requests), run up to ``max_steps`` steps,
+        read the event log back, and replay it on the host to distribute
+        tokens and retire requests.
 
         Returns {"steps", "admitted", "first_tokens", "finished",
         "tokens"}: rid lists the caller (the online scheduler) stamps with
@@ -551,40 +693,84 @@ class ServingEngine:
     def dispatch_segment(self, max_steps: int, prefix_cache=None,
                          n_pad: Optional[int] = None,
                          now: Optional[float] = None) -> _PendingSegment:
-        """Pick requests, reserve their pages and issue the segment's
-        steps, without reading its event log (unless EOS makes the
-        schedule depend on the tokens). At most one segment is in flight
-        per engine: the next one starts from this one's slot state."""
-        if not self.paged:
-            raise NotImplementedError(
-                "segments run on a paged engine (paged=True); the "
-                "contiguous engine's segments are not ported yet, so it "
-                "serves through run()")
+        """Pick requests (and, paged, reserve their pages) and issue the
+        segment's steps, without reading its event log (unless EOS makes
+        the schedule depend on the tokens). At most one segment is in
+        flight per engine: the next one starts from this one's slot
+        state. ``prefix_cache`` is a ``PagedPrefixCache`` on a paged
+        engine, a ``PrefixCache`` on the contiguous one."""
         if self._pending_seg is not None:
             raise RuntimeError(
                 "dispatch_segment with a segment already in flight — "
                 "finish_segment must run first (one outstanding segment "
                 "per engine)")
-        if prefix_cache is not None and not hasattr(prefix_cache, "pager"):
-            raise TypeError("paged engine requires a PagedPrefixCache "
-                            "(inference/prefix_cache.py), got "
-                            f"{type(prefix_cache).__name__}")
+        if prefix_cache is not None and \
+                hasattr(prefix_cache, "pager") != self.paged:
+            want = "PagedPrefixCache" if self.paged else "PrefixCache"
+            raise TypeError(
+                f"a {'paged' if self.paged else 'contiguous'} engine takes "
+                f"a {want} (inference/prefix_cache.py), got "
+                f"{type(prefix_cache).__name__}")
         now = time.perf_counter() if now is None else now
         n_pad = n_pad or self._pow2(self.slots)
-        self._pending_seg = self._dispatch_segment_paged(
-            max_steps, prefix_cache, n_pad, now)
+        dispatch = (self._dispatch_segment_paged if self.paged
+                    else self._dispatch_segment_dense)
+        self._pending_seg = dispatch(max_steps, prefix_cache, n_pad, now)
         return self._pending_seg
 
-    def finish_segment(self, pending: Optional[_PendingSegment] = None
-                       ) -> dict:
-        """Read a dispatched segment's event log (its one counted fetch)
-        and replay it. Returns the ``run_segment`` result dict."""
-        p = pending if pending is not None else self._pending_seg
-        if p is None or p is not self._pending_seg:
-            raise RuntimeError("finish_segment without a matching "
-                               "dispatched segment")
-        self._pending_seg = None
-        return self._finish_segment_paged(p)
+    def _dispatch_segment_dense(self, max_steps: int, prefix_cache,
+                                n_pad: int, now: float) -> _PendingSegment:
+        """Pick up to ``n_pad`` requests whatever the free slots (slots
+        free within the segment, and what the step budget does not admit
+        goes back to the queue head), look each up in the row-copy cache,
+        then issue the steps."""
+        picked = self._queue[:n_pad]
+        del self._queue[:len(picked)]
+        n = len(picked)
+        fulls = [r.resume_view() for r in picked]   # (span, owed)
+        pre_lens = [0] * n
+        hits = [None] * n
+        if prefix_cache is not None:
+            for j, r in enumerate(picked):
+                m = prefix_cache.match(fulls[j][0])
+                if m is not None and m.length < len(fulls[j][0]):
+                    hits[j], pre_lens[j] = m, m.length
+                    r.prefix_hit_len = m.length
+        # admit window: the largest bucket when nothing is reused (one
+        # shape for every admit), the bucket of the longest suffix after
+        # the hits, whose rows sit in the first pre_max rows
+        pre_max = prefix_cache.round_up(max(pre_lens)) if any(pre_lens) else 0
+        if pre_max:
+            s_max = self._bucket_for(max(len(f) - pl for (f, _), pl
+                                         in zip(fulls, pre_lens)))
+            if pre_max + s_max > self.max_len:
+                # prefix and suffix window must fit the cache: no reuse
+                pre_max, pre_lens, hits = 0, [0] * n, [None] * n
+                for r in picked:
+                    r.prefix_hit_len = 0
+        if not pre_max:
+            s_max = self.buckets[-1]
+        prompts = np.zeros((n, s_max), np.int32)
+        lens, gens = [], []
+        for j, r in enumerate(picked):
+            suf = fulls[j][0][pre_lens[j]:]
+            prompts[j, :len(suf)] = suf
+            lens.append(len(suf))
+            gens.append(fulls[j][1])
+            r.admit_time = now
+        prompts_d = self._upload(prompts.reshape(-1)).view(n, s_max)
+
+        def admit(q, s):
+            return self._admit_dense(s, prompts_d[q:q + 1], hits[q],
+                                     pre_lens[q], pre_max, lens[q], gens[q])
+
+        out, toks, aq, aslot, steps, qadm, _ = self._run_steps(
+            max_steps, n_pad, gens, admit)
+        return _PendingSegment(paged=False, picked=picked,
+                               prefix_cache=prefix_cache, pre_lens=pre_lens,
+                               req_pages=[], full_prompts=[f for f, _ in fulls],
+                               out=out, toks=toks, aq=aq, aslot=aslot,
+                               steps=steps, qadm=qadm)
 
     def _dispatch_segment_paged(self, max_steps: int, prefix_cache,
                                 n_pad: int, now: float) -> _PendingSegment:
@@ -659,40 +845,50 @@ class ServingEngine:
         for j in range(n):
             suf = fulls[j][pre_lens_l[j]:]
             prompts[j, :len(suf)] = suf
+        M = pgr.max_pages
+        # the segment's inputs reach the device in one copy that the host
+        # does not wait for
+        buf = self._upload(np.concatenate([
+            prompts.reshape(-1), np.asarray(tables, np.int32).reshape(-1),
+            np.asarray(pre_lens_l, np.int32)]))
+        prompts_d = buf[:n * s_max].view(n, s_max)
+        tables_d = buf[n * s_max:n * (s_max + M)].view(n, M)
+        pre_d = buf[n * (s_max + M):]
+        lens = [len(f) - pl for f, pl in zip(fulls, pre_lens_l)]
+        gens = [r.max_new_tokens - len(r.tokens) for r in picked]
+
+        def admit(q, s):
+            return self._admit_paged(s, prompts_d[q:q + 1],
+                                     tables_d[q:q + 1], pre_d[q:q + 1],
+                                     lens[q], gens[q])
+
         out, toks, aq, aslot, steps, qadm, dig = self._run_steps(
-            max_steps, n_pad, prompts, tables, pre_lens_l,
-            [len(f) - p for f, p in zip(fulls, pre_lens_l)],
-            [r.max_new_tokens - len(r.tokens) for r in picked])
-        return _PendingSegment(picked=picked, prefix_cache=prefix_cache,
+            max_steps, n_pad, gens, admit)
+        return _PendingSegment(paged=True, picked=picked,
+                               prefix_cache=prefix_cache,
                                pre_lens=pre_lens_l, req_pages=req_pages,
                                full_prompts=fulls, out=out, toks=toks,
                                aq=aq, aslot=aslot, steps=steps, qadm=qadm,
                                dig=dig)
 
     @torch.no_grad()
-    def _run_steps(self, max_steps: int, n_pad: int, prompts, tables,
-                   pre_lens: List[int], lens: List[int], gens: List[int]):
-        """Issue the segment's steps: the JAX segment's ``while_loop``,
-        driven from the host. ``rem`` mirrors the device's remaining
-        counts; each step admits picked request ``qidx`` into the first
-        slot with nothing owed (``argmin(rem)``) while one is free and
-        requests remain, else runs a decode tick over every slot.
+    def _run_steps(self, max_steps: int, n_pad: int, gens: List[int],
+                   admit):
+        """Issue a segment's steps, either layout: the JAX segment's
+        ``while_loop``, driven from the host. ``rem`` mirrors the device's
+        remaining counts; each step admits picked request ``qidx`` into
+        the first slot with nothing owed (``argmin(rem)``) while one is
+        free and requests remain (``admit(qidx, slot)`` -> (first token
+        [1], fp32 logits [1, V])), else runs a decode tick over every
+        slot. ``gens[q]`` is what request q owes.
 
         Returns (out, toks, aq, aslot, steps, qadm, dig): the [max_steps,
         slots] device token log; the same log read step by step when EOS
         is set (else None); the host-known admit records (aq = n_pad marks
         a decode step); the steps run and the requests admitted; the
         digest columns on the device (None without quality_digest)."""
-        n, S = prompts.shape
-        M = self.pager.max_pages
-        # the segment's inputs reach the device in one copy that the host
-        # does not wait for
-        buf = self._upload(np.concatenate([
-            prompts.reshape(-1), np.asarray(tables, np.int32).reshape(-1),
-            np.asarray(pre_lens, np.int32)]))
-        prompts_d = buf[:n * S].view(n, S)
-        tables_d = buf[n * S:n * (S + M)].view(n, M)
-        pre_d = buf[n * (S + M):]
+        n = len(gens)
+        decode = self._decode_paged if self.paged else self._decode_dense
         out = torch.zeros((max_steps, self.slots), dtype=torch.int64,
                           device=self.device)
         toks = None if self.eos is None else np.zeros(
@@ -713,10 +909,7 @@ class ServingEngine:
         while (qidx < n or any(r > 0 for r in rem)) and step < max_steps:
             if qidx < n and 0 in rem:
                 s = rem.index(0)
-                t0, logits = self._admit_paged(s, prompts_d[qidx:qidx + 1],
-                                               tables_d[qidx:qidx + 1],
-                                               pre_d[qidx:qidx + 1],
-                                               lens[qidx], gens[qidx])
+                t0, logits = admit(qidx, s)
                 out[step, s] = t0[0]
                 if dig is not None:
                     self._record_digest(dig, step, s, logits, t0)
@@ -728,7 +921,7 @@ class ServingEngine:
                 aq[step], aslot[step] = qidx, s
                 qidx += 1
             else:
-                out[step], logits = self._decode_paged()
+                out[step], logits = decode()
                 if dig is not None:
                     self._record_digest(dig, step, slice(None), logits,
                                         out[step])
@@ -754,6 +947,40 @@ class ServingEngine:
         dti[step, s] = ti.to(torch.int32)
         dtv[step, s] = tv
 
+    def _bind(self, s: int, t0, gen: int) -> None:
+        """Slot ``s`` feeds the admitted request's first token ``t0`` [1]
+        next and owes ``gen - 1`` more (none if ``t0`` is EOS)."""
+        self._nxt[s] = t0[0]
+        if self.eos is None:
+            # fill_, not item assignment: assigning a Python number copies
+            # it from the host and synchronises
+            self._rem[s].fill_(gen - 1)
+        else:
+            self._rem[s] = torch.where(t0[0] == self.eos, 0, gen - 1)
+
+    def _admit_dense(self, s: int, prompt, hit, pre_len: int, pre_max: int,
+                     ln: int, gen: int):
+        """Prefill one picked request's suffix (``prompt`` [1, W], its
+        true length ``ln``) at position ``pre_len`` over a temporary cache
+        of ``pre_max + W`` rows whose first ``pre_len`` rows are the hit's
+        (``hit``: a ``PrefixMatch``, or None), then copy those rows into
+        slot ``s`` and bind it. Rows past the request's own stay masked:
+        decode writes row ``pos`` before it reads it. Returns the first
+        token [1] and the fp32 logits [1, V], on the device."""
+        rows = pre_max + prompt.shape[1]
+        c = llama.init_kv_cache(self.cfg, 1, rows, self.device)
+        if hit is not None:
+            c["k"][:, 0, :pre_len] = hit.k[:, :pre_len]
+            c["v"][:, 0, :pre_len] = hit.v[:, :pre_len]
+        logits, _ = llama.forward_with_cache(self.params, prompt, self.cfg,
+                                             c, pre_len, logit_pos=ln - 1)
+        t0 = torch.argmax(logits, dim=-1)
+        self._cache["k"][:, s, :rows] = c["k"][:, 0]
+        self._cache["v"][:, s, :rows] = c["v"][:, 0]
+        self._pos[s].fill_(pre_len + ln)
+        self._bind(s, t0, gen)
+        return t0, logits
+
     def _admit_paged(self, s: int, prompt, table, pre_len, ln: int,
                      gen: int):
         """Prefill one picked request's suffix ([1, s_max] at context
@@ -767,13 +994,7 @@ class ServingEngine:
         t0 = torch.argmax(logits, dim=-1)
         self.pager.page_table[s] = table[0]
         self._pos[s] = pre_len[0] + ln
-        self._nxt[s] = t0[0]
-        if self.eos is None:
-            # fill_, not item assignment: assigning a Python number copies
-            # it from the host and synchronises
-            self._rem[s].fill_(gen - 1)
-        else:
-            self._rem[s] = torch.where(t0[0] == self.eos, 0, gen - 1)
+        self._bind(s, t0, gen)
         return t0, logits
 
     def _decode_paged(self):
@@ -785,12 +1006,7 @@ class ServingEngine:
             self.params, self._nxt[:, None], self.cfg, self.pager.pool,
             self.pager.page_table, self._pos, live=live)
         tok = torch.where(live, torch.argmax(logits, dim=-1), self._nxt)
-        step = live.to(torch.int32)
-        self._rem = self._rem - step
-        if self.eos is not None:
-            self._rem = torch.where(live & (tok == self.eos), 0, self._rem)
-        self._pos = self._pos + step
-        self._nxt = tok
+        self._advance(live, tok)
         return tok, logits
 
     def _read_log(self, p: _PendingSegment):
@@ -817,10 +1033,20 @@ class ServingEngine:
                                                          self.slots, k))
         return toks, dig
 
-    def _finish_segment_paged(self, p: _PendingSegment) -> dict:
+    def finish_segment(self, pending: Optional[_PendingSegment] = None
+                       ) -> dict:
+        """Read a dispatched segment's event log (its one counted fetch)
+        and replay it: tokens to their requests, then the requests the
+        step budget did not admit back to the queue head, then each slot's
+        latest admitted prompt harvested into the prefix cache. Returns
+        the ``run_segment`` result dict."""
+        p = pending if pending is not None else self._pending_seg
+        if p is None or p is not self._pending_seg:
+            raise RuntimeError("finish_segment without a matching "
+                               "dispatched segment")
+        self._pending_seg = None
         picked, n, prefix_cache = p.picked, len(p.picked), p.prefix_cache
         pgr = self.pager
-        psz = self.page_size
         toks, dig = self._read_log(p)
         self.last_run_ticks += p.steps
         self.last_run_chunks += 1
@@ -829,13 +1055,14 @@ class ServingEngine:
         # releases wait until after the prefix-cache inserts, so harvest
         # by reference can still retain a finished request's prompt pages
         pending_frees: List[List[int]] = []
+        on_admit = on_retire = None
+        if p.paged:
+            def on_admit(q, s):
+                pgr.install(s, p.req_pages[q])
 
-        def on_admit(q, s):
-            pgr.install(s, p.req_pages[q])
-
-        def on_retire(r, s):
-            pending_frees.append(pgr.slot_pages[s])
-            pgr.slot_pages[s] = []
+            def on_retire(r, s, st):
+                pending_frees.append(pgr.slot_pages[s])
+                pgr.slot_pages[s] = []
 
         admitted, first_tokens, finished, new_tokens = self._replay_segment(
             picked, toks, p.aq, p.aslot, p.steps, on_admit, on_retire, dig)
@@ -844,11 +1071,10 @@ class ServingEngine:
             # slot: release their reservations and requeue them FCFS
             for j in range(p.qadm, n):
                 picked[j].admit_time = 0.0
-                pgr.release_pages(p.req_pages[j])
+                if p.paged:
+                    pgr.release_pages(p.req_pages[j])
             self._queue[:0] = picked[p.qadm:]
 
-        # prefix-cache population, by reference: retain each admitted
-        # request's prompt-spanning pages
         if prefix_cache is not None:
             last_admit = {}                # slot -> its latest admit event
             for st in range(p.steps):
@@ -858,34 +1084,56 @@ class ServingEngine:
                 fp = p.full_prompts[q]     # the span actually prefilled
                 plen_b = prefix_cache.round_down(len(fp))
                 if plen_b > p.pre_lens[q]:
-                    prefix_cache.insert(fp[:plen_b],
-                                        p.req_pages[q][:plen_b // psz])
+                    self._harvest(prefix_cache, fp[:plen_b], s,
+                                  p.req_pages[q] if p.paged else None)
         for pages in pending_frees:
             pgr.release_pages(pages)
         return {"steps": p.steps, "admitted": admitted,
                 "first_tokens": first_tokens, "finished": finished,
                 "tokens": new_tokens}
 
+    def _harvest(self, prefix_cache, tokens, slot: int, pages) -> None:
+        """Insert the prefix ``tokens`` whose KV rows slot ``slot`` holds:
+        paged, its ``pages`` by reference; contiguous, copies of its rows,
+        which the cache then owns (the slot's next admit overwrites the
+        rows in place, and a view would see it)."""
+        n = len(tokens)
+        if self.paged:
+            prefix_cache.insert(tokens, pages[:n // self.page_size])
+        else:
+            prefix_cache.insert(tokens,
+                                self._cache["k"][:, slot, :n].clone(),
+                                self._cache["v"][:, slot, :n].clone())
+
     def _replay_segment(self, picked, toks, aq, aslot, steps: int,
-                        on_admit, on_retire, dig=None):
+                        on_admit=None, on_retire=None, dig=None):
         """Walk a segment's event log in order, tracking slot occupancy:
         an admit binds a slot and delivers its first token; a decode step
         appends one token to every slot the host knows is live (its
-        ``_rem_host`` mirror), so frozen repeats are dropped. The page
-        hooks run in event order, so a slot freed and re-admitted within
-        the segment releases its old pages before the new list installs.
-        Each delivered token takes its digest row (``dig``, when given).
+        ``_rem_host`` mirror), so frozen repeats are dropped. The hooks
+        ``on_admit(q, slot)`` and ``on_retire(request, slot, step)`` run
+        in event order, so a slot freed and re-admitted within the segment
+        releases its old pages before the new list installs. Each
+        delivered token takes its digest row (``dig``, when given).
         Returns (admitted, first_tokens, finished, new_tokens)."""
         n = len(picked)
         admitted, first_tokens, finished = [], [], []
         new_tokens = 0
+
+        def retire(r, s, st):
+            self._retire(r)
+            finished.append(r.rid)
+            if on_retire is not None:
+                on_retire(r, s, st)
+
         for st in range(steps):
             q = int(aq[st])
             if q < n:                      # admit event
                 r = picked[q]
                 s = int(aslot[st])
                 assert self._active[s] is None, "admit into a live slot"
-                on_admit(q, s)
+                if on_admit is not None:
+                    on_admit(q, s)
                 t = int(toks[st, s])
                 r.tokens.append(t)
                 if dig is not None:
@@ -897,9 +1145,7 @@ class ServingEngine:
                 hit_eos = self.eos is not None and t == self.eos
                 if r.done or hit_eos:
                     self._rem_host[s] = 0
-                    self._retire(r)
-                    finished.append(r.rid)
-                    on_retire(r, s)
+                    retire(r, s, st)
                 else:
                     self._active[s] = r
                     self._rem_host[s] = r.max_new_tokens - len(r.tokens)
@@ -918,10 +1164,8 @@ class ServingEngine:
                 if self.eos is not None and t == self.eos:
                     self._rem_host[s] = 0
                 if self._rem_host[s] == 0:
-                    self._retire(r)
                     self._active[s] = None
-                    finished.append(r.rid)
-                    on_retire(r, s)
+                    retire(r, s, st)
         return admitted, first_tokens, finished, new_tokens
 
     @staticmethod

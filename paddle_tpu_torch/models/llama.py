@@ -3,8 +3,10 @@
 Port of ``paddle_tpu/models/llama.py``: the config and its presets,
 parameter init, the KV-cache half (the prefill forward, T > 1, plain
 torch, and the single-token decode tick, T == 1, over a slot-contiguous
-cache, ``forward_with_cache``, or a paged pool, ``forward_with_pages``)
-and the single-device training half (``forward``, ``loss_fn`` with its
+cache, ``forward_with_cache``, or a paged pool, ``forward_with_pages``),
+generation (``prompt_kv``; greedy, sampled and top-k/top-p ``generate``;
+``beam_search_generate``, whose decode steps are the same tick) and the
+single-device training half (``forward``, ``loss_fn`` with its
 three cross-entropy branches, ``train_step`` with the global-norm clip and
 AdamW, ``make_train_step``). The tick's between-matmul chains, every
 attention and the CE tail's dx run as the hand-written kernels of
@@ -56,7 +58,8 @@ from ..quantization.serving import (dequantize_weight, quant_dtype,
 
 __all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "init_params",
            "layer_params", "init_kv_cache", "init_paged_pool",
-           "forward_with_cache", "forward_with_pages", "generate",
+           "forward_with_cache", "forward_with_pages", "prompt_kv",
+           "sample_filter_logits", "generate", "beam_search_generate",
            "forward_hidden", "forward",
            "loss_fn", "init_opt_state", "adamw_update", "train_step",
            "make_train_step"]
@@ -479,34 +482,177 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
     return logits.float(), pool
 
 
-def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int = 32,
-             max_len: Optional[int] = None, device="cuda") -> torch.Tensor:
-    """Greedy autoregressive generation. ``prompt``: [B, S] token ids
-    (array or tensor). Returns [B, max_new_tokens] int32 on ``device``.
-
-    One prefill, then one decode tick per token; tokens stay on the
-    device, so the loop makes no host round trip."""
-    device = resolve_device(device)
+def _as_prompt(prompt, device) -> torch.Tensor:
+    """Token ids (array or tensor, [S] or [B, S]) as [B, S] int64 on
+    ``device``."""
     prompt = torch.as_tensor(prompt, device=device).to(torch.int64)
-    B, S = prompt.shape
+    return prompt[None] if prompt.dim() == 1 else prompt
+
+
+def _prefill(params, prompt, cfg: LlamaConfig, max_new_tokens: int,
+             max_len: Optional[int], device):
+    """The prompt's cache and its last logits, at ``max_len`` rows (default
+    the S + max_new_tokens - 1 that generation needs: the last token is
+    returned but never written back). Returns (prompt, cache, logits)."""
+    prompt = _as_prompt(prompt, device)
+    S = prompt.shape[1]
     if max_new_tokens < 1:
         raise ValueError(f"max_new_tokens must be >= 1, got {max_new_tokens}")
-    # the last token is returned but never written back to the cache
     max_len = max_len or min(cfg.max_seq_len, S + max_new_tokens - 1)
     if S + max_new_tokens - 1 > max_len:
         raise ValueError(f"prompt ({S}) + max_new_tokens ({max_new_tokens}) "
                          f"needs {S + max_new_tokens - 1} cache slots but "
                          f"max_len is {max_len}")
-    cache = init_kv_cache(cfg, B, max_len, device)
+    cache = init_kv_cache(cfg, prompt.shape[0], max_len, device)
     logits, cache = forward_with_cache(params, prompt, cfg, cache, 0)
-    nxt = torch.argmax(logits, dim=-1)
+    return prompt, cache, logits
+
+
+@torch.no_grad()
+def prompt_kv(params, prompt, cfg: LlamaConfig,
+              max_len: Optional[int] = None, device="cuda"):
+    """KV rows for a prompt, standalone: the prefix cache's registration
+    path (``inference/prefix_cache.py``). Returns ({"k", "v"} [L, B, S_pad,
+    Hkv, D], logits [B, V] fp32) where S_pad = ``max_len or S``; rows past
+    S are zeros. Rope depends on the absolute position only, so the rows
+    serve any prompt that starts with ``prompt``."""
+    prompt = _as_prompt(prompt, resolve_device(device))
+    B, S = prompt.shape
+    cache = init_kv_cache(cfg, B, max_len or S, prompt.device)
+    logits, cache = forward_with_cache(params, prompt, cfg, cache, 0)
+    return cache, logits
+
+
+def sample_filter_logits(logits, temperature, top_k=0, top_p=1.0):
+    """Temperature, top-k and top-p filtered logits over the last dim:
+    tokens outside the kept support are -inf, so the sampling
+    distribution is ``softmax(result)``. Top-k keeps every token tied
+    with the k-th value; nucleus filtering keeps the shortest prefix of
+    the descending sort whose mass reaches ``top_p`` (the first token
+    always survives), cut at the smallest kept logit. ``temperature``
+    must be > 0: greedy is the caller's argmax."""
+    logits = logits / temperature
+    if top_k:
+        k = min(int(top_k), logits.shape[-1])
+        kth = torch.topk(logits, k, dim=-1).values[..., k - 1:k]
+        logits = logits.masked_fill(logits < kth, float("-inf"))
+    if top_p < 1.0:
+        sorted_logits = torch.sort(logits, dim=-1, descending=True).values
+        probs = torch.softmax(sorted_logits, dim=-1)
+        keep = torch.cumsum(probs, dim=-1) - probs < top_p  # mass before
+        keep[..., 0] = True
+        cutoff = torch.where(keep, sorted_logits, float("inf")).amin(
+            dim=-1, keepdim=True)
+        logits = logits.masked_fill(logits < cutoff, float("-inf"))
+    return logits
+
+
+def _sample(logits, temperature, top_k, generator, top_p=1.0):
+    """One token per row: argmax at temperature 0, else a draw from the
+    filtered distribution by the Gumbel-max rule (argmax of the logits
+    plus Gumbel noise from ``generator``, which lies on the logits'
+    device), so no draw reads the device from the host."""
+    if temperature == 0.0:
+        return torch.argmax(logits, dim=-1)
+    filt = sample_filter_logits(logits, temperature, top_k, top_p)
+    u = torch.rand(filt.shape, generator=generator, device=filt.device)
+    gumbel = -torch.log(-torch.log(u.clamp_(min=torch.finfo(u.dtype).tiny)))
+    return torch.argmax(filt + gumbel, dim=-1)
+
+
+@torch.no_grad()
+def generate(params, prompt, cfg: LlamaConfig, max_new_tokens: int = 32,
+             max_len: Optional[int] = None, temperature: float = 0.0,
+             top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+             device="cuda") -> torch.Tensor:
+    """Autoregressive generation: greedy at temperature 0, else sampling
+    at ``temperature`` with optional top-k and nucleus (top-p) filtering
+    (``sample_filter_logits``), drawn from one ``torch.Generator`` on the
+    device seeded with ``seed``. ``prompt``: [B, S] token ids (array or
+    tensor). Returns [B, max_new_tokens] int32 on ``device``.
+
+    One prefill, then one decode tick per token; tokens stay on the
+    device, so the loop makes no host round trip."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    prompt, cache, logits = _prefill(params, prompt, cfg, max_new_tokens,
+                                     max_len, device)
+    S = prompt.shape[1]
+    nxt = _sample(logits, temperature, top_k, gen, top_p)
     out = [nxt]
     for step in range(max_new_tokens - 1):
         logits, cache = forward_with_cache(params, nxt[:, None], cfg, cache,
                                            S + step)
-        nxt = torch.argmax(logits, dim=-1)
+        nxt = _sample(logits, temperature, top_k, gen, top_p)
         out.append(nxt)
     return torch.stack(out, dim=1).to(torch.int32)
+
+
+@torch.no_grad()
+def beam_search_generate(params, prompt, cfg: LlamaConfig,
+                         max_new_tokens: int = 32, num_beams: int = 4,
+                         max_len: Optional[int] = None,
+                         eos_token_id: Optional[int] = None,
+                         length_penalty: float = 1.0,
+                         device="cuda") -> torch.Tensor:
+    """Fixed-length beam search over the KV cache; returns the best beam's
+    tokens [B, max_new_tokens] int32. ``eos_token_id`` (optional) freezes
+    finished beams: their only continuation is another EOS at
+    log-probability 0. Final scores are divided by each beam's generated
+    length ** ``length_penalty`` (0 disables the normalisation).
+
+    Step 0 runs the prompt's last token again at position S - 1 (its row
+    is rewritten with the same token) to get the first logits from a
+    decode tick, as the JAX package does; the cache then repeats to
+    B * num_beams rows and is reordered along them every step."""
+    device = resolve_device(device)
+    if num_beams < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    prompt, cache, _ = _prefill(params, prompt, cfg, max_new_tokens, max_len,
+                                device)
+    B, S = prompt.shape
+    nb = num_beams
+    logits, cache = forward_with_cache(params, prompt[:, -1:], cfg, cache,
+                                       S - 1)
+    lp = torch.log_softmax(logits, dim=-1)
+    V = lp.shape[-1]
+    scores, tok0 = torch.topk(lp, nb, dim=-1)                # [B, nb]
+    cache = {k: c.repeat_interleave(nb, dim=1) for k, c in cache.items()}
+    hist = torch.zeros((B, nb, max_new_tokens), dtype=torch.int64,
+                       device=device)
+    hist[:, :, 0] = tok0
+    finished = (tok0 == eos_token_id if eos_token_id is not None
+                else torch.zeros((B, nb), dtype=torch.bool, device=device))
+    lengths = torch.ones((B, nb), dtype=torch.float32, device=device)
+    if eos_token_id is not None:
+        eos_only = torch.full((V,), float("-inf"), device=device)
+        eos_only[eos_token_id] = 0.0
+    base = torch.arange(B, device=device)[:, None] * nb
+    nxt = tok0.reshape(B * nb)
+    for i in range(1, max_new_tokens):
+        logits, cache = forward_with_cache(params, nxt[:, None], cfg, cache,
+                                           S + i - 1)
+        lp = torch.log_softmax(logits, dim=-1)               # [B*nb, V]
+        if eos_token_id is not None:
+            lp = torch.where(finished.reshape(B * nb)[:, None], eos_only, lp)
+        total = scores[:, :, None] + lp.reshape(B, nb, V)
+        scores, idx = torch.topk(total.reshape(B, nb * V), nb, dim=-1)
+        beam = idx // V                                      # [B, nb]
+        tok = idx % V
+        src = (base + beam).reshape(B * nb)
+        cache = {k: c.index_select(1, src) for k, c in cache.items()}
+        hist = torch.gather(hist, 1, beam[:, :, None].expand_as(hist))
+        hist[:, :, i] = tok
+        lengths = torch.gather(lengths, 1, beam)
+        if eos_token_id is not None:
+            prev = torch.gather(finished, 1, beam)
+            lengths = torch.where(prev, lengths, lengths + 1)
+            finished = prev | (tok == eos_token_id)
+        else:
+            lengths = lengths + 1
+        nxt = tok.reshape(B * nb)
+    best = torch.argmax(scores / lengths ** length_penalty, dim=-1)   # [B]
+    return hist[torch.arange(B, device=device), best].to(torch.int32)
 
 
 # ---------------------------------------------------------------------------

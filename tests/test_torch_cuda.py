@@ -752,6 +752,148 @@ def test_cpu_small_serves_on_the_card(cuda, monkeypatch, paged):
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 
+# the two serving widths of the contiguous engine's card tests: cpu_small
+# (fp32, D 16: the padded kernel instances) and bert_base_equiv (bf16, D 64)
+SERVE_CONFIGS = ["cpu_small", "bert_base_equiv"]
+
+
+def _serve_model(cuda, name):
+    cfg = getattr(llama.LlamaConfig, name)()
+    return cfg, llama.init_params(cfg, torch.Generator().manual_seed(0),
+                                  device=cuda)
+
+
+def _tick_launches(fn):
+    """Run ``fn`` with the serving kernels' launch counts at 0; returns its
+    result and the counts."""
+    from paddle_tpu_torch.ops.kernels import launch_counters
+
+    fns = launch_counters()
+    for f, attr in fns.values():
+        setattr(f, attr, 0)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: getattr(f, attr) for n, (f, attr) in fns.items()}
+
+
+def _assert_tick_launches(launches, L, ticks):
+    """Every decode tick launched the four tick kernels, L or L + 1 times,
+    and nothing else launched."""
+    want = {"ragged_decode_attention": L * ticks,
+            "fused_rms_norm": (L + 1) * ticks,
+            "fused_add_rms_norm": L * ticks, "fused_rope_qk": L * ticks}
+    assert launches == {n: want.get(n, 0) for n in launches}
+
+
+@pytest.mark.parametrize("name", SERVE_CONFIGS)
+def test_fused_drain_launches_the_tick_kernels(cuda, name):
+    """``run()``'s fused drain on the card: every request gets its count,
+    each decode tick launches the tick kernels, one fetch for the drain,
+    and (fp32) the windowed drain's tokens."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg, params = _serve_model(cuda, name)
+    rng = np.random.RandomState(0)
+    reqs = [(rng.randint(0, cfg.vocab_size, n), g)
+            for n, g in ((40, 16), (100, 24), (17, 9), (64, 30), (128, 5),
+                         (9, 12))]
+
+    def engine():
+        eng = ServingEngine(cfg, params, slots=4, max_len=256, chunk=8,
+                            prompt_buckets=(64, 128), device=cuda)
+        return eng, [eng.add_request(p, g) for p, g in reqs]
+
+    eng, rids = engine()
+    out, launches = _tick_launches(eng.run)
+    assert [len(out[r]) for r in rids] == [g for _, g in reqs]
+    assert all(0 <= t < cfg.vocab_size for r in rids for t in out[r])
+    assert eng.fetches == 1
+    _assert_tick_launches(launches, cfg.num_layers, eng.last_run_ticks)
+    if cfg.dtype == torch.float32:
+        win, wids = engine()
+        windowed = win.run(fused=False)
+        assert [windowed[r] for r in wids] == [out[r] for r in rids]
+
+
+@pytest.mark.parametrize("name", SERVE_CONFIGS)
+def test_dense_segment_prefix_hit(cuda, name):
+    """Contiguous-engine segments with a row-copy PrefixCache on the card:
+    a shared 64-token prefix is harvested and then hit, each decode tick
+    launches the tick kernels, and (fp32) the hot streams equal the cold
+    ones."""
+    from paddle_tpu_torch.inference.prefix_cache import PrefixCache
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg, params = _serve_model(cuda, name)
+    rng = np.random.RandomState(1)
+    prefix = rng.randint(0, cfg.vocab_size, 64)
+    reqs = [(np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)]), g)
+            for n, g in ((10, 12), (30, 8), (5, 16), (20, 10), (12, 6))]
+
+    def serve(pc):
+        eng = ServingEngine(cfg, params, slots=2, max_len=256,
+                            prompt_buckets=(32, 64, 128), device=cuda)
+        rids = [eng.add_request(p, g) for p, g in reqs]
+        steps, admits = [0], [0]
+
+        def drain():
+            while eng._queue or eng.free_slot_count() < eng.slots:
+                ev = eng.run_segment(16, prefix_cache=pc)
+                steps[0] += ev["steps"]
+                admits[0] += len(ev["admitted"])
+            return eng.collect_finished()
+
+        out, launches = _tick_launches(drain)
+        _assert_tick_launches(launches, cfg.num_layers, steps[0] - admits[0])
+        return [out[r] for r in rids]
+
+    cold = serve(None)
+    pc = PrefixCache(block=32)
+    hot = serve(pc)
+    assert pc.hits >= 1 and pc.hit_tokens >= 64
+    assert [len(t) for t in hot] == [g for _, g in reqs]
+    if cfg.dtype == torch.float32:
+        assert hot == cold
+
+
+@pytest.mark.parametrize("name", SERVE_CONFIGS)
+@pytest.mark.parametrize("num_beams", [1, 4, 8])
+def test_beam_search_launches_the_tick_kernels(cuda, name, num_beams):
+    """``beam_search_generate`` on the card: one decode tick a generated
+    token (the first re-runs the prompt's last token), each through the
+    tick kernels; tokens in the vocabulary, and (fp32) one beam is the
+    greedy stream."""
+    cfg, params = _serve_model(cuda, name)
+    prompt = np.random.RandomState(2).randint(0, cfg.vocab_size, (2, 64))
+    T = 32
+    out, launches = _tick_launches(lambda: llama.beam_search_generate(
+        params, prompt, cfg, max_new_tokens=T, num_beams=num_beams,
+        device=cuda))
+    assert out.shape == (2, T)
+    assert ((out >= 0) & (out < cfg.vocab_size)).all()
+    _assert_tick_launches(launches, cfg.num_layers, T)
+    if num_beams == 1 and cfg.dtype == torch.float32:
+        assert torch.equal(out, llama.generate(params, prompt, cfg,
+                                               max_new_tokens=T,
+                                               device=cuda))
+
+
+def test_sampled_generate_replays_its_seed(cuda):
+    """Sampled ``generate`` on the card (T 0.8, top-k 50, top-p 0.9): the
+    same seed twice gives the same tokens, another seed others, and each
+    decode tick launches the tick kernels."""
+    cfg, params = _serve_model(cuda, "cpu_small")
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size, (2, 32))
+    kw = dict(max_new_tokens=24, temperature=0.8, top_k=50, top_p=0.9,
+              device=cuda)
+    a, launches = _tick_launches(lambda: llama.generate(
+        params, prompt, cfg, seed=1, **kw))
+    _assert_tick_launches(launches, cfg.num_layers, 23)
+    assert torch.equal(a, llama.generate(params, prompt, cfg, seed=1, **kw))
+    assert not torch.equal(a, llama.generate(params, prompt, cfg, seed=2,
+                                             **kw))
+
+
 FLASH_SHAPES = [  # B, Sq, Sk, H, D, causal
     (2, 128, 128, 4, 64, True),
     (2, 128, 128, 4, 64, False),

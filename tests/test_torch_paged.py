@@ -641,11 +641,14 @@ class TestSegmentContract:
             eng.finish_segment()
 
     def test_contiguous_engine_and_foreign_cache_raise(self, both):
+        """Each engine refuses a prefix cache of the other layout (the
+        contiguous engine runs segments too, over a row-copy cache)."""
         cont = ServingEngine(both[2], both[3], slots=1, max_len=96,
                              prompt_buckets=(16,), device="cpu")
-        with pytest.raises(NotImplementedError, match="paged"):
-            cont.run_segment(4)
         eng = self._engine(both)
+        cont.add_request(np.arange(8, dtype=np.int32), 2)
+        with pytest.raises(TypeError, match="takes a PrefixCache"):
+            cont.run_segment(4, prefix_cache=PagedPrefixCache(eng.pager))
         eng.add_request(np.arange(8, dtype=np.int32), 2)
         with pytest.raises(TypeError, match="PagedPrefixCache"):
             eng.run_segment(4, prefix_cache=object())

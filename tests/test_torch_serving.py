@@ -1,11 +1,12 @@
 """The port's continuous-batching engine against the JAX package's.
 
-``paddle_tpu_torch``'s ``ServingEngine(device="cpu").run()`` against
-``paddle_tpu``'s ``ServingEngine(paged=False).run(fused=False)`` — the
-windowed loop the port carries — on the same requests and the same numpy
-weights, in float32: tokens identical per request, and the same number
-of decode chunks (the scheduling decisions are the same). The cases
-mirror tests/test_serving.py.
+``paddle_tpu_torch``'s ``ServingEngine(device="cpu")`` against
+``paddle_tpu``'s ``ServingEngine(paged=False)`` on the same requests and
+the same numpy weights, in float32, through both drains: the windowed
+loop (``run(fused=False)`` on both sides) and the fused drain (``run()``,
+the default, on both sides). Tokens are identical per request, and so
+are the decode ticks and chunks (the scheduling decisions are the same).
+The cases mirror tests/test_serving.py.
 """
 
 import numpy as np
@@ -29,16 +30,17 @@ def both(tiny_llama):
     return cfg, params, tcfg, tparams
 
 
-def _serve_both(both, reqs, **kw):
-    """Serve ``reqs`` on both engines; returns the port's results and
-    asserts they equal the reference's, request by request."""
+def _serve_both(both, reqs, fused=False, **kw):
+    """Serve ``reqs`` on both engines through the windowed loop (or, with
+    ``fused``, the fused drain); returns the port's results and asserts
+    they equal the reference's, request by request."""
     cfg, params, tcfg, tparams = both
     ref = JaxEngine(cfg, params, paged=False, **kw)
     eng = ServingEngine(tcfg, tparams, device="cpu", **kw)
     ref_ids = [ref.add_request(p, n) for p, n in reqs]
     ids = [eng.add_request(p, n) for p, n in reqs]
-    want = ref.run(fused=False)
-    got = eng.run()
+    want = ref.run(fused=fused)
+    got = eng.run(fused=fused)
     assert ids == ref_ids
     assert got == want
     assert eng.last_run_chunks == ref.last_run_chunks
@@ -91,7 +93,7 @@ class TestAgainstReference:
         probe = ServingEngine(tcfg, tparams, slots=2, max_len=96, chunk=4,
                               prompt_buckets=(16,), device="cpu")
         ids = [probe.add_request(p, n) for p, n in reqs]
-        plain = probe.run()
+        plain = probe.run(fused=False)
         for eos in (plain[ids[0]][2], plain[ids[1]][0]):
             out = _serve_both(both, reqs, slots=2, max_len=96, chunk=4,
                               prompt_buckets=(16,), eos_token_id=eos)
@@ -99,6 +101,39 @@ class TestAgainstReference:
                 full = plain[rid]
                 want = full[:full.index(eos) + 1] if eos in full else full
                 assert out[rid] == want
+
+
+class TestFusedAgainstReference:
+    """The cases above through the fused drain on both sides (EOS:
+    tests/test_torch_segments.py)."""
+
+    def test_mixed_lengths(self, both):
+        reqs = _prompts(np.random.RandomState(0), both[0].vocab_size,
+                        [(5, 7), (12, 3), (30, 9), (3, 12), (17, 5), (8, 8),
+                         (25, 4)])
+        out = _serve_both(both, reqs, fused=True, slots=3, max_len=96,
+                          chunk=4, prompt_buckets=(8, 16, 32))
+        assert [len(out[rid]) for rid in sorted(out)] == [n for _, n in reqs]
+
+    def test_single_token_request(self, both):
+        out = _serve_both(both, [(np.arange(4, dtype=np.int32), 1)],
+                          fused=True, slots=2, max_len=96,
+                          prompt_buckets=(8,))
+        assert [len(v) for v in out.values()] == [1]
+
+    def test_full_window_request(self, both):
+        """prompt + generation fill max_len exactly: the finished slot sits
+        at pos == max_len while the other slot decodes on."""
+        rng = np.random.RandomState(2)
+        reqs = _prompts(rng, both[0].vocab_size, [(30, 19), (6, 40)])
+        _serve_both(both, reqs, fused=True, slots=2, max_len=48, chunk=4,
+                    prompt_buckets=(8, 32))
+
+    def test_more_requests_than_slots(self, both):
+        reqs = _prompts(np.random.RandomState(1), both[0].vocab_size,
+                        [(6, 5), (4, 1), (9, 5), (6, 1), (3, 7), (8, 2)])
+        _serve_both(both, reqs, fused=True, slots=2, max_len=96, chunk=8,
+                    prompt_buckets=(16,))
 
 
 class TestValidation:
