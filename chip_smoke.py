@@ -33,9 +33,10 @@ Phases (any failed check raises and the script exits non-zero):
    norms' ctypes path, replayed and eager); ``ragged_paged_attention`` on
    the serving decode tick, the serving admit prefill (256 rows at
    context 0 and 192), llama7b-width and GQA decode ticks, one
-   mixed-q_len launch, admits of 512 and 2048 rows at llama7b width, and
-   decode ticks and prefills at D 16 and 96, each on a shuffled page
-   table, beside gather + SDPA (two calls); the flash-attention forward
+   mixed-q_len launch, admits of 512 and 2048 rows at llama7b width,
+   decode ticks and prefills at D 16 and 96, and phase 3h's verify ticks
+   (K 1, 4, 7, 8), a 64-row chunk off the page grid and a 2 x 64-row sp
+   slab, each on a shuffled page table, beside gather + SDPA (two calls); the flash-attention forward
    and backward kernels (bf16; the backward in
    one launch of both roles, bit-identical to each role launched alone,
    and each role alone) at bench.py's training shape (B 44, S 512, 12
@@ -131,6 +132,29 @@ Phases (any failed check raises and the script exits non-zero):
    (the mixed workload's lengths) through the int8 and the bf16 paged
    engines with digests; the int8 serve's matched-prefix rate against the
    bf16 one must be at least 0.5, the JAX package's bar;
+3h. (after 3e) the paged engine's other segment families at
+   ``bert_base_equiv`` width in bf16, 8 slots, pages of 16, each path's
+   launches counted (the paged kernel a layer a step; the tick kernels a
+   layer a one-token tick; a K > 0 verify tick runs its K + 1 tokens a
+   slot through the prefill path), tokens/s, wall and device ms a step
+   (a profiled serve of 8 requests), busy share and fetches printed: (a)
+   the 32 mixed requests, one every 20 ms, through ``OnlineScheduler``
+   chunked (chunks of 16, 32 or 64) and unchunked: every count, no page
+   leaked, one fetch a segment, TTFT and e2e percentiles, agreement, and
+   chunked segments issued with no sync; (b) greedy ``speculative=4`` on
+   the random weights (against (a)'s serve: divergences only at near
+   ties; verify ticks against its ticks, acceptance, reads a segment) and
+   on 3e's memorized model: its continuations identical to its
+   non-speculative serve, and a repeated-stretch class whose divergences
+   must sit at near ties; some asserted class accepts drafts; (c)
+   sampling (T 0.8, top-k 32) at K 0 and 4: two serves with the same
+   seeds equal, ``top_k=1`` equal to greedy up to near ties; (d)
+   ``seq_parallel=2`` with a 2000-token prompt and 7 requests behind it
+   in segments of 8 steps: the prefill spans segments, TTFT against a
+   chunked engine without sp (buckets to 2048), agreement; (e)
+   ``ragged_paged_attention`` against its plain version at verify ticks
+   (K 1, 4, 7, 8; dead slots past the window), chunks off the page grid
+   and sp slabs sharing one table row;
 6. ResNet-50 training, BASELINE config 1 (benchmarks/resnet50.py):
    ``resnet50(num_classes=1000, data_format="NHWC")`` from the port's
    initializers (seed 0), B 128 at 224x224 (``RandomState(0)`` images and
@@ -155,7 +179,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3f, 5b, 6 and 7 is driven with every launch count set to 0 just
+   3-3h, 5b, 6 and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -621,6 +645,15 @@ PAGED_SHAPES = [
     ("d16_prefill", 1, 256, 8, 8, 16, 32, [64], None),
     ("d96_decode", 8, 1, 16, 4, 96, 64, None, None),
     ("d96_prefill", 1, 256, 16, 4, 96, 64, [64], None),
+    # phase 3h's shapes: verify ticks of K + 1 rows a slot (K = 8 crosses
+    # into the prefill family), a prefill chunk off the page grid, an sp
+    # slab of 2 x 64 rows near the end of a 2048-row window
+    ("verify_k1", 8, 2, 12, 12, 64, 24, None, None),
+    ("verify_k4", 8, 5, 12, 12, 64, 24, None, None),
+    ("verify_k7", 8, 8, 12, 12, 64, 24, None, None),
+    ("verify_k8", 8, 9, 12, 12, 64, 24, None, None),
+    ("chunk64_at77", 1, 64, 12, 12, 64, 24, [77], None),
+    ("sp2_slab64", 2, 64, 12, 12, 64, 128, [1900, 1964], None),
 ]
 PAGE = 16
 L2_BYTES = 50e6
@@ -2193,6 +2226,435 @@ def preempt_and_abort(torch, ServingEngine, PrefixCache, PagedPrefixCache,
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: the paged engine's chunked-prefill, speculative/sampled and
+# sequence-parallel segments
+# ---------------------------------------------------------------------------
+
+FAMILY_CHUNKS = (16, 32, 64)
+SPEC_K = 4
+SAMPLED = {"temperature": 0.8, "top_k": 32}
+SP = 2
+SP_PROMPT = 2000
+SP_MAX_LEN = 2048
+SP_SEG_STEPS = 8
+
+
+def family_engine(ServingEngine, params, cfg, max_len=384,
+                  buckets=(64, 128, 256), **kw):
+    """The paged engine of phase 3h: 8 slots, pages of 16."""
+    return ServingEngine(cfg, params, slots=8, max_len=max_len, chunk=16,
+                         prompt_buckets=buckets, paged=True, page_size=PAGE,
+                         device=DEVICE, **kw)
+
+
+def family_counts(L, steps, ticks, tick_kernels=True):
+    """The launches of a serve of ``steps`` steps, ``ticks`` of them decode
+    or verify ticks and the rest prefill chunks (T > 1): the paged kernel
+    every step, once a layer; the tick kernels on every tick when it runs
+    one token a slot (a decode tick, or a K = 0 verify tick; a K > 0
+    verify tick runs K + 1 tokens a slot through the prefill path)."""
+    n = ticks if tick_kernels else 0
+    return {"ragged_paged_attention": L * steps,
+            "fused_rms_norm": (L + 1) * n, "fused_add_rms_norm": L * n,
+            "fused_rope_qk": L * n}
+
+
+def family_serve(torch, sched, fns, eng, arrivals, seg_steps=32,
+                 profile=True):
+    """One serve of ``arrivals`` through ``OnlineScheduler`` on ``eng``,
+    every launch count at 0 just before and read just after: each request
+    gets its count, the pool ends empty. Then (``profile``) the trace's
+    first 8 requests again under ``torch.profiler`` (``device_busy``):
+    device ms a step and the busy share of that serve. Returns (stats, launches, tokens in arrival
+    order)."""
+    cfg = eng.cfg
+    sch = sched.OnlineScheduler(eng, seg_steps=seg_steps,
+                                max_queue=len(arrivals))
+    f0, c0 = eng.fetches, eng.prefill_chunk_steps
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    rep = sch.serve(arrivals)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    reqs = [sch._reqs[r] for r in sorted(sch._reqs)]
+    res = sch.results()
+    toks = [res[r.rid] for r in reqs]
+    check_tokens(res, [r.rid for r in reqs],
+                 [(a.prompt, a.max_new_tokens) for a in arrivals], cfg)
+    if eng.pager.leak_report():
+        raise AssertionError(f"leaked pages: {eng.pager.leak_report()}")
+    chunk_steps = eng.prefill_chunk_steps - c0
+    stats = {"requests": rep.n_requests, "new_tokens": rep.total_tokens,
+             "wall_s": wall, "tokens_per_s": rep.total_tokens / wall,
+             "steps": rep.ticks, "admits": len(reqs),
+             "chunk_steps": chunk_steps,
+             "ticks": rep.ticks - len(reqs) - chunk_steps,
+             "segments": rep.segments, "fetches": eng.fetches - f0,
+             "ms_per_step": 1e3 * wall / rep.ticks,
+             "ttft_p50_s": rep.ttft_p50_s, "ttft_p99_s": rep.ttft_p99_s,
+             "e2e_p50_s": rep.e2e_p50_s, "e2e_p99_s": rep.e2e_p99_s}
+    if eng.speculative:
+        prop = sum(r.spec_proposed for r in reqs)
+        acc = sum(r.spec_accepted for r in reqs)
+        stats.update(proposed=prop, accepted=acc,
+                     acceptance=acc / prop if prop else None,
+                     spec_accept_ewma=eng.spec_accept_ewma)
+    if profile:
+        sch.reset()
+        dev, wall_ms = device_busy(torch, lambda: sch.serve(arrivals[:8]))
+        steps = eng.last_run_ticks
+        sch.results()
+        stats["device_ms_per_step"] = dev and dev / steps
+        stats["profiled_wall_ms_per_step"] = wall_ms / steps
+        stats["busy_share"] = dev and dev / wall_ms
+    return stats, launches, toks
+
+
+def device_busy(torch, run):
+    """(device ms, wall ms) of ``run()``: the kernels' time from
+    ``torch.profiler`` recording the card's activity alone (with the host
+    operators' records a serve's profile takes minutes to reduce), the
+    host clock around ``run()`` and a synchronize."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.key.startswith(PROFILER_RECORDS))
+    return (us / 1e3 if us else None), wall_ms
+
+
+def near_tie(torch, llama, params, cfg, prompt, a, b):
+    """Where greedy streams ``a`` and ``b`` of one prompt first differ:
+    (index, the plain forward's logit gap between the two tokens there),
+    or (None, 0.0) when they are equal. Two bf16 paths that round
+    differently may part only where the gap is within ``LOGIT_ATOL``."""
+    t = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), None)
+    if t is None:
+        return None, 0.0
+    seq = np.concatenate([np.asarray(prompt, np.int64),
+                          np.asarray(a[:t], np.int64)])
+    with torch.no_grad():
+        lg = llama.forward(params, torch.from_numpy(seq).to(DEVICE)[None],
+                           cfg)[0, -1].float()
+    return t, abs(float(lg[a[t]] - lg[b[t]]))
+
+
+def parted_at_near_ties(torch, llama, params, cfg, prompts, xs, ys, what,
+                        exact=False):
+    """Hold greedy serves ``xs`` to ``ys`` request by request: each pair
+    is identical or parts first at a near tie (``near_tie``), else raise;
+    with ``exact`` every pair is identical. Returns the near ties."""
+    ties = []
+    for i, (p, a, b) in enumerate(zip(prompts, xs, ys)):
+        t, gap = near_tie(torch, llama, params, cfg, p, a, b)
+        if t is None:
+            continue
+        if exact or gap > LOGIT_ATOL:
+            raise AssertionError(f"{what}: request {i} left the greedy serve "
+                                 f"at token {t}, logit gap {gap} (LOGIT_ATOL "
+                                 f"{LOGIT_ATOL})")
+        ties.append({"token": t, "gap": gap})
+    return ties
+
+
+def agreement(xs, ys):
+    """Requests and token positions two serves agree on."""
+    same = sum(x == y for x, y in zip(xs, ys))
+    pos = sum(u == v for x, y in zip(xs, ys) for u, v in zip(x, y))
+    return {"requests_identical": same,
+            "tokens_identical": pos / sum(len(x) for x in xs)}
+
+
+def chunked_phase(torch, sched, ServingEngine, fns, params, cfg, reqs):
+    """Phase 3h (a): the 32 mixed requests, one every 20 ms, through
+    ``OnlineScheduler`` on a chunked engine (chunks of 16, 32 or 64 by the
+    admit window) and on the unchunked one: launches, one fetch a
+    segment, token agreement; then a few chunked segments issued under
+    the sync-debug mode (no host read while a segment is issued)."""
+    L = cfg.num_layers
+    arrivals = [sched.Arrival(0.02 * i, p, g) for i, (p, g) in enumerate(reqs)]
+    out, launches, toks = {}, {}, {}
+    for key, kw in (("chunked", dict(chunked_prefill=True,
+                                     prefill_chunks=FAMILY_CHUNKS)),
+                    ("unchunked", {})):
+        eng = family_engine(ServingEngine, params, cfg, **kw)
+        st, n, toks[key] = family_serve(torch, sched, fns, eng, arrivals)
+        check_counts(n, family_counts(L, st["steps"], st["ticks"]),
+                     f"3h {key}: {st['steps']} steps, {st['ticks']} ticks")
+        if st["fetches"] != st["segments"]:
+            raise AssertionError(f"3h {key}: {st['fetches']} fetches for "
+                                 f"{st['segments']} segments")
+        out[key], launches[f"family_{key}"] = st, n
+    if out["chunked"]["chunk_steps"] < 1:
+        raise AssertionError("3h chunked: no prompt took more than one chunk")
+    out["chunked_against_unchunked"] = agreement(toks["chunked"],
+                                                 toks["unchunked"])
+    audit = family_engine(ServingEngine, params, cfg, chunked_prefill=True,
+                          prefill_chunks=FAMILY_CHUNKS)
+    for p, g in reqs[:12]:
+        audit.add_request(p, g)
+    audited = 0
+    while audit._queue or audit.free_slot_count() < audit.slots:
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            pending = audit.dispatch_segment(32)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        audit.finish_segment(pending)
+        audited += 1
+    audit.collect_finished()
+    out["chunked"]["sync_free_dispatches"] = audited
+    return out, launches, toks["unchunked"]
+
+
+def repeated_prompts(seqs, reqs):
+    """Phase 3h (b)'s repeated-stretch class on the memorized model:
+    request i's prompt is training sequence i's first c tokens (c half the
+    mixed prompt's length) and then its first c // 2 again; a model that
+    retrieved its sequence from the repeat would retrace tokens its
+    history holds, which the n-gram draft hits. Returns [(prompt, g,
+    c // 2)]: the sequence index the retrace would start at."""
+    out = []
+    for i, (p, g) in enumerate(reqs):
+        c = len(p) // 2
+        out.append((np.concatenate([seqs[i, :c], seqs[i, :c // 2]])
+                    .astype(np.int32), g, c // 2))
+    return out
+
+
+def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
+               plain, mparams, mreqs, seqs):
+    """Phase 3h (b): greedy speculation, K = 4. On the random weights the
+    32 mixed requests, against (a)'s unchunked serve ``plain`` (verify
+    ticks against its ticks). On the memorized model, against its own
+    non-speculative serve: phase 3e's continuations ``mreqs`` (the
+    sequences from position 0, which it follows), where the top logits are
+    far apart, every request identical; and 16 of the repeated-stretch
+    class (``repeated_prompts``). The random and repeated serves are
+    identical or part first at a near tie (the two tokens' logits within
+    ``LOGIT_ATOL``, ``near_tie``). Some asserted class must accept drafts,
+    so that ticks emitting several tokens a slot are held too."""
+    L = cfg.num_layers
+    arrivals = [sched.Arrival(0.02 * i, p, g) for i, (p, g) in enumerate(reqs)]
+    out, launches = {}, {}
+    eng = family_engine(ServingEngine, params, cfg, speculative=SPEC_K)
+    st, n, toks = family_serve(torch, sched, fns, eng, arrivals)
+    check_counts(n, family_counts(L, st["steps"], 0, False),
+                 f"3h spec: {st['steps']} steps, {st['ticks']} verify ticks")
+    st["against_plain"] = agreement(toks, plain[0])
+    st["parted_at_near_ties"] = parted_at_near_ties(
+        torch, llama, params, cfg, [p for p, _ in reqs], toks, plain[0],
+        "3h spec random")
+    st["plain_ticks"] = plain[1]["ticks"]
+    out["random"], launches["family_spec"] = st, n
+
+    for key, rs, start_at in (
+            ("memorized", mreqs, [len(q) for q, _ in mreqs]),
+            ("repeated", [(q, g) for q, g, _ in repeated_prompts(seqs,
+                                                                reqs[:16])],
+             [c for _, _, c in repeated_prompts(seqs, reqs[:16])])):
+        arr = [sched.Arrival(0.0, q, g) for q, g in rs]
+        serves = {}
+        for which, kw in (("spec", dict(speculative=SPEC_K)), ("plain", {})):
+            e = family_engine(ServingEngine, mparams, cfg, **kw)
+            serves[which] = family_serve(torch, sched, fns, e, arr,
+                                         profile=which == "spec"
+                                         and key == "memorized")
+        mst, n, mtoks = serves["spec"]
+        pst, _, ptoks = serves["plain"]
+        check_counts(n, family_counts(L, mst["steps"], 0, False),
+                     f"3h spec {key}: {mst['steps']} steps")
+        ties = parted_at_near_ties(torch, llama, mparams, cfg,
+                                   [q for q, _ in rs], mtoks, ptoks,
+                                   f"3h spec {key}", key == "memorized")
+        mst["plain_ticks"] = pst["ticks"]
+        mst["plain_tokens_per_s"] = pst["tokens_per_s"]
+        mst["identical"] = len(rs) - len(ties)
+        mst["parted_at_near_ties"] = ties
+        # how far the serve follows its training sequence
+        hit = sum(t == int(seqs[i, c + j])
+                  for i, (c, ts) in enumerate(zip(start_at, mtoks))
+                  for j, t in enumerate(ts))
+        mst["sequence_token_rate"] = hit / sum(len(ts) for ts in mtoks)
+        out[key], launches[f"family_spec_{key}"] = mst, n
+    if not sum(out[k]["accepted"] for k in out):
+        raise AssertionError("3h spec: no asserted class accepted a draft")
+    return out, launches
+
+
+def sampled_phase(torch, sched, llama, ServingEngine, fns, params, cfg,
+                  reqs):
+    """Phase 3h (c): sampling (T 0.8, top-k 32) at K = 0 and K = 4 on 8
+    of the mixed requests: each serve twice on fresh engines gives the
+    same tokens (the per-request seeds replay), and ``top_k=1`` equals the
+    greedy serve, or parts first at a near tie (``near_tie``)."""
+    L = cfg.num_layers
+    rs = reqs[:8]
+    arrivals = [sched.Arrival(0.0, p, g) for p, g in rs]
+    greedy = family_serve(torch, sched, fns,
+                          family_engine(ServingEngine, params, cfg),
+                          arrivals, profile=False)[2]
+    out, launches = {}, {}
+    for K in (0, SPEC_K):
+        kw = dict(speculative=K, sampling=SAMPLED)
+        st, n, toks = family_serve(
+            torch, sched, fns, family_engine(ServingEngine, params, cfg,
+                                             **kw), arrivals)
+        check_counts(n, family_counts(L, st["steps"], st["ticks"], K == 0),
+                     f"3h sampled K={K}: {st['steps']} steps")
+        if st["fetches"] != st["segments"] and K == 0:
+            raise AssertionError(f"3h sampled K=0: {st['fetches']} fetches "
+                                 f"for {st['segments']} segments")
+        again = family_serve(torch, sched, fns, family_engine(
+            ServingEngine, params, cfg, **kw), arrivals, profile=False)[2]
+        if again != toks:
+            raise AssertionError(f"3h sampled K={K}: the same seeds gave "
+                                 f"other tokens")
+        k1 = family_serve(torch, sched, fns, family_engine(
+            ServingEngine, params, cfg, speculative=K,
+            sampling={"temperature": 0.8, "top_k": 1}), arrivals,
+            profile=False)[2]
+        ties = parted_at_near_ties(torch, llama, params, cfg,
+                                   [p for p, _ in rs], k1, greedy,
+                                   f"3h sampled K={K} top_k=1")
+        st["ms_per_token"] = 1e3 * st["wall_s"] / st["new_tokens"]
+        st["seed_replayed"] = True
+        st["top_k_1"] = {"rows_equal_to_greedy": len(rs) - len(ties),
+                         "parted_at_near_ties": ties}
+        out[f"k{K}"], launches[f"family_sampled_k{K}"] = st, n
+    return out, launches
+
+
+def long_context_phase(torch, ServingEngine, fns, params, cfg, reqs):
+    """Phase 3h (d): ``seq_parallel=2`` with chunked prefill (chunks of
+    64, so slabs of 2 x 64 rows), ``long_buckets=(2048,)``, max_len 2048:
+    one 2000-token prompt then 7 of the mixed requests behind it, in
+    segments of 8 steps, so the long prefill spans segments holding its
+    reservation; against a chunked engine without sp whose buckets reach
+    2048 (segments of 64 steps: 32 chunks of 64 must fit twice)."""
+    L = cfg.num_layers
+    prompt = np.random.RandomState(5).randint(
+        0, cfg.vocab_size, (SP_PROMPT,)).astype(np.int32)
+    rs = [(prompt, 16)] + list(reqs[:7])
+    kw = dict(chunked_prefill=True, prefill_chunks=(64,))
+
+    def drain(eng, seg_steps):
+        rids = [eng.add_request(p, g) for p, g in rs]
+        carried = segments = 0
+        ttft = None
+        t0 = time.perf_counter()
+        while eng._queue or eng.free_slot_count() < eng.slots:
+            ev = eng.run_segment(seg_steps)
+            segments += 1
+            carried += bool(eng._sp_inflight)
+            if ttft is None and rids[0] in ev["first_tokens"]:
+                ttft = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        res = eng.collect_finished()
+        check_tokens(res, rids, rs, cfg)
+        if eng.pager.leak_report():
+            raise AssertionError(f"3h long context leaked pages: "
+                                 f"{eng.pager.leak_report()}")
+        return [res[r] for r in rids], wall, segments, carried, ttft
+
+    eng = family_engine(ServingEngine, params, cfg, max_len=SP_MAX_LEN,
+                        seq_parallel=SP, long_buckets=(SP_MAX_LEN,), **kw)
+    f0 = eng.fetches
+    zero_counts(fns)
+    toks, wall, segments, carried, ttft = drain(eng, SP_SEG_STEPS)
+    launches = read_counts(fns)
+    steps, chunk_steps = eng.last_run_ticks, eng.prefill_chunk_steps
+    ticks = steps - len(rs) - chunk_steps
+    check_counts(launches, family_counts(L, steps, ticks),
+                 f"3h long context: {steps} steps, {ticks} ticks")
+    fetches = eng.fetches - f0
+    if fetches != segments:
+        raise AssertionError(f"3h long context: {fetches} fetches for "
+                             f"{segments} segments")
+    if carried < 1:
+        raise AssertionError("3h long context: the long prefill never "
+                             "spanned segments")
+    new = sum(g for _, g in rs)
+    st = {"prompt_tokens": SP_PROMPT, "sp": SP, "slab_rows": SP * 64,
+          "requests": len(rs), "new_tokens": new, "wall_s": wall,
+          "tokens_per_s": new / wall, "steps": steps,
+          "chunk_steps": chunk_steps, "ticks": ticks, "segments": segments,
+          "segments_carried_over": carried, "fetches": fetches,
+          "ttft_long_s": ttft, "ms_per_step": 1e3 * wall / steps}
+    ref = family_engine(ServingEngine, params, cfg, max_len=SP_MAX_LEN,
+                        buckets=(64, 128, 256, SP_MAX_LEN), **kw)
+    rtoks, rwall, rsegs, _, rttft = drain(ref, 64)
+    st["reference"] = {"wall_s": rwall, "segments": rsegs,
+                       "ttft_long_s": rttft, "steps": ref.last_run_ticks}
+    st["against_unsharded"] = agreement(toks, rtoks)
+    # the profiled serve: the long prompt and one request behind it
+    eng.reset_slots()
+    rs = rs[:2]
+    dev, wall_ms = device_busy(torch, lambda: drain(eng, SP_SEG_STEPS))
+    st["device_ms_per_step"] = dev and dev / eng.last_run_ticks
+    st["busy_share"] = dev and dev / wall_ms
+    return st, launches
+
+
+def family_kernel_checks(torch, pa, gen):
+    """Phase 3h (e): ``ragged_paged_attention`` against its plain version
+    within ``TOL`` at the phase's new shapes, bf16 and fp32, 12 heads of D
+    64 on a shuffled pool: verify ticks [8, K + 1] for K in (1, 4, 7, 8)
+    (K = 8 crosses into the prefill family) at ragged positions, the last
+    two slots frozen at the window's end (their rows past it); prefill
+    chunks of 8-64 rows at offsets off the page grid; and sp slabs of 2
+    and 4 rows of 64 sharing one table row whose reservation ends inside
+    the slab (the rows past it read the trash page 0, the last rows pass
+    the window). Returns the largest error of each case."""
+    errs = {}
+    nH = Hkv = 12
+    D = 64
+
+    def case(name, B, Tq, max_pages, ctx, table=None):
+        for dt in (torch.bfloat16, torch.float32):
+            P = B * max_pages + 1
+            kp = torch.randn(P, PAGE, Hkv, D, generator=gen,
+                             device=DEVICE).to(dt)
+            vp = torch.randn(P, PAGE, Hkv, D, generator=gen,
+                             device=DEVICE).to(dt)
+            q = torch.randn(B, Tq, nH, D, generator=gen, device=DEVICE).to(dt)
+            pt = table if table is not None else (
+                torch.randperm(P - 1, generator=gen, device=DEVICE)[
+                    :B * max_pages] + 1).to(torch.int32).reshape(B, max_pages)
+            c = torch.tensor(ctx, dtype=torch.int32, device=DEVICE)
+            out = pa.ragged_paged_attention(q, kp, vp, pt, c)
+            ref = pa.ragged_paged_attention_plain(q, kp, vp, pt, c)
+            torch.cuda.synchronize()
+            if not torch.isfinite(out.float()).all():
+                raise AssertionError(f"3h paged {name}: non-finite")
+            errs[f"{name}_{str(dt)[6:]}"] = check(
+                torch, f"3h ragged_paged_attention {name}", out, ref, dt)
+
+    for K in (1, 4, 7, 8):
+        case(f"verify_k{K}", 8, K + 1, 24,
+             [0, 17, 100, 255, 301, 383 - K, 383, 384])
+    for C, off in ((8, 29), (16, 37), (32, 45), (64, 77)):
+        case(f"chunk{C}_at{off}", 1, C, 24, [off])
+    for sp in (2, 4):
+        max_pages, reserved, base = 128, 124, 1900
+        row = torch.zeros(max_pages, dtype=torch.int32, device=DEVICE)
+        row[:reserved] = (torch.randperm(sp * max_pages, generator=gen,
+                                         device=DEVICE)[:reserved] + 1)
+        case(f"sp{sp}_slab64", sp, 64, max_pages,
+             [base + 64 * i for i in range(sp)],
+             table=row[None].expand(sp, -1).contiguous())
+    return errs
+
+
+# ---------------------------------------------------------------------------
 # phase 4: teacher-forced ticks, kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -3271,6 +3733,99 @@ def main() -> None:
           f"{qtrained['bf16_shadow']['tokens_per_s']:.1f} tokens/s")
     print(f"launches on the trained int8 drain: {json.dumps(qtlaunches)}")
 
+    lap("3h")
+    # 3h. the paged engine's chunked-prefill, speculative/sampled and
+    # sequence-parallel segments, bert_base_equiv width in bf16: phase 3's
+    # random weights again, and the memorized model
+    fparams = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    family, hlaunches, hsecs = {}, {}, {}
+    t3h = time.perf_counter()
+    family["chunked"], n, plain_toks = chunked_phase(
+        torch, sched, ServingEngine, fns, fparams, cfg, reqs)
+    hlaunches.update(n)
+    hsecs["a"] = round(time.perf_counter() - t3h, 1)
+    for key in ("chunked", "unchunked"):
+        st = family["chunked"][key]
+        print(f"3h (a) {key} ({card}): 32 mixed requests through "
+              f"OnlineScheduler: {st['tokens_per_s']:.1f} tokens/s, ttft "
+              f"p50/p99 {st['ttft_p50_s']:.4f}/{st['ttft_p99_s']:.4f} s, "
+              f"e2e p50/p99 {st['e2e_p50_s']:.4f}/{st['e2e_p99_s']:.4f} s, "
+              f"{st['steps']} steps ({st['admits']} admits, "
+              f"{st['chunk_steps']} more chunk steps, {st['ticks']} "
+              f"ticks), {st['ms_per_step']:.3f} ms/step wall, "
+              f"{st['device_ms_per_step']} ms/step device, busy "
+              f"{st['busy_share']}, {st['segments']} segments, "
+              f"{st['fetches']} fetches")
+    print(f"3h (a) chunked against unchunked: "
+          f"{json.dumps(family['chunked']['chunked_against_unchunked'])}; "
+          f"{family['chunked']['chunked']['sync_free_dispatches']} chunked "
+          f"segments issued with no sync")
+    family["spec"], n = spec_phase(
+        torch, sched, llama, ServingEngine, fns, fparams, cfg, reqs,
+        (plain_toks, family["chunked"]["unchunked"]), sparams, mreqs, seqs)
+    hlaunches.update(n)
+    hsecs["b"] = round(time.perf_counter() - t3h, 1)
+    for key in ("random", "memorized", "repeated"):
+        st = family["spec"][key]
+        print(f"3h (b) speculative K={SPEC_K} greedy, {key} weights "
+              f"({card}): {st['tokens_per_s']:.1f} tokens/s, acceptance "
+              f"{st['acceptance']:.4f} ({st['accepted']}/{st['proposed']} "
+              f"drafts), {st['ticks']} verify ticks against the plain "
+              f"serve's {st['plain_ticks']}, spec_accept_ewma "
+              f"{st['spec_accept_ewma']:.4f}, {st['fetches']} fetches for "
+              f"{st['segments']} segments, {st['ms_per_step']:.3f} ms/step "
+              f"wall, {st.get('device_ms_per_step')} ms/step device, busy "
+              f"{st.get('busy_share')}, ttft p50/p99 {st['ttft_p50_s']:.4f}"
+              f"/{st['ttft_p99_s']:.4f} s")
+    mem, rep = family["spec"]["memorized"], family["spec"]["repeated"]
+    rnd = family["spec"]["random"]
+    print(f"3h (b) random weights against the plain serve: "
+          f"{json.dumps(rnd['against_plain'])}, parted at near ties "
+          f"{json.dumps(rnd['parted_at_near_ties'])}; "
+          f"memorized: {mem['identical']}/32 identical, tokens following "
+          f"the training sequence {mem['sequence_token_rate']:.4f}, plain "
+          f"{mem['plain_tokens_per_s']:.1f} tokens/s; repeated stretch: "
+          f"{rep['identical']}/16 identical, parted at near ties "
+          f"{json.dumps(rep['parted_at_near_ties'])}, tokens retracing the "
+          f"sequence {rep['sequence_token_rate']:.4f}")
+    family["sampled"], n = sampled_phase(torch, sched, llama, ServingEngine,
+                                         fns, fparams, cfg, reqs)
+    hlaunches.update(n)
+    hsecs["c"] = round(time.perf_counter() - t3h, 1)
+    for key, st in family["sampled"].items():
+        print(f"3h (c) sampled T 0.8 top-k 32, {key} ({card}): "
+              f"{st['tokens_per_s']:.1f} tokens/s, {st['ms_per_token']:.3f}"
+              f" ms/token, {st['ms_per_step']:.3f} ms/step wall, "
+              f"{st['device_ms_per_step']} ms/step device, busy "
+              f"{st['busy_share']}, {st['fetches']} fetches for "
+              f"{st['segments']} segments; seeds replayed; top_k=1 against "
+              f"greedy: {json.dumps(st['top_k_1'])}")
+    family["long_context"], n = long_context_phase(
+        torch, ServingEngine, fns, fparams, cfg, reqs)
+    hlaunches["family_long_context"] = n
+    hsecs["d"] = round(time.perf_counter() - t3h, 1)
+    st = family["long_context"]
+    print(f"3h (d) long context sp={SP} ({card}): a {SP_PROMPT}-token "
+          f"prompt and 7 mixed requests in segments of {SP_SEG_STEPS}: "
+          f"the prefill spanned {st['segments_carried_over']} segment "
+          f"boundaries, ttft of the long prompt {st['ttft_long_s']:.4f} s "
+          f"(unsharded chunked engine {st['reference']['ttft_long_s']:.4f}"
+          f" s), {st['tokens_per_s']:.1f} tokens/s, {st['steps']} steps "
+          f"({st['chunk_steps']} more chunk steps), {st['ms_per_step']:.3f}"
+          f" ms/step wall, {st['device_ms_per_step']} device, busy "
+          f"{st['busy_share']}, {st['fetches']} fetches for "
+          f"{st['segments']} segments; against the unsharded engine "
+          f"{json.dumps(st['against_unsharded'])}")
+    family["kernel_errors"] = family_kernel_checks(torch, pa, gen)
+    print(f"3h (e) ragged_paged_attention against its plain version at "
+          f"the phase's shapes: {json.dumps(family['kernel_errors'])}")
+    hsecs["e"] = round(time.perf_counter() - t3h, 1)
+    family["seconds_to_end_of"] = hsecs
+    print(f"launches on phase 3h: {json.dumps(hlaunches)}; seconds to the "
+          f"end of each sub-phase: {json.dumps(hsecs)}")
+    del fparams
+
     lap("6")
     # 6. ResNet-50 training, BASELINE config 1 at full shape
     del sparams
@@ -3338,7 +3893,7 @@ def main() -> None:
                "fused_drain": flaunches_3g,
                "contiguous_prefix_burst": cblaunches["prefix_cache"],
                "contiguous_burst_no_cache": cblaunches["no_cache"],
-               **glaunches, **plaunches3g}
+               **glaunches, **plaunches3g, **hlaunches}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -3348,6 +3903,7 @@ def main() -> None:
                    "fused_drain": fstats,
                    "contiguous_prefix_bursts": cbursts,
                    "generation": gen_stats, "preemption": preempt,
+                   "families": family,
                    "long_admit": longa, "cpu_small": small,
                    "quant": quant, "quant_trained": qtrained,
                    "launches": by_path,

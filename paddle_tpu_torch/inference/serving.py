@@ -66,10 +66,38 @@ Two options of the paged engine, as in the JAX engine:
   ``observability.quality.compare_pair`` to score a serve against its
   shadow.
 
-Greedy decoding only, like the JAX engine's default. Out of this port so
-far: chunked prefill, speculative and sampled segments, sequence
-parallelism, the quantized engine's program space and journal replay,
-meshes, the host tier, meters and telemetry.
+Three segment families of the paged engine, as in the JAX engine, each
+driven by the same host loop (``_run_steps``):
+
+* ``chunked_prefill=True`` (``cseg``): an admit prefills its suffix in
+  chunks of C tokens (``prefill_chunks``, ``program_space.chunk_for``) at
+  a context offset, interleaved with decode ticks while any slot is live,
+  so co-resident decodes wait one chunk, not a whole prompt. At most one
+  slot is mid-prefill; a prefill starts only while 2 x its chunks fit the
+  step budget, and its last chunk takes the first token. The schedule
+  follows from the lengths alone: one fetch a segment without EOS.
+* ``speculative=K`` and ``sampling={"temperature", "top_k", "top_p"}``
+  (``sseg``): admits run as chunks (one full-width chunk when the engine
+  is not chunked) and every decode step is a verify tick over K + 1
+  positions a slot (``inference/speculative.py``: an n-gram draft from
+  each slot's token history, greedy or rejection-sampling acceptance,
+  per-slot sampling streams re-seeded at every admit from the request's
+  ``seed``). How many tokens a K > 0 tick emits depends on the data, so
+  the host reads the slots' remaining counts whenever its next choice
+  depends on them (counted in ``fetches``): which slot an admit takes,
+  and, once nothing waits to start, whether any slot is still live, so
+  no tick is issued past the segment's end. Greedy or sampled K = 0
+  keeps one fetch a segment.
+* ``seq_parallel=sp`` with ``long_buckets`` (``spseg``): a segment whose
+  picked requests include a suffix past the largest regular bucket (or a
+  prefill carried over) prefills in slabs of sp chunks of C tokens, one
+  batched call whose rows share the request's page-table row (on one
+  card the JAX engine's no-mesh form). A long prefill may span segments:
+  its reservation is held in ``_sp_inflight`` and it resumes at the head
+  of the queue. Regular traffic stays on the plain or chunked segment.
+
+Out of this port so far: the quantized engine's program space and
+journal replay, meshes, the host tier, meters and telemetry.
 """
 
 from __future__ import annotations
@@ -85,7 +113,9 @@ from ..device import resolve_device
 from ..models import llama
 from ..ops.kernels.decode_attention import check_heads
 from ..quantization.serving import QUANT_MODES, quantize_llama_params
+from . import speculative as spec_ops
 from .paged_kv import PagedKVCache
+from .program_space import chunk_for
 
 __all__ = ["Request", "ServingEngine"]
 
@@ -112,6 +142,12 @@ class Request:
     # quality digests (engine built with quality_digest=True): one
     # (emitted_logit, top_k_ids, top_k_values) per generated token
     digests: Optional[List[tuple]] = None
+    # sampling seed (read by an engine with a sampling config: the slot's
+    # stream is keyed at every admit by it and the tokens already
+    # generated), and the drafts proposed for and accepted by this request
+    seed: int = 0
+    spec_proposed: int = 0
+    spec_accepted: int = 0
 
     @property
     def done(self) -> bool:
@@ -129,26 +165,97 @@ class Request:
 
 
 @dataclass
+class _StepLog:
+    """What ``_run_steps`` issued: the device token log ([max_steps,
+    slots], or [max_steps, slots, K + 1] on a speculative engine), the
+    same log read step by step under EOS (else None), the host-known admit
+    records (aq: the picked row an admit served, n_pad a decode step,
+    n_pad + 1 a non-final chunk step; aslot: its slot), the steps run and
+    the requests admitted."""
+    out: torch.Tensor
+    toks: Optional[np.ndarray]
+    aq: np.ndarray
+    aslot: np.ndarray
+    steps: int
+    qadm: int
+    # quality digests on the device: the emitted token's logit [max_steps,
+    # slots] fp32, the top-k ids [max_steps, slots, k] int32 and values
+    # fp32 (None without quality_digest)
+    dig: Optional[tuple] = None
+    # speculative: the tokens each slot emitted a step [max_steps, slots]
+    acc: Optional[torch.Tensor] = None
+    # a prefill the step budget cut: (slot, picked row, suffix rows done);
+    # slot -1: none
+    pf: tuple = (-1, 0, 0)
+
+
+@dataclass
 class _PendingSegment:
     """A segment whose steps are issued and whose event log is not yet
     read: the picked requests, their reservations and admission views, and
-    the host-known half of the log (admit records, step counts)."""
+    the host-known half of the log."""
     paged: bool
     picked: List[Request]
     prefix_cache: object
     pre_lens: List[int]            # reused-prefix rows per request
     req_pages: List[List[int]]     # page reservations per request (paged)
     full_prompts: List[np.ndarray]  # the spans the admits prefill
-    out: torch.Tensor              # [max_steps, slots] tokens, on device
-    toks: Optional[np.ndarray]     # the same log, already read (EOS)
-    aq: np.ndarray                 # [max_steps] admitted row; n_pad: decode
-    aslot: np.ndarray              # [max_steps] slot of each admit
-    steps: int
-    qadm: int                      # picked requests admitted
-    # quality digests on the device: the emitted token's logit [max_steps,
-    # slots] fp32, the top-k ids [max_steps, slots, k] int32 and values
-    # fp32 (None without quality_digest)
-    dig: Optional[tuple] = None
+    log: _StepLog
+    chunk_marker: Optional[int] = None  # aq of a non-final chunk step
+    sp: bool = False               # a sequence-parallel (slab) segment
+
+    @property
+    def steps(self) -> int:
+        return self.log.steps
+
+    @property
+    def qadm(self) -> int:
+        return self.log.qadm
+
+
+def _live_any(lo, hi):
+    """Whether some slot owes tokens, from bounds on each slot's remaining
+    count: True, False, or None (not known without a read)."""
+    if any(v > 0 for v in lo):
+        return True
+    return None if any(v > 0 for v in hi) else False
+
+
+def _free_slot(lo, hi):
+    """The first slot owing nothing (the device's ``argmin(rem)``), -1 if
+    none, None if not known without a read."""
+    for i, (l, h) in enumerate(zip(lo, hi)):
+        if h == 0:
+            return i
+        if l == 0:
+            return None
+    return -1
+
+
+def _choose(lo, hi, waiting: bool, chunked: bool, pf: int, phase: int):
+    """The JAX segment's choice of the next step, from bounds on the
+    remaining counts: ("admit", slot) (an admit, or a prefill chunk),
+    ("tick", -1), ("stop", -1), or (None, -1) when the choice needs a
+    read. ``waiting``: a picked request could start, or a prefill is
+    under way; ``chunked``: admits run as chunks that alternate with
+    ticks (``phase`` 1 after a chunk step)."""
+    la = _live_any(lo, hi)
+    if not waiting:
+        return (None if la is None else "tick" if la else "stop"), -1
+    if chunked and pf >= 0:
+        s = pf
+    else:
+        s = _free_slot(lo, hi)
+        if s is None:
+            return None, -1
+        if s < 0:
+            return "tick", -1
+    if chunked and phase == 1:
+        if la is None:
+            return None, -1
+        if la:
+            return "tick", -1
+    return "admit", s
 
 
 class ServingEngine:
@@ -157,8 +264,13 @@ class ServingEngine:
                  prompt_buckets: Sequence[int] = (32, 64, 128, 256),
                  eos_token_id: Optional[int] = None, paged: bool = False,
                  page_size: int = 16, num_pages: Optional[int] = None,
+                 chunked_prefill: bool = False,
+                 prefill_chunks: Sequence[int] = (8, 16, 32, 64),
+                 speculative: int = 0, sampling: Optional[dict] = None,
+                 sample_seed: int = 0,
                  quality_digest: bool = False, digest_top_k: int = 4,
-                 quant: Optional[str] = None, device="cuda"):
+                 quant: Optional[str] = None, seq_parallel: int = 0,
+                 long_buckets: Sequence[int] = (), device="cuda"):
         self.device = resolve_device(device)
         if self.device.type == "cuda" and not quant:
             # the decode and paged kernels' shapes, refused here rather
@@ -188,17 +300,56 @@ class ServingEngine:
         self.last_run_ticks = 0   # decode ticks (paged: segment steps)
         self.last_latencies = {}  # rid -> submit->finish seconds (last run)
         self.fetches = 0          # device-to-host reads (``_fetch``)
+        self.prefill_chunk_steps = 0  # non-final prefill chunk steps run
         self._next_rid = 0
         self.paged = bool(paged)
         self.page_backpressure_events = 0  # admissions deferred for pages
         self._pending_seg: Optional[_PendingSegment] = None
+        # the options and their refusals, in the JAX engine's order and
+        # with its messages
+        self.chunked = bool(chunked_prefill)
+        if self.chunked and not self.paged:
+            raise ValueError(
+                "chunked_prefill requires paged=True (chunks prefill at "
+                "a context offset through the page tables; the "
+                "contiguous admit branch stages whole windows)")
+        self.prefill_chunks = tuple(sorted(int(c) for c in prefill_chunks))
+        if self.chunked and not self.prefill_chunks:
+            raise ValueError("chunked_prefill needs a non-empty "
+                             "prefill_chunks ladder")
+        self.speculative = int(speculative)
+        if self.speculative < 0:
+            raise ValueError(f"speculative draft length must be >= 0, "
+                             f"got {speculative}")
+        samp = None
+        if sampling:
+            t = float(sampling.get("temperature", 1.0))
+            if t < 0.0:
+                raise ValueError(f"temperature must be >= 0, got {t}")
+            if t > 0.0:     # temperature 0 is greedy
+                samp = (t, int(sampling.get("top_k", 0)),
+                        float(sampling.get("top_p", 1.0)))
+        self.sampling = samp
+        self.sample_seed = int(sample_seed)
+        if (self.speculative or self.sampling) and not self.paged:
+            raise ValueError(
+                "speculative/sampled decoding requires paged=True (the "
+                "verify tick reuses the page-indirect q_len>1 path and "
+                "the RNG/history state rides the paged segment family)")
         self.quality_digest = bool(quality_digest)
         self.digest_top_k = int(digest_top_k)
         if self.quality_digest:
             if not self.paged:
                 raise ValueError(
                     "quality_digest requires paged=True (digests extend "
-                    "the paged segment event log)")
+                    "the paged segment event log; the contiguous "
+                    "engine's windowed path has no single event fetch "
+                    "to ride)")
+            if self.chunked or self.speculative or self.sampling:
+                raise ValueError(
+                    "quality_digest composes with the plain paged "
+                    "segment only — chunked/speculative/sampled "
+                    "variants are shadow-diffed at token level")
             if self.digest_top_k < 1:
                 raise ValueError(f"digest_top_k must be >= 1, got "
                                  f"{digest_top_k}")
@@ -209,9 +360,51 @@ class ServingEngine:
                                  f"got {quant!r}")
             if not self.paged:
                 raise ValueError(
-                    "quant requires paged=True (per-row KV scales ride the "
-                    "paged pool's pages; the contiguous cache has none)")
+                    "quant requires paged=True (per-page KV scales ride "
+                    "the paged pool's fixed tiles; the contiguous cache "
+                    "has no page axis to key them on)")
+            if self.chunked or self.speculative or self.sampling:
+                raise ValueError(
+                    "quant composes with the plain paged segment (and "
+                    "quality_digest) only — chunked/speculative/sampled "
+                    "variants need their own shadow certification")
             self.params = quantize_llama_params(params, cfg, self.quant)
+        self.seq_parallel = int(seq_parallel or 0)
+        self.long_buckets = tuple(sorted(int(b) for b in long_buckets))
+        if self.seq_parallel < 0:
+            raise ValueError(f"seq_parallel must be >= 0, got "
+                             f"{seq_parallel}")
+        if self.seq_parallel:
+            if not self.paged:
+                raise ValueError(
+                    "seq_parallel requires paged=True (prefill shards "
+                    "scatter into the shared paged pool; the contiguous "
+                    "cache has no page indirection to land them in)")
+            if self.speculative or self.sampling or self.quality_digest \
+                    or self.quant:
+                raise ValueError(
+                    "seq_parallel composes with the plain/chunked paged "
+                    "segment only — speculative/sampled/digest/quant "
+                    "variants need their own certification")
+            if not self.long_buckets:
+                raise ValueError("seq_parallel needs a non-empty "
+                                 "long_buckets rung ladder")
+            if self.long_buckets[0] < max(self.buckets):
+                raise ValueError(
+                    f"every long bucket must be >= the largest regular "
+                    f"bucket {max(self.buckets)} (got "
+                    f"{self.long_buckets[0]} — regular traffic rides "
+                    f"the ordinary pseg/cseg families)")
+            if self.long_buckets[-1] > self.max_len:
+                raise ValueError(
+                    f"long bucket {self.long_buckets[-1]} exceeds "
+                    f"max_len {self.max_len}")
+        # rid -> {"pages", "resident"}: a long prefill carried over to the
+        # next segment, its reservation held and ``resident`` rows (prefix
+        # hit and slabs landed) already in the pool
+        self._sp_inflight: Dict[int, dict] = {}
+        # tokens a slot emits a verify tick, averaged over segments (>= 1)
+        self.spec_accept_ewma = 1.0
         if self.paged:
             # max_len stays the per-slot virtual cap (max_pages pages);
             # num_pages sizes the physical pool
@@ -232,6 +425,32 @@ class ServingEngine:
         # slot state on the device: position of the next write, the token
         # to feed, generations still owed
         self._pos, self._nxt, self._rem = self._slot_state()
+        self._init_spec_state()
+
+    @property
+    def _spec(self) -> bool:
+        """Decode steps are verify ticks (``sseg``)."""
+        return bool(self.speculative or self.sampling)
+
+    def _init_spec_state(self) -> None:
+        """(Re)build the speculative and sampled slot state on the device:
+        ``_hist`` [slots, max_len + 1] int64, each slot's token history
+        (the suffix it prefilled and every token it fed a verify tick),
+        the n-gram draft's table, with one overflow column past max_len
+        for clamped writes; ``_hstart`` [slots] int32, the first history
+        column of the slot's own tokens (its prefix-cache hit length);
+        ``_rng`` [slots, 2] int64, each slot's sampling stream (key, draws
+        so far), re-seeded at every admit. None where unused."""
+        dev = self.device
+        self._hist = self._hstart = self._rng = None
+        if self.paged and self._spec:
+            self._hist = torch.zeros((self.slots, self.max_len + 1),
+                                     dtype=torch.int64, device=dev)
+            self._hstart = torch.zeros(self.slots, dtype=torch.int32,
+                                       device=dev)
+        if self.paged and self.sampling:
+            self._rng = torch.zeros((self.slots, 2), dtype=torch.int64,
+                                    device=dev)
 
     def paged_kernel_active(self) -> bool:
         """True when this engine's paged segments launch the
@@ -251,11 +470,19 @@ class ServingEngine:
         return z, z.to(torch.int64), z.clone()
 
     # --- request intake ---------------------------------------------------
-    def add_request(self, prompt, max_new_tokens: int) -> int:
+    def add_request(self, prompt, max_new_tokens: int,
+                    seed: Optional[int] = None) -> int:
+        """Queue a request; returns its id. ``seed`` keys its sampling
+        stream (default ``sample_seed + rid``). With ``seq_parallel`` a
+        prompt may be as long as the largest long bucket."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
-        if len(prompt) > max(self.buckets):
-            raise ValueError(f"prompt length {len(prompt)} exceeds the "
-                             f"largest bucket {max(self.buckets)}")
+        intake_cap = (max(self.long_buckets) if self.seq_parallel
+                      else max(self.buckets))
+        if len(prompt) > intake_cap:
+            raise ValueError(
+                f"prompt length {len(prompt)} exceeds the largest "
+                f"{'long ' if self.seq_parallel else ''}bucket "
+                f"{intake_cap}")
         if len(prompt) + max_new_tokens - 1 > self.max_len:
             raise ValueError(
                 f"prompt {len(prompt)} + max_new_tokens {max_new_tokens} "
@@ -269,7 +496,9 @@ class ServingEngine:
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(Request(rid, prompt, int(max_new_tokens),
-                                   submit_time=time.perf_counter()))
+                                   submit_time=time.perf_counter(),
+                                   seed=(self.sample_seed + rid
+                                         if seed is None else int(seed))))
         return rid
 
     def _upload(self, a: np.ndarray) -> torch.Tensor:
@@ -503,7 +732,14 @@ class ServingEngine:
         assert self._pending_seg is None, \
             "reset_slots with a dispatched segment in flight"
         self._pos, self._nxt, self._rem = self._slot_state()
+        self._init_spec_state()
+        self.spec_accept_ewma = 1.0
         self._rem_host = [0] * self.slots
+        for r in self._queue:      # prefills carried over hold pages
+            info = self._sp_inflight.pop(r.rid, None)
+            if info is not None:
+                self.pager.release_pages(info["pages"])
+        self._sp_inflight = {}
         self._queue = []
         self._finished = []
         self.last_run_ticks = 0
@@ -531,7 +767,10 @@ class ServingEngine:
         written (its prompt and tokens but the last) are parked in it
         first, so the resume prefills only the tail: by page reference on
         a paged engine, as row copies on the contiguous one.
-        A paged slot's pages are then released."""
+        A paged slot's pages are then released. As in the JAX engine, the
+        slot's speculative state (history, sampling stream) stays, since
+        the next admit rewrites it, and so do prefills carried over: they
+        wait in the queue, not in a slot."""
         if self._pending_seg is not None:
             raise RuntimeError("preempt_slot with a dispatched segment in "
                                "flight: finish_segment must run first")
@@ -562,22 +801,31 @@ class ServingEngine:
         it still owes, in order: the picked requests of a dispatched
         segment whose log was never read (their host state never advanced,
         so each resumes from its last read token), the live slots, then
-        the queue. Slot state and the page pool reset, so the engine
-        serves again from empty."""
+        the queue. The reservations of prefills carried over are released
+        (their landed rows are lost: each resumes with a full prefill).
+        Slot state, the speculative state and the page pool reset, so the
+        engine serves again from empty."""
         orphans: List[Request] = []
         p, self._pending_seg = self._pending_seg, None
+        released = set()
         if p is not None:
             for pages in p.req_pages:
                 self.pager.release_pages(pages)
             for r in p.picked:
                 r.admit_time = 0.0
+                released.add(r.rid)
             orphans += p.picked
+        for rid, info in self._sp_inflight.items():
+            if rid not in released:
+                self.pager.release_pages(info["pages"])
+        self._sp_inflight = {}
         orphans += [r for r in self._active if r is not None]
         orphans += self._queue
         self._queue = []
         self._active = [None] * self.slots
         self._rem_host = [0] * self.slots
         self._pos, self._nxt, self._rem = self._slot_state()
+        self._init_spec_state()
         if self.paged:
             self.pager.reset()
         return orphans
@@ -645,17 +893,17 @@ class ServingEngine:
 
         # every decode tick retires at least one owed token, so the step
         # budget cannot run out; n marks a decode step in the admit log
-        out, toks, aq, aslot, steps, _, _ = self._run_steps(
-            n + sum(g - 1 for g in gens), n, gens, admit)
-        if toks is None:
-            toks = self._fetch(out[:steps])
+        log = self._run_steps(n + sum(g - 1 for g in gens), n, gens, admit)
+        steps = log.steps
+        toks = (log.toks if log.toks is not None
+                else self._fetch(log.out[:steps]))
         wall = time.perf_counter() - t0
         fin = {}
 
         def on_retire(r, s, st):
             fin[r.rid] = st
 
-        self._replay_segment(picked, toks, aq, aslot, steps,
+        self._replay_segment(picked, toks, log.aq, log.aslot, steps,
                              on_retire=on_retire)
         ticks = steps - n
         self.last_run_ticks = ticks
@@ -764,19 +1012,34 @@ class ServingEngine:
             return self._admit_dense(s, prompts_d[q:q + 1], hits[q],
                                      pre_lens[q], pre_max, lens[q], gens[q])
 
-        out, toks, aq, aslot, steps, qadm, _ = self._run_steps(
-            max_steps, n_pad, gens, admit)
         return _PendingSegment(paged=False, picked=picked,
                                prefix_cache=prefix_cache, pre_lens=pre_lens,
                                req_pages=[], full_prompts=[f for f, _ in fulls],
-                               out=out, toks=toks, aq=aq, aslot=aslot,
-                               steps=steps, qadm=qadm)
+                               log=self._run_steps(max_steps, n_pad, gens,
+                                                   admit))
+
+    def _long_rung(self, n: int) -> int:
+        """The smallest long bucket that holds an ``n``-token suffix: a
+        sequence-parallel segment's admit window."""
+        for b in self.long_buckets:
+            if n <= b:
+                return b
+        raise ValueError(f"no long bucket for suffix length {n}")
+
+    def _prefill_chunk_for(self, s_max: int) -> int:
+        """Chunk width of a chunked segment whose admit window is
+        ``s_max`` wide (``program_space.chunk_for``)."""
+        return chunk_for(self.prefill_chunks, s_max)
 
     def _dispatch_segment_paged(self, max_steps: int, prefix_cache,
                                 n_pad: int, now: float) -> _PendingSegment:
         """Pick FCFS gated on pages free (a request's page span is known
         at admission: its generation length is fixed), reserve page lists
-        with any prefix hit shared by reference, then issue the steps."""
+        with any prefix hit shared by reference, then issue the steps of
+        the segment's family: plain, chunked, speculative/sampled, or
+        sequence-parallel when a picked request is a long prefill (a
+        continuation reuses its held reservation and resumes at its
+        resident rows)."""
         pgr = self.pager
         psz = self.page_size
         picked: List[Request] = []
@@ -787,6 +1050,22 @@ class ServingEngine:
         deferred = 0
         while self._queue and len(picked) < n_pad:
             r = self._queue[0]
+            sp_info = (self._sp_inflight.get(r.rid) if self.seq_parallel
+                       else None)
+            if sp_info is not None:
+                # a long prefill carried over: its pages and the rows that
+                # landed are reused, nothing is reserved or looked up
+                row = np.zeros((pgr.max_pages,), np.int32)
+                row[:len(sp_info["pages"])] = sp_info["pages"]
+                self._queue.pop(0)
+                if not r.admit_time:
+                    r.admit_time = now
+                picked.append(r)
+                fulls.append(r.resume_view()[0])
+                req_pages.append(sp_info["pages"])
+                pre_lens_l.append(sp_info["resident"])
+                tables.append(row)
+                continue
             fp, remaining = r.resume_view()
             rows = len(fp) + remaining - 1
             total = pgr.pages_needed(rows)
@@ -831,108 +1110,221 @@ class ServingEngine:
         if deferred:
             self.page_backpressure_events += 1
         n = len(picked)
+        lens = [len(f) - pl for f, pl in zip(fulls, pre_lens_l)]
+        gens = [r.max_new_tokens - len(r.tokens) for r in picked]
 
-        # admit window: the largest bucket when nothing was reused (one
-        # shape for every admit), the bucket of the longest suffix when
-        # prefix hits shorten the prefills
-        if prefix_cache is None or not any(pre_lens_l):
+        # the family. A segment is sequence-parallel when a picked request
+        # is a long prefill (a suffix past the largest regular bucket, or
+        # a carried-over one); its window is the largest such rung,
+        # rounded to the slab. Otherwise the admit window is the largest
+        # bucket when nothing was reused (one shape for every admit; a
+        # speculative segment always), the bucket of the longest suffix
+        # when prefix hits shorten the prefills, rounded to the chunk on a
+        # chunked engine.
+        sp_engaged = [j for j in range(n) if self.seq_parallel and (
+            picked[j].rid in self._sp_inflight
+            or lens[j] > self.buckets[-1])]
+        sp_mode = bool(sp_engaged)
+        spec = self._spec
+        C = None
+        if sp_mode:
+            C = self.prefill_chunks[-1]
+            slab = self.seq_parallel * C
+            lb = max(self._long_rung(max(1, lens[j])) for j in sp_engaged)
+            s_max = -(-lb // slab) * slab
+        elif spec or prefix_cache is None or not any(pre_lens_l):
             s_max = self.buckets[-1]
         else:
-            s_max = self._bucket_for(max(
-                (len(fulls[j]) - pre_lens_l[j] for j in range(n)),
-                default=1))
+            s_max = self._bucket_for(max(lens, default=1))
+        if self.chunked and not sp_mode:
+            C = self._prefill_chunk_for(s_max)
+            s_max = -(-s_max // C) * C        # chunk-aligned admit window
+            worst = 2 * (s_max // C)
+            if max_steps < worst:
+                raise ValueError(
+                    f"seg_steps {max_steps} cannot fit one chunked "
+                    f"prefill ({s_max // C} chunks x {C} interleaved = "
+                    f"{worst} steps) — raise seg_steps or shrink the "
+                    f"prompt buckets / chunk ladder")
+        if spec:
+            # admits run through the chunk step: one full-width chunk
+            # when the engine is not chunked
+            if max_steps < 2:
+                raise ValueError("speculative segments need seg_steps "
+                                 ">= 2 (a prefill start reserves one "
+                                 "chunk + one verify step)")
+            C = C or s_max
+
         prompts = np.zeros((n, s_max), np.int32)
-        for j in range(n):
+        seeds = np.zeros((n,), np.int32)
+        for j, r in enumerate(picked):
             suf = fulls[j][pre_lens_l[j]:]
             prompts[j, :len(suf)] = suf
+            # the slot's stream is keyed by the request's seed and the
+            # tokens it already has: a resume continues from a fold of
+            # both instead of replaying the draws it consumed
+            seeds[j] = (r.seed + 0x9E3779B1 * len(r.tokens)) & 0x7FFFFFFF
         M = pgr.max_pages
         # the segment's inputs reach the device in one copy that the host
         # does not wait for
         buf = self._upload(np.concatenate([
             prompts.reshape(-1), np.asarray(tables, np.int32).reshape(-1),
-            np.asarray(pre_lens_l, np.int32)]))
+            np.asarray(pre_lens_l, np.int32), seeds]))
         prompts_d = buf[:n * s_max].view(n, s_max)
         tables_d = buf[n * s_max:n * (s_max + M)].view(n, M)
-        pre_d = buf[n * (s_max + M):]
-        lens = [len(f) - pl for f, pl in zip(fulls, pre_lens_l)]
-        gens = [r.max_new_tokens - len(r.tokens) for r in picked]
+        pre_d = buf[n * (s_max + M):n * (s_max + M + 1)]
+        seeds_d = buf[n * (s_max + M + 1):]
 
-        def admit(q, s):
-            return self._admit_paged(s, prompts_d[q:q + 1],
-                                     tables_d[q:q + 1], pre_d[q:q + 1],
-                                     lens[q], gens[q])
+        if C is None:
+            def admit(q, s):
+                # one full-width chunk: the same admit body as every family
+                return self._chunk_paged(s, prompts_d[q:q + 1],
+                                         tables_d[q:q + 1], pre_d[q:q + 1],
+                                         0, lens[q], gens[q], True, None)
+            chunks = None
+        else:
+            rows = self.seq_parallel if sp_mode else 1
+            width = rows * C
 
-        out, toks, aq, aslot, steps, qadm, dig = self._run_steps(
-            max_steps, n_pad, gens, admit)
+            def admit(q, s, off, done):
+                return self._chunk_paged(
+                    s, prompts_d[q, off:off + width].view(rows, C),
+                    tables_d[q:q + 1], pre_d[q:q + 1], off, lens[q],
+                    gens[q], done, seeds_d[q:q + 1])
+            # a sequence-parallel prefill is expected to span segments: no
+            # step budget gates its start
+            chunks = (lens, width, not sp_mode)
+
+        log = self._run_steps(max_steps, n_pad, gens, admit,
+                              tick=self._verify_paged if spec else None,
+                              chunks=chunks)
         return _PendingSegment(paged=True, picked=picked,
                                prefix_cache=prefix_cache,
                                pre_lens=pre_lens_l, req_pages=req_pages,
-                               full_prompts=fulls, out=out, toks=toks,
-                               aq=aq, aslot=aslot, steps=steps, qadm=qadm,
-                               dig=dig)
+                               full_prompts=fulls, log=log,
+                               chunk_marker=None if C is None else n_pad + 1,
+                               sp=sp_mode)
 
     @torch.no_grad()
     def _run_steps(self, max_steps: int, n_pad: int, gens: List[int],
-                   admit):
-        """Issue a segment's steps, either layout: the JAX segment's
-        ``while_loop``, driven from the host. ``rem`` mirrors the device's
-        remaining counts; each step admits picked request ``qidx`` into
-        the first slot with nothing owed (``argmin(rem)``) while one is
-        free and requests remain (``admit(qidx, slot)`` -> (first token
-        [1], fp32 logits [1, V])), else runs a decode tick over every
-        slot. ``gens[q]`` is what request q owes.
+                   admit, tick=None, chunks=None) -> _StepLog:
+        """Issue a segment's steps, any family: the JAX segment's
+        ``while_loop``, driven from the host. ``gens[q]`` is what picked
+        request q owes; each step admits the next picked request into the
+        first slot owing nothing, or runs a decode tick over every slot
+        (``tick()`` -> (tokens, fp32 logits[, emitted counts]); default the
+        layout's decode tick).
 
-        Returns (out, toks, aq, aslot, steps, qadm, dig): the [max_steps,
-        slots] device token log; the same log read step by step when EOS
-        is set (else None); the host-known admit records (aq = n_pad marks
-        a decode step); the steps run and the requests admitted; the
-        digest columns on the device (None without quality_digest)."""
+        ``chunks`` None: an admit is one step (``admit(q, slot)`` -> (first
+        token [1], fp32 logits [1, V])) and admits run back to back while
+        a slot is free. Else ``(lens, width, gated)``: request q's
+        ``lens[q]``-token suffix prefills ``width`` tokens a step
+        (``admit(q, slot, offset, done)``, the first token when ``done``);
+        at most one prefill is under way, chunk steps alternate with ticks
+        while a slot is live, and with ``gated`` a prefill starts only
+        while 2 x its chunks fit the steps left.
+
+        The host keeps bounds on every slot's remaining count. Without EOS
+        and speculation they are exact, so the steps issue back to back;
+        with EOS each step's tokens are read once; on a speculative engine
+        a verify tick emits 1 to K + 1 tokens a slot, so when a choice
+        depends on counts the bounds do not settle (which slot is free,
+        whether any is live), the counts are read (``_fetch``). No step
+        is issued past the JAX loop's end."""
         n = len(gens)
-        decode = self._decode_paged if self.paged else self._decode_dense
-        out = torch.zeros((max_steps, self.slots), dtype=torch.int64,
-                          device=self.device)
-        toks = None if self.eos is None else np.zeros(
-            (max_steps, self.slots), np.int64)
+        spec = self._spec
+        K = self.speculative
+        tick = tick or (self._decode_paged if self.paged
+                        else self._decode_dense)
+        dev = self.device
+        out = torch.zeros((max_steps, self.slots) + ((K + 1,) if spec else ()),
+                          dtype=torch.int64, device=dev)
+        acc = (torch.zeros((max_steps, self.slots), dtype=torch.int64,
+                           device=dev) if spec else None)
+        toks = (np.zeros((max_steps, self.slots), np.int64)
+                if self.eos is not None and not spec else None)
         aq = np.full((max_steps,), n_pad, np.int32)
         aslot = np.zeros((max_steps,), np.int32)
         dig = None
         if self.quality_digest:
-            k, dev = self.digest_top_k, self.device
+            k = self.digest_top_k
             dig = (torch.zeros((max_steps, self.slots), dtype=torch.float32,
                                device=dev),
                    torch.zeros((max_steps, self.slots, k), dtype=torch.int32,
                                device=dev),
                    torch.zeros((max_steps, self.slots, k),
                                dtype=torch.float32, device=dev))
-        rem = list(self._rem_host)
-        qidx = step = 0
-        while (qidx < n or any(r > 0 for r in rem)) and step < max_steps:
-            if qidx < n and 0 in rem:
-                s = rem.index(0)
-                t0, logits = admit(qidx, s)
-                out[step, s] = t0[0]
-                if dig is not None:
-                    self._record_digest(dig, step, s, logits, t0)
-                rem[s] = gens[qidx] - 1
-                if toks is not None:
-                    toks[step, s] = self._fetch(t0)[0]
-                    if toks[step, s] == self.eos:
-                        rem[s] = 0
-                aq[step], aslot[step] = qidx, s
-                qidx += 1
+        lens, width, gated = chunks if chunks is not None else (None, 0, 0)
+        lo, hi = list(self._rem_host), list(self._rem_host)
+        step = qidx = 0
+        pf, pfq, pfo, phase = -1, 0, 0, 0
+        while step < max_steps:
+            if chunks is None:
+                waiting = qidx < n
             else:
-                out[step], logits = decode()
+                waiting = pf >= 0 or (qidx < n and (
+                    not gated
+                    or step + 2 * -(-lens[qidx] // width) <= max_steps))
+            kind, s = _choose(lo, hi, waiting, chunks is not None, pf,
+                              phase)
+            if kind is None:
+                lo = [int(v) for v in self._fetch(self._rem)]
+                hi = list(lo)
+                kind, s = _choose(lo, hi, waiting, chunks is not None, pf,
+                                  phase)
+            if kind == "stop":
+                break
+            if kind == "admit":
+                starting = pf < 0
+                q = qidx if starting else pfq
+                off = 0 if starting else pfo
+                done = chunks is None or off + width >= lens[q]
+                t0, logits = (admit(q, s) if chunks is None
+                              else admit(q, s, off, done))
+                if done:
+                    if spec:
+                        out[step, s, 0] = t0[0]
+                        acc[step, s].fill_(1)
+                    else:
+                        out[step, s] = t0[0]
+                    if dig is not None:
+                        self._record_digest(dig, step, s, logits, t0)
+                    lo[s] = hi[s] = gens[q] - 1
+                    if toks is not None:
+                        toks[step, s] = self._fetch(t0)[0]
+                        if toks[step, s] == self.eos:
+                            lo[s] = hi[s] = 0
+                    elif self.eos is not None:
+                        lo[s] = 0         # an EOS first token is not read
+                    aq[step] = q
+                else:
+                    aq[step] = n_pad + 1
+                aslot[step] = s
+                if chunks is not None:
+                    pf, pfq, pfo, phase = (-1 if done else s), q, off + width, 1
+                qidx += starting
+            else:
+                res = tick()
+                out[step] = res[0]
+                if acc is not None:
+                    acc[step] = res[2]
                 if dig is not None:
-                    self._record_digest(dig, step, slice(None), logits,
+                    self._record_digest(dig, step, slice(None), res[1],
                                         out[step])
-                live = [r > 0 for r in rem]
-                rem = [r - 1 if r > 0 else 0 for r in rem]
                 if toks is not None:
                     toks[step] = self._fetch(out[step])
-                    rem = [0 if lv and t == self.eos else r
-                           for r, lv, t in zip(rem, live, toks[step])]
+                for i in range(self.slots):
+                    if hi[i] > 0:      # a live slot emits 1 to K + 1
+                        hi[i] -= 1
+                        lo[i] = max(lo[i] - (K + 1 if spec else 1), 0)
+                        if spec and self.eos is not None:
+                            lo[i] = 0
+                        if toks is not None and toks[step, i] == self.eos:
+                            lo[i] = hi[i] = 0
+                phase = 0
             step += 1
-        return out, toks, aq, aslot, step, qidx, dig
+        return _StepLog(out=out, toks=toks, aq=aq, aslot=aslot, steps=step,
+                        qadm=qidx, dig=dig, acc=acc, pf=(pf, pfq, pfo))
 
     def _record_digest(self, dig, step: int, s, logits, tok) -> None:
         """Write one step's digests on the device: for the rows ``s`` of
@@ -981,22 +1373,6 @@ class ServingEngine:
         self._bind(s, t0, gen)
         return t0, logits
 
-    def _admit_paged(self, s: int, prompt, table, pre_len, ln: int,
-                     gen: int):
-        """Prefill one picked request's suffix ([1, s_max] at context
-        offset ``pre_len``) straight into its pages, and bind it to slot
-        ``s``. Shared-prefix rows already sit in the shared pages, so a
-        hit costs no prefill of the prefix and no row copy. Returns the
-        first token [1] and the fp32 logits [1, V], on the device."""
-        logits, _ = llama.forward_with_pages(
-            self.params, prompt, self.cfg, self.pager.pool, table, pre_len,
-            logit_pos=ln - 1)
-        t0 = torch.argmax(logits, dim=-1)
-        self.pager.page_table[s] = table[0]
-        self._pos[s] = pre_len[0] + ln
-        self._bind(s, t0, gen)
-        return t0, logits
-
     def _decode_paged(self):
         """One ragged decode tick over every slot; dead slots (nothing
         owed) write to the trash page and repeat their token. Returns the
@@ -1009,47 +1385,152 @@ class ServingEngine:
         self._advance(live, tok)
         return tok, logits
 
+    def _chunk_paged(self, s: int, tokens, table, pre_len, off: int, ln: int,
+                     gen: int, done: bool, seed):
+        """One chunk step of an admit into slot ``s``: ``tokens`` [1, C]
+        (a sequence-parallel slab: [sp, C], row i at ``i * C`` tokens
+        further) of the picked request's suffix from suffix row ``off``,
+        at context offset ``pre_len + off`` through its table row
+        ``table`` [1, max_pages] (installed now: idempotent across
+        chunks), ``ln`` the suffix length. A speculative engine writes the
+        tokens into the slot's history. On the last chunk (``done``) the
+        row holding the suffix's last token gives the first token (greedy,
+        or drawn from the stream keyed by ``seed`` [1], which the slot
+        takes) and the slot is bound. Returns (first token [1] or None,
+        fp32 logits [1, V])."""
+        rows, C = tokens.shape
+        self.pager.page_table[s] = table[0]
+        if rows == 1:
+            pos, lp, tab = pre_len + off, min(ln - 1 - off, C - 1), table
+        else:
+            # every slab row scatters its rows before any row attends
+            # (the model's per-layer order), so the slab computes what sp
+            # chunks in turn would
+            ar = C * torch.arange(rows, dtype=torch.int32,
+                                  device=self.device)
+            pos = pre_len + off + ar
+            lp = torch.clamp((ln - 1 - off) - ar, 0, C - 1)
+            tab = table.expand(rows, -1).contiguous()
+        logits, _ = llama.forward_with_pages(
+            self.params, tokens, self.cfg, self.pager.pool, tab, pos,
+            logit_pos=lp)
+        if self._hist is not None:
+            # history columns clamp into the overflow column at max_len
+            hidx = torch.clamp(pre_len.long() + off + torch.arange(
+                C, device=self.device), max=self.max_len)
+            self._hist[s, hidx] = tokens[0].long()
+            self._hstart[s] = pre_len[0]
+        if not done:
+            return None, logits
+        r_star = min(max((ln - 1 - off) // C, 0), rows - 1)
+        logits = logits[r_star:r_star + 1]
+        if self.sampling is None:
+            t0 = torch.argmax(logits, dim=-1)
+        else:
+            t0 = spec_ops.sample_first(logits, seed.long(), self.sampling)
+            self._rng[s, 0] = seed[0]
+            self._rng[s, 1].fill_(1)
+        self._pos[s] = pre_len[0] + ln
+        self._bind(s, t0, gen)
+        return t0, logits
+
+    def _verify_paged(self):
+        """One verify tick over every slot: draft K tokens a slot
+        (``speculative.ngram_draft``), score ``[nxt, drafts]`` in one pass
+        (``logits_all``; dead slots write to the trash page), accept
+        (``speculative.verify``), then each live slot emits ``m = min(a +
+        1, owed)`` tokens, cut after an EOS, and advances by ``m``. The K +
+        1 fed tokens enter the history at ``pos``; columns past the new
+        position are stale and rewritten before a draft can read them.
+        Returns (the [slots, K + 1] tokens, fp32 logits [slots, K + 1, V],
+        emitted counts [slots]), on the device."""
+        K = self.speculative
+        dev = self.device
+        live = self._rem > 0
+        pos, nxt, rem = self._pos, self._nxt, self._rem
+        drafts = (spec_ops.ngram_draft(self._hist, self._hstart, pos, nxt, K)
+                  if K else nxt.new_zeros((self.slots, 0)))
+        x = torch.cat([nxt[:, None], drafts], dim=1)
+        logits, _ = llama.forward_with_pages(
+            self.params, x, self.cfg, self.pager.pool,
+            self.pager.page_table, pos, live=live, logits_all=True)
+        e, a = spec_ops.verify(logits, drafts, nxt, self.sampling, self._rng)
+        m = torch.where(live, torch.minimum(a.to(rem.dtype) + 1, rem), 0)
+        if self.eos is not None:
+            ii = torch.arange(K + 1, device=dev)
+            eosm = (e == self.eos) & (ii[None] < m[:, None])
+            has_eos = eosm.any(dim=1)
+            m = torch.where(has_eos, torch.argmax(eosm.int(), dim=1).to(
+                m.dtype) + 1, m)
+        last = torch.gather(e, 1, torch.clamp(m - 1, min=0).long()[:, None])
+        self._nxt = torch.where(m > 0, last[:, 0], nxt)
+        rem = rem - m
+        if self.eos is not None:
+            rem = torch.where(live & has_eos, 0, rem)
+        hw = torch.clamp(pos.long()[:, None] + torch.arange(K + 1, device=dev),
+                         max=self.max_len)
+        self._hist.scatter_(1, hw, x)
+        self._pos = pos + m
+        self._rem = rem
+        return e, logits, m
+
     def _read_log(self, p: _PendingSegment):
-        """The segment's event log on the host: (tokens [steps, slots],
-        digests or None). The tokens and the digest columns come back in
-        ONE fetch (without EOS; with EOS the tokens were read step by step
-        and the digests take one fetch here), packed as int32 words: the
-        fp32 columns bit-cast, so nothing is rounded."""
-        if p.dig is None:
-            return (p.toks if p.toks is not None
-                    else self._fetch(p.out[:p.steps])), None
-        n, k = p.steps * self.slots, self.digest_top_k
-        dlg, dti, dtv = (t[:p.steps].reshape(-1) for t in p.dig)
+        """The segment's event log on the host: (tokens [steps, slots] (a
+        speculative segment's [steps, slots, K + 1]), digests or None,
+        emitted counts [steps, slots] or None). Everything comes back in
+        ONE fetch (without EOS; with EOS the plain segment's tokens were
+        read step by step and the digests take one fetch here), packed as
+        integer words: the fp32 digest columns bit-cast, so nothing is
+        rounded."""
+        log = p.log
+        steps = log.steps
+        if log.acc is not None:
+            flat = self._fetch(torch.cat([log.out[:steps].reshape(-1),
+                                          log.acc[:steps].reshape(-1)]))
+            n = steps * self.slots * (self.speculative + 1)
+            return (flat[:n].reshape(steps, self.slots,
+                                     self.speculative + 1), None,
+                    flat[n:].reshape(steps, self.slots))
+        if log.dig is None:
+            return (log.toks if log.toks is not None
+                    else self._fetch(log.out[:steps])), None, None
+        n, k = steps * self.slots, self.digest_top_k
+        dlg, dti, dtv = (t[:steps].reshape(-1) for t in log.dig)
         parts = [dlg.view(torch.int32), dti, dtv.view(torch.int32)]
-        if p.toks is None:
-            parts.insert(0, p.out[:p.steps].reshape(-1).to(torch.int32))
+        if log.toks is None:
+            parts.insert(0, log.out[:steps].reshape(-1).to(torch.int32))
         flat = self._fetch(torch.cat(parts))
-        toks = p.toks
+        toks = log.toks
         if toks is None:
-            toks, flat = flat[:n].reshape(p.steps, self.slots), flat[n:]
-        dig = (flat[:n].view(np.float32).reshape(p.steps, self.slots),
-               flat[n:n + n * k].reshape(p.steps, self.slots, k),
-               flat[n + n * k:].view(np.float32).reshape(p.steps,
+            toks, flat = flat[:n].reshape(steps, self.slots), flat[n:]
+        dig = (flat[:n].view(np.float32).reshape(steps, self.slots),
+               flat[n:n + n * k].reshape(steps, self.slots, k),
+               flat[n + n * k:].view(np.float32).reshape(steps,
                                                          self.slots, k))
-        return toks, dig
+        return toks, dig, None
 
     def finish_segment(self, pending: Optional[_PendingSegment] = None
                        ) -> dict:
         """Read a dispatched segment's event log (its one counted fetch)
         and replay it: tokens to their requests, then the requests the
-        step budget did not admit back to the queue head, then each slot's
-        latest admitted prompt harvested into the prefix cache. Returns
-        the ``run_segment`` result dict."""
+        step budget did not admit back to the queue head (a long prefill
+        the budget cut keeps its reservation and goes first), then each
+        slot's latest admitted prompt harvested into the prefix cache.
+        Returns the ``run_segment`` result dict; a speculative segment's
+        adds ``"spec"``: drafts proposed and accepted, tokens emitted,
+        verify steps and slot ticks."""
         p = pending if pending is not None else self._pending_seg
         if p is None or p is not self._pending_seg:
             raise RuntimeError("finish_segment without a matching "
                                "dispatched segment")
         self._pending_seg = None
         picked, n, prefix_cache = p.picked, len(p.picked), p.prefix_cache
+        log = p.log
         pgr = self.pager
-        toks, dig = self._read_log(p)
-        self.last_run_ticks += p.steps
-        self.last_run_chunks += 1
+        toks, dig, acc = self._read_log(p)
+        spec_stats = None if acc is None else {
+            "proposed": 0, "accepted": 0, "emitted": 0, "verify_steps": 0,
+            "slot_ticks": 0}
 
         # page bookkeeping rides the replay through hooks; retired slots'
         # releases wait until after the prefix-cache inserts, so harvest
@@ -1065,21 +1546,47 @@ class ServingEngine:
                 pgr.slot_pages[s] = []
 
         admitted, first_tokens, finished, new_tokens = self._replay_segment(
-            picked, toks, p.aq, p.aslot, p.steps, on_admit, on_retire, dig)
-        if p.qadm < n:
+            picked, toks, log.aq, log.aslot, log.steps, on_admit, on_retire,
+            dig, chunk_marker=p.chunk_marker, acc=acc, spec_stats=spec_stats)
+        self.last_run_ticks += log.steps
+        self.last_run_chunks += 1
+        if p.chunk_marker is not None:
+            self.prefill_chunk_steps += int(
+                (log.aq[:log.steps] >= p.chunk_marker).sum())
+        qadm = log.qadm
+        if p.sp:
+            # completed admissions end their carry-over
+            for r in picked:
+                self._sp_inflight.pop(r.rid, None)
+        pf, pfq, pfo = log.pf
+        if p.sp and pf >= 0:
+            # a long prefill the budget cut: its reservation stays held
+            # (its pages hold the landed rows) and it goes back first, to
+            # resume at the rows now resident; the rest release and
+            # requeue behind it
+            assert qadm == pfq + 1, (f"prefill progress desynced: row "
+                                     f"{pfq}, {qadm} admitted")
+            self._sp_inflight[picked[pfq].rid] = {
+                "pages": p.req_pages[pfq],
+                "resident": p.pre_lens[pfq] + pfo}
+            for j in range(qadm, n):
+                picked[j].admit_time = 0.0
+                pgr.release_pages(p.req_pages[j])
+            self._queue[:0] = picked[pfq:]
+        elif qadm < n:
             # the step budget ran out before every picked request found a
             # slot: release their reservations and requeue them FCFS
-            for j in range(p.qadm, n):
+            for j in range(qadm, n):
                 picked[j].admit_time = 0.0
                 if p.paged:
                     pgr.release_pages(p.req_pages[j])
-            self._queue[:0] = picked[p.qadm:]
+            self._queue[:0] = picked[qadm:]
 
         if prefix_cache is not None:
             last_admit = {}                # slot -> its latest admit event
-            for st in range(p.steps):
-                if p.aq[st] < n:
-                    last_admit[int(p.aslot[st])] = int(p.aq[st])
+            for st in range(log.steps):
+                if log.aq[st] < n:
+                    last_admit[int(log.aslot[st])] = int(log.aq[st])
             for s, q in last_admit.items():
                 fp = p.full_prompts[q]     # the span actually prefilled
                 plen_b = prefix_cache.round_down(len(fp))
@@ -1088,9 +1595,18 @@ class ServingEngine:
                                   p.req_pages[q] if p.paged else None)
         for pages in pending_frees:
             pgr.release_pages(pages)
-        return {"steps": p.steps, "admitted": admitted,
-                "first_tokens": first_tokens, "finished": finished,
-                "tokens": new_tokens}
+        result = {"steps": log.steps, "admitted": admitted,
+                  "first_tokens": first_tokens, "finished": finished,
+                  "tokens": new_tokens}
+        if spec_stats is not None:
+            if spec_stats["slot_ticks"]:
+                # tokens one slot retires a verify tick, averaged over
+                # segments
+                eff = spec_stats["emitted"] / spec_stats["slot_ticks"]
+                self.spec_accept_ewma = 0.5 * self.spec_accept_ewma \
+                    + 0.5 * eff
+            result["spec"] = spec_stats
+        return result
 
     def _harvest(self, prefix_cache, tokens, slot: int, pages) -> None:
         """Insert the prefix ``tokens`` whose KV rows slot ``slot`` holds:
@@ -1106,17 +1622,27 @@ class ServingEngine:
                                 self._cache["v"][:, slot, :n].clone())
 
     def _replay_segment(self, picked, toks, aq, aslot, steps: int,
-                        on_admit=None, on_retire=None, dig=None):
+                        on_admit=None, on_retire=None, dig=None,
+                        chunk_marker: Optional[int] = None, acc=None,
+                        spec_stats: Optional[dict] = None):
         """Walk a segment's event log in order, tracking slot occupancy:
         an admit binds a slot and delivers its first token; a decode step
         appends one token to every slot the host knows is live (its
-        ``_rem_host`` mirror), so frozen repeats are dropped. The hooks
-        ``on_admit(q, slot)`` and ``on_retire(request, slot, step)`` run
-        in event order, so a slot freed and re-admitted within the segment
-        releases its old pages before the new list installs. Each
-        delivered token takes its digest row (``dig``, when given).
-        Returns (admitted, first_tokens, finished, new_tokens)."""
+        ``_rem_host`` mirror), so frozen repeats are dropped; steps whose
+        aq is ``chunk_marker`` (non-final prefill chunks) carry nothing.
+        The hooks ``on_admit(q, slot)`` and ``on_retire(request, slot,
+        step)`` run in event order, so a slot freed and re-admitted within
+        the segment releases its old pages before the new list installs.
+        Each delivered token takes its digest row (``dig``, when given).
+
+        A speculative log (``acc`` [steps, slots] emitted counts, ``toks``
+        [steps, slots, K + 1]): an admit's token is column 0, a verify
+        tick gives each live slot its first ``acc`` tokens, and each
+        request's drafts proposed and accepted accrue to it and to
+        ``spec_stats``. Returns (admitted, first_tokens, finished,
+        new_tokens)."""
         n = len(picked)
+        K = self.speculative
         admitted, first_tokens, finished = [], [], []
         new_tokens = 0
 
@@ -1128,13 +1654,15 @@ class ServingEngine:
 
         for st in range(steps):
             q = int(aq[st])
+            if chunk_marker is not None and q >= chunk_marker:
+                continue                   # a prefill chunk: no token
             if q < n:                      # admit event
                 r = picked[q]
                 s = int(aslot[st])
                 assert self._active[s] is None, "admit into a live slot"
                 if on_admit is not None:
                     on_admit(q, s)
-                t = int(toks[st, s])
+                t = int(toks[st, s, 0] if acc is not None else toks[st, s])
                 r.tokens.append(t)
                 if dig is not None:
                     self._append_digest(r, dig, st, s)
@@ -1150,19 +1678,36 @@ class ServingEngine:
                     self._active[s] = r
                     self._rem_host[s] = r.max_new_tokens - len(r.tokens)
                 continue
-            for s, r in enumerate(self._active):   # decode tick
-                if r is None or self._rem_host[s] <= 0:
-                    continue
-                t = int(toks[st, s])
-                r.tokens.append(t)
-                if dig is not None:
-                    self._append_digest(r, dig, st, s)
-                new_tokens += 1
-                if len(r.tokens) == 1:
-                    first_tokens.append(r.rid)
-                self._rem_host[s] -= 1
-                if self.eos is not None and t == self.eos:
-                    self._rem_host[s] = 0
+            live = [(s, r) for s, r in enumerate(self._active)
+                    if r is not None and self._rem_host[s] > 0]
+            if acc is not None and live and spec_stats is not None:
+                spec_stats["verify_steps"] += 1
+            for s, r in live:              # decode or verify tick
+                if acc is None:
+                    emit = [int(toks[st, s])]
+                else:
+                    k_emit = int(acc[st, s])
+                    emit = [int(t) for t in toks[st, s, :k_emit]]
+                    r.spec_proposed += K
+                    r.spec_accepted += max(k_emit - 1, 0)
+                    if spec_stats is not None:
+                        spec_stats["slot_ticks"] += 1
+                        spec_stats["proposed"] += K
+                        spec_stats["accepted"] += max(k_emit - 1, 0)
+                for t in emit:
+                    if self._rem_host[s] <= 0:
+                        break
+                    r.tokens.append(t)
+                    if dig is not None:
+                        self._append_digest(r, dig, st, s)
+                    new_tokens += 1
+                    if spec_stats is not None:
+                        spec_stats["emitted"] += 1
+                    if len(r.tokens) == 1:
+                        first_tokens.append(r.rid)
+                    self._rem_host[s] -= 1
+                    if self.eos is not None and t == self.eos:
+                        self._rem_host[s] = 0
                 if self._rem_host[s] == 0:
                     self._active[s] = None
                     retire(r, s, st)

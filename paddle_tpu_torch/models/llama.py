@@ -400,9 +400,11 @@ def _gather_attention(cfg: LlamaConfig, q, kc, vc, page_table, positions,
 
 
 def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
-                       pos, live=None, logit_pos=None):
+                       pos, live=None, logit_pos=None, logits_all=False):
     """``forward_with_cache`` over a paged pool. Returns (logits [B, V]
-    fp32, pool), the pool updated in place.
+    fp32, pool), the pool updated in place; with ``logits_all``, the
+    logits of every position, [B, T, V] (the speculative verify tick
+    scores its K + 1 positions from one pass over the weights).
 
     tokens [B, T] run at positions ``pos[b] .. pos[b] + T - 1`` (``pos``
     [B] int32, each row at its own base: T == 1 is a ragged decode tick,
@@ -465,11 +467,17 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
             attn = attend(i, q[:, None], k_new[:, None], v_new[:, None])
             x = _decode_post(cfg, x, attn[:, 0], lp)
         last = _tf.fused_rms_norm(x, params["ln_f"], cfg.rms_eps)
+        if logits_all:
+            return _mm(last, params, "lm_head", cfg.dtype).float()[:, None], \
+                pool
     else:
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
             q, k_new, v_new = _qkv_proj(cfg, x, lp, positions)
             x = _layer_post(cfg, x, attend(i, q, k_new, v_new), lp)
+        if logits_all:
+            last = _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
+            return _mm(last, params, "lm_head", cfg.dtype).float(), pool
         if logit_pos is None:
             x = x[:, -1]
         elif torch.is_tensor(logit_pos) and logit_pos.dim() == 1:

@@ -353,6 +353,65 @@ class TestPagedAttention:
             _close(out, ref, dt)
             assert int(tickets.abs().sum()) == 0
 
+    def _check_table(self, cuda, dtype, case, pt):
+        """``case`` (from ``_case``) on the page table ``pt``: one launch,
+        every row against the plain version."""
+        q, kp, vp, _, ctx_t, ql = case
+        before = pa.ragged_paged_attention.launches
+        out = pa.ragged_paged_attention(q, kp, vp, pt, ctx_t, ql)
+        torch.cuda.synchronize()
+        assert pa.ragged_paged_attention.launches == before + 1
+        assert torch.isfinite(out.float()).all()
+        _close(out, pa.ragged_paged_attention_plain(q, kp, vp, pt, ctx_t),
+               dtype)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("K", [1, 3, 4, 7, 8])
+    def test_verify_ticks(self, cuda, dtype, K):
+        """A speculative verify tick at bert width: 8 slots of K + 1 rows
+        (rep 1: the split-KV decode family with several rows up to K = 7,
+        the prefill family at K = 8) at ragged positions. The last two
+        slots are dead: frozen at the window's end, their rows past it, and
+        their tables' tails the trash page 0, where the engine sends dead
+        slots' writes."""
+        ctx = [0, 17, 100, 255, 301, 383 - K, 383, 384]
+        case = self._case(cuda, dtype, 8, K + 1, 12, 12, 64, 24, ctx, None,
+                          seed=K)
+        pt = case[3].clone()
+        pt[6:, 20:] = 0
+        assert pa.family(K + 1, 1) == ("decode" if K < 8 else "prefill")
+        self._check_table(cuda, dtype, case, pt)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("C,off", [(8, 29), (16, 37), (32, 45),
+                                       (64, 77), (64, 1)])
+    def test_prefill_chunks_off_the_page_grid(self, cuda, dtype, C, off):
+        """Chunked prefill: a chunk of C rows at a context offset that is
+        no multiple of the page size (the rows before it already in the
+        pool), one slot as the engine runs it, and three slots at once."""
+        self._check(cuda, dtype, 1, C, 12, 12, 64, 24, [off], None)
+        self._check(cuda, dtype, 3, C, 12, 12, 64, 24,
+                    [off, off + 3 * C, 383 - C], None)
+
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("sp", [2, 4])
+    @pytest.mark.parametrize("C", [8, 64])
+    def test_sp_slabs_share_one_table_row(self, cuda, dtype, sp, C):
+        """A sequence-parallel slab: sp rows of C tokens of one prompt,
+        row i at offset base + i * C, every row reading the request's one
+        table row (copied for each row). The reservation ends inside the
+        slab, so the overrun rows past it read the trash page 0, and the
+        last rows pass the window (2048 rows)."""
+        max_pages, psz = 128, 16
+        base = max_pages * psz - sp * C + C // 2 + 5
+        reserved = (base + C // 2 + psz - 1) // psz
+        case = self._case(cuda, dtype, sp, C, 12, 12, 64, max_pages,
+                          [base + C * i for i in range(sp)], None, seed=sp)
+        row = case[3][0].clone()
+        row[reserved:] = 0
+        self._check_table(cuda, dtype, case,
+                          row[None].expand(sp, -1).contiguous())
+
     def test_rejects_what_it_does_not_take(self, cuda):
         pt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
         ctx = torch.zeros(2, dtype=torch.int32, device=cuda)
