@@ -155,6 +155,28 @@ Phases (any failed check raises and the script exits non-zero):
    ``ragged_paged_attention`` against its plain version at verify ticks
    (K 1, 4, 7, 8; dead slots past the window), chunks off the page grid
    and sp slabs sharing one table row;
+3i. (after 3h, on its weights) the host KV tier behind the paged prefix
+   cache and the SLO control plane: (a) 16 tenants x 3 rounds of a
+   256-token prefix and a 32-token tail (32 tokens each, all at t = 0)
+   through ``OnlineScheduler`` on a tight pool (96 pages, max_len 512)
+   with a ``PagedPrefixCache(capacity_pages=48)`` over a
+   ``HostTier(capacity_pages=1024)``: stages, spills and restores happen;
+   under ``set_sync_debug_mode("warn")`` the serve's synchronising calls
+   number exactly its fetches (one a segment: the tier adds none); every
+   restore leaves in its pages, each plane, the bytes staged for them;
+   tokens equal a serve with no cache or part at a near tie; no page
+   leaked after ``reset``; tokens/s, TTFT and admit-to-first-token by hit
+   kind against an untiered cache of the same pool bound; one 16-page
+   stage and restore timed against a plain pinned ``copy_``; (b) the same
+   on an int8 pool (its ``ks``/``vs`` planes travel with the pages;
+   tokens held to the int8 serve with no cache on the serve's own
+   digests); (c) ``SLOScheduler`` under overload (long class-1 requests
+   at t = 0, short class-0 ones with e2e deadlines from 50 ms on):
+   preemptions, none of the same or a higher class, class 0's TTFT p99
+   below class 1's, the report's sheds equal to the journal's
+   ``shed_decision`` records; then, shedding off, the serve without
+   monitors and with the SLO, perf and capacity monitors under the first
+   one's decision clock fed back: identical tokens, fetches and launches;
 6. ResNet-50 training, BASELINE config 1 (benchmarks/resnet50.py):
    ``resnet50(num_classes=1000, data_format="NHWC")`` from the port's
    initializers (seed 0), B 128 at 224x224 (``RandomState(0)`` images and
@@ -179,7 +201,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3h, 5b, 6 and 7 is driven with every launch count set to 0 just
+   3-3i, 5b, 6 and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -196,6 +218,7 @@ import os
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 from unittest import mock
 
@@ -3162,6 +3185,395 @@ def resnet_adamw(torch, port, fns, model, x, y, steps=3):
     return {"steps": steps, "losses": losses}, launches
 
 
+# phase 3i: the host KV tier behind the paged prefix cache, and the SLO
+# control plane, at bert_base_equiv width in bf16
+TIER_TENANTS = 16       # tenants, each with its own prefix
+TIER_PREFIX = 256       # prefix tokens (16 pages)
+TIER_TAIL = 32          # tail tokens of each request
+TIER_ROUNDS = 3         # round-robin rounds over the tenants
+TIER_GEN = 32           # tokens generated a request
+TIER_MAX_LEN = 512
+TIER_POOL_PAGES = 96    # usable pages of the tight pool (~57 MB)
+TIER_CACHE_PAGES = 48   # the prefix cache's bound in pool pages
+TIER_HOST_PAGES = 1024  # the host tier's bound (~604 MB pinned)
+SLO_DEADLINE = 1.0      # class 0's e2e deadline (s)
+SLO_TIGHT = 0.5         # the tight deadline of a few class-1 requests (s)
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+def tier_trace(sched, vocab, seed=0):
+    """Phase 3i's multi-tenant trace: ``TIER_ROUNDS`` rounds over
+    ``TIER_TENANTS`` tenants, each request its tenant's prefix and a fresh
+    tail, every arrival at t = 0 (the schedule is the queue's alone). The
+    working set, 16 prefixes of 16 pages, is 5 times the cache's bound,
+    so the tier carries the prefixes between rounds."""
+    rng = np.random.RandomState(seed)
+    prefs = [rng.randint(0, vocab, (TIER_PREFIX,)).astype(np.int32)
+             for _ in range(TIER_TENANTS)]
+    return [sched.Arrival(0.0, np.concatenate([
+        prefs[t], rng.randint(0, vocab, (TIER_TAIL,)).astype(np.int32)]),
+        TIER_GEN) for _ in range(TIER_ROUNDS) for t in range(TIER_TENANTS)]
+
+
+def tier_engine(ServingEngine, params, cfg, **kw):
+    """The tight paged engine of phase 3i: 8 slots, pages of 16, a pool of
+    ``TIER_POOL_PAGES`` (a request spans 20 pages)."""
+    return ServingEngine(cfg, params, slots=8, max_len=TIER_MAX_LEN,
+                         chunk=16, prompt_buckets=(64, 128, 256, 512),
+                         paged=True, page_size=PAGE,
+                         num_pages=TIER_POOL_PAGES + 1, device=DEVICE, **kw)
+
+
+def tier_cache(PagedPrefixCache, kv_tiers, eng, tiered=True):
+    return PagedPrefixCache(
+        eng.pager, capacity_pages=TIER_CACHE_PAGES,
+        host_tier=(kv_tiers.HostTier(eng.pager,
+                                     capacity_pages=TIER_HOST_PAGES)
+                   if tiered else None))
+
+
+def _bits(torch, t):
+    return t.contiguous().view(torch.uint8).cpu().numpy()
+
+
+def tier_serve(torch, sched, kv_tiers, fns, eng, pc, arrivals,
+               audit=False):
+    """One serve of ``arrivals`` through ``OnlineScheduler`` (segments of
+    32 steps), every launch count at 0 just before and read just after.
+    With ``audit``, the serve runs under ``set_sync_debug_mode("warn")``
+    with each synchronising call counted, and every restore's pages are
+    copied on the device as the upload leaves them, to be held bit for bit
+    against the host bytes that were staged for them (after the serve).
+    Returns (stats, launches, tokens and requests in arrival order)."""
+    sch = sched.OnlineScheduler(eng, seg_steps=32, max_queue=len(arrivals),
+                                prefix_cache=pc)
+    seen = []
+    orig = kv_tiers.HostTier.upload
+
+    def spy(self, pages, planes):
+        orig(self, pages, planes)
+        idx = self._index(pages)
+        seen.append([(p, kv_tiers._raw(self.pager.pool[p])[:, idx].clone(),
+                      planes[p]) for p in planes])
+
+    f0 = eng.fetches
+    patch = (mock.patch.object(kv_tiers.HostTier, "upload", spy) if audit
+             else contextlib.nullcontext())
+    with patch, warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        if audit:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rep = sch.serve(arrivals)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts(fns)
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    reqs = [sch._reqs[r] for r in sorted(sch._reqs)]
+    res = sch.results()
+    toks = [res[r.rid] for r in reqs]
+    check_tokens(res, [r.rid for r in reqs],
+                 [(a.prompt, a.max_new_tokens) for a in arrivals], eng.cfg)
+    fetches = eng.fetches - f0
+    if fetches != rep.segments:
+        raise AssertionError(f"3i: {fetches} fetches for {rep.segments} "
+                             f"segments")
+    restored = [r for r in reqs if r.tier_pages]
+    hbm_hit = [r for r in reqs if r.prefix_hit_len and not r.tier_pages]
+    miss = [r for r in reqs if not r.prefix_hit_len]
+
+    st = {"requests": rep.n_requests, "new_tokens": rep.total_tokens,
+          "wall_s": wall, "tokens_per_s": rep.total_tokens / wall,
+          "steps": rep.ticks, "admits": sum(1 + r.preemptions for r in reqs),
+          "segments": rep.segments, "fetches": fetches,
+          "ms_per_step": 1e3 * wall / rep.ticks,
+          "ttft_p50_s": rep.ttft_p50_s, "ttft_p99_s": rep.ttft_p99_s,
+          "e2e_p50_s": rep.e2e_p50_s, "e2e_p99_s": rep.e2e_p99_s,
+          "hits": {"restored": len(restored), "hbm": len(hbm_hit),
+                   "miss": len(miss)},
+          "prefix": rep.prefix, "tiers": rep.tiers}
+    st["ticks"] = st["steps"] - st["admits"]
+    if audit:
+        if syncs != fetches:
+            raise AssertionError(f"3i: {syncs} synchronising calls in the "
+                                 f"tiered serve, {fetches} fetches: the "
+                                 f"tier synchronised")
+        bad = [p for ups in seen for p, dev, host in ups
+               if not np.array_equal(_bits(torch, dev), _bits(torch, host))]
+        if not seen or bad:
+            raise AssertionError(f"3i: {len(seen)} restores, planes whose "
+                                 f"restored bytes differ from the staged "
+                                 f"ones: {bad}")
+        st["synchronising_calls"] = syncs
+        st["restores_checked"] = len(seen)
+        st["planes_checked"] = sorted({p for ups in seen for p, _, _ in ups})
+    if pc is not None:
+        pc.reset()
+    leaks = eng.pager.leak_report()
+    if leaks:
+        raise AssertionError(f"3i: leaked pages after reset: {leaks}")
+    return st, launches, toks, reqs
+
+
+def digest_near_ties(xs, ys, digests, what):
+    """Hold greedy serves ``xs`` to ``ys`` request by request on ``xs``'s
+    own quality digests: each pair is identical or parts first where
+    ``ys``'s token is in ``xs``'s top-k at that step within
+    ``LOGIT_ATOL`` of its top logit (the engine's own logits, a quantized
+    engine's included). Returns the near ties."""
+    ties = []
+    for i, (a, b, dig) in enumerate(zip(xs, ys, digests)):
+        t = next((j for j, (u, v) in enumerate(zip(a, b)) if u != v), None)
+        if t is None:
+            continue
+        _, ids, vals = dig[t]
+        gap = (vals[0] - vals[ids.index(b[t])]) if b[t] in ids else None
+        if gap is None or gap > LOGIT_ATOL:
+            raise AssertionError(f"{what}: request {i} left the other serve "
+                                 f"at token {t}, logit gap {gap}")
+        ties.append({"token": t, "gap": gap})
+    return ties
+
+
+def tier_transfer_ms(torch, kv_tiers, eng, pages=16, iters=20):
+    """Device time of one ``pages``-page stage (gather + non-blocking D2H
+    into pinned memory, every plane) and one restore (non-blocking H2D +
+    ``index_copy_``), CUDA events around ``iters`` calls each, beside a
+    plain pinned ``copy_`` of the same bytes each way."""
+    tier = kv_tiers.HostTier(eng.pager, capacity_pages=4 * pages)
+    ids = list(range(1, pages + 1))
+    nbytes = pages * tier.page_bytes()
+    dev = torch.empty(nbytes, dtype=torch.uint8, device=DEVICE)
+    host = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+
+    def events(fn):
+        for _ in range(3):
+            fn()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        return a.elapsed_time(b) / iters
+
+    def stage():
+        tier.stage(b"timed", ids)
+        tier.take_pending()
+
+    tier.stage(b"probe", ids)
+    tier.flush()
+    planes = {p: a for p, a in tier.get(b"probe").items()
+              if p in tier.planes()}
+    out = {"pages": pages, "bytes": nbytes,
+           "stage_ms": events(stage),
+           "d2h_copy_ms": events(lambda: host.copy_(dev, non_blocking=True)),
+           "restore_ms": events(lambda: tier.upload(ids, planes)),
+           "h2d_copy_ms": events(lambda: dev.copy_(host, non_blocking=True))}
+    tier.complete([])
+    for k in ("stage", "restore"):
+        out[k + "_gb_per_s"] = nbytes / out[k + "_ms"] / 1e6
+    return out
+
+
+def tier_phase(torch, sched, kv_tiers, llama, ServingEngine,
+               PagedPrefixCache, fns, params, cfg):
+    """Phase 3i (a) and (b): the multi-tenant trace on a tight pool with a
+    host tier behind the cache, bf16 and int8. (a): an audited serve
+    (synchronising calls counted, restored bytes against staged), a timed
+    one, the same trace with an untiered cache of the same pool bound and
+    with no cache (the token oracle), and the transfer times. (b): the
+    int8 pool, tiered and with no cache, on quality digests."""
+    L = cfg.num_layers
+    arrivals = tier_trace(sched, cfg.vocab_size)
+    prompts = [a.prompt for a in arrivals]
+    out, launches = {}, {}
+
+    def run(key, tiered=True, cached=True, audit=False, **kw):
+        eng = tier_engine(ServingEngine, params, cfg, **kw)
+        pc = tier_cache(PagedPrefixCache, kv_tiers, eng, tiered) \
+            if cached else None
+        st, n, toks, reqs = tier_serve(torch, sched, kv_tiers, fns, eng,
+                                       pc, arrivals, audit=audit)
+        quant = bool(kw.get("quant"))
+        want = (paged_counts(L, st["steps"], st["ticks"], quant=True)
+                if quant else family_counts(L, st["steps"], st["ticks"]))
+        check_counts(n, want, f"3i {key}: {st['steps']} steps, "
+                              f"{st['ticks']} ticks")
+        launches[f"tier_{key}"] = n
+        return st, toks, reqs
+
+    out["audited"], atoks, _ = run("audited", audit=True)
+    t = out["audited"]["tiers"]
+    if not (t["stages"] and t["spills"] and t["restores"]):
+        raise AssertionError(f"3i: the tier did not carry the prefixes: {t}")
+    out["tiered"], ttoks, _ = run("tiered")
+    out["untiered"], utoks, _ = run("untiered", tiered=False)
+    out["no_cache"], ntoks, _ = run("no_cache", cached=False)
+    ties = {}
+    for key, xs in (("audited", atoks), ("tiered", ttoks),
+                    ("untiered", utoks)):
+        ties[key] = parted_at_near_ties(torch, llama, params, cfg, prompts,
+                                        xs, ntoks, f"3i {key}")
+    out["parted_at_near_ties"] = ties
+    eng = tier_engine(ServingEngine, params, cfg)
+    out["transfer"] = tier_transfer_ms(torch, kv_tiers, eng)
+    del eng
+
+    q, toks = {}, {}
+    for key, cached in (("tiered", True), ("no_cache", False)):
+        q[key], toks[key], reqs = run(f"int8_{key}", cached=cached,
+                                      audit=cached, quant="int8",
+                                      quality_digest=True)
+        if cached:
+            digests = [r.digests for r in reqs]
+    t = q["tiered"]["tiers"]
+    if not (t["stages"] and t["spills"] and t["restores"]):
+        raise AssertionError(f"3i int8: the tier did not carry the "
+                             f"prefixes: {t}")
+    q["parted_at_near_ties"] = digest_near_ties(
+        toks["tiered"], toks["no_cache"], digests, "3i int8 tiered")
+    out["int8"] = q
+    return out, launches
+
+
+def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
+    """Phase 3i (c): ``SLOScheduler`` under overload on the paged engine.
+    Class 1 (12 requests of 256 prompt tokens and 64 new, 4 more with a
+    tight deadline) arrives at t = 0 and fills the 8 slots; class 0 (16
+    requests of 32 and 16, e2e deadline ``SLO_DEADLINE``) arrives from
+    50 ms on, one every 10 ms, into busy slots. (With every arrival at
+    t = 0 the class-ordered queue admits class 0 first and nothing is
+    preempted.) A serve with shedding on and a journal: preemptions,
+    never of the same or a higher class, class 0's TTFT p99 below class
+    1's, the report's sheds equal to the journal's ``shed_decision``
+    records. Then two serves with shedding off, without monitors (its
+    decision clock recorded) and with the SLO, perf and capacity monitors
+    under that clock fed back: the same decisions, so the tokens, the
+    fetches and the launches must be identical. Every serve runs under
+    ``set_sync_debug_mode("warn")``, and its synchronising calls must
+    number its fetches: a monitor that read the device would add one."""
+    from paddle_tpu_torch.observability.capacity import CapacityMonitor
+    from paddle_tpu_torch.observability.perf import PerfMonitor
+    from paddle_tpu_torch.observability.slo import Objective, SLOMonitor
+
+    L = cfg.num_layers
+    rng = np.random.RandomState(11)
+    V = cfg.vocab_size
+    arrivals = ([sched.Arrival(0.0, rng.randint(0, V, (256,)).astype(
+        np.int32), 64, priority=1) for _ in range(12)]
+        + [sched.Arrival(0.0, rng.randint(0, V, (128,)).astype(np.int32),
+                         32, priority=1, deadline_s=SLO_TIGHT)
+           for _ in range(4)]
+        + [sched.Arrival(0.05 + 0.01 * i, rng.randint(0, V, (32,)).astype(
+            np.int32), 16, priority=0, deadline_s=SLO_DEADLINE)
+           for i in range(16)])
+
+    def serve(shed, monitors=False, clock=None):
+        eng = family_engine(ServingEngine, params, cfg, max_len=TIER_MAX_LEN,
+                            buckets=(64, 128, 256, 512))
+        kw = {}
+        if monitors:
+            kw = dict(
+                slo_monitor=SLOMonitor({
+                    0: Objective(ttft_target_s=0.5,
+                                 e2e_target_s=SLO_DEADLINE),
+                    1: Objective(e2e_target_s=10.0)}),
+                perf_monitor=PerfMonitor(cfg, eng.params, batch=8,
+                                         avg_pos=200.0),
+                capacity_monitor=CapacityMonitor())
+        sch = sched.SLOScheduler(eng, max_queue=len(arrivals), seg_steps=32,
+                                 shed_deadlines=shed, **kw)
+        j = journal.Journal()
+        feed = (journal.feed_clock(clock) if clock is not None
+                else contextlib.nullcontext())
+        f0 = eng.fetches
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        with journal.attach(j), feed, \
+                warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                rep = sch.serve(arrivals)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts(fns)
+        syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+        if syncs != eng.fetches - f0:
+            raise AssertionError(f"3i SLO: {syncs} synchronising calls, "
+                                 f"{eng.fetches - f0} fetches (monitors "
+                                 f"{monitors})")
+        recs = j.records()
+        admits = sum(r["kind"] == "admit" for r in recs)
+        steps = eng.last_run_ticks
+        check_counts(n, family_counts(L, steps, steps - admits),
+                     f"3i SLO: {steps} steps, {admits} admits")
+        res = sch.results()
+        served = sorted(res)
+        check_tokens(res, served, [(sch._reqs[r].prompt,
+                                    sch._reqs[r].max_new_tokens)
+                                   for r in served], cfg)
+        if eng.pager.leak_report():
+            raise AssertionError(f"3i SLO leaked pages: "
+                                 f"{eng.pager.leak_report()}")
+        return {"rep": rep, "records": recs, "tokens": res, "launches": n,
+                "fetches": eng.fetches - f0, "syncs": syncs, "wall_s": wall,
+                "clock": [r["c"] for r in recs if r["kind"] == "clock"]}
+
+    a = serve(shed=True)
+    rep = a["rep"]
+    decisions = [r for r in a["records"] if r["kind"] == "preempt_decision"]
+    if rep.preemptions < 1:
+        raise AssertionError("3i SLO: nothing was preempted")
+    if any(d["victim_priority"] <= d["head_priority"] for d in decisions):
+        raise AssertionError("3i SLO: a preemption of the same or a higher "
+                             "class")
+    sheds = sum(r["kind"] == "shed_decision" for r in a["records"])
+    if rep.shed != sheds:
+        raise AssertionError(f"3i SLO: the report sheds {rep.shed}, the "
+                             f"journal {sheds}")
+    pc = rep.per_class
+    if not pc[0]["ttft_p99_s"] < pc[1]["ttft_p99_s"]:
+        raise AssertionError(f"3i SLO: class 0 TTFT p99 "
+                             f"{pc[0]['ttft_p99_s']} not below class 1's "
+                             f"{pc[1]['ttft_p99_s']}")
+    off = serve(shed=False)
+    on = serve(shed=False, monitors=True, clock=off["clock"])
+    for key in ("tokens", "fetches", "launches"):
+        if on[key] != off[key]:
+            raise AssertionError(f"3i SLO: the monitors changed the serve's "
+                                 f"{key}")
+    r_on = on["rep"]
+    st = {"requests": len(arrivals), "served": rep.n_requests,
+          "preemptions": rep.preemptions, "shed": rep.shed,
+          "shed_per_class": rep.shed_per_class,
+          "per_class": rep.per_class, "segments": rep.segments,
+          "fetches": a["fetches"], "wall_s": a["wall_s"],
+          "tokens_per_s": rep.total_tokens / a["wall_s"],
+          "journal_records": len(a["records"]),
+          "synchronising_calls": a["syncs"],
+          "monitors": {"fetches": on["fetches"],
+                       "synchronising_calls": on["syncs"],
+                       "segments": r_on.segments,
+                       "slo_worst_level": r_on.slo["worst_level"],
+                       "slo_alerts": len(r_on.slo["alerts"]),
+                       "perf": {k: r_on.perf[k] for k in (
+                           "tok_s", "ceiling_tok_s", "roofline_fraction",
+                           "mfu", "busy_fraction", "tick_ewma_s")},
+                       "capacity_level": r_on.capacity["level"],
+                       "capacity_alerts": len(r_on.capacity["alerts"])}}
+    return st, {"slo_serve": a["launches"], "slo_monitored": on["launches"]}
+
+
 def kernels_line(rows, by_path):
     """The kernels' JSON line: for each kernel its route, source, the
     TPU kernel it replaces, its launches summed over the driven paths
@@ -3306,11 +3718,13 @@ def main() -> None:
     import paddle_tpu_torch.optimizer
     import paddle_tpu_torch.vision.models  # noqa: F401 (port.<module>)
     from paddle_tpu_torch import device as device_mod
+    from paddle_tpu_torch.inference import kv_tiers
     from paddle_tpu_torch.inference import scheduler as sched
     from paddle_tpu_torch.inference.prefix_cache import (PagedPrefixCache,
                                                          PrefixCache)
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.observability import journal
     from paddle_tpu_torch.observability.quality import compare_pair
     from paddle_tpu_torch.experiments import dot_variants as xdot
     from paddle_tpu_torch.experiments import flash_variants as xfv
@@ -3824,6 +4238,65 @@ def main() -> None:
     family["seconds_to_end_of"] = hsecs
     print(f"launches on phase 3h: {json.dumps(hlaunches)}; seconds to the "
           f"end of each sub-phase: {json.dumps(hsecs)}")
+
+    lap("3i")
+    # 3i. the host KV tier behind the paged prefix cache, and the SLO
+    # control plane, on 3h's random weights
+    t3i = time.perf_counter()
+    isecs = {}
+    tiers, ilaunches = tier_phase(torch, sched, kv_tiers, llama,
+                                  ServingEngine, PagedPrefixCache, fns,
+                                  fparams, cfg)
+    isecs["a_b"] = round(time.perf_counter() - t3i, 1)
+    for key in ("audited", "tiered", "untiered", "no_cache"):
+        st = tiers[key]
+        print(f"3i (a) {key} ({card}): {TIER_TENANTS} tenants x "
+              f"{TIER_ROUNDS} rounds, {TIER_PREFIX}-token prefixes, pool "
+              f"{TIER_POOL_PAGES} pages, cache {TIER_CACHE_PAGES}: "
+              f"{st['tokens_per_s']:.1f} tokens/s, ttft p50/p99 "
+              f"{st['ttft_p50_s']:.4f}/{st['ttft_p99_s']:.4f} s, hits "
+              f"{json.dumps(st['hits'])}, {st['steps']} steps "
+              f"({st['admits']} admits), {st['ms_per_step']:.3f} ms/step, "
+              f"{st['segments']} segments, {st['fetches']} fetches")
+    au = tiers["audited"]
+    print(f"3i (a) tier stats: {json.dumps(au['tiers'])}; prefix cache: "
+          f"{json.dumps({k: v for k, v in au['prefix'].items() if k != 'tier'})}"
+          f"; {au['synchronising_calls']} synchronising calls for "
+          f"{au['fetches']} fetches; {au['restores_checked']} restores bit-"
+          f"equal to their staged bytes in planes {au['planes_checked']}; "
+          f"parted at near ties {json.dumps(tiers['parted_at_near_ties'])}")
+    print(f"3i (a) one {tiers['transfer']['pages']}-page transfer "
+          f"({tiers['transfer']['bytes']} B, {card}): "
+          f"{json.dumps(tiers['transfer'])}")
+    for key in ("tiered", "no_cache"):
+        st = tiers["int8"][key]
+        print(f"3i (b) int8 {key} ({card}): {st['tokens_per_s']:.1f} "
+              f"tokens/s, ttft p50/p99 {st['ttft_p50_s']:.4f}/"
+              f"{st['ttft_p99_s']:.4f} s, hits {json.dumps(st['hits'])}, "
+              f"{st['segments']} segments, {st['fetches']} fetches"
+              + (f"; tier {json.dumps(st['tiers'])}; "
+                 f"{st['synchronising_calls']} synchronising calls; "
+                 f"{st['restores_checked']} restores bit-equal in planes "
+                 f"{st['planes_checked']}" if key == "tiered" else ""))
+    print(f"3i (b) int8 tiered against no cache: parted at near ties "
+          f"{json.dumps(tiers['int8']['parted_at_near_ties'])}")
+    slo, n = slo_phase(torch, sched, journal, ServingEngine, fns, fparams,
+                       cfg)
+    ilaunches.update(n)
+    isecs["c"] = round(time.perf_counter() - t3i, 1)
+    print(f"3i (c) SLOScheduler under overload ({card}): "
+          f"{slo['requests']} requests, {slo['served']} served, "
+          f"{slo['preemptions']} preemptions, {slo['shed']} shed "
+          f"({json.dumps(slo['shed_per_class'])}), per class "
+          f"{json.dumps(slo['per_class'])}, {slo['tokens_per_s']:.1f} "
+          f"tokens/s, {slo['segments']} segments, {slo['fetches']} "
+          f"fetches, {slo['synchronising_calls']} synchronising calls; "
+          f"with the monitors (same clock): "
+          f"{json.dumps(slo['monitors'])}")
+    tiers["slo"] = slo
+    tiers["seconds_to_end_of"] = isecs
+    print(f"launches on phase 3i: {json.dumps(ilaunches)}; seconds to the "
+          f"end of each sub-phase: {json.dumps(isecs)}")
     del fparams
 
     lap("6")
@@ -3893,7 +4366,7 @@ def main() -> None:
                "fused_drain": flaunches_3g,
                "contiguous_prefix_burst": cblaunches["prefix_cache"],
                "contiguous_burst_no_cache": cblaunches["no_cache"],
-               **glaunches, **plaunches3g, **hlaunches}
+               **glaunches, **plaunches3g, **hlaunches, **ilaunches}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -3903,7 +4376,7 @@ def main() -> None:
                    "fused_drain": fstats,
                    "contiguous_prefix_bursts": cbursts,
                    "generation": gen_stats, "preemption": preempt,
-                   "families": family,
+                   "families": family, "tiers": tiers,
                    "long_admit": longa, "cpu_small": small,
                    "quant": quant, "quant_trained": qtrained,
                    "launches": by_path,

@@ -24,8 +24,9 @@ A quantized pool (``quant="int8"`` or ``"fp8"``) holds narrow pages plus
 the per-row scale planes ``ks``/``vs``; every page-granular operation
 (copy-on-write, the trash page) treats all planes alike.
 
-Out of this port so far: meshes (``mesh`` raises), and the metrics and
-flight-recorder calls.
+Every allocator change and every page operation reports through the
+metrics registry and the flight recorder (host ints only); meshes are
+out of this port so far (``mesh`` raises).
 """
 
 from __future__ import annotations
@@ -35,18 +36,24 @@ from typing import Dict, List, Sequence
 import numpy as np
 import torch
 
+from ..observability import flight as _flight
+from ..observability import metrics as _metrics
+
 __all__ = ["PageAllocator", "PagedKVCache", "POOL_HOOKS"]
 
 # Process-wide pool observers: ``fn(event, n, allocator)`` after every
 # allocator state change ("alloc" / "retain" / "release"; "cache_retain" /
-# "cache_release" forwarded by PagedPrefixCache). Host ints and the
-# allocator object only, so a hook never touches the device.
+# "cache_release" forwarded by PagedPrefixCache; "tier_stage" /
+# "tier_spill" / "tier_restore" / "tier_import" from the host tier). Host
+# ints and the allocator object only, so a hook never touches the device.
+# ``observability.capacity.PoolMonitor`` subscribes here.
 POOL_HOOKS: List = []
 
 
 def _notify(event: str, n: int, alloc) -> None:
-    for fn in POOL_HOOKS:
-        fn(event, n, alloc)
+    if POOL_HOOKS:
+        for fn in POOL_HOOKS:
+            fn(event, n, alloc)
 
 
 class PageAllocator:
@@ -65,6 +72,7 @@ class PageAllocator:
         # LIFO free list: the most recently freed page is reused first
         self._free: List[int] = list(range(self.num_pages - 1, 0, -1))
         self._ref = np.zeros(self.num_pages, np.int32)
+        self.total_allocated = 0   # pages handed out since the last reset
 
     @property
     def pages_free(self) -> int:
@@ -88,6 +96,8 @@ class PageAllocator:
         for p in pages:
             self._ref[p] = 1
         if n:
+            self.total_allocated += n
+            _metrics.counter("serving.pages.allocated").inc(n)
             _notify("alloc", n, self)
         return pages
 
@@ -98,6 +108,7 @@ class PageAllocator:
                 raise RuntimeError(f"retain of unallocated page {p}")
             self._ref[p] += 1
         if len(pages):
+            _metrics.counter("serving.pages.cow_shares").inc(len(pages))
             _notify("retain", len(pages), self)
 
     def release(self, pages: Sequence[int]) -> int:
@@ -112,6 +123,8 @@ class PageAllocator:
             if self._ref[p] == 0:
                 self._free.append(p)
                 freed += 1
+        if freed:
+            _metrics.counter("serving.pages.freed").inc(freed)
         if len(pages):
             _notify("release", len(pages), self)
         return freed
@@ -182,8 +195,11 @@ class PagedKVCache:
     def occupancy(self) -> float:
         return self.allocator.pages_used / max(1, self.num_pages - 1)
 
-    def _note_peak(self) -> None:
-        self.peak_occupancy = max(self.peak_occupancy, self.occupancy())
+    def _gauges(self) -> None:
+        occ = self.occupancy()
+        self.peak_occupancy = max(self.peak_occupancy, occ)
+        _metrics.gauge("serving.pages_free").set(self.allocator.pages_free)
+        _metrics.gauge("serving.page_occupancy").set(occ)
 
     def _table_row(self, pages: Sequence[int]) -> np.ndarray:
         row = np.zeros((self.max_pages,), np.int32)
@@ -212,7 +228,9 @@ class PagedKVCache:
             self.allocator.release(shared)
             raise
         pages = shared + fresh
-        self._note_peak()
+        _flight.record("page_alloc", pages=len(fresh), shared=len(shared),
+                       free=self.allocator.pages_free)
+        self._gauges()
         return pages, self._table_row(pages)
 
     def install(self, slot: int, pages: List[int]) -> None:
@@ -223,11 +241,15 @@ class PagedKVCache:
     def free_slot(self, slot: int) -> int:
         """Retire a slot: release its page refs. Returns pages freed."""
         pages, self.slot_pages[slot] = self.slot_pages[slot], []
-        return self.allocator.release(pages)
+        freed = self.allocator.release(pages)
+        self._gauges()
+        return freed
 
     def release_pages(self, pages: Sequence[int]) -> int:
         """Undo a reservation that never reached a slot."""
-        return self.allocator.release(pages)
+        freed = self.allocator.release(pages)
+        self._gauges()
+        return freed
 
     # --- copy-on-write ----------------------------------------------------
     def fork_slot(self, src: int, dst: int) -> None:
@@ -257,7 +279,10 @@ class PagedKVCache:
         self.slot_pages[slot][vpage] = new
         self.page_table[slot, vpage] = new
         self.cow_breaks += 1
-        self._note_peak()
+        _metrics.counter("serving.pages.cow_breaks").inc()
+        _flight.record("cow_break", slot=slot, vpage=vpage,
+                       shared_page=page, private_page=new)
+        self._gauges()
         return new
 
     # --- lifecycle --------------------------------------------------------
@@ -270,7 +295,8 @@ class PagedKVCache:
                 self.slot_pages[s] = []
         self.page_table.zero_()
         self.peak_occupancy = 0.0
-        self._note_peak()  # pages another holder keeps (a prefix cache)
+        self.allocator.total_allocated = 0
+        self._gauges()  # pages another holder keeps (a prefix cache)
 
     def leak_report(self, expected_held: int = 0) -> List[str]:
         """Allocator invariant plus the 'everything returned' audit: with

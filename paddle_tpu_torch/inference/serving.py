@@ -96,8 +96,22 @@ driven by the same host loop (``_run_steps``):
   its reservation is held in ``_sp_inflight`` and it resumes at the head
   of the queue. Regular traffic stays on the plain or chunked segment.
 
+**Host tier** (a ``PagedPrefixCache`` with a ``HostTier``): a hit on a
+spilled prefix restores it at admission (the whole span must fit, after
+the pressure valve; a failed restore is a miss), billed to the request
+(``tier_pages`` / ``tier_bytes``); the stages that inserts issued land in
+``finish_segment`` after the segment's counted fetch, so the tier adds no
+read of its own.
+
+**Telemetry**: every segment reports through the metrics registry, the
+flight recorder and ``SEGMENT_HOOKS`` (host ints from the replayed log);
+each request carries its capacity meter (pages reserved, page-seconds,
+weight streams). The admit stamp reads the decision clock
+(``observability.journal.now``), so a fed clock reproduces it; the meter
+stamps read ``perf_counter``.
+
 Out of this port so far: the quantized engine's program space and
-journal replay, meshes, the host tier, meters and telemetry.
+journal replay, and meshes.
 """
 
 from __future__ import annotations
@@ -111,15 +125,24 @@ import torch
 
 from ..device import resolve_device
 from ..models import llama
+from ..observability import flight as _flight
+from ..observability import journal as _journal
+from ..observability import metrics as _metrics
 from ..ops.kernels.decode_attention import check_heads
 from ..quantization.serving import QUANT_MODES, quantize_llama_params
 from . import speculative as spec_ops
 from .paged_kv import PagedKVCache
 from .program_space import chunk_for
 
-__all__ = ["Request", "ServingEngine"]
+__all__ = ["Request", "ServingEngine", "SEGMENT_HOOKS"]
 
 _WAVE_WIDTHS = (8, 4, 2, 1)  # prefill sub-batch sizes
+
+# Process-wide segment observers: ``fn(steps, new_tokens, finished)`` after
+# every segment's replay (host ints only). ``observability.slo.install``,
+# ``perf.install``, ``capacity.install`` and ``kv_tiers.install`` attach
+# here.
+SEGMENT_HOOKS: List = []
 
 
 @dataclass
@@ -137,6 +160,10 @@ class Request:
     admit_time: float = 0.0       # picked into a segment
     first_token_time: float = 0.0  # first generated token host-visible
     prefix_hit_len: int = 0       # KV rows reused from the prefix cache
+    # SLO class (smaller outranks larger) and absolute e2e deadline on the
+    # decision clock (0.0: never shed); set by the SLO scheduler
+    priority: int = 0
+    deadline: float = 0.0
     preemptions: int = 0          # lost its slot (resumes from its tokens)
     requeues: int = 0             # lost its replica
     # quality digests (engine built with quality_digest=True): one
@@ -148,6 +175,35 @@ class Request:
     seed: int = 0
     spec_proposed: int = 0
     spec_accepted: int = 0
+    # capacity meter (perf_counter stamps, telemetry only): the latest
+    # reservation's span and its fresh (non-shared) part; page-seconds
+    # held, summed over every release (retire, requeue, preempt, abort);
+    # weight streams the request was live for (its admit and every tick)
+    # and its fair share of them (1 / live slots a tick: over a serve the
+    # shares sum to the segment steps)
+    pages_reserved: int = 0
+    pages_fresh: int = 0
+    page_seconds: float = 0.0
+    meter_ticks: int = 0
+    meter_streams: float = 0.0
+    # host-tier traffic billed to this request's admissions
+    tier_pages: int = 0
+    tier_bytes: int = 0
+    _pages_live: int = 0          # pages held now (meter internal)
+    _pages_t0: float = 0.0        # when they were reserved
+
+    def _meter_reserve(self, pages: int, fresh: int) -> None:
+        self.pages_reserved = pages
+        self.pages_fresh = fresh
+        self._pages_live = pages
+        self._pages_t0 = time.perf_counter()
+
+    def _meter_release(self) -> None:
+        """Close the open page-holding interval (idempotent)."""
+        if self._pages_live:
+            self.page_seconds += self._pages_live * (
+                time.perf_counter() - self._pages_t0)
+            self._pages_live = 0
 
     @property
     def done(self) -> bool:
@@ -426,6 +482,10 @@ class ServingEngine:
         # to feed, generations still owed
         self._pos, self._nxt, self._rem = self._slot_state()
         self._init_spec_state()
+        # cold start: build to the first host-visible token
+        self.built_at = time.perf_counter()
+        self.cold_start_s: Optional[float] = None
+        self._seg_fetch0 = 0      # ``fetches`` when the segment dispatched
 
     @property
     def _spec(self) -> bool:
@@ -738,6 +798,7 @@ class ServingEngine:
         for r in self._queue:      # prefills carried over hold pages
             info = self._sp_inflight.pop(r.rid, None)
             if info is not None:
+                r._meter_release()
                 self.pager.release_pages(info["pages"])
         self._sp_inflight = {}
         self._queue = []
@@ -781,6 +842,7 @@ class ServingEngine:
         self._rem_host[slot] = 0
         self._active[slot] = None
         r.preemptions += 1
+        r._meter_release()
         fp, _ = r.resume_view()
         if prefix_cache is not None:
             # the last generated token was never fed, so its row is not
@@ -794,6 +856,11 @@ class ServingEngine:
                               else None)
         if self.paged:
             self.pager.free_slot(slot)
+        _metrics.counter("serving.preemptions").inc()
+        _flight.record("preempt", rid=r.rid, slot=slot,
+                       tokens_done=len(r.tokens),
+                       remaining=r.max_new_tokens - len(r.tokens),
+                       parked=prefix_cache is not None)
         return r
 
     def abort(self) -> List[Request]:
@@ -813,12 +880,18 @@ class ServingEngine:
                 self.pager.release_pages(pages)
             for r in p.picked:
                 r.admit_time = 0.0
+                r._meter_release()
                 released.add(r.rid)
             orphans += p.picked
         for rid, info in self._sp_inflight.items():
             if rid not in released:
                 self.pager.release_pages(info["pages"])
         self._sp_inflight = {}
+        for r in self._active:
+            if r is not None:
+                r._meter_release()
+        for r in self._queue:
+            r._meter_release()   # held carried-over reservations
         orphans += [r for r in self._active if r is not None]
         orphans += self._queue
         self._queue = []
@@ -932,9 +1005,9 @@ class ServingEngine:
 
         Returns {"steps", "admitted", "first_tokens", "finished",
         "tokens"}: rid lists the caller (the online scheduler) stamps with
-        the time of the read; ``now`` (default ``time.perf_counter()``) is
-        each picked request's admit_time. ``dispatch_segment`` followed by
-        ``finish_segment``."""
+        the time of the read; ``now`` (default: the decision clock,
+        ``observability.journal.now()``) is each picked request's
+        admit_time. ``dispatch_segment`` followed by ``finish_segment``."""
         return self.finish_segment(
             self.dispatch_segment(max_steps, prefix_cache, n_pad, now))
 
@@ -959,7 +1032,11 @@ class ServingEngine:
                 f"a {'paged' if self.paged else 'contiguous'} engine takes "
                 f"a {want} (inference/prefix_cache.py), got "
                 f"{type(prefix_cache).__name__}")
-        now = time.perf_counter() if now is None else now
+        if now is None:
+            # the admit stamp feeds the SLO scheduler's estimates, so it
+            # reads the decision clock (journaled, or fed back)
+            now = _journal.now()
+        self._seg_fetch0 = self.fetches
         n_pad = n_pad or self._pow2(self.slots)
         dispatch = (self._dispatch_segment_paged if self.paged
                     else self._dispatch_segment_dense)
@@ -1071,10 +1148,24 @@ class ServingEngine:
             total = pgr.pages_needed(rows)
             hit_pages: List[int] = []
             hit_len = 0
+            restored = 0
             if prefix_cache is not None:
                 m = prefix_cache.match(fp)
-                if m is not None:
+                if m is not None and getattr(m, "tier", "hbm") != "host":
                     hit_pages, hit_len = list(m.pages), m.length
+                elif m is not None:
+                    # a hit on a spilled prefix: restore it into fresh
+                    # pages (an H2D copy the stream orders before the
+                    # prefill), then share them like any hit. The restore
+                    # takes free pages itself, so the whole span must fit,
+                    # after the pressure valve; a failed restore is a miss
+                    if total > pgr.pages_free:
+                        prefix_cache.evict_until(total)
+                    if total <= pgr.pages_free:
+                        rp = prefix_cache.restore(m.key, m.length)
+                        if rp:
+                            hit_pages, hit_len = rp, len(rp) * psz
+                            restored = len(rp)
             need_new = total - len(hit_pages)
             if need_new > pgr.pages_free:
                 if prefix_cache is not None:
@@ -1102,6 +1193,11 @@ class ServingEngine:
             self._queue.pop(0)
             r.prefix_hit_len = hit_len
             r.admit_time = now
+            r._meter_reserve(len(pages), len(pages) - len(hit_pages))
+            if restored:
+                r.tier_pages += restored
+                r.tier_bytes += (restored
+                                 * prefix_cache.host_tier.page_bytes())
             picked.append(r)
             fulls.append(fp)
             req_pages.append(pages)
@@ -1109,6 +1205,9 @@ class ServingEngine:
             tables.append(row)
         if deferred:
             self.page_backpressure_events += 1
+            _metrics.counter("serving.backpressure_pages").inc()
+            _flight.record("backpressure", reason="pages",
+                           deferred=deferred, pages_free=pgr.pages_free)
         n = len(picked)
         lens = [len(f) - pl for f, pl in zip(fulls, pre_lens_l)]
         gens = [r.max_new_tokens - len(r.tokens) for r in picked]
@@ -1528,6 +1627,13 @@ class ServingEngine:
         log = p.log
         pgr = self.pager
         toks, dig, acc = self._read_log(p)
+        tier = getattr(prefix_cache, "host_tier", None)
+        if tier is not None and self.fetches > self._seg_fetch0:
+            # the segment's counted fetch waited for the stream, which had
+            # passed every stage copy queued before the dispatch and every
+            # upload of its admissions: file the stages, free the uploads'
+            # sources
+            tier.complete(tier.take_pending())
         spec_stats = None if acc is None else {
             "proposed": 0, "accepted": 0, "emitted": 0, "verify_steps": 0,
             "slot_ticks": 0}
@@ -1542,17 +1648,22 @@ class ServingEngine:
                 pgr.install(s, p.req_pages[q])
 
             def on_retire(r, s, st):
+                r._meter_release()
                 pending_frees.append(pgr.slot_pages[s])
                 pgr.slot_pages[s] = []
 
-        admitted, first_tokens, finished, new_tokens = self._replay_segment(
-            picked, toks, log.aq, log.aslot, log.steps, on_admit, on_retire,
-            dig, chunk_marker=p.chunk_marker, acc=acc, spec_stats=spec_stats)
+        admitted, first_tokens, finished, new_tokens, eos_stops = \
+            self._replay_segment(picked, toks, log.aq, log.aslot, log.steps,
+                                 on_admit, on_retire, dig,
+                                 chunk_marker=p.chunk_marker, acc=acc,
+                                 spec_stats=spec_stats)
         self.last_run_ticks += log.steps
         self.last_run_chunks += 1
         if p.chunk_marker is not None:
-            self.prefill_chunk_steps += int(
-                (log.aq[:log.steps] >= p.chunk_marker).sum())
+            chunk_steps = int((log.aq[:log.steps] >= p.chunk_marker).sum())
+            self.prefill_chunk_steps += chunk_steps
+            if chunk_steps:
+                _metrics.counter("serving.prefill_chunks").inc(chunk_steps)
         qadm = log.qadm
         if p.sp:
             # completed admissions end their carry-over
@@ -1571,13 +1682,18 @@ class ServingEngine:
                 "resident": p.pre_lens[pfq] + pfo}
             for j in range(qadm, n):
                 picked[j].admit_time = 0.0
+                picked[j]._meter_release()
                 pgr.release_pages(p.req_pages[j])
+            _flight.record("sp_carryover", rid=picked[pfq].rid,
+                           resident=p.pre_lens[pfq] + pfo,
+                           total=len(p.full_prompts[pfq]))
             self._queue[:0] = picked[pfq:]
         elif qadm < n:
             # the step budget ran out before every picked request found a
             # slot: release their reservations and requeue them FCFS
             for j in range(qadm, n):
                 picked[j].admit_time = 0.0
+                picked[j]._meter_release()
                 if p.paged:
                     pgr.release_pages(p.req_pages[j])
             self._queue[:0] = picked[qadm:]
@@ -1595,18 +1711,67 @@ class ServingEngine:
                                   p.req_pages[q] if p.paged else None)
         for pages in pending_frees:
             pgr.release_pages(pages)
+        if p.paged:
+            pgr._gauges()
         result = {"steps": log.steps, "admitted": admitted,
                   "first_tokens": first_tokens, "finished": finished,
                   "tokens": new_tokens}
         if spec_stats is not None:
-            if spec_stats["slot_ticks"]:
-                # tokens one slot retires a verify tick, averaged over
-                # segments
-                eff = spec_stats["emitted"] / spec_stats["slot_ticks"]
-                self.spec_accept_ewma = 0.5 * self.spec_accept_ewma \
-                    + 0.5 * eff
+            self._spec_telemetry(spec_stats)
             result["spec"] = spec_stats
+        self._segment_telemetry(log.steps, admitted, finished, eos_stops,
+                                new_tokens, max(0, n - qadm))
         return result
+
+    def _segment_telemetry(self, steps, admitted, finished, eos_stops,
+                           new_tokens, requeued) -> None:
+        """One segment's counters, flight event and ``SEGMENT_HOOKS``:
+        host arithmetic on the replayed event log."""
+        _metrics.counter("serving.segments").inc()
+        _metrics.counter("serving.ticks").inc(steps)
+        _metrics.counter("serving.admissions").inc(len(admitted))
+        _metrics.counter("serving.tokens_generated").inc(new_tokens)
+        if eos_stops:
+            _metrics.counter("serving.eos_stops").inc(eos_stops)
+        _metrics.gauge("serving.slots_live").set(
+            self.slots - self.free_slot_count())
+        _flight.record("segment", steps=steps, admitted=len(admitted),
+                       finished=len(finished), eos=eos_stops,
+                       tokens=new_tokens, requeued=requeued)
+        if SEGMENT_HOOKS:
+            for hook in SEGMENT_HOOKS:
+                hook(steps, new_tokens, len(finished))
+
+    def _spec_telemetry(self, stats: dict) -> None:
+        """A speculative segment's draft counters and gauges, its
+        ``spec_accept`` flight event, and the acceptance EWMA (tokens one
+        slot retires a verify tick, averaged over segments) that the SLO
+        scheduler's estimates divide by."""
+        prop, accepted = stats["proposed"], stats["accepted"]
+        if prop:
+            _metrics.counter("spec.proposed").inc(prop)
+            _metrics.counter("spec.accepted").inc(accepted)
+            _metrics.counter("spec.rejected").inc(prop - accepted)
+            _metrics.gauge("spec.accept_rate").set(accepted / prop)
+        if stats["slot_ticks"]:
+            eff = stats["emitted"] / stats["slot_ticks"]
+            _metrics.gauge("spec.effective_tok_per_tick").set(eff)
+            self.spec_accept_ewma = 0.5 * self.spec_accept_ewma + 0.5 * eff
+            _flight.record("spec_accept", proposed=prop,
+                           accepted=accepted,
+                           rate=round(accepted / prop, 4) if prop else 0.0,
+                           tok_per_tick=round(eff, 4))
+
+    def _note_cold_start(self) -> None:
+        """The first host-visible token since build: publish the cold
+        start (build, kernel builds and the first prefill included)."""
+        self.cold_start_s = time.perf_counter() - self.built_at
+        _metrics.gauge("serving.cold_start_s").set(self.cold_start_s)
+        _metrics.gauge("serving.first_token_s").set(self.cold_start_s)
+        _flight.record("cold_start", seconds=round(self.cold_start_s, 4),
+                       aot_warmup_s=None,
+                       first_token_s=round(self.cold_start_s, 4),
+                       paged=self.paged, slots=self.slots)
 
     def _harvest(self, prefix_cache, tokens, slot: int, pages) -> None:
         """Insert the prefix ``tokens`` whose KV rows slot ``slot`` holds:
@@ -1639,12 +1804,14 @@ class ServingEngine:
         [steps, slots, K + 1]): an admit's token is column 0, a verify
         tick gives each live slot its first ``acc`` tokens, and each
         request's drafts proposed and accepted accrue to it and to
-        ``spec_stats``. Returns (admitted, first_tokens, finished,
-        new_tokens)."""
+        ``spec_stats``. Each request's meter counts the weight streams it
+        was live for: its admit alone, and each tick shared by the slots
+        live in it. Returns (admitted, first_tokens, finished, new_tokens,
+        eos_stops)."""
         n = len(picked)
         K = self.speculative
         admitted, first_tokens, finished = [], [], []
-        new_tokens = 0
+        new_tokens = eos_stops = 0
 
         def retire(r, s, st):
             self._retire(r)
@@ -1664,6 +1831,8 @@ class ServingEngine:
                     on_admit(q, s)
                 t = int(toks[st, s, 0] if acc is not None else toks[st, s])
                 r.tokens.append(t)
+                r.meter_ticks += 1
+                r.meter_streams += 1.0
                 if dig is not None:
                     self._append_digest(r, dig, st, s)
                 new_tokens += 1
@@ -1671,6 +1840,7 @@ class ServingEngine:
                 if len(r.tokens) == 1:     # a resumed request already had
                     first_tokens.append(r.rid)  # its first token
                 hit_eos = self.eos is not None and t == self.eos
+                eos_stops += hit_eos
                 if r.done or hit_eos:
                     self._rem_host[s] = 0
                     retire(r, s, st)
@@ -1682,7 +1852,10 @@ class ServingEngine:
                     if r is not None and self._rem_host[s] > 0]
             if acc is not None and live and spec_stats is not None:
                 spec_stats["verify_steps"] += 1
+            share = 1.0 / len(live) if live else 0.0
             for s, r in live:              # decode or verify tick
+                r.meter_ticks += 1
+                r.meter_streams += share
                 if acc is None:
                     emit = [int(toks[st, s])]
                 else:
@@ -1708,10 +1881,13 @@ class ServingEngine:
                     self._rem_host[s] -= 1
                     if self.eos is not None and t == self.eos:
                         self._rem_host[s] = 0
+                        eos_stops += 1
                 if self._rem_host[s] == 0:
                     self._active[s] = None
                     retire(r, s, st)
-        return admitted, first_tokens, finished, new_tokens
+        if new_tokens and self.cold_start_s is None:
+            self._note_cold_start()
+        return admitted, first_tokens, finished, new_tokens, eos_stops
 
     @staticmethod
     def _append_digest(r: Request, dig, st: int, s: int) -> None:

@@ -1753,3 +1753,102 @@ class TestFlashVariants:
         q = torch.zeros(1, 128, 4, 32, dtype=torch.bfloat16, device=cuda)
         with pytest.raises(ValueError, match="D in"):
             fv.run_fwd(q, q, q)
+
+
+# ---------------------------------------------------------------------------
+# the host KV tier: stage and restore on the card
+# ---------------------------------------------------------------------------
+
+
+def _tier_pool(cuda, quant, seed=0):
+    """A bert-width-by-head paged pool (12 heads of D 64, two layers) in
+    bf16 or a narrow dtype, every plane filled with random bytes, behind a
+    prefix cache with a host tier."""
+    from paddle_tpu_torch.inference.kv_tiers import HostTier
+    from paddle_tpu_torch.inference.paged_kv import PagedKVCache
+    from paddle_tpu_torch.inference.prefix_cache import PagedPrefixCache
+
+    cfg = llama.LlamaConfig.tiny(hidden_size=768, num_heads=12,
+                                 num_kv_heads=12, dtype=torch.bfloat16)
+    pgr = PagedKVCache(cfg, slots=2, page_size=16, num_pages=24,
+                       max_pages=6, device=cuda, quant=quant)
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    for a in pgr.pool.values():
+        raw = a.view(torch.uint8)
+        raw.copy_(torch.randint(0, 256, raw.shape, dtype=torch.uint8,
+                                device=cuda, generator=gen))
+    tier = HostTier(pgr, capacity_pages=64)
+    return pgr, tier, PagedPrefixCache(pgr, capacity_pages=8,
+                                       host_tier=tier)
+
+
+def _bytes(t):
+    return t.contiguous().view(torch.uint8).cpu()
+
+
+@pytest.mark.parametrize("quant", [None, "int8", "fp8"])
+def test_host_tier_round_trip_bits(cuda, quant):
+    """Stage a 3-page entry, spill it, let its pages be reused, restore it
+    into other pages: the pinned host copy and the restored pages equal
+    the original bytes in every plane (a narrow pool's scale planes
+    included)."""
+    pgr, tier, pc = _tier_pool(cuda, quant)
+    toks = np.arange(48, dtype=np.int32)
+    pages = pgr.reserve(48)[0]
+    before = {p: _bytes(a[:, pages]) for p, a in pgr.pool.items()}
+    pc.insert(toks, pages)
+    tier.flush()
+    host = tier.get(toks.tobytes())
+    assert set(tier.planes()) == set(before)
+    for p in before:
+        assert host[p].is_pinned() and host[p].dtype == pgr.pool[p].dtype
+        assert torch.equal(_bytes(host[p]), before[p]), p
+    pgr.release_pages(pages)
+    pc.evict_until(pgr.num_pages)
+    assert pc.spills == 1 and pc.pages_held == 0
+    hold = pgr.reserve(64)[0]          # the old pages go to someone else
+    for a in pgr.pool.values():
+        a.view(torch.uint8)[:, hold] = 0
+    m = pc.match(np.concatenate([toks, toks[:3]]))
+    assert m.tier == "host"
+    got = pc.restore(m.key, m.length)
+    assert len(got) == 3 and set(got).isdisjoint(hold)
+    for p, a in pgr.pool.items():
+        assert torch.equal(_bytes(a[:, got]), before[p]), p
+    assert tier.flushes == 1
+    pc.clear()
+    pgr.release_pages(hold)
+    assert pgr.leak_report() == []
+
+
+@pytest.mark.parametrize("quant", [None, "int8"])
+def test_host_tier_stage_and_upload_do_not_synchronise(cuda, quant):
+    """A stage (gather, then a non-blocking D2H copy into pinned memory)
+    and an upload (a non-blocking H2D copy, then ``index_copy_``) issue no
+    synchronising call: PyTorch raises on any under the sync-debug mode
+    "error". Only the tier's flush waits."""
+    pgr, tier, pc = _tier_pool(cuda, quant, seed=1)
+    src = pgr.reserve(48)[0]
+    dst = pgr.reserve(48)[0]
+    span = pgr.reserve(32)[0]
+    before = {p: _bytes(a[:, src]) for p, a in pgr.pool.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tier.stage(b"entry", src)
+        staged = tier.take_pending()
+        tier.upload(dst, dict(zip(tier.planes(), staged[0][2:])))
+        pc.insert(np.arange(32, dtype=np.int32), span)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    with pytest.raises(RuntimeError, match="synchroniz"):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            tier.flush()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    tier.complete(staged)
+    for p, a in pgr.pool.items():
+        assert torch.equal(_bytes(a[:, dst]), before[p]), p
+        assert torch.equal(_bytes(tier.get(b"entry")[p]), before[p]), p

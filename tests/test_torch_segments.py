@@ -366,8 +366,12 @@ class TestPrefixCache:
         ppc = make_prefix_cache(paged, capacity_tokens=256)
         assert isinstance(ppc, PagedPrefixCache) and ppc.pager is paged.pager
         assert ppc.capacity_pages == 16
-        with pytest.raises(NotImplementedError, match="host tier"):
-            make_prefix_cache(paged, host_tier_pages=4)
+        tiered = make_prefix_cache(paged, capacity_tokens=256,
+                                   host_tier_pages=4)
+        assert tiered.host_tier is not None
+        assert tiered.host_tier.pager is paged.pager
+        assert tiered.host_tier.capacity_pages == 4
+        assert make_prefix_cache(eng, host_tier_pages=4).block == 32
 
 
 def _caches(paged, ref, eng):
