@@ -162,7 +162,8 @@ Phases (any failed check raises and the script exits non-zero):
    with a ``PagedPrefixCache(capacity_pages=48)`` over a
    ``HostTier(capacity_pages=1024)``: stages, spills and restores happen;
    under ``set_sync_debug_mode("warn")`` the serve's synchronising calls
-   number exactly its fetches (one a segment: the tier adds none); every
+   and CUDA event waits (``event_waits``) number exactly its fetches (one
+   a segment, a wait on its event: the tier adds none); every
    restore leaves in its pages, each plane, the bytes staged for them;
    tokens equal a serve with no cache or part at a near tie; no page
    leaked after ``reset``; tokens/s, TTFT and admit-to-first-token by hit
@@ -177,6 +178,25 @@ Phases (any failed check raises and the script exits non-zero):
    ``shed_decision`` records; then, shedding off, the serve without
    monitors and with the SLO, perf and capacity monitors under the first
    one's decision clock fed back: identical tokens, fetches and launches;
+3j. (after 3i, on 3e's trained model in bf16) the serving fleet and
+   disaggregated prefill/decode: (a) a ``FleetRouter`` over two replicas
+   of 3i's engine (quality digests on), each with a
+   ``PagedPrefixCache`` over a ``HostTier``, the cache directory, queues
+   of 4, and an int8 ``Shadow`` at sample_p 0.5, on 3i's trace at 2
+   rounds: every request's count, both replicas used, directory hits and
+   tier migrations, synchronising calls plus event waits equal to the
+   primary and shadow fetches, the launches of both replicas and the
+   shadow, no page leaked after ``reset``, tokens equal to one replica's
+   or parted at a near tie, and a ``QualityMonitor`` pair for every
+   mirrored request; the dispatch and ``t_sync`` stamps of the first
+   turns are printed; two replicas against one timed in five pairs,
+   the order alternating (tokens/s and medians); (b) the same fleet with
+   ``FaultInjector(crash={1: 3})``: nothing lost, one failover, tokens
+   held as in (a); (c) a ``DisaggRouter`` (one prefill and one decode
+   replica, segments of 8 and 32) on the 32 mixed requests: every
+   crossing within its reserved KV footprint, the handoff flushes the
+   only synchronising calls, each drain's host time, the launches, and
+   tokens held to a co-resident two-replica fleet;
 6. ResNet-50 training, BASELINE config 1 (benchmarks/resnet50.py):
    ``resnet50(num_classes=1000, data_format="NHWC")`` from the port's
    initializers (seed 0), B 128 at 224x224 (``RandomState(0)`` images and
@@ -201,7 +221,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3i, 5b, 6 and 7 is driven with every launch count set to 0 just
+   3-3j, 5b, 6 and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -3201,7 +3221,30 @@ SLO_TIGHT = 0.5         # the tight deadline of a few class-1 requests (s)
 SYNC_WARNING = "called a synchronizing CUDA operation"
 
 
-def tier_trace(sched, vocab, seed=0):
+@contextlib.contextmanager
+def event_waits(torch):
+    """Count ``torch.cuda.Event.synchronize`` calls in the block. An
+    engine's segment fetch waits on the CUDA event recorded behind its
+    staged copy, a wait that ``set_sync_debug_mode`` does not flag (torch
+    flags stream and device synchronisation and blocking copies), so an
+    audit counts both: flagged calls plus event waits. Yields [count,
+    seconds spent waiting, the longest wait]."""
+    n = [0, 0.0, 0.0]
+    orig = torch.cuda.Event.synchronize
+
+    def spy(self):
+        t0 = time.perf_counter()
+        orig(self)
+        dt = time.perf_counter() - t0
+        n[0] += 1
+        n[1] += dt
+        n[2] = max(n[2], dt)
+
+    with mock.patch.object(torch.cuda.Event, "synchronize", spy):
+        yield n
+
+
+def tier_trace(sched, vocab, seed=0, rounds=TIER_ROUNDS):
     """Phase 3i's multi-tenant trace: ``TIER_ROUNDS`` rounds over
     ``TIER_TENANTS`` tenants, each request its tenant's prefix and a fresh
     tail, every arrival at t = 0 (the schedule is the queue's alone). The
@@ -3212,7 +3255,7 @@ def tier_trace(sched, vocab, seed=0):
              for _ in range(TIER_TENANTS)]
     return [sched.Arrival(0.0, np.concatenate([
         prefs[t], rng.randint(0, vocab, (TIER_TAIL,)).astype(np.int32)]),
-        TIER_GEN) for _ in range(TIER_ROUNDS) for t in range(TIER_TENANTS)]
+        TIER_GEN) for _ in range(rounds) for t in range(TIER_TENANTS)]
 
 
 def tier_engine(ServingEngine, params, cfg, **kw):
@@ -3241,7 +3284,8 @@ def tier_serve(torch, sched, kv_tiers, fns, eng, pc, arrivals,
     """One serve of ``arrivals`` through ``OnlineScheduler`` (segments of
     32 steps), every launch count at 0 just before and read just after.
     With ``audit``, the serve runs under ``set_sync_debug_mode("warn")``
-    with each synchronising call counted, and every restore's pages are
+    with each synchronising call and event wait counted, and every
+    restore's pages are
     copied on the device as the upload leaves them, to be held bit for bit
     against the host bytes that were staged for them (after the serve).
     Returns (stats, launches, tokens and requests in arrival order)."""
@@ -3259,7 +3303,8 @@ def tier_serve(torch, sched, kv_tiers, fns, eng, pc, arrivals,
     f0 = eng.fetches
     patch = (mock.patch.object(kv_tiers.HostTier, "upload", spy) if audit
              else contextlib.nullcontext())
-    with patch, warnings.catch_warnings(record=True) as caught:
+    with patch, event_waits(torch) as waits, \
+            warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         zero_counts(fns)
         t0 = time.perf_counter()
@@ -3298,10 +3343,11 @@ def tier_serve(torch, sched, kv_tiers, fns, eng, pc, arrivals,
           "prefix": rep.prefix, "tiers": rep.tiers}
     st["ticks"] = st["steps"] - st["admits"]
     if audit:
-        if syncs != fetches:
-            raise AssertionError(f"3i: {syncs} synchronising calls in the "
-                                 f"tiered serve, {fetches} fetches: the "
-                                 f"tier synchronised")
+        if syncs + waits[0] != fetches:
+            raise AssertionError(f"3i: {syncs} synchronising calls and "
+                                 f"{waits[0]} event waits in the tiered "
+                                 f"serve, {fetches} fetches: the tier "
+                                 f"synchronised")
         bad = [p for ups in seen for p, dev, host in ups
                if not np.array_equal(_bits(torch, dev), _bits(torch, host))]
         if not seen or bad:
@@ -3309,6 +3355,7 @@ def tier_serve(torch, sched, kv_tiers, fns, eng, pc, arrivals,
                                  f"restored bytes differ from the staged "
                                  f"ones: {bad}")
         st["synchronising_calls"] = syncs
+        st["event_waits"] = waits[0]
         st["restores_checked"] = len(seen)
         st["planes_checked"] = sorted({p for ups in seen for p, _, _ in ups})
     if pc is not None:
@@ -3457,8 +3504,9 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
     decision clock recorded) and with the SLO, perf and capacity monitors
     under that clock fed back: the same decisions, so the tokens, the
     fetches and the launches must be identical. Every serve runs under
-    ``set_sync_debug_mode("warn")``, and its synchronising calls must
-    number its fetches: a monitor that read the device would add one."""
+    ``set_sync_debug_mode("warn")``, and its synchronising calls and
+    event waits must number its fetches: a monitor that read the device
+    would add one."""
     from paddle_tpu_torch.observability.capacity import CapacityMonitor
     from paddle_tpu_torch.observability.perf import PerfMonitor
     from paddle_tpu_torch.observability.slo import Objective, SLOMonitor
@@ -3496,7 +3544,7 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
         f0 = eng.fetches
         zero_counts(fns)
         t0 = time.perf_counter()
-        with journal.attach(j), feed, \
+        with journal.attach(j), feed, event_waits(torch) as waits, \
                 warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             torch.cuda.set_sync_debug_mode("warn")
@@ -3508,8 +3556,9 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
         wall = time.perf_counter() - t0
         n = read_counts(fns)
         syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
-        if syncs != eng.fetches - f0:
-            raise AssertionError(f"3i SLO: {syncs} synchronising calls, "
+        if syncs + waits[0] != eng.fetches - f0:
+            raise AssertionError(f"3i SLO: {syncs} synchronising calls and "
+                                 f"{waits[0]} event waits, "
                                  f"{eng.fetches - f0} fetches (monitors "
                                  f"{monitors})")
         recs = j.records()
@@ -3526,7 +3575,8 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
             raise AssertionError(f"3i SLO leaked pages: "
                                  f"{eng.pager.leak_report()}")
         return {"rep": rep, "records": recs, "tokens": res, "launches": n,
-                "fetches": eng.fetches - f0, "syncs": syncs, "wall_s": wall,
+                "fetches": eng.fetches - f0, "syncs": syncs,
+                "event_waits": waits[0], "wall_s": wall,
                 "clock": [r["c"] for r in recs if r["kind"] == "clock"]}
 
     a = serve(shed=True)
@@ -3560,9 +3610,10 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
           "fetches": a["fetches"], "wall_s": a["wall_s"],
           "tokens_per_s": rep.total_tokens / a["wall_s"],
           "journal_records": len(a["records"]),
-          "synchronising_calls": a["syncs"],
+          "synchronising_calls": a["syncs"], "event_waits": a["event_waits"],
           "monitors": {"fetches": on["fetches"],
                        "synchronising_calls": on["syncs"],
+                       "event_waits": on["event_waits"],
                        "segments": r_on.segments,
                        "slo_worst_level": r_on.slo["worst_level"],
                        "slo_alerts": len(r_on.slo["alerts"]),
@@ -3572,6 +3623,337 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
                        "capacity_level": r_on.capacity["level"],
                        "capacity_alerts": len(r_on.capacity["alerts"])}}
     return st, {"slo_serve": a["launches"], "slo_monitored": on["launches"]}
+
+
+FLEET_ROUNDS = 2        # rounds of the tenant trace in phase 3j
+FLEET_MAX_QUEUE = 4     # each replica's intake bound in 3j's audited serves
+FLEET_PAIRS = 5         # timed (two replicas, one replica) pairs
+FLEET_SHADOW_P = 0.5    # the int8 shadow's sample rate
+FLEET_CRASH = {1: 3}    # 3j (b): replica 1 crashes at its 4th segment
+DISAGG_PREFILL_STEPS = 8
+DISAGG_DECODE_STEPS = 32
+DISAGG_MAX_LEN = 512
+
+
+def fleet_router(fleet, kv_tiers, PagedPrefixCache, ServingEngine, params,
+                 cfg, n, shadow=False, max_queue=None, **kw):
+    """Phase 3j's fleet: ``n`` replicas of phase 3i's tight paged engine
+    (8 slots, pages of 16, 96 pages; bf16 with quality digests), each
+    with its own ``PagedPrefixCache`` over a ``HostTier``, behind a
+    ``FleetRouter`` with the cache directory and segments of 32 steps;
+    with ``shadow``, an int8 engine of the same geometry mirrors
+    ``FLEET_SHADOW_P`` of the requests."""
+    engines = [tier_engine(ServingEngine, params, cfg, quality_digest=True)
+               for _ in range(n)]
+    pcs = [tier_cache(PagedPrefixCache, kv_tiers, e) for e in engines]
+    sh = (fleet.Shadow(tier_engine(ServingEngine, params, cfg, quant="int8",
+                                   quality_digest=True),
+                       sample_p=FLEET_SHADOW_P, seed=0) if shadow else None)
+    return fleet.FleetRouter(engines, max_queue=max_queue or FLEET_MAX_QUEUE,
+                             seg_steps=32,
+                             prefix_caches=pcs, directory=True, shadow=sh,
+                             **kw)
+
+
+def fleet_serve(torch, journal, fns, router, arrivals):
+    """One audited fleet serve: every launch count at 0 just before and
+    read just after, a journal attached (its ``admit`` records count the
+    admissions), and ``set_sync_debug_mode("warn")`` with each
+    synchronising call and event wait counted: together they must number
+    the primary and shadow fetches plus the counted tier flushes (a
+    ``DisaggRouter``'s ``handoff_flushes``). Returns (report, stats,
+    launches, records)."""
+    engines = [r.engine for r in router._replicas]
+    if router.shadow is not None:
+        engines.append(router.shadow.engine)
+    f0 = [e.fetches for e in engines]
+    h0 = getattr(router, "handoff_flushes", 0)
+    j = journal.Journal()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    with journal.attach(j), event_waits(torch) as waits, \
+            warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            rep = router.serve(arrivals)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    fetches = sum(e.fetches - f for e, f in zip(engines, f0))
+    flushes = getattr(router, "handoff_flushes", 0) - h0
+    if syncs + waits[0] != fetches + flushes:
+        raise AssertionError(f"3j: {syncs} synchronising calls and "
+                             f"{waits[0]} event waits, {fetches} fetches "
+                             f"and {flushes} tier flushes")
+    recs = j.records()
+    st = {"requests": rep.n_requests, "new_tokens": rep.total_tokens,
+          "wall_s": wall, "tokens_per_s": rep.total_tokens / wall,
+          "ttft_p50_s": rep.ttft_p50_s, "ttft_p99_s": rep.ttft_p99_s,
+          "e2e_p50_s": rep.e2e_p50_s, "e2e_p99_s": rep.e2e_p99_s,
+          "segments": rep.segments, "fetches": fetches,
+          "synchronising_calls": syncs, "event_waits": waits[0],
+          "event_wait_ms": {"total": 1e3 * waits[1], "max": 1e3 * waits[2]},
+          "tier_flushes": flushes,
+          "admits": sum(r["kind"] == "admit" and not r.get("shadow")
+                        for r in recs),
+          "steps": sum(r.engine.last_run_ticks for r in router._replicas),
+          "assignment": [len(a) for a in router.assignment()],
+          "dispatches": {"affinity": rep.dispatches_affinity,
+                         "least_loaded": rep.dispatches_least_loaded,
+                         "directory": rep.dispatches_directory},
+          "backpressure_events": rep.backpressure_events,
+          "tier_migrations": rep.tier_migrations,
+          "failovers": rep.failovers, "requeued": rep.requeued}
+    return rep, st, launches, recs
+
+
+def fleet_tokens(router, arrivals, cfg, what):
+    """Every request's count and vocabulary; tokens in arrival order."""
+    res = router.results()
+    rids = sorted(res)
+    if len(rids) != len(arrivals):
+        raise AssertionError(f"{what}: {len(rids)} requests served of "
+                             f"{len(arrivals)}")
+    check_tokens(res, rids, [(a.prompt, a.max_new_tokens)
+                             for a in arrivals], cfg)
+    return [res[r] for r in rids]
+
+
+def sum_counts(*dicts):
+    out = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def fleet_phase(torch, sched, fleet, disagg, kv_tiers, journal, llama,
+                ServingEngine, PagedPrefixCache, fns, params, cfg, reqs):
+    """Phase 3j: the serving fleet and disaggregated prefill/decode.
+
+    (a) two replicas with the cache directory and an int8 shadow on the
+    tenant trace (``FLEET_ROUNDS`` rounds, queues bounded at
+    ``FLEET_MAX_QUEUE`` so round 2 arrives at replicas that cached round
+    1): every count, the assignment, directory dispatches and migrations,
+    the fetch audit, the launches of both replicas and the shadow, no
+    page leaked after ``reset``, tokens equal one replica serving the
+    trace or parted at a near tie, and the shadow's ``QualityMonitor``
+    report with a pair for every mirrored request. The per-replica
+    dispatch and ``t_sync`` stamps of the first turns are kept. Then the
+    two-replica fleet and one replica timed in turns (``FLEET_PAIRS``
+    pairs, the order alternating, queues unbounded, no shadow). (b) the
+    (a) fleet with ``FaultInjector(crash=FLEET_CRASH)``: nothing lost,
+    one failover, tokens held as in (a). (c) a ``DisaggRouter`` with one
+    prefill and one decode replica on the mixed trace ``reqs``: every
+    crossing's bytes within its reserved footprint, the fetch audit with
+    the handoff flushes its only synchronising calls, the launches, and
+    tokens held to a co-resident two-replica fleet."""
+    L = cfg.num_layers
+    arrivals = tier_trace(sched, cfg.vocab_size, rounds=FLEET_ROUNDS)
+    prompts = [a.prompt for a in arrivals]
+    out, launches = {}, {}
+
+    def build(n, **kw):
+        return fleet_router(fleet, kv_tiers, PagedPrefixCache,
+                            ServingEngine, params, cfg, n, **kw)
+
+    # (a) the audited serve, with the dispatch / t_sync stamps of the turns
+    router = build(2, shadow=True)
+    stamps = []
+    real_finish, real_stamp = (fleet.FleetRouter._finish_one,
+                               fleet.FleetRouter._stamp)
+
+    def finish_spy(self, rep, h, t_disp):
+        stamps.append({"replica": rep.idx,
+                       "t_disp_ms": 1e3 * (t_disp - self._serve_t0)})
+        return real_finish(self, rep, h, t_disp)
+
+    def stamp_spy(self, r, ev, t_sync):
+        stamps[-1]["t_sync_ms"] = 1e3 * (t_sync - self._serve_t0)
+        return real_stamp(self, r, ev, t_sync)
+
+    with mock.patch.object(fleet.FleetRouter, "_finish_one", finish_spy), \
+            mock.patch.object(fleet.FleetRouter, "_stamp", stamp_spy):
+        rep, st, n, recs = fleet_serve(torch, journal, fns, router,
+                                       arrivals)
+    sh = router.shadow
+    want = sum_counts(
+        family_counts(L, st["steps"], st["steps"] - st["admits"]),
+        paged_counts(L, sh.engine.last_run_ticks,
+                     sh.engine.last_run_ticks - rep.shadow["mirrored"],
+                     quant=True))
+    check_counts(n, want, f"3j (a): {st['steps']} steps, {st['admits']} "
+                          f"admits; shadow {sh.engine.last_run_ticks} "
+                          f"steps, {rep.shadow['mirrored']} admits")
+    launches["fleet"] = n
+    atoks = fleet_tokens(router, arrivals, cfg, "3j (a)")
+    if min(st["assignment"]) == 0:
+        raise AssertionError(f"3j (a): a replica took no request: "
+                             f"{st['assignment']}")
+    if not (rep.directory["hits"] and rep.tier_migrations):
+        raise AssertionError(f"3j (a): {rep.directory['hits']} directory "
+                             f"hits, {rep.tier_migrations} prefixes "
+                             f"migrated")
+    mirrored = sum(sh.wants(rid) for rid in range(len(arrivals)))
+    q = rep.quality
+    if not (q["pairs"] == rep.shadow["mirrored"] == rep.shadow["compared"]
+            == mirrored) or rep.shadow["dropped"]:
+        raise AssertionError(f"3j (a): {q['pairs']} shadow pairs, shadow "
+                             f"{rep.shadow}, {mirrored} drawn")
+    router.reset()
+    if router.leak_report():
+        raise AssertionError(f"3j (a): leaked pages after reset: "
+                             f"{router.leak_report()}")
+    st["turns"] = stamps[:8]
+    st["quality"] = {k: q[k] for k in (
+        "level", "pairs", "pairs_mismatched", "tokens_compared",
+        "token_match_rate", "logit_max_abs_err", "kl_sampled_max",
+        "first_divergence_positions")}
+    st["quality"]["alerts"] = len(q["alerts"])
+    st["shadow"] = rep.shadow
+    st["directory"] = rep.directory
+    out["fleet"] = st
+    del router
+
+    # the two-replica fleet against one replica, in turns
+    timed = {1: build(1, max_queue=len(arrivals)),
+             2: build(2, max_queue=len(arrivals))}
+    tps = {1: [], 2: []}
+    toks = {}
+    for i in range(FLEET_PAIRS):
+        for k in ((2, 1) if i % 2 == 0 else (1, 2)):
+            r = timed[k]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trep = r.serve(arrivals)
+            torch.cuda.synchronize()
+            tps[k].append(trep.total_tokens / (time.perf_counter() - t0))
+            toks.setdefault(k, fleet_tokens(r, arrivals, cfg,
+                                            f"3j timed {k}"))
+            r.reset()
+    one = toks[1]
+    out["timed"] = {
+        "pairs": FLEET_PAIRS,
+        "tokens_per_s": {"two_replicas": tps[2], "one_replica": tps[1]},
+        "median_tokens_per_s": {"two_replicas": float(np.median(tps[2])),
+                                "one_replica": float(np.median(tps[1]))}}
+    out["timed"]["median_ratio"] = (out["timed"]["median_tokens_per_s"]
+                                    ["two_replicas"]
+                                    / out["timed"]["median_tokens_per_s"]
+                                    ["one_replica"])
+    del timed
+    ties = {"fleet": parted_at_near_ties(torch, llama, params, cfg, prompts,
+                                         atoks, one, "3j (a)"),
+            "timed_two_replicas": parted_at_near_ties(
+                torch, llama, params, cfg, prompts, toks[2], one,
+                "3j timed")}
+
+    # (b) failover
+    router = build(2, shadow=True,
+                   fault_injector=fleet.FaultInjector(crash=FLEET_CRASH),
+                   probe_after_s=60.0)
+    rep, st, n, _ = fleet_serve(torch, journal, fns, router, arrivals)
+    launches["fleet_failover"] = n
+    btoks = fleet_tokens(router, arrivals, cfg, "3j (b)")
+    if rep.failovers != 1 or rep.n_requests != len(arrivals):
+        raise AssertionError(f"3j (b): {rep.failovers} failovers, "
+                             f"{rep.n_requests} requests")
+    ties["failover"] = parted_at_near_ties(torch, llama, params, cfg,
+                                           prompts, btoks, one, "3j (b)")
+    router.reset()
+    if router.leak_report():
+        raise AssertionError(f"3j (b): leaked pages after reset: "
+                             f"{router.leak_report()}")
+    st["replica_health"] = rep.replica_health
+    st["fault_events"] = router.fault_injector.events
+    out["failover"] = st
+    del router
+
+    # (c) disaggregated prefill/decode on the mixed trace
+    marr = [sched.Arrival(0.0, p, g) for p, g in reqs]
+    mprompts = [p for p, _ in reqs]
+
+    def engine():
+        return ServingEngine(cfg, params, slots=8, max_len=DISAGG_MAX_LEN,
+                             chunk=16, prompt_buckets=(64, 128, 256, 512),
+                             paged=True, page_size=PAGE, device=DEVICE)
+
+    dis = disagg.DisaggRouter([engine()], [engine()],
+                              prefill_seg_steps=DISAGG_PREFILL_STEPS,
+                              decode_seg_steps=DISAGG_DECODE_STEPS,
+                              max_queue=len(marr))
+    drains, waited = [], [0.0]
+    real_drain = disagg.DisaggRouter._drain_handoffs
+    real_wait = kv_tiers.wait_for_stages
+
+    def drain_spy(self):
+        k = len(self._pending_handoffs)
+        waited[0] = 0.0
+        t0 = time.perf_counter()
+        real_drain(self)
+        if k:
+            drains.append({"crossings": k,
+                           "ms": 1e3 * (time.perf_counter() - t0),
+                           "wait_ms": 1e3 * waited[0]})
+
+    def wait_spy(tiers):
+        t0 = time.perf_counter()
+        real_wait(tiers)
+        waited[0] += time.perf_counter() - t0
+
+    with mock.patch.object(disagg.DisaggRouter, "_drain_handoffs",
+                           drain_spy), \
+            mock.patch.object(kv_tiers, "wait_for_stages", wait_spy):
+        rep, st, n, _ = fleet_serve(torch, journal, fns, dis, marr)
+    check_counts(n, family_counts(L, st["steps"], st["steps"] - st["admits"]),
+                 f"3j (c): {st['steps']} steps, {st['admits']} admits")
+    launches["disagg"] = n
+    dtoks = fleet_tokens(dis, marr, cfg, "3j (c)")
+    pb = dis._replicas[0].prefix_cache.host_tier.page_bytes()
+    if not dis.handoffs or st["tier_flushes"] != dis.handoff_flushes:
+        raise AssertionError(f"3j (c): {dis.handoffs} handoffs, "
+                             f"{dis.handoff_flushes} flushes")
+    bad = [h for h in dis.handoff_log
+           if h["pages"] > h["pages_reserved"]
+           or h["bytes"] > h["pages_reserved"] * pb
+           or h["bytes"] != h["pages"] * pb]
+    if bad:
+        raise AssertionError(f"3j (c): crossings past their reserved KV "
+                             f"footprint: {bad}")
+    st["handoffs"] = {k: v for k, v in dis.handoff_report().items()
+                      if k != "log"}
+    st["handoff_bytes_per_crossing"] = [h["bytes"] for h in dis.handoff_log]
+    st["page_bytes"] = pb
+    st["drains"] = drains
+    st["drain_ms_per_crossing"] = (sum(d["ms"] for d in drains)
+                                   / max(1, sum(d["crossings"]
+                                                for d in drains)))
+    st["pool_stats"] = dis.pool_stats()
+    dis.reset()
+    if dis.leak_report():
+        raise AssertionError(f"3j (c): leaked pages after reset: "
+                             f"{dis.leak_report()}")
+    out["disagg"] = st
+    del dis
+    co = fleet.FleetRouter([engine(), engine()], max_queue=len(marr),
+                           seg_steps=DISAGG_DECODE_STEPS,
+                           prefix_caches="auto")
+    crep, cst, n, _ = fleet_serve(torch, journal, fns, co, marr)
+    check_counts(n, family_counts(L, cst["steps"],
+                                  cst["steps"] - cst["admits"]),
+                 f"3j (c) co-resident: {cst['steps']} steps")
+    launches["disagg_co_resident"] = n
+    ctoks = fleet_tokens(co, marr, cfg, "3j (c) co-resident")
+    out["co_resident"] = cst
+    ties["disagg"] = parted_at_near_ties(torch, llama, params, cfg,
+                                         mprompts, dtoks, ctoks, "3j (c)")
+    out["parted_at_near_ties"] = ties
+    del co
+    return out, launches
 
 
 def kernels_line(rows, by_path):
@@ -3718,7 +4100,7 @@ def main() -> None:
     import paddle_tpu_torch.optimizer
     import paddle_tpu_torch.vision.models  # noqa: F401 (port.<module>)
     from paddle_tpu_torch import device as device_mod
-    from paddle_tpu_torch.inference import kv_tiers
+    from paddle_tpu_torch.inference import disagg, fleet, kv_tiers
     from paddle_tpu_torch.inference import scheduler as sched
     from paddle_tpu_torch.inference.prefix_cache import (PagedPrefixCache,
                                                          PrefixCache)
@@ -4261,8 +4643,9 @@ def main() -> None:
     au = tiers["audited"]
     print(f"3i (a) tier stats: {json.dumps(au['tiers'])}; prefix cache: "
           f"{json.dumps({k: v for k, v in au['prefix'].items() if k != 'tier'})}"
-          f"; {au['synchronising_calls']} synchronising calls for "
-          f"{au['fetches']} fetches; {au['restores_checked']} restores bit-"
+          f"; {au['synchronising_calls']} synchronising calls and "
+          f"{au['event_waits']} event waits for {au['fetches']} fetches; "
+          f"{au['restores_checked']} restores bit-"
           f"equal to their staged bytes in planes {au['planes_checked']}; "
           f"parted at near ties {json.dumps(tiers['parted_at_near_ties'])}")
     print(f"3i (a) one {tiers['transfer']['pages']}-page transfer "
@@ -4275,7 +4658,8 @@ def main() -> None:
               f"{st['ttft_p99_s']:.4f} s, hits {json.dumps(st['hits'])}, "
               f"{st['segments']} segments, {st['fetches']} fetches"
               + (f"; tier {json.dumps(st['tiers'])}; "
-                 f"{st['synchronising_calls']} synchronising calls; "
+                 f"{st['synchronising_calls']} synchronising calls, "
+                 f"{st['event_waits']} event waits; "
                  f"{st['restores_checked']} restores bit-equal in planes "
                  f"{st['planes_checked']}" if key == "tiered" else ""))
     print(f"3i (b) int8 tiered against no cache: parted at near ties "
@@ -4290,7 +4674,8 @@ def main() -> None:
           f"({json.dumps(slo['shed_per_class'])}), per class "
           f"{json.dumps(slo['per_class'])}, {slo['tokens_per_s']:.1f} "
           f"tokens/s, {slo['segments']} segments, {slo['fetches']} "
-          f"fetches, {slo['synchronising_calls']} synchronising calls; "
+          f"fetches, {slo['synchronising_calls']} synchronising calls, "
+          f"{slo['event_waits']} event waits; "
           f"with the monitors (same clock): "
           f"{json.dumps(slo['monitors'])}")
     tiers["slo"] = slo
@@ -4298,6 +4683,66 @@ def main() -> None:
     print(f"launches on phase 3i: {json.dumps(ilaunches)}; seconds to the "
           f"end of each sub-phase: {json.dumps(isecs)}")
     del fparams
+
+    lap("3j")
+    # 3j. the serving fleet and disaggregated prefill/decode, on 3e's
+    # trained model in bf16
+    fleets, jlaunches = fleet_phase(torch, sched, fleet, disagg, kv_tiers,
+                                    journal, llama, ServingEngine,
+                                    PagedPrefixCache, fns, sparams, cfg,
+                                    reqs)
+    st = fleets["fleet"]
+    print(f"3j (a) fleet ({card}): 2 replicas, {TIER_TENANTS} tenants x "
+          f"{FLEET_ROUNDS} rounds, queues of {FLEET_MAX_QUEUE}, directory, "
+          f"int8 shadow at {FLEET_SHADOW_P}: assignment "
+          f"{st['assignment']}, dispatches {json.dumps(st['dispatches'])}, "
+          f"{st['tier_migrations']} tier migrations, "
+          f"{st['backpressure_events']} refusals, {st['segments']} "
+          f"segments, {st['fetches']} fetches (shadow's included), "
+          f"{st['synchronising_calls']} synchronising calls, "
+          f"{st['event_waits']} event waits "
+          f"({json.dumps(st['event_wait_ms'])} ms), "
+          f"{st['tokens_per_s']:.1f} tokens/s, ttft p50/p99 "
+          f"{st['ttft_p50_s']:.4f}/{st['ttft_p99_s']:.4f} s")
+    print(f"3j (a) shadow quality (int8 against bf16, {card}): "
+          f"{json.dumps(st['quality'])}; shadow {json.dumps(st['shadow'])}")
+    print(f"3j (a) first turns, ms after the serve's start (replica, "
+          f"dispatch, t_sync): "
+          + ", ".join(f"({t['replica']}, {t['t_disp_ms']:.2f}, "
+                      f"{t.get('t_sync_ms', float('nan')):.2f})"
+                      for t in st["turns"]))
+    tm = fleets["timed"]
+    print(f"3j fleet against one replica ({card}), {tm['pairs']} pairs in "
+          f"turns: two replicas {json.dumps(tm['tokens_per_s']['two_replicas'])}"
+          f" tokens/s, one replica "
+          f"{json.dumps(tm['tokens_per_s']['one_replica'])}; medians "
+          f"{tm['median_tokens_per_s']['two_replicas']:.1f} against "
+          f"{tm['median_tokens_per_s']['one_replica']:.1f} "
+          f"(x{tm['median_ratio']:.3f})")
+    st = fleets["failover"]
+    print(f"3j (b) failover ({card}): crash {FLEET_CRASH}: "
+          f"{st['failovers']} failover, {st['requeued']} requeued, health "
+          f"{json.dumps(st['replica_health'])}, {st['requests']} requests "
+          f"served, {st['fetches']} fetches, {st['synchronising_calls']} "
+          f"synchronising calls, {st['event_waits']} event waits")
+    st = fleets["disagg"]
+    print(f"3j (c) disaggregated ({card}): 1 prefill + 1 decode replica, "
+          f"32 mixed requests: handoffs {json.dumps(st['handoffs'])}, page "
+          f"{st['page_bytes']} B, {st['drain_ms_per_crossing']:.3f} ms of "
+          f"host drain a crossing (flush included; drains "
+          f"{json.dumps(st['drains'])}), "
+          f"{st['tokens_per_s']:.1f} tokens/s, ttft p50/p99 "
+          f"{st['ttft_p50_s']:.4f}/{st['ttft_p99_s']:.4f} s, e2e p50/p99 "
+          f"{st['e2e_p50_s']:.4f}/{st['e2e_p99_s']:.4f} s, {st['fetches']} "
+          f"fetches, {st['synchronising_calls']} synchronising calls "
+          f"({st['tier_flushes']} flushes), {st['event_waits']} event "
+          f"waits; co-resident fleet "
+          f"{fleets['co_resident']['tokens_per_s']:.1f} tokens/s, ttft "
+          f"p50/p99 {fleets['co_resident']['ttft_p50_s']:.4f}/"
+          f"{fleets['co_resident']['ttft_p99_s']:.4f} s")
+    print(f"3j parted at near ties: "
+          f"{json.dumps(fleets['parted_at_near_ties'])}")
+    print(f"launches on phase 3j: {json.dumps(jlaunches)}")
 
     lap("6")
     # 6. ResNet-50 training, BASELINE config 1 at full shape
@@ -4366,7 +4811,8 @@ def main() -> None:
                "fused_drain": flaunches_3g,
                "contiguous_prefix_burst": cblaunches["prefix_cache"],
                "contiguous_burst_no_cache": cblaunches["no_cache"],
-               **glaunches, **plaunches3g, **hlaunches, **ilaunches}
+               **glaunches, **plaunches3g, **hlaunches, **ilaunches,
+               **{f"3j_{k}": v for k, v in jlaunches.items()}}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -4377,6 +4823,7 @@ def main() -> None:
                    "contiguous_prefix_bursts": cbursts,
                    "generation": gen_stats, "preemption": preempt,
                    "families": family, "tiers": tiers,
+                   "fleets": fleets,
                    "long_admit": longa, "cpu_small": small,
                    "quant": quant, "quant_trained": qtrained,
                    "launches": by_path,

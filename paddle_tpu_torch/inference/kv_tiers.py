@@ -31,9 +31,11 @@ price of an H2D copy instead of a prefill. The contract, in stream order:
 
 bf16 and fp8 have no numpy dtype, so the host store holds CPU tensors;
 one-byte float planes are gathered and copied through ``torch.uint8``
-views (the same bits). ``flush()`` and ``flush_tiers()`` are the only
-calls here that wait on the device, once each, for teardown and migration
-outside the serve loop; each counts itself in ``flushes``.
+views (the same bits). ``flush()``, ``flush_tiers()`` and the
+``wait_for_stages()`` under them are the only calls here that wait on the
+device, once each, for teardown, migration and the disaggregated fleet's
+handoffs outside the segment fetch; each tier counts the wait in
+``flushes``.
 
 Every movement emits a ``tier_transfer`` flight event (direction stage |
 spill | restore | import) with page and byte counts and a ``tier_*`` event
@@ -54,7 +56,7 @@ from ..observability import flight as _flight
 from ..observability import metrics as _metrics
 
 __all__ = ["HostTier", "TierMeter", "page_bytes", "flush_tiers",
-           "install", "uninstall"]
+           "wait_for_stages", "install", "uninstall"]
 
 _ONE_BYTE_FLOATS = tuple(getattr(torch, n) for n in (
     "float8_e4m3fn", "float8_e5m2") if hasattr(torch, n))
@@ -333,16 +335,24 @@ def flush_tiers(tiers) -> int:
         staged = t.take_pending()
         if staged:
             work.append((t, staged))
+    wait_for_stages([t for t, _ in work])
+    for t, staged in work:
+        t.complete(staged)
+    return len(work)
+
+
+def wait_for_stages(tiers) -> None:
+    """The one wait behind ``flush_tiers``: each tier counts a flush,
+    and the host waits on the current stream once per device (once in
+    all for tiers sharing a card), after which every stage copy those
+    tiers queued has landed. The caller files the stages."""
     waited = set()
-    for t, _ in work:
+    for t in tiers:
         dev = t.pager.device
         t.flushes += 1
         if dev.type == "cuda" and dev not in waited:
             waited.add(dev)
             torch.cuda.current_stream(dev).synchronize()
-    for t, staged in work:
-        t.complete(staged)
-    return len(work)
 
 
 # ---------------------------------------------------------------------------

@@ -18,9 +18,12 @@ JAX engine makes that choice inside one compiled ``while_loop``; here the
 host makes it from its mirror of the slots' remaining counts, which
 without EOS are known from the generation lengths alone, so the steps are
 issued back to back and the segment's event log comes back in ONE counted
-fetch (``_fetch``). With ``eos_token_id`` set the schedule depends on the
-tokens, so each step's tokens are fetched once before the next step is
-chosen. The host then replays the event log (the same admitted /
+fetch, issued without blocking at the end of the dispatch (a copy to pinned
+host memory and a CUDA event behind it) and waited for at its finish, so
+the wait covers that segment's work alone even when several engines share
+the card's stream. With ``eos_token_id`` set the schedule depends on the
+tokens, so each step's tokens are fetched (``_fetch``) once before the
+next step is chosen. The host then replays the event log (the same admitted /
 first-token / finished lists, in the same order, as the JAX engine),
 requeues what the step budget did not admit and harvests each slot's
 latest admitted prompt into the prefix cache. The layouts differ in the
@@ -259,6 +262,10 @@ class _PendingSegment:
     log: _StepLog
     chunk_marker: Optional[int] = None  # aq of a non-final chunk step
     sp: bool = False               # a sequence-parallel (slab) segment
+    # the event log's read, issued at dispatch: (the log in host memory,
+    # the CUDA event behind its copy, None on the CPU), or None when
+    # the log needs no read
+    staged: Optional[tuple] = None
 
     @property
     def steps(self) -> int:
@@ -1040,8 +1047,10 @@ class ServingEngine:
         n_pad = n_pad or self._pow2(self.slots)
         dispatch = (self._dispatch_segment_paged if self.paged
                     else self._dispatch_segment_dense)
-        self._pending_seg = dispatch(max_steps, prefix_cache, n_pad, now)
-        return self._pending_seg
+        p = dispatch(max_steps, prefix_cache, n_pad, now)
+        p.staged = self._stage_log(p.log)
+        self._pending_seg = p
+        return p
 
     def _dispatch_segment_dense(self, max_steps: int, prefix_cache,
                                 n_pad: int, now: float) -> _PendingSegment:
@@ -1573,32 +1582,67 @@ class ServingEngine:
         self._rem = rem
         return e, logits, m
 
+    def _log_tensor(self, log: _StepLog) -> Optional[torch.Tensor]:
+        """The segment's event log as one device tensor of integer words
+        (the fp32 digest columns bit-cast, so nothing is rounded), or
+        None when the host already holds it (EOS read the tokens step by
+        step, and there are no digests)."""
+        steps = log.steps
+        if log.acc is not None:
+            return torch.cat([log.out[:steps].reshape(-1),
+                              log.acc[:steps].reshape(-1)])
+        if log.dig is None:
+            return None if log.toks is not None else log.out[:steps]
+        dlg, dti, dtv = (t[:steps].reshape(-1) for t in log.dig)
+        parts = [dlg.view(torch.int32), dti, dtv.view(torch.int32)]
+        if log.toks is None:
+            parts.insert(0, log.out[:steps].reshape(-1).to(torch.int32))
+        return torch.cat(parts)
+
+    def _stage_log(self, log: _StepLog) -> Optional[tuple]:
+        """Issue the event log's read at the end of dispatch: on a card,
+        a non-blocking copy into pinned host memory and a CUDA event
+        recorded behind it on the current stream, so the read at finish
+        waits for this segment's work alone, not for what other engines
+        sharing the stream dispatched after it."""
+        t = self._log_tensor(log)
+        if t is None or t.device.type != "cuda":
+            return None if t is None else (t, None)
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        return host, ev
+
+    def _read_staged(self, staged: tuple) -> np.ndarray:
+        """The segment's one counted fetch: wait on the event behind the
+        staged copy (a CPU tensor is read as it is)."""
+        t, ev = staged
+        self.fetches += 1
+        if ev is not None:
+            ev.synchronize()
+        return t.cpu().numpy()
+
     def _read_log(self, p: _PendingSegment):
         """The segment's event log on the host: (tokens [steps, slots] (a
         speculative segment's [steps, slots, K + 1]), digests or None,
         emitted counts [steps, slots] or None). Everything comes back in
-        ONE fetch (without EOS; with EOS the plain segment's tokens were
-        read step by step and the digests take one fetch here), packed as
-        integer words: the fp32 digest columns bit-cast, so nothing is
-        rounded."""
+        ONE fetch, issued at dispatch (``_stage_log``); with EOS the
+        plain segment's tokens were read step by step and the digests
+        take the one fetch."""
         log = p.log
         steps = log.steps
+        if p.staged is None:
+            return log.toks, None, None
+        flat = self._read_staged(p.staged)
         if log.acc is not None:
-            flat = self._fetch(torch.cat([log.out[:steps].reshape(-1),
-                                          log.acc[:steps].reshape(-1)]))
             n = steps * self.slots * (self.speculative + 1)
             return (flat[:n].reshape(steps, self.slots,
                                      self.speculative + 1), None,
                     flat[n:].reshape(steps, self.slots))
         if log.dig is None:
-            return (log.toks if log.toks is not None
-                    else self._fetch(log.out[:steps])), None, None
+            return flat, None, None
         n, k = steps * self.slots, self.digest_top_k
-        dlg, dti, dtv = (t[:steps].reshape(-1) for t in log.dig)
-        parts = [dlg.view(torch.int32), dti, dtv.view(torch.int32)]
-        if log.toks is None:
-            parts.insert(0, log.out[:steps].reshape(-1).to(torch.int32))
-        flat = self._fetch(torch.cat(parts))
         toks = log.toks
         if toks is None:
             toks, flat = flat[:n].reshape(steps, self.slots), flat[n:]
@@ -1629,10 +1673,10 @@ class ServingEngine:
         toks, dig, acc = self._read_log(p)
         tier = getattr(prefix_cache, "host_tier", None)
         if tier is not None and self.fetches > self._seg_fetch0:
-            # the segment's counted fetch waited for the stream, which had
-            # passed every stage copy queued before the dispatch and every
-            # upload of its admissions: file the stages, free the uploads'
-            # sources
+            # the segment's counted fetch waited for the event recorded at
+            # the end of its dispatch, which the stream reaches after every
+            # stage copy queued before the dispatch and every upload of its
+            # admissions: file the stages, free the uploads' sources
             tier.complete(tier.take_pending())
         spec_stats = None if acc is None else {
             "proposed": 0, "accepted": 0, "emitted": 0, "verify_steps": 0,

@@ -54,6 +54,15 @@ class Optimizer:
             raise NotImplementedError(
                 "weight_decay must be a number (L2 decay folded into the "
                 "gradient): regularizer objects are not ported")
+        if isinstance(weight_decay, int) and weight_decay:
+            # the reference takes the L2 coefficient from a float (or an
+            # L2Decay) only and leaves it at 0.0 for an int: refuse the
+            # int instead of decaying where the reference does not
+            raise TypeError(
+                f"weight_decay={weight_decay!r} is an int: the reference "
+                f"optimizer ignores an integer weight_decay (its L2 "
+                f"coefficient stays 0.0); pass a float such as "
+                f"{float(weight_decay)!r}")
         self._parameter_list = parameters
         self._learning_rate = float(learning_rate)
         self._l2_coeff = float(weight_decay or 0.0)

@@ -1852,3 +1852,53 @@ def test_host_tier_stage_and_upload_do_not_synchronise(cuda, quant):
     for p, a in pgr.pool.items():
         assert torch.equal(_bytes(a[:, dst]), before[p]), p
         assert torch.equal(_bytes(tier.get(b"entry")[p]), before[p]), p
+
+
+@pytest.mark.parametrize("name", SERVE_CONFIGS)
+def test_interleaved_paged_replicas_share_the_stream(cuda, name):
+    """Two paged engines on the card's current stream with their segments
+    interleaved as a fleet runs them (dispatch A, dispatch B, finish A,
+    finish B): every request gets the tokens its engine gives it alone,
+    each finish counts one fetch (its wait on the event behind the
+    segment's staged log), and the split-KV ticket buffers the replicas
+    share are all zero afterwards."""
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg, params = _serve_model(cuda, name)
+    rng = np.random.RandomState(5)
+    work = [[(rng.randint(0, cfg.vocab_size, n), g)
+             for n, g in ((40, 16), (100, 24), (17, 9), (64, 30))],
+            [(rng.randint(0, cfg.vocab_size, n), g)
+             for n, g in ((120, 12), (33, 20), (8, 28), (70, 6))]]
+
+    def engine(reqs):
+        eng = ServingEngine(cfg, params, slots=4, max_len=256,
+                            prompt_buckets=(64, 128), paged=True,
+                            device=cuda)
+        return eng, [eng.add_request(p, g) for p, g in reqs]
+
+    def busy(eng):
+        return bool(eng._queue) or eng.free_slot_count() < eng.slots
+
+    alone = []
+    for reqs in work:
+        eng, rids = engine(reqs)
+        while busy(eng):
+            eng.run_segment(8)
+        out = eng.collect_finished()
+        alone.append([out[r] for r in rids])
+
+    (a, arids), (b, brids) = engine(work[0]), engine(work[1])
+    while busy(a) or busy(b):
+        ha = a.dispatch_segment(8) if busy(a) else None
+        hb = b.dispatch_segment(8) if busy(b) else None
+        for eng, h in ((a, ha), (b, hb)):
+            if h is not None:
+                before = eng.fetches
+                eng.finish_segment(h)
+                assert eng.fetches == before + 1
+    outa, outb = a.collect_finished(), b.collect_finished()
+    assert [outa[r] for r in arids] == alone[0]
+    assert [outb[r] for r in brids] == alone[1]
+    torch.cuda.synchronize()
+    assert da._TICKETS and all(not t.any() for t in da._TICKETS.values())
