@@ -197,6 +197,22 @@ Phases (any failed check raises and the script exits non-zero):
    crossing within its reserved KV footprint, the handoff flushes the
    only synchronising calls, each drain's host time, the launches, and
    tokens held to a co-resident two-replica fleet;
+3k. (after 3j, on the same model and engine geometry) the elastic fleet:
+   (a) ``aot_warmup`` of one replica under its default envelope, 3k's
+   (segments of 32 behind a prefix cache of page blocks) and a
+   ``DisaggRouter``'s pool envelopes, keys and seconds by family; five
+   pairs in turns of a cold engine's first segment against a warmed
+   one's; the warmed replica serving 3j's trace with no library load,
+   no split-KV ticket buffer and no key outside its envelope
+   (``analysis.recompile``); (b) four replicas behind one
+   ``Autoscaler`` (min 1, max 4, initial 1) on a trace shaped as the
+   reference episode's: 1 -> 4 -> 1, nothing stranded, the scale-ups'
+   warm seconds, drain requeues and migrations, the launches, tokens
+   against one engine's or parted at a near tie; (c) the chip fit
+   against the card: weights and pool bytes equal to the bytes the
+   allocator was asked for at build (its rounded blocks beside), the
+   transient estimate beside a serve's measured peak, and
+   one journaled refusal;
 6. ResNet-50 training, BASELINE config 1 (benchmarks/resnet50.py):
    ``resnet50(num_classes=1000, data_format="NHWC")`` from the port's
    initializers (seed 0), B 128 at 224x224 (``RandomState(0)`` images and
@@ -221,7 +237,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3j, 5b, 6 and 7 is driven with every launch count set to 0 just
+   3-3k, 5b, 6 and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -3956,6 +3972,325 @@ def fleet_phase(torch, sched, fleet, disagg, kv_tiers, journal, llama,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 3k: the elastic fleet: the program space and its warmup, the
+# autoscaler's 1 -> 4 -> 1 episode, and the chip fit
+# ---------------------------------------------------------------------------
+
+ELASTIC_REPLICAS = 4
+ELASTIC_PAIRS = 5       # (cold, warmed) first segments, in turns
+ELASTIC_SEG_STEPS = 32
+ELASTIC_QUEUE_HIGH = 8  # summed queue depth that asks for a replica
+
+
+def elastic_envelope(eng):
+    """3k's declared workload: segments of ``ELASTIC_SEG_STEPS`` steps
+    behind a prefix cache of one-page blocks, prompts up to the largest
+    bucket."""
+    return eng.default_envelope(seg_steps=(ELASTIC_SEG_STEPS,),
+                                prefix_block=PAGE)
+
+
+def elastic_trace(sched, vocab, seed=1):
+    """3k (b)'s trace, shaped as the reference episode's
+    (tests/test_autoscaler.py) at 3i's widths (256-token prefixes, 32-token
+    tails): a burst of 24 requests with fresh prefixes at t = 0 (queue
+    pressure), a spread wave of 8 over 4 prefix groups from 1.0 s, a
+    sparse repeat wave of 8 over the same groups from 6.0 s, 0.5 s apart,
+    and 3 single requests 1.5 s apart from 14.0 s, whose idle gaps give
+    the last drains their calm turns."""
+    rng = np.random.RandomState(seed)
+
+    def fresh():
+        return rng.randint(0, vocab, (TIER_PREFIX,)).astype(np.int32)
+
+    def req(pref, gen):
+        return (np.concatenate([pref, rng.randint(
+            0, vocab, (TIER_TAIL,)).astype(np.int32)]), gen)
+
+    groups = [fresh() for _ in range(4)]
+    return ([sched.Arrival(0.0, *req(fresh(), TIER_GEN))
+             for _ in range(24)]
+            + [sched.Arrival(1.0 + 0.1 * i, *req(groups[i % 4], TIER_GEN))
+               for i in range(8)]
+            + [sched.Arrival(6.0 + 0.5 * i, *req(groups[i % 4], 16))
+               for i in range(8)]
+            + [sched.Arrival(14.0 + 1.5 * i, *req(groups[i % 4], 8))
+               for i in range(3)])
+
+
+def fresh_tickets(da):
+    """Set the process's split-KV ticket buffers aside (kept alive: a
+    graph captured earlier may still name one), so the next call at each
+    shape makes its own, as in a new process."""
+    kept = list(da._TICKETS.values())
+    da._TICKETS.clear()
+    return kept
+
+
+def first_segment(torch, recompile, eng, arrivals):
+    """Wall ms of an engine's first segment (``run_segment`` of
+    ``ELASTIC_SEG_STEPS`` steps over the first 8 requests, no cache), the
+    card synchronised on both sides, and what it built."""
+    for a in arrivals[:8]:
+        eng.add_request(a.prompt, a.max_new_tokens)
+    torch.cuda.synchronize()
+    with recompile.CompileWatch() as cw:
+        t0 = time.perf_counter()
+        eng.run_segment(ELASTIC_SEG_STEPS)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    return ms, cw.as_dict()
+
+
+def elastic_phase(torch, sched, fleet, disagg, autoscaler, kv_tiers,
+                  journal, llama, ServingEngine, PagedPrefixCache,
+                  PagedKVCache, CapacityMonitor, recompile, memory, da, fns,
+                  params, cfg):
+    """Phase 3k: the elastic fleet on 3j's model and engine geometry (8
+    slots, pages of 16, a 96-page pool, a 48-page cache over a 1024-page
+    host tier).
+
+    (a) ``aot_warmup`` of one replica under its default envelope, 3k's
+    envelope (segments of 32 behind the cache) and, through a
+    ``DisaggRouter``, the pool envelopes: keys and seconds by family;
+    then ``ELASTIC_PAIRS`` pairs in turns of a cold engine's first
+    segment against a warmed one's (ticket buffers set aside before
+    each, so each makes its own); then the warmed replica serves 3j's
+    tenant trace under ``recompile.enforce_zero_compiles``: no library
+    load, no ticket buffer, no key outside the envelope, and the
+    launches its steps need. (b) the elastic episode: four replicas on
+    the card, warmed under 3k's envelope, one ``Autoscaler`` (min 1, max
+    4, initial 1; queue pressure and a ``CapacityMonitor``) on
+    ``elastic_trace``: it must go 1 -> 4 -> 1, strand nothing, and meet
+    nothing outside the envelope; warm seconds a scale-up, drain
+    requeues and prefix migrations, the launches (the scale-ups'
+    warmups included), and tokens against one engine serving the same
+    requests. (c) the chip fit against the card (``mem_get_info``'s
+    total): weights and pool bytes against the allocator's requested
+    bytes at build (``memory_allocated``'s rounded blocks beside), the
+    transient estimate beside the warmed serve's measured
+    peak, and one refusal with ``hbm_bytes`` one byte below a replica's
+    envelope, its journaled reason."""
+    L = cfg.num_layers
+    out, launches = {}, {}
+    arrivals = tier_trace(sched, cfg.vocab_size, rounds=FLEET_ROUNDS)
+
+    def engine():
+        return tier_engine(ServingEngine, params, cfg)
+
+    def families(rep):
+        return {f: {"keys": r["keys"], "seconds": r["seconds"]}
+                for f, r in rep.items()}
+
+    # (a) warmups by envelope
+    eng = engine()
+    pc = tier_cache(PagedPrefixCache, kv_tiers, eng)
+    env = elastic_envelope(eng)
+    warm = {"default": families(eng.aot_warmup())}
+    torch.cuda.synchronize()
+    held = fresh_tickets(da)
+    with recompile.CompileWatch() as cw:
+        warm["elastic"] = families(eng.aot_warmup(env, prefix_cache=pc))
+    warm["elastic_built"] = cw.as_dict()
+    if not cw.tickets:
+        raise AssertionError("3k (a): the warmup made no ticket buffer")
+    pool_engines = [engine(), engine()]
+    dis = disagg.DisaggRouter(
+        pool_engines[:1], pool_engines[1:],
+        prefill_caches=[tier_cache(PagedPrefixCache, kv_tiers,
+                                   pool_engines[0])],
+        decode_caches=[tier_cache(PagedPrefixCache, kv_tiers,
+                                  pool_engines[1])],
+        prefill_seg_steps=DISAGG_PREFILL_STEPS,
+        decode_seg_steps=DISAGG_DECODE_STEPS)
+    pools = dis.aot_warmup()
+    warm["pools"] = {r.pool: {"envelope": journal.describe_envelope(
+        dis.pool_envelope(r.pool)), "families": families(pools[r.idx])}
+        for r in dis._replicas}
+    del dis, pool_engines
+    out["warmups"] = warm
+
+    # a cold engine's first segment against a warmed one's, in turns
+    pairs = {"cold": [], "warm": []}
+    built = {"cold": [], "warm": []}
+    for i in range(ELASTIC_PAIRS):
+        for kind in (("cold", "warm") if i % 2 == 0 else ("warm", "cold")):
+            e = engine()
+            torch.cuda.synchronize()
+            held += fresh_tickets(da)
+            if kind == "warm":
+                e.aot_warmup(env)
+            ms, b = first_segment(torch, recompile, e, arrivals)
+            pairs[kind].append(ms)
+            built[kind].append(b)
+            del e
+    if any(any(b.values()) for b in built["warm"]):
+        raise AssertionError(f"3k (a): a warmed engine's first segment "
+                             f"built {built['warm']}")
+    out["first_segment_ms"] = pairs
+    out["first_segment_built"] = {k: v[0] for k, v in built.items()}
+    out["first_segment_median_ms"] = {k: float(np.median(v))
+                                      for k, v in pairs.items()}
+
+    # the warmed replica serves within the zero budget
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with recompile.enforce_zero_compiles("3k (a) warmed serve") as cw:
+        st, n, _, _ = tier_serve(torch, sched, kv_tiers, fns, eng, pc,
+                                 arrivals)
+    peak = torch.cuda.max_memory_allocated() - base
+    check_counts(n, family_counts(L, st["steps"], st["ticks"]),
+                 f"3k (a): {st['steps']} steps, {st['admits']} admits")
+    launches["warmed_serve"] = n
+    st["built"] = cw.as_dict()
+    st["keys_used"] = {repr(k): v for k, v in eng.prog_key_hits.items()}
+    out["warmed_serve"] = st
+
+    # (b) the elastic episode
+    trace = elastic_trace(sched, cfg.vocab_size)
+    engines = [engine() for _ in range(ELASTIC_REPLICAS)]
+    pcs = [tier_cache(PagedPrefixCache, kv_tiers, e) for e in engines]
+    asc = autoscaler.Autoscaler(min_replicas=1, max_replicas=ELASTIC_REPLICAS,
+                                initial_replicas=1,
+                                queue_high=ELASTIC_QUEUE_HIGH, queue_low=0,
+                                scale_down_after=2)
+    router = fleet.FleetRouter(
+        engines, max_queue=len(trace), seg_steps=ELASTIC_SEG_STEPS,
+        prefix_caches=pcs, directory=True, autoscaler=asc,
+        capacity_monitor=CapacityMonitor(warn_horizon=0.5,
+                                         page_horizon=0.1))
+    t0 = time.perf_counter()
+    router.aot_warmup(env)
+    standby_s = time.perf_counter() - t0
+    j = journal.Journal()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    with journal.attach(j), \
+            recompile.enforce_zero_compiles("3k (b) episode") as cw:
+        rep = router.serve(trace)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    built = cw.as_dict()
+    n = read_counts(fns)
+    recs = j.records()
+    decs = [r for r in recs if r["kind"] == "scale_decision"]
+    warmed = [r for r in recs if r["kind"] == "replica_warmed"]
+    admits = sum(r["kind"] == "admit" for r in recs)
+    steps = sum(r.engine.last_run_ticks for r in router._replicas)
+    keys = sum(r["keys"] for r in warmed)
+    check_counts(n, family_counts(L, steps + 2 * keys,
+                                  steps - admits + keys),
+                 f"3k (b): {steps} steps, {admits} admits, {keys} keys "
+                 f"warmed in the serve")
+    launches["episode"] = n
+    toks = fleet_tokens(router, trace, cfg, "3k (b)")
+    peak_n = max(d["inputs"]["n_serving"] for d in decs) if decs else 1
+    final = [r.lifecycle for r in router._replicas]
+    if not (rep.scale_ups == ELASTIC_REPLICAS - 1
+            and rep.scale_downs == ELASTIC_REPLICAS - 1
+            and peak_n == ELASTIC_REPLICAS and asc.actual == 1
+            and final == ["serving"] + ["offline"] * (ELASTIC_REPLICAS - 1)):
+        raise AssertionError(f"3k (b): not 1 -> 4 -> 1: {rep.scale_ups} up, "
+                             f"{rep.scale_downs} down, peak {peak_n}, "
+                             f"lifecycles {final}, decisions "
+                             f"{[(d['action'], d['replica']) for d in decs]}")
+    if router.leak_report():
+        raise AssertionError(f"3k (b): leaked pages: {router.leak_report()}")
+    ref = engine()
+    rpc = tier_cache(PagedPrefixCache, kv_tiers, ref)
+    one = sched.OnlineScheduler(ref, seg_steps=ELASTIC_SEG_STEPS,
+                                max_queue=len(trace), prefix_cache=rpc)
+    one.serve([sched.Arrival(0.0, a.prompt, a.max_new_tokens)
+               for a in trace])
+    res1 = one.results()
+    rtoks = [res1[r] for r in sorted(res1)]
+    out["episode"] = {
+        "requests": rep.n_requests, "stranded": len(trace) - len(toks),
+        "new_tokens": rep.total_tokens, "wall_s": wall,
+        "tokens_per_s": rep.total_tokens / wall,
+        "ttft_p50_s": rep.ttft_p50_s, "ttft_p99_s": rep.ttft_p99_s,
+        "e2e_p50_s": rep.e2e_p50_s, "e2e_p99_s": rep.e2e_p99_s,
+        "segments": rep.segments, "steps": steps, "admits": admits,
+        "scale_ups": rep.scale_ups, "scale_downs": rep.scale_downs,
+        "peak_replicas": peak_n, "lifecycles": final,
+        "decisions": [(d["action"], d["replica"],
+                       d["inputs"]["queue_sum"]) for d in decs],
+        "warm_s": [w["seconds"] for w in warmed],
+        "warm_keys": [w["keys"] for w in warmed],
+        "standby_warmup_s": standby_s,
+        "drains": {r.idx: r.last_drain for r in router._replicas
+                   if r.last_drain},
+        "requeued": router.requeued,
+        "prefixes_migrated": sum(1 for r in recs
+                                 if r["kind"] == "tier_migrate"
+                                 and r.get("rid") is None),
+        "built": built,
+        "against_one_engine": agreement(toks, rtoks),
+        "parted_at_near_ties": parted_at_near_ties(
+            torch, llama, params, cfg, [a.prompt for a in trace], toks,
+            rtoks, "3k (b)")}
+    del router, engines, pcs, one, ref, rpc
+
+    # (c) the chip fit against the card
+    hbm = torch.cuda.mem_get_info()[1]
+    fit = memory.chip_fit(cfg, params, pool=eng.pager, hbm_bytes=hbm)
+    fam = memory.family_envelopes(eng, env, hbm_bytes=hbm)
+    # the allocator's two counts at each build: the bytes the tensors
+    # asked for ("requested") and the blocks it handed out (``allocated``,
+    # rounded: a block past 1 MiB that leaves less than 1 MiB over is not
+    # split)
+    def mem():
+        torch.cuda.synchronize()
+        return (torch.cuda.memory_stats()["requested_bytes.all.current"],
+                torch.cuda.memory_allocated())
+
+    m0 = mem()
+    w = {k: v.clone() for k, v in params.items()}
+    m1 = mem()
+    pg = PagedKVCache(cfg, 8, PAGE, TIER_POOL_PAGES + 1,
+                      TIER_MAX_LEN // PAGE, DEVICE)
+    m2 = mem()
+    measured = {"weights_bytes": m1[0] - m0[0], "pool_bytes": m2[0] - m1[0],
+                "weights_allocated": m1[1] - m0[1],
+                "pool_allocated": m2[1] - m1[1], "serve_peak_bytes": peak}
+    if (measured["weights_bytes"], measured["pool_bytes"]) != (
+            fit["weights_bytes"], fit["pool_bytes"]):
+        raise AssertionError(f"3k (c): requested {measured} at build, the "
+                             f"fit counts {fit['weights_bytes']} and "
+                             f"{fit['pool_bytes']}")
+    del w, pg
+    asc = autoscaler.Autoscaler(min_replicas=1, max_replicas=2,
+                                initial_replicas=1, queue_high=1,
+                                hbm_bytes=fit["envelope_bytes"] - 1)
+    router = fleet.FleetRouter([engine(), engine()],
+                               seg_steps=ELASTIC_SEG_STEPS, autoscaler=asc)
+    j = journal.Journal()
+    with journal.attach(j):
+        rep = router.serve([sched.Arrival(0.0, a.prompt, a.max_new_tokens)
+                            for a in arrivals[:4]])
+    refusals = [r for r in j.records() if r["kind"] == "scale_decision"
+                and r["action"] == "refuse"]
+    if (len(refusals) != 1 or rep.scale_ups
+            or router._replicas[1].lifecycle != "offline"
+            or rep.n_requests != 4):
+        raise AssertionError(f"3k (c): refusals {refusals}, "
+                             f"{rep.scale_ups} scale-ups")
+    out["chip_fit"] = {
+        "hbm_bytes": hbm, "fit": fit,
+        "measured": measured,
+        "family_transients": {f: {"widest_key": v["widest_key"],
+                                  "transient_bytes": v["transient_bytes"],
+                                  "envelope_bytes":
+                                      v["fit"]["envelope_bytes"]}
+                              for f, v in fam.items()},
+        "refusal": {"reason": refusals[0]["reason"],
+                    "fit": refusals[0]["fit"]}}
+    del router, eng, pc, held
+    return out, launches
+
+
 def kernels_line(rows, by_path):
     """The kernels' JSON line: for each kernel its route, source, the
     TPU kernel it replaces, its launches summed over the driven paths
@@ -4100,13 +4435,17 @@ def main() -> None:
     import paddle_tpu_torch.optimizer
     import paddle_tpu_torch.vision.models  # noqa: F401 (port.<module>)
     from paddle_tpu_torch import device as device_mod
-    from paddle_tpu_torch.inference import disagg, fleet, kv_tiers
+    from paddle_tpu_torch.analysis import memory, recompile
+    from paddle_tpu_torch.inference import (autoscaler, disagg, fleet,
+                                            kv_tiers)
+    from paddle_tpu_torch.inference.paged_kv import PagedKVCache
     from paddle_tpu_torch.inference import scheduler as sched
     from paddle_tpu_torch.inference.prefix_cache import (PagedPrefixCache,
                                                          PrefixCache)
     from paddle_tpu_torch.inference.serving import ServingEngine
     from paddle_tpu_torch.models import llama
     from paddle_tpu_torch.observability import journal
+    from paddle_tpu_torch.observability.capacity import CapacityMonitor
     from paddle_tpu_torch.observability.quality import compare_pair
     from paddle_tpu_torch.experiments import dot_variants as xdot
     from paddle_tpu_torch.experiments import flash_variants as xfv
@@ -4744,6 +5083,59 @@ def main() -> None:
           f"{json.dumps(fleets['parted_at_near_ties'])}")
     print(f"launches on phase 3j: {json.dumps(jlaunches)}")
 
+    lap("3k")
+    # 3k. the elastic fleet: the program space and its warmup, the
+    # autoscaler's episode and the chip fit, on 3e's trained model
+    elastic, klaunches = elastic_phase(
+        torch, sched, fleet, disagg, autoscaler, kv_tiers, journal, llama,
+        ServingEngine, PagedPrefixCache, PagedKVCache, CapacityMonitor,
+        recompile, memory, da, fns, sparams, cfg)
+    wm = elastic["warmups"]
+    print(f"3k (a) aot_warmup ({card}), keys and seconds by family: "
+          f"default envelope {json.dumps(wm['default'])}; segments of "
+          f"{ELASTIC_SEG_STEPS} behind the cache {json.dumps(wm['elastic'])}"
+          f" (built {json.dumps(wm['elastic_built'])}); pools "
+          f"{json.dumps(wm['pools'])}")
+    print(f"3k (a) first segment, {ELASTIC_PAIRS} pairs in turns ({card}): "
+          f"{json.dumps(elastic['first_segment_ms'])} ms, medians "
+          f"{json.dumps(elastic['first_segment_median_ms'])}; built (first "
+          f"pair) {json.dumps(elastic['first_segment_built'])}")
+    st = elastic["warmed_serve"]
+    print(f"3k (a) warmed serve ({card}): {st['requests']} requests, "
+          f"{st['tokens_per_s']:.1f} tokens/s, {st['steps']} steps, "
+          f"{st['segments']} segments; built {json.dumps(st['built'])}; "
+          f"keys used {json.dumps(st['keys_used'])}")
+    st = elastic["episode"]
+    print(f"3k (b) elastic episode ({card}): {st['requests']} requests, "
+          f"{st['stranded']} stranded, scale-ups {st['scale_ups']}, "
+          f"scale-downs {st['scale_downs']}, peak {st['peak_replicas']} "
+          f"replicas, lifecycles {st['lifecycles']}; decisions (action, "
+          f"replica, queue) {json.dumps(st['decisions'])}; warm s "
+          f"{json.dumps(st['warm_s'])} for keys {json.dumps(st['warm_keys'])}"
+          f" (standbys {st['standby_warmup_s']:.3f} s); drains "
+          f"{json.dumps(st['drains'])}, {st['requeued']} requeued, "
+          f"{st['prefixes_migrated']} prefixes migrated; built "
+          f"{json.dumps(st['built'])}; {st['tokens_per_s']:.1f} tokens/s, "
+          f"ttft p50/p99 {st['ttft_p50_s']:.4f}/{st['ttft_p99_s']:.4f} s, "
+          f"wall {st['wall_s']:.3f} s; against one engine "
+          f"{json.dumps(st['against_one_engine'])}, parted at near ties "
+          f"{json.dumps(st['parted_at_near_ties'])}")
+    cf = elastic["chip_fit"]
+    print(f"3k (c) chip fit ({card}): hbm {cf['hbm_bytes']} B: weights "
+          f"{cf['fit']['weights_bytes']} (requested at build "
+          f"{cf['measured']['weights_bytes']}, allocated "
+          f"{cf['measured']['weights_allocated']}), pool "
+          f"{cf['fit']['pool_bytes']} (requested "
+          f"{cf['measured']['pool_bytes']}, allocated "
+          f"{cf['measured']['pool_allocated']}), transient estimate "
+          f"{cf['fit']['transient_bytes']} against a measured serve peak "
+          f"of {cf['measured']['serve_peak_bytes']}, envelope "
+          f"{cf['fit']['envelope_bytes']} (utilization "
+          f"{cf['fit']['utilization']}); per family "
+          f"{json.dumps(cf['family_transients'])}; refusal: "
+          f"{cf['refusal']['reason']}")
+    print(f"launches on phase 3k: {json.dumps(klaunches)}")
+
     lap("6")
     # 6. ResNet-50 training, BASELINE config 1 at full shape
     del sparams
@@ -4812,7 +5204,8 @@ def main() -> None:
                "contiguous_prefix_burst": cblaunches["prefix_cache"],
                "contiguous_burst_no_cache": cblaunches["no_cache"],
                **glaunches, **plaunches3g, **hlaunches, **ilaunches,
-               **{f"3j_{k}": v for k, v in jlaunches.items()}}
+               **{f"3j_{k}": v for k, v in jlaunches.items()},
+               **{f"3k_{k}": v for k, v in klaunches.items()}}
     kernels = kernels_line(rows, by_path)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -4823,7 +5216,7 @@ def main() -> None:
                    "contiguous_prefix_bursts": cbursts,
                    "generation": gen_stats, "preemption": preempt,
                    "families": family, "tiers": tiers,
-                   "fleets": fleets,
+                   "fleets": fleets, "elastic": elastic,
                    "long_admit": longa, "cpu_small": small,
                    "quant": quant, "quant_trained": qtrained,
                    "launches": by_path,

@@ -48,9 +48,13 @@ the entry the port parked, so when prompt + tokens is a whole number of
 pages it moves one page fewer than the JAX router and the decode
 replica prefills that page's rows again.
 
-Not ported yet: ``aot_warmup`` and ``pool_envelope`` (per-pool program
-envelopes need the engine's program space) raise
-``NotImplementedError``; so does ``autoscaler=``.
+**Per-pool envelopes** (``pool_envelope``): a prefill replica admits fresh
+prompts only (``resume=False``) in prefill-sized segments, a decode
+replica resumed requests in decode-sized segments, so each pool's
+``aot_warmup`` runs only its own keys; the journal header records both
+envelopes. ``autoscaler=`` takes one ``Autoscaler`` per pool
+(``pool="prefill"`` / ``"decode"``), bound once the replicas carry their
+pool tags; a standby warmed mid-serve warms its pool's envelope.
 """
 
 from __future__ import annotations
@@ -63,7 +67,7 @@ from ..observability import flight as _flight
 from ..observability import journal as _journal
 from ..observability import metrics as _metrics
 from . import kv_tiers as _kv_tiers
-from .fleet import _NOT_PORTED, FleetRouter, _Replica
+from .fleet import FleetRouter, _Replica
 from .prefix_cache import make_prefix_cache
 from .serving import Request, ServingEngine
 
@@ -122,11 +126,15 @@ class DisaggRouter(FleetRouter):
                     "every disagg replica needs a PagedPrefixCache "
                     "with a host tier — export_host/import_host is the "
                     "handoff transport")
+        # a pool's policy binds by pool tag, which exists only after
+        # construction: attach the policies then
+        ascs = kw.pop("autoscaler", None)
         super().__init__(engines, prefix_caches=pcs,
                          seg_steps=seg_steps, **kw)
         self.n_prefill = len(prefill_engines)
         for r in self._replicas:
             r.pool = "prefill" if r.idx < self.n_prefill else "decode"
+        self._attach_autoscalers(ascs)
         self.prefill_seg_steps = int(prefill_seg_steps or seg_steps)
         self.decode_seg_steps = int(decode_seg_steps or seg_steps)
         # the handoff ledger: every crossing, in decision order
@@ -145,23 +153,43 @@ class DisaggRouter(FleetRouter):
         return [r for r in self._replicas if r.pool == pool]
 
     def pool_envelope(self, pool: str):
-        """The pool's declared program envelope: not ported yet (the
-        engine has no program space)."""
-        raise NotImplementedError(
-            "DisaggRouter.pool_envelope "
-            + _NOT_PORTED.format(what="ServingEngine.default_envelope"))
+        """The pool's declared ``WorkloadEnvelope``, what its replicas
+        warm. Prefill: fresh admissions only (``resume=False``) at the
+        prefill segment budget; decode: the whole resume range (every
+        admission is a handed-off request entering through a prefix hit)
+        at the decode budget. Each pool carries its own steps axis."""
+        rep = self.pool_replicas(pool)[0]
+        blk = rep.prefix_cache.block
+        if pool == "prefill":
+            return rep.engine.default_envelope(
+                seg_steps=(self.prefill_seg_steps,), resume=False,
+                prefix_block=blk)
+        return rep.engine.default_envelope(
+            seg_steps=(self.decode_seg_steps,), prefix_block=blk)
 
     def aot_warmup(self, envelope=None) -> Dict[int, dict]:
-        """Per-pool ahead-of-time warmup: not ported yet."""
-        raise NotImplementedError(
-            "DisaggRouter.aot_warmup "
-            + _NOT_PORTED.format(what="ServingEngine.aot_warmup"))
+        """Per-pool warmup: each replica runs its pool's envelope (an
+        explicit ``envelope`` overrides both pools)."""
+        out: Dict[int, dict] = {}
+        for r in self._replicas:
+            env = envelope or self.pool_envelope(r.pool)
+            with _metrics.scoped_registry(r.registry), \
+                    _journal.rank_scope(r.idx):
+                out[r.idx] = r.engine.aot_warmup(
+                    env, prefix_cache=r.prefix_cache)
+        return out
 
     # --- routing hooks ----------------------------------------------------
     def _dispatch_candidates(self) -> List[_Replica]:
-        # fresh prompts start on prefill; decode replicas take work only
-        # through the handoff (or failover)
-        return self.pool_replicas("prefill")
+        # fresh prompts start on serving prefill replicas; decode replicas
+        # take work only through the handoff (or failover)
+        return [r for r in self.pool_replicas("prefill")
+                if r.lifecycle == "serving"]
+
+    def _warmup_envelope_for(self, rep: _Replica):
+        # a standby warmed mid-serve runs its pool's envelope, as
+        # aot_warmup gave its pool-mates
+        return self.pool_envelope(rep.pool)
 
     def _seg_steps_for(self, rep: _Replica) -> int:
         return (self.prefill_seg_steps if rep.pool == "prefill"
@@ -178,7 +206,8 @@ class DisaggRouter(FleetRouter):
         page room for its whole resume span and an un-full queue, then
         the least loaded (ties to the lowest index)."""
         cands = [r for r in self._replicas
-                 if r.pool == "decode" and r.health == "healthy"]
+                 if r.pool == "decode" and r.health == "healthy"
+                 and r.lifecycle == "serving"]
         if not cands:
             return None
         span = len(req.prompt) + req.max_new_tokens - 1
@@ -364,13 +393,15 @@ class DisaggRouter(FleetRouter):
     def _journal_header(self, arrivals) -> dict:
         h = super()._journal_header(arrivals)
         h["driver"] = "disagg"
-        # the pool topology: role per replica (index order) and the
-        # pools' segment budgets (their program envelopes wait for the
-        # program space)
+        # the pool topology: role per replica (index order), the pools'
+        # segment budgets and envelopes
         h["pools"] = [r.pool for r in self._replicas]
         h["disagg"] = {
             "prefill_seg_steps": self.prefill_seg_steps,
             "decode_seg_steps": self.decode_seg_steps,
+            "envelopes": {
+                p: _journal.describe_envelope(self.pool_envelope(p))
+                for p in ("prefill", "decode")},
         }
         return h
 

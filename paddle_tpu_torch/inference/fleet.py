@@ -36,6 +36,15 @@ engine with its OWN prefix cache and its OWN metrics registry:
   records marked) and diffs each pair through a ``QualityMonitor``;
   ``canary=CanaryController(...)`` routes a seeded share of traffic to a
   variant replica and holds it on a failing verdict.
+* **Elastic autoscaling.** ``autoscaler=Autoscaler(...)`` (or a list,
+  one per pool) runs the control loop of ``inference/autoscaler.py`` on
+  each turn's clock reading: replicas carry a lifecycle (offline ->
+  warming -> serving -> draining -> offline) beside their health; only
+  serving replicas take fresh traffic; a scale-up runs the standby's
+  ``aot_warmup`` before it serves; a scale-down drains politely (queued
+  requests requeue, live slots finish in place, cached prefixes migrate
+  to the survivors' host tiers). ``aot_warmup()`` warms every replica's
+  program space ahead of a serve.
 * **Telemetry.** Replica i records into its own ``metrics.Registry`` as
   if it were rank i; ``merged_telemetry()`` writes one snapshot per
   replica and reduces them with ``merge_log_dir``.
@@ -58,10 +67,7 @@ recording a CUDA event behind the copy, and ``finish_segment`` waits on
 that event, so replica 0's fetch does not wait for the segments the
 other replicas dispatched after it.
 
-Not ported yet: ``autoscaler=`` (elastic replicas: ``autoscaler.py``)
-and ``aot_warmup`` (the engine's program space) raise
-``NotImplementedError``; so do mp-sharded replicas (the engine takes no
-mesh).
+Not ported yet: mp-sharded replicas (the engine takes no mesh).
 """
 
 from __future__ import annotations
@@ -84,11 +90,6 @@ from .serving import Request, ServingEngine
 
 __all__ = ["FleetRouter", "FleetReport", "Shadow", "CacheDirectory",
            "build_fleet", "FaultInjector", "ReplicaCrash", "ReplicaHang"]
-
-_NOT_PORTED = ("waits for the port of {what} (ROADMAP.md Queue A item "
-               "1.6: autoscaler.py; item 6: the engine's program space, "
-               "program_space.py and aot_warmup)")
-
 
 # ---------------------------------------------------------------------------
 # the fleet-wide prefix-cache directory
@@ -384,7 +385,8 @@ class FleetReport:
     dispatches_directory: int = 0
     tier_migrations: int = 0
     directory: Optional[dict] = None
-    # elastic scaling (no autoscaler in the port yet: always 0 / None)
+    # elastic scaling: scale actions of the serve and the attached
+    # policies' reports (None without an autoscaler)
     scale_ups: int = 0
     scale_downs: int = 0
     autoscaler: Optional[dict] = None
@@ -423,9 +425,13 @@ class _Replica:
         self.timeouts = 0                  # consecutive slow segments
         self.dead_since = 0.0
         self.probes = 0
-        # the elastic lifecycle (offline / warming / serving / draining)
-        # comes with the autoscaler; until then every replica serves
+        # the elastic lifecycle, beside health: offline -> warming ->
+        # serving -> draining -> offline. Without an autoscaler every
+        # replica stays serving
         self.lifecycle = "serving"
+        self.drain: Optional[dict] = None   # progress while draining
+        self.last_drain: Optional[dict] = None
+        self.warmed_s: Optional[float] = None  # its last activation warmup
 
     def set_health(self, state: str) -> None:
         self.health = state
@@ -575,19 +581,42 @@ class FleetRouter:
         self.last_retry_after_s: Optional[float] = None
         self._finished_count = 0
         self._serve_t0 = 0.0
-        # fed fleet-wide at every segment finish (host ints)
+        # fed fleet-wide at every segment finish (host ints): the
+        # autoscaler's capacity input
         self.capacity_monitor = capacity_monitor
-        if autoscaler is not None:
-            raise NotImplementedError(
-                "FleetRouter(autoscaler=...) "
-                + _NOT_PORTED.format(what="inference/autoscaler.py"))
+        # one scaling policy, or a list (a DisaggRouter's one per pool);
+        # a policy decides, so its config rides the journal header
+        self.autoscalers: list = []
+        self.warm_envelope = None           # the last aot_warmup's
+        self._attach_autoscalers(autoscaler)
+
+    def _attach_autoscalers(self, autoscaler) -> None:
+        """Bind the scaling policies (apart from ``__init__`` so that a
+        pool-aware subclass binds them once its replicas carry pool
+        tags)."""
+        if autoscaler is None:
+            return
+        ascs = (list(autoscaler)
+                if isinstance(autoscaler, (list, tuple))
+                else [autoscaler])
+        self.autoscalers.extend(ascs)
+        for asc in ascs:
+            asc.bind(self)
 
     def aot_warmup(self, envelope=None) -> Dict[int, dict]:
-        """Compile every replica's program space ahead of serving: not
-        ported yet (the engine has no program space)."""
-        raise NotImplementedError(
-            "FleetRouter.aot_warmup "
-            + _NOT_PORTED.format(what="ServingEngine.aot_warmup"))
+        """Run every replica's program space once ahead of serving
+        (``ServingEngine.aot_warmup``, under ``envelope`` or each engine's
+        default), each in its replica's registry and rank scope. A
+        standby the autoscaler activates later warms the same
+        ``envelope``."""
+        self.warm_envelope = envelope
+        out: Dict[int, dict] = {}
+        for r in self._replicas:
+            with _metrics.scoped_registry(r.registry), \
+                    _journal.rank_scope(r.idx):
+                out[r.idx] = r.engine.aot_warmup(
+                    envelope, prefix_cache=r.prefix_cache)
+        return out
 
     # --- routing ---------------------------------------------------------
     def _affinity_key(self, prompt: np.ndarray) -> Optional[bytes]:
@@ -610,10 +639,11 @@ class FleetRouter:
         return eng.pager.pages_free >= need
 
     def _dispatch_candidates(self) -> List[_Replica]:
-        """The replicas fresh arrivals may route to: all of them. A
-        pool-aware subclass (``DisaggRouter``) narrows this to its
-        prefill pool."""
-        return list(self._replicas)
+        """The replicas fresh arrivals may route to: the serving ones
+        (warming replicas are not ready, draining ones are being emptied,
+        offline ones are standbys). A pool-aware subclass
+        (``DisaggRouter``) narrows this to its prefill pool."""
+        return [r for r in self._replicas if r.lifecycle == "serving"]
 
     def _route(self, a: Arrival, dirinfo: Optional[dict] = None):
         """(replica, reason) for a due arrival, or (bill_target, None)
@@ -638,6 +668,7 @@ class FleetRouter:
         if can is not None:
             crep = self._replicas[can.replica]
             if (can.assign(self._next_rid) and crep.health == "healthy"
+                    and crep.lifecycle == "serving"
                     and crep.queue_depth < self.max_queue
                     and self._page_ready(crep, a)):
                 return crep, "canary"
@@ -937,6 +968,9 @@ class FleetRouter:
             now = _journal.now() - t0
             self._probe_dead()
             self._ingest(pending, now, t0)
+            # the elastic control loop, on the turn's clock reading (no
+            # read of its own)
+            self._autoscale(now)
             # dead replicas are out of rotation (abort emptied them);
             # suspects still drain their own backlog
             busy_idle = [r for r in reps
@@ -972,6 +1006,10 @@ class FleetRouter:
             r, h, t_disp = inflight.pop(0)
             if self._finish_one(r, h, t_disp):
                 segments += 1
+        if self.autoscalers:
+            # the last policy step completes the drains of replicas that
+            # just emptied (a clock read only when a policy is attached)
+            self._autoscale(_journal.now() - t0, final=True)
         makespan = _journal.now() - t0
         # the shadow drains after the makespan stamp, and the canary
         # gives its final verdict
@@ -1025,6 +1063,11 @@ class FleetRouter:
             failovers=self.failovers,
             requeued=self.requeued,
             replica_health={r.idx: r.health for r in reps},
+            scale_ups=sum(a.scale_ups for a in self.autoscalers),
+            scale_downs=sum(a.scale_downs for a in self.autoscalers),
+            autoscaler=({"policies": [a.report()
+                                      for a in self.autoscalers]}
+                        if self.autoscalers else None),
             retry_after_s=self.last_retry_after_s,
             cold_start_s=max(
                 (round(r.engine.cold_start_s, 4) for r in reps
@@ -1059,11 +1102,19 @@ class FleetRouter:
     def retry_after_hint(self, now: float) -> float:
         """Backoff hint for a refused client: elapsed time per finished
         request, clamped to [1 ms, 60 s] (1 s before any finish), fed by
-        the fleet-wide finish counter. (The reference also scales it by
-        live over serving replicas, which differ only while an
-        autoscaler drains one.)"""
+        the fleet-wide finish counter. Draining replicas still finish
+        their backlog but admit nothing, so the hint scales by live over
+        serving replicas: it quotes the capacity a retry can reach."""
         if self._finished_count and now > 0:
-            return min(max(now / self._finished_count, 1e-3), 60.0)
+            base = now / self._finished_count
+            serving = [r for r in self._replicas
+                       if r.lifecycle == "serving" and r.health != "dead"]
+            live = [r for r in self._replicas
+                    if r.lifecycle in ("serving", "draining")
+                    and r.health != "dead"]
+            if serving and len(live) > len(serving):
+                base *= len(live) / len(serving)
+            return min(max(base, 1e-3), 60.0)
         return 1.0
 
     def _finish_one(self, rep: _Replica, h, t_disp: float) -> bool:
@@ -1133,7 +1184,8 @@ class FleetRouter:
                                            elapsed_s=t_sync - t_disp)
         # the fleet-wide capacity feed: the pages the just-admitted
         # requests reserve close the demand bucket, then a new segment
-        # opens on the live replicas' free and reclaimable pages
+        # opens on the serving replicas' free and reclaimable pages (a
+        # draining replica's pages are not capacity to count on)
         if self.capacity_monitor is not None:
             cm = self.capacity_monitor
             if rep.engine.paged and ev["admitted"]:
@@ -1148,12 +1200,13 @@ class FleetRouter:
             cm.close_segment()
             free = sum(x.engine.pager.pages_free
                        for x in self._replicas
-                       if x.engine.paged and x.health != "dead")
+                       if x.engine.paged and x.lifecycle == "serving"
+                       and x.health != "dead")
             reclaim = sum(
                 x.prefix_cache.reclaimable_pages()
                 for x in self._replicas
-                if x.engine.paged and x.health != "dead"
-                and x.prefix_cache is not None
+                if x.engine.paged and x.lifecycle == "serving"
+                and x.health != "dead" and x.prefix_cache is not None
                 and hasattr(x.prefix_cache, "reclaimable_pages"))
             cm.begin_segment(free, reclaim)
         # the DisaggRouter's handoff sweep runs here, with the engine
@@ -1232,7 +1285,9 @@ class FleetRouter:
             rep.prefix_cache.reset()
         if not orphans:
             return
-        survivors = [x for x in self._replicas if x.health == "healthy"]
+        survivors = [x for x in self._replicas
+                     if x.health == "healthy"
+                     and x.lifecycle == "serving"]
         if not survivors:
             raise RuntimeError(
                 f"replica {rep.idx} died with {len(orphans)} in-flight "
@@ -1288,6 +1343,163 @@ class FleetRouter:
                                via="probe", probes=rep.probes)
             else:
                 rep.dead_since = _journal.now()
+
+    # --- the elastic lifecycle -----------------------------------------------
+    def _autoscale(self, now: float, final: bool = False) -> None:
+        """One control-loop turn of every attached policy, on the loop's
+        clock reading."""
+        for asc in self.autoscalers:
+            asc.step(now, final=final)
+
+    def _warmup_envelope_for(self, rep: _Replica):
+        """The envelope a replica activated mid-serve warms: the one the
+        fleet's ``aot_warmup`` was given, else None, the engine's default
+        (a ``DisaggRouter`` returns its pool's)."""
+        return self.warm_envelope
+
+    def _activate_replica(self, rep: _Replica) -> dict:
+        """Bring an offline standby into the rotation, its warmup paid
+        first: the whole program space runs (``aot_warmup``) before its
+        lifecycle turns ``serving``, so a scale-up never meets a key it has
+        not run. The two clock reads around the warmup are journaled, so
+        a replay is fed the measured cost."""
+        if rep.lifecycle != "offline":
+            raise RuntimeError(f"activating replica {rep.idx} in "
+                               f"lifecycle {rep.lifecycle!r}")
+        rep.lifecycle = "warming"
+        env = self._warmup_envelope_for(rep)
+        t0 = _journal.now()
+        with _metrics.scoped_registry(rep.registry), \
+                _journal.rank_scope(rep.idx):
+            fams = rep.engine.aot_warmup(env,
+                                         prefix_cache=rep.prefix_cache)
+        warm_s = _journal.now() - t0
+        rep.lifecycle = "serving"
+        rep.warmed_s = warm_s
+        _flight.record("replica_warmed", replica=rep.idx,
+                       seconds=round(warm_s, 6),
+                       keys=sum(d["keys"] for d in fams.values()))
+        return {"seconds": warm_s, "families": fams}
+
+    def _begin_drain(self, rep: _Replica, now: float) -> dict:
+        """Start a polite scale-down of ``rep``: it stops admitting (its
+        lifecycle leaves the dispatch candidates), its cached prefixes
+        move to the survivors' host tiers and its queued requests requeue
+        onto them (the failover requeue, run on purpose); its live slots
+        finish in place, and ``_finalize_drain`` runs from the policy step
+        once it is empty."""
+        if rep.lifecycle != "serving":
+            raise RuntimeError(f"draining replica {rep.idx} in lifecycle "
+                               f"{rep.lifecycle!r}")
+        rep.lifecycle = "draining"
+        rep.drain = {"since": now, "requeued": 0,
+                     "prefixes_migrated": 0, "pages_migrated": 0}
+        survivors = [x for x in self._replicas
+                     if x is not rep and x.lifecycle == "serving"
+                     and x.health == "healthy"]
+        self._drain_prefixes(rep, survivors)
+        self._drain_requeue(rep, survivors)
+        return rep.drain
+
+    def _drain_prefixes(self, rep: _Replica,
+                        survivors: List[_Replica]) -> None:
+        """Move the draining replica's cached prefixes to survivor host
+        tiers (``export_host`` -> ``import_host``), so repeat traffic keeps
+        hitting after it leaves: the hottest first with a directory (its
+        placements' touch order), else in the cache's insertion order.
+        Each move is a journaled ``tier_migrate`` decision."""
+        pc = rep.prefix_cache
+        if (pc is None or not hasattr(pc, "export_host")
+                or getattr(pc, "host_tier", None) is None):
+            return
+        targets = [x for x in survivors
+                   if x.prefix_cache is not None
+                   and getattr(x.prefix_cache, "host_tier", None)
+                   is not None]
+        if not targets:
+            return
+        if self.directory is not None:
+            keys = sorted(
+                (k for k, owners in self.directory._owners.items()
+                 if rep.idx in owners),
+                key=lambda k: -self.directory._owners[k][rep.idx]["touch"])
+            seen = set(keys)
+            keys += [k for k in pc._entries if k not in seen]
+        else:
+            keys = list(pc._entries)
+        for key in keys:
+            exp = pc.export_host(key)
+            if exp is None:
+                continue        # never finished staging: cannot move
+            dst = min(targets, key=lambda x: (x.load, x.idx))
+            planes = {p: exp[p] for p in exp
+                      if p not in ("tokens", "pages")}
+            if not dst.prefix_cache.import_host(exp["tokens"], planes):
+                continue        # the survivor holds it already
+            n = int(exp["pages"])
+            nbytes = n * dst.prefix_cache.host_tier.page_bytes()
+            rep.drain["prefixes_migrated"] += 1
+            rep.drain["pages_migrated"] += n
+            self.tier_migrations += 1
+            _metrics.counter("fleet.tier_migrations").inc()
+            _flight.record("tier_migrate", rid=None, src=rep.idx,
+                           dst=dst.idx, pages=n, bytes=nbytes,
+                           rows=int(len(exp["tokens"])))
+
+    def _drain_requeue(self, rep: _Replica,
+                       survivors: List[_Replica]) -> None:
+        """Requeue the draining replica's queued (never admitted) requests
+        onto survivors, as ``_kill_replica`` does (a fresh engine-local
+        rid, the same fleet rid). Nothing is dropped; admitted slots keep
+        their pages and finish in place."""
+        queued = list(rep.engine._queue)
+        if not queued:
+            return
+        if not survivors:
+            raise RuntimeError(
+                f"draining replica {rep.idx} holds {len(queued)} queued "
+                f"requests with no serving survivor to requeue onto")
+        ids = {id(q) for q in queued}
+        rep.engine._queue.clear()
+        moved = sorted(((frid, req) for frid, (ridx, req)
+                        in self._reqs.items()
+                        if ridx == rep.idx and id(req) in ids),
+                       key=lambda t: t[0])
+        for frid, req in moved:
+            req.requeues += 1
+            if req.requeues > self.max_requeues:
+                raise RuntimeError(
+                    f"request {frid} exceeded {self.max_requeues} "
+                    f"requeues during drain")
+            tgt = self._failover_target(survivors, req)
+            if (len(req.prompt) + len(req.tokens)
+                    > max(tgt.engine.buckets)):
+                req.tokens = []
+            req.rid = tgt.engine._next_rid
+            tgt.engine._next_rid += 1
+            tgt.engine._queue.append(req)
+            self._reqs[frid] = (tgt.idx, req)
+            tgt.rids.append(frid)
+            rep.rids.remove(frid)
+            self.requeued += 1
+            rep.drain["requeued"] += 1
+            _metrics.counter("fleet.failover_requeued").inc()
+            _flight.record("failover_requeue", rid=frid, src=rep.idx,
+                           dst=tgt.idx, tokens_kept=len(req.tokens))
+
+    def _finalize_drain(self, rep: _Replica) -> dict:
+        """The drain's last act, once the replica is empty: release its
+        cache's pages (the evict listeners clear its directory
+        placements) and park it offline. Returns the drain's ledger."""
+        if rep.busy:
+            raise RuntimeError(f"finalizing busy replica {rep.idx}")
+        if rep.prefix_cache is not None:
+            rep.prefix_cache.reset()
+        rep.lifecycle = "offline"
+        info = rep.drain or {}
+        rep.last_drain = info
+        rep.drain = None
+        return info
 
     def _stamp(self, r: _Replica, ev: dict, t_sync: float) -> List[tuple]:
         """Per-request lifecycle stamps at the fetch that surfaced each
@@ -1366,7 +1578,16 @@ class FleetRouter:
                 self._replicas[0].engine.cfg),
             "monitors": {"slo": self.slo_monitor is not None,
                          "perf": self.perf_monitor is not None},
-            "autoscaler": None,
+            # the policies decide, so their configs and their input
+            # monitors' ride the header for a replay to rebuild
+            "autoscaler": ({
+                "policies": [a.describe() for a in self.autoscalers],
+                "slo": (self.slo_monitor.describe()
+                        if self.slo_monitor is not None else None),
+                "capacity": (self.capacity_monitor.describe()
+                             if self.capacity_monitor is not None
+                             else None),
+            } if self.autoscalers else None),
             "telemetry_enabled": _metrics.enabled(),
             "trace": _journal.describe_arrivals(arrivals),
         }
@@ -1400,6 +1621,10 @@ class FleetRouter:
             r.timeouts = 0
             r.probes = 0
             r.dead_since = 0.0
+            r.lifecycle = "serving"
+            r.drain = None
+            r.last_drain = None
+            r.warmed_s = None
         self.backpressure_events = 0
         self.failovers = 0
         self.requeued = 0
@@ -1423,6 +1648,10 @@ class FleetRouter:
             self.canary.reset()
         if self.capacity_monitor is not None:
             self.capacity_monitor.reset()
+        # after the "serving" default above: each policy sets its initial
+        # lifecycles again (standbys back offline) and zeroes its ledger
+        for asc in self.autoscalers:
+            asc.reset()
 
     def leak_report(self) -> List[str]:
         """Page-leak audit across replicas: with no live requests, each

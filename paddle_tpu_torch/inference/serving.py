@@ -113,8 +113,18 @@ weight streams). The admit stamp reads the decision clock
 (``observability.journal.now``), so a fed clock reproduces it; the meter
 stamps read ``perf_counter``.
 
-Out of this port so far: the quantized engine's program space and
-journal replay, and meshes.
+**Program keys** (``inference/program_space.py``): every dispatch names
+its shape of device work by a ``PROGRAM_SPACE`` key, built at the JAX
+engine's points (an admit wave, a decode chunk, the fused drain, each
+segment family); ``prog_key_hits`` counts the dispatches and ``_progs``
+holds the keys the engine has run. ``program_space(envelope)`` enumerates
+every key a declared ``WorkloadEnvelope`` can reach, and ``aot_warmup``
+runs each once on idle state ahead of traffic, so a serve inside the
+envelope builds and loads no kernel library, makes no split-KV ticket
+buffer and dispatches no key it has not run (``analysis.recompile``
+counts all three).
+
+Out of this port so far: meshes.
 """
 
 from __future__ import annotations
@@ -132,12 +142,13 @@ from ..observability import flight as _flight
 from ..observability import journal as _journal
 from ..observability import metrics as _metrics
 from ..ops.kernels.decode_attention import check_heads
-from ..quantization.serving import QUANT_MODES, quantize_llama_params
+from ..quantization.serving import (QUANT_CODES, QUANT_MODES,
+                                     quantize_llama_params)
 from . import speculative as spec_ops
 from .paged_kv import PagedKVCache
-from .program_space import chunk_for
+from .program_space import PROGRAM_SPACE, WorkloadEnvelope, chunk_for
 
-__all__ = ["Request", "ServingEngine", "SEGMENT_HOOKS"]
+__all__ = ["Request", "ServingEngine", "SEGMENT_HOOKS", "PROGRAM_SPACE"]
 
 _WAVE_WIDTHS = (8, 4, 2, 1)  # prefill sub-batch sizes
 
@@ -146,6 +157,11 @@ _WAVE_WIDTHS = (8, 4, 2, 1)  # prefill sub-batch sizes
 # ``perf.install``, ``capacity.install`` and ``kv_tiers.install`` attach
 # here.
 SEGMENT_HOOKS: List = []
+
+# dispatches of a program key its engine had not run before (its first
+# dispatch, or a key outside what ``aot_warmup`` ran): where the JAX engine
+# compiles. ``analysis.recompile`` reads it.
+COLD_KEYS = [0]
 
 
 @dataclass
@@ -493,6 +509,17 @@ class ServingEngine:
         self.built_at = time.perf_counter()
         self.cold_start_s: Optional[float] = None
         self._seg_fetch0 = 0      # ``fetches`` when the segment dispatched
+        # program keys: ``_progs`` the keys this engine has run, in first-
+        # run order; ``prog_key_hits`` every dispatch of each (zeroed by
+        # ``aot_warmup``, so afterwards it is the serve's own traffic). The
+        # cold start splits into ``aot_warmup_s`` (every enumerated key run
+        # at build) and ``first_token_s`` (the rest); ``aot_key_seconds``
+        # is each key's warmup time
+        self._progs: Dict[tuple, None] = {}
+        self.prog_key_hits: Dict[tuple, int] = {}
+        self.aot_warmup_s: Optional[float] = None
+        self.first_token_s: Optional[float] = None
+        self.aot_key_seconds: Dict[tuple, float] = {}
 
     @property
     def _spec(self) -> bool:
@@ -518,6 +545,36 @@ class ServingEngine:
         if self.paged and self.sampling:
             self._rng = torch.zeros((self.slots, 2), dtype=torch.int64,
                                     device=dev)
+
+    def cache_info(self) -> dict:
+        """The program keys this engine has run (``_progs``, first-run
+        order): admit waves ``(bucket, nb)``, decode chunks ``("decode",
+        chunk)``, drains ``("drain", n_pad, p_max, g_max)``, contiguous
+        segments ``("seg", n_pad, s_max, pre_max, steps)``, paged segments
+        ``("pseg" | "qseg", n_pad, s_max, steps)``, quantized ``("qpseg",
+        n_pad, s_max, steps, dtype)``, chunked ``("cseg", n_pad, s_max_c,
+        C, steps)``, speculative/sampled ``("sseg", n_pad, K, steps)`` and
+        sequence-parallel ``("spseg", n_pad, s_max, C, sp, steps)``. All
+        bucketed by construction: a key past the enumeration means a shape
+        leaked past the buckets."""
+        return {"name": f"serving_engine:slots{self.slots}",
+                "keys": list(self._progs.keys())}
+
+    def decode_kernel_active(self) -> bool:
+        """True when this engine's decode ticks launch the
+        ``ragged_decode_attention`` kernel: a contiguous engine on the
+        card (a paged engine's ticks launch ``ragged_paged_attention``,
+        ``paged_kernel_active``)."""
+        return not self.paged and self.device.type == "cuda"
+
+    def _dispatch_key(self, key: tuple) -> None:
+        """Count one dispatch of the program key ``key``: into
+        ``prog_key_hits``, and, the first time this engine runs it, into
+        ``_progs`` and ``COLD_KEYS``."""
+        self.prog_key_hits[key] = self.prog_key_hits.get(key, 0) + 1
+        if key not in self._progs:
+            self._progs[key] = None
+            COLD_KEYS[0] += 1
 
     def paged_kernel_active(self) -> bool:
         """True when this engine's paged segments launch the
@@ -686,6 +743,8 @@ class ServingEngine:
                 rems = np.array([r.max_new_tokens - 1 for r in sub],
                                 np.int32)
                 dev = self.device
+                self._dispatch_key(PROGRAM_SPACE.key("admit", bucket=bucket,
+                                                     nb=nb))
                 tok0 = self._admit(
                     torch.from_numpy(prompts).to(dev),
                     torch.from_numpy(lens).to(dev),
@@ -936,6 +995,8 @@ class ServingEngine:
         while any(r is not None for r in self._active):
             chunk_toks = []
             for _ in range(self._chunks_until_sync()):
+                self._dispatch_key(PROGRAM_SPACE.key("decode",
+                                                     chunk=self.chunk))
                 chunk_toks.append(self._decode_chunk())
                 self.last_run_chunks += 1
             self._sync(admits, chunk_toks)
@@ -960,6 +1021,11 @@ class ServingEngine:
         n = len(picked)
         p_max = self._bucket_for(max(len(r.prompt) for r in picked))
         gens = [r.max_new_tokens for r in picked]
+        # the JAX drain's shape: the batch padded to a power of two, the
+        # longest generation to one (at least 16)
+        self._dispatch_key(PROGRAM_SPACE.key(
+            "drain", n_pad=self._pow2(n), p_max=p_max,
+            g_max=self._pow2(max(gens), lo=16)))
         prompts = np.zeros((n, p_max), np.int32)
         for j, r in enumerate(picked):
             prompts[j, :len(r.prompt)] = r.prompt
@@ -993,6 +1059,197 @@ class ServingEngine:
         for r in picked:
             r.finish_time = r.submit_time + (fin[r.rid] + 1) * per_step
         return self.collect_finished()
+
+    # --- the program space and its warmup ----------------------------------
+    def warmup(self) -> None:
+        """Run the windowed path's keys once (an admit wave per bucket x
+        wave width, the decode chunk), so the windowed loop meets no key
+        it has not run. A paged engine serves through segments only: use
+        ``aot_warmup``."""
+        if self.paged:
+            return
+        for b in self.buckets:
+            for nb in _WAVE_WIDTHS:
+                if nb <= self.slots:
+                    self._aot_run_key("admit", PROGRAM_SPACE.key(
+                        "admit", bucket=b, nb=nb))
+        self._aot_run_key("decode", PROGRAM_SPACE.key("decode",
+                                                      chunk=self.chunk))
+        self._pos, self._nxt, self._rem = self._slot_state()
+
+    def default_envelope(self, seg_steps: Sequence[int] = (),
+                         prefix_block: Optional[int] = None,
+                         resume: bool = True,
+                         offline_batch: Optional[int] = None
+                         ) -> WorkloadEnvelope:
+        """The widest envelope this engine's intake admits: prompts up to
+        the largest bucket (long bucket with ``seq_parallel``),
+        generations filling the cache, segments of ``run()``'s ``4 *
+        chunk`` steps unless the caller declares its scheduler's
+        ``seg_steps``."""
+        max_prompt = (self.long_buckets[-1] if self.seq_parallel
+                      else self.buckets[-1])
+        return WorkloadEnvelope(
+            max_prompt=max_prompt,
+            max_new_tokens=max(1, self.max_len + 1 - max_prompt),
+            seg_steps=tuple(seg_steps) or (4 * self.chunk,),
+            resume=resume, prefix_block=prefix_block,
+            offline_batch=offline_batch)
+
+    def program_space(self, envelope: Optional[WorkloadEnvelope] = None
+                      ) -> Dict[str, frozenset]:
+        """The exact finite key set this engine can dispatch under
+        ``envelope`` (default: ``default_envelope()``), by family."""
+        env = envelope or self.default_envelope()
+        return PROGRAM_SPACE.enumerate_by_family(self, env)
+
+    def aot_warmup(self, envelope: Optional[WorkloadEnvelope] = None,
+                   prefix_cache=None) -> Dict[str, dict]:
+        """Run every key ``envelope`` (default: ``default_envelope()``)
+        can reach once, ahead of traffic, on an idle engine: each key's
+        device work at its shapes (``_aot_run_key``), which builds and
+        loads its kernels' libraries and makes their split-KV ticket
+        buffers. The engine's state is as before afterwards: no page
+        allocated, the page table, slot state, queue and prefix cache
+        unchanged, ``prog_key_hits`` zeroed. A later serve inside the
+        envelope then meets none of the three (``analysis.recompile``).
+
+        Returns {family: {"keys", "seconds"}} and adds the time to
+        ``aot_warmup_s``. ``prefix_cache`` goes to its host tier's
+        ``prewarm_transfers``, as in the JAX engine."""
+        if any(r is not None for r in self._active) or self._queue:
+            raise RuntimeError("aot_warmup on a non-idle engine")
+        if self._pending_seg is not None:
+            raise RuntimeError("aot_warmup with a dispatched segment in "
+                               "flight")
+        env = envelope or self.default_envelope()
+        t0 = time.perf_counter()
+        by_family = PROGRAM_SPACE.enumerate_by_family(self, env)
+        # what the dummy steps write: the slot state, the spec state and
+        # the page table (the dummy's row names the trash page), restored
+        # in place after; the fetches of an EOS engine's step reads
+        live = [self._pos, self._nxt, self._rem, self._hist, self._hstart,
+                self._rng]
+        saved = [None if t is None else t.clone() for t in live]
+        table = self.pager.page_table if self.paged else None
+        saved_table = None if table is None else table.clone()
+        fetches = self.fetches
+        report: Dict[str, dict] = {}
+        for fam in sorted(by_family):
+            tf = time.perf_counter()
+            for key in sorted(by_family[fam]):
+                tk = time.perf_counter()
+                self._aot_run_key(fam, key)
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+                self.aot_key_seconds[key] = time.perf_counter() - tk
+            report[fam] = {"keys": len(by_family[fam]),
+                           "seconds": time.perf_counter() - tf}
+        for t, v in zip(live, saved):
+            if t is not None:
+                t.copy_(v)
+        (self._pos, self._nxt, self._rem, self._hist, self._hstart,
+         self._rng) = live
+        if table is not None:
+            table.copy_(saved_table)
+            self.pager.page_table = table
+        self.fetches = fetches
+        tier = getattr(prefix_cache, "host_tier", None) \
+            if prefix_cache is not None else None
+        if tier is not None and self.paged:
+            _, hi = env.admit_lengths(self.buckets)
+            if self.seq_parallel:
+                # long prompts can be parked whole in the cache
+                hi = max(hi, min(env.max_prompt + env.max_new_tokens - 1,
+                                 self.max_len))
+            tier.prewarm_transfers(hi // self.page_size)
+        # from here on prog_key_hits is the serve's own key traffic
+        self.prog_key_hits = {}
+        self.aot_warmup_s = (self.aot_warmup_s or 0.0) + (
+            time.perf_counter() - t0)
+        n_keys = sum(r["keys"] for r in report.values())
+        _metrics.gauge("serving.aot_warmup_s").set(self.aot_warmup_s)
+        _metrics.gauge("serving.program_space_keys").set(n_keys)
+        _flight.record("aot_warmup", seconds=round(self.aot_warmup_s, 4),
+                       keys=n_keys, families=sorted(report))
+        return report
+
+    @torch.no_grad()
+    def _aot_run_key(self, family: str, key: tuple) -> None:
+        """Run one key's device work once, at its shapes, through the
+        dispatch paths' own device steps: an admit wave of ``nb`` zero
+        prompts at ``bucket`` (into slots that stay free), one decode
+        chunk over idle slots, or a segment of the key's step budget for
+        one dummy request of one token owing two, whose admit (a
+        ``[1, s_max]`` prefill, a chunk of C, or a slab of sp chunks)
+        and one decode or verify tick are the family's steps. The dummy's
+        page-table row names the trash page, so nothing is allocated;
+        ``aot_warmup`` restores what the steps wrote."""
+        self._dispatch_key(key)
+        dev = self.device
+        if family == "admit":
+            bucket, nb = key
+            self._admit(torch.zeros((nb, bucket), dtype=torch.int64,
+                                    device=dev),
+                        torch.ones(nb, dtype=torch.int32, device=dev),
+                        torch.arange(nb, device=dev),
+                        torch.zeros(nb, dtype=torch.int32, device=dev))
+            return
+        if family == "decode":
+            self._decode_chunk()
+            return
+        i32 = dict(dtype=torch.int32, device=dev)
+        if family in {"seg", "drain"}:
+            if family == "seg":
+                _, n_pad, s_max, pre_max, steps = key
+            else:
+                # the drain runs the queue's steps: an admit and a tick
+                _, n_pad, s_max, _g = key
+                pre_max, steps = 0, 2
+            prompt = torch.zeros((1, s_max), **i32)
+
+            def admit(q, s):
+                return self._admit_dense(s, prompt, None, 0, pre_max, 1, 2)
+
+            self._run_steps(steps, n_pad, [2], admit)
+            return
+        if family not in {"pseg", "qseg", "qpseg", "cseg", "sseg",
+                          "spseg"}:
+            raise KeyError(f"unknown program family {family!r}")
+        table = torch.zeros((1, self.pager.max_pages), **i32)
+        pre = torch.zeros(1, **i32)
+        seed = torch.zeros(1, **i32)
+        rows, C, tick, gated = 1, None, None, True
+        if family in {"pseg", "qseg", "qpseg"}:
+            n_pad, s_max, steps = key[1], key[2], key[3]
+        elif family == "cseg":
+            _, n_pad, s_max, C, steps = key
+        elif family == "spseg":
+            _, n_pad, s_max, C, rows, steps = key
+            gated = False
+        else:                               # sseg: the width is pinned
+            _, n_pad, _k, steps = key
+            s_max = self.buckets[-1]
+            if self.chunked:
+                C = self._prefill_chunk_for(s_max)
+                s_max = -(-s_max // C) * C
+            C = C or s_max
+            tick = self._verify_paged
+        prompt = torch.zeros((1, s_max), **i32)
+        if C is None:
+            def admit(q, s):
+                return self._chunk_paged(s, prompt, table, pre, 0, 1, 2,
+                                         True, None)
+            chunks = None
+        else:
+            width = rows * C
+
+            def admit(q, s, off, done):
+                return self._chunk_paged(
+                    s, prompt[0, off:off + width].view(rows, C), table,
+                    pre, off, 1, 2, done, seed)
+            chunks = ([1], width, gated)
+        self._run_steps(steps, n_pad, [2], admit, tick=tick, chunks=chunks)
 
     # --- segments ---------------------------------------------------------
     @staticmethod
@@ -1084,6 +1341,9 @@ class ServingEngine:
                     r.prefix_hit_len = 0
         if not pre_max:
             s_max = self.buckets[-1]
+        self._dispatch_key(PROGRAM_SPACE.key("seg", n_pad=n_pad, s_max=s_max,
+                                             pre_max=pre_max,
+                                             steps=max_steps))
         prompts = np.zeros((n, s_max), np.int32)
         lens, gens = [], []
         for j, r in enumerate(picked):
@@ -1262,6 +1522,24 @@ class ServingEngine:
                                  ">= 2 (a prefill start reserves one "
                                  "chunk + one verify step)")
             C = C or s_max
+        if spec:
+            key = PROGRAM_SPACE.key("sseg", n_pad=n_pad, k=self.speculative,
+                                    steps=max_steps)
+        elif sp_mode:
+            key = PROGRAM_SPACE.key("spseg", n_pad=n_pad, s_max=s_max, c=C,
+                                    sp=self.seq_parallel, steps=max_steps)
+        elif self.chunked:
+            key = PROGRAM_SPACE.key("cseg", n_pad=n_pad, s_max=s_max, c=C,
+                                    steps=max_steps)
+        elif self.quant:
+            key = PROGRAM_SPACE.key("qpseg", n_pad=n_pad, s_max=s_max,
+                                    steps=max_steps,
+                                    dtype=QUANT_CODES[self.quant])
+        else:
+            key = PROGRAM_SPACE.key(
+                "qseg" if self.quality_digest else "pseg", n_pad=n_pad,
+                s_max=s_max, steps=max_steps)
+        self._dispatch_key(key)
 
         prompts = np.zeros((n, s_max), np.int32)
         seeds = np.zeros((n,), np.int32)
@@ -1808,13 +2086,18 @@ class ServingEngine:
 
     def _note_cold_start(self) -> None:
         """The first host-visible token since build: publish the cold
-        start (build, kernel builds and the first prefill included)."""
+        start (build, kernel builds and the first prefill included), split
+        into ``aot_warmup_s`` and ``first_token_s`` (the rest: queue,
+        admit, prefill) when ``aot_warmup`` ran."""
         self.cold_start_s = time.perf_counter() - self.built_at
+        self.first_token_s = self.cold_start_s - (self.aot_warmup_s or 0.0)
         _metrics.gauge("serving.cold_start_s").set(self.cold_start_s)
-        _metrics.gauge("serving.first_token_s").set(self.cold_start_s)
+        _metrics.gauge("serving.first_token_s").set(self.first_token_s)
         _flight.record("cold_start", seconds=round(self.cold_start_s, 4),
-                       aot_warmup_s=None,
-                       first_token_s=round(self.cold_start_s, 4),
+                       aot_warmup_s=(round(self.aot_warmup_s, 4)
+                                     if self.aot_warmup_s is not None
+                                     else None),
+                       first_token_s=round(self.first_token_s, 4),
                        paged=self.paged, slots=self.slots)
 
     def _harvest(self, prefix_cache, tokens, slot: int, pages) -> None:

@@ -581,8 +581,12 @@ def capacity_plan(trace_stats: dict, ledger: Optional[dict] = None, *,
       replica's capacity ``occupancy × slots / per_tick_s`` gives the
       replica count at ``headroom`` utilisation margin.
 
-    ``chip_fit`` (the static HBM envelope of a replica) is not part of
-    the port: passing ``hbm_bytes`` raises.
+    With ``cfg`` (and ``params`` / ``quant``) and ``hbm_bytes`` the plan
+    gains a ``chip_fit`` section: the replica's static envelope (weights
+    + the recommended pool + a peak transient, ``analysis.memory
+    .chip_fit``) priced for the recommended ``pool_pages`` before any
+    pool is allocated. ``transient_bytes`` overrides the analytic
+    transient with a measured peak.
     """
     S = float(trace_stats["mean_prompt_tokens"])
     G = float(trace_stats["mean_new_tokens"])
@@ -615,11 +619,15 @@ def capacity_plan(trace_stats: dict, ledger: Optional[dict] = None, *,
     predicted_tok_s = (min(offered_tok_s, replicas * tok_s_replica)
                        if offered_tok_s is not None and tok_s_replica
                        else tok_s_replica)
-    if hbm_bytes is not None:
-        raise NotImplementedError(
-            "capacity_plan(hbm_bytes=...): the chip-fit envelope is not "
-            "ported")
     chip_fit = None
+    if hbm_bytes is not None and cfg is not None:
+        from ..analysis import memory as _memory
+
+        chip_fit = _memory.chip_fit(
+            cfg, params, page_size=int(page_size), num_pages=pool_pages,
+            quant=quant, mesh_devices=mesh_devices, hbm_bytes=hbm_bytes,
+            transient_bytes=transient_bytes, n_pad=int(slots),
+            s_max=int(math.ceil(S + G)), live_pages=high_water_pages)
     return {
         "arithmetic": "SCALING §3f pages-free x §3g replica scaling",
         "span_pages": span_pages,

@@ -53,7 +53,7 @@ __all__ = ["SCHEMA_VERSION", "DECISION_KINDS", "Journal", "JournalError",
            "feed_clock", "read_journal", "merge_journal_dir", "sections",
            "request_journey", "journey_summary", "describe_engine",
            "describe_config", "describe_arrivals",
-           "describe_prefix_cache"]
+           "describe_prefix_cache", "describe_envelope"]
 
 SCHEMA_VERSION = 1
 
@@ -573,6 +573,20 @@ def describe_prefix_cache(pc) -> Optional[dict]:
         return d
     return {"kind": "rows", "block": pc.block,
             "capacity_tokens": pc.capacity_tokens}
+
+
+def describe_envelope(env) -> Optional[dict]:
+    """A ``WorkloadEnvelope`` as JSON: a pool's envelope fixes which keys
+    its replicas warm, so a disaggregated header records one per pool."""
+    if env is None:
+        return None
+    return {"max_prompt": env.max_prompt,
+            "max_new_tokens": env.max_new_tokens,
+            "seg_steps": list(env.seg_steps),
+            "n_pads": list(env.n_pads),
+            "resume": env.resume,
+            "prefix_block": env.prefix_block,
+            "offline_batch": env.offline_batch}
 
 
 def describe_arrivals(arrivals) -> List[dict]:

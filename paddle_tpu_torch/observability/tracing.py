@@ -5,8 +5,10 @@ request's lifecycle (arrival, admit, first token, finish) at the segment
 read that surfaced each event; ``emit_request_trace`` replays those host
 stamps as spans (``request.queue_wait`` / ``request.prefill`` /
 ``request.decode`` / ``request.e2e``), so an outlier decomposes in the
-same timeline as the segments. Nothing here reads a clock of its own or
-the device, and with no collector registered nothing is emitted.
+same timeline as the segments; ``emit_journey_trace`` and
+``emit_scaling_trace`` do the same for a journal's request journey and an
+autoscaler's decisions. Nothing here reads a clock of its own or the
+device, and with no collector registered nothing is emitted.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 from ..profiler import _hooks
 
 __all__ = ["span", "step_span", "emit_request_trace",
-           "emit_journey_trace", "active"]
+           "emit_journey_trace", "emit_scaling_trace", "active"]
 
 span = _hooks.span          # the timed host span
 active = _hooks.active
@@ -67,3 +69,32 @@ def emit_journey_trace(journey: dict) -> None:
             continue
         _hooks.emit(f"journey.{b['kind']}[req{rid}@r{b['rank']}]",
                     _ns(a["t"]), _ns(b["t"]), kind="serving.journey")
+
+
+def emit_scaling_trace(records: list) -> None:
+    """An elastic episode's scaling timeline as spans, from its
+    ``scale_decision`` records (``journal.tail(kind="scale_decision")`` or
+    an autoscaler's ``decision_log``), stamped with their ``t``:
+    ``scaling.drain[r<idx>]``, each replica's scale_down to drain_complete
+    window, and ``scaling.<action>→<action>[...]``, consecutive decisions
+    as intervals (how long each fleet size held)."""
+    if not _hooks.COLLECTORS or not records:
+        return
+    recs = sorted(records, key=lambda r: r["t"])
+    drain_open: dict = {}
+    for r in recs:
+        if r["action"] == "scale_down":
+            drain_open[r["replica"]] = r["t"]
+        elif r["action"] == "drain_complete":
+            t0 = drain_open.pop(r["replica"], None)
+            if t0 is not None and r["t"] > t0:
+                _hooks.emit(f"scaling.drain[r{r['replica']}]",
+                            _ns(t0), _ns(r["t"]),
+                            kind="serving.scaling")
+    for a, b in zip(recs, recs[1:]):
+        if b["t"] <= a["t"]:
+            continue
+        tag = f"r{a['replica']}" if a.get("replica") is not None else ""
+        _hooks.emit(
+            f"scaling.{a['action']}→{b['action']}[{tag}]",
+            _ns(a["t"]), _ns(b["t"]), kind="serving.scaling")

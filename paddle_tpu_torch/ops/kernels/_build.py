@@ -84,9 +84,14 @@ def build_all() -> List[Dict[str, object]]:
         return list(pool.map(build, names))
 
 
+# libraries loaded by this process (``analysis.recompile`` counts them)
+LOADS = [0]
+
+
 @functools.lru_cache(maxsize=None)
 def load_library(name: str) -> ctypes.CDLL:
     """The loaded shared library of ``csrc/<name>.cu`` (built if needed)."""
+    LOADS[0] += 1
     return ctypes.CDLL(build(name)["path"])
 
 

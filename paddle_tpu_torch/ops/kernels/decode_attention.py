@@ -192,8 +192,10 @@ def ragged_decode_attention(q, kc, vc, pos, k_scale=None, v_scale=None):
 ragged_decode_attention.launches = 0
 ragged_decode_attention.quant_launches = 0
 
-# (device, slots x kv heads) -> the zeroed int32 tickets of the merge
+# (device, slots x kv heads) -> the zeroed int32 tickets of the merge; and
+# how many this process made (``analysis.recompile`` counts them)
 _TICKETS = {}
+TICKET_BUFFERS = [0]
 
 
 def _tickets(device, n):
@@ -210,6 +212,7 @@ def _tickets(device, n):
                                "a CUDA graph (its ticket buffer is made "
                                "then)")
         _TICKETS[key] = torch.zeros(n, dtype=torch.int32, device=device)
+        TICKET_BUFFERS[0] += 1
     return _TICKETS[key]
 
 

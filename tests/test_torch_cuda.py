@@ -915,6 +915,56 @@ def test_dense_segment_prefix_hit(cuda, name):
         assert hot == cold
 
 
+# paged engine options whose warmups make different ticket buffers: the
+# decode tick's (slots x kv heads), a chunk of 8 at one query head a kv
+# head (the split-KV family at one row), a verify tick, the int8 pool
+WARM_FAMILIES = {"pseg": {}, "cseg": dict(chunked_prefill=True,
+                                          prefill_chunks=(8, 32)),
+                 "sseg": dict(speculative=2), "qpseg": dict(quant="int8")}
+
+
+@pytest.mark.parametrize("family", sorted(WARM_FAMILIES))
+def test_warmed_serve_builds_nothing(cuda, family):
+    """After ``aot_warmup`` a serve inside the envelope loads no kernel
+    library, makes no split-KV ticket buffer and dispatches no key the
+    engine had not run (``analysis.recompile``); the process's ticket
+    buffers are set aside first, so the warmup is what makes them."""
+    from paddle_tpu_torch.analysis import recompile
+    from paddle_tpu_torch.inference.prefix_cache import PagedPrefixCache
+    from paddle_tpu_torch.inference.serving import ServingEngine
+
+    cfg, params = _serve_model(cuda, "bert_base_equiv")
+    eng = ServingEngine(cfg, params, slots=4, max_len=256, chunk=8,
+                        prompt_buckets=(32, 64, 128), paged=True,
+                        page_size=16, device=cuda, **WARM_FAMILIES[family])
+    pc = PagedPrefixCache(eng.pager, capacity_pages=32)
+    env = eng.default_envelope(seg_steps=(16,), prefix_block=16)
+    torch.cuda.synchronize()
+    held = list(da._TICKETS.values())     # kept alive, out of the map
+    da._TICKETS.clear()
+    with recompile.CompileWatch() as warm:
+        eng.aot_warmup(env, prefix_cache=pc)
+    # a quantized pool attends through the dequantizing gather: no
+    # split-KV launch, no ticket buffer
+    assert warm.tickets >= (0 if eng.quant else 1)
+    assert warm.unenumerated == sum(
+        len(v) for v in eng.program_space(env).values())
+    rng = np.random.RandomState(4)
+    prefix = rng.randint(0, cfg.vocab_size, 48)
+    reqs = [(np.concatenate([prefix, rng.randint(0, cfg.vocab_size, n)])
+             if i % 2 else rng.randint(0, cfg.vocab_size, n), g)
+            for i, (n, g) in enumerate(((40, 12), (20, 9), (70, 16),
+                                        (9, 5), (33, 20), (64, 7)))]
+    rids = [eng.add_request(p, g) for p, g in reqs]
+    with recompile.enforce_zero_compiles(family) as cw:
+        while eng._queue or eng.free_slot_count() < eng.slots:
+            eng.run_segment(16, prefix_cache=pc)
+    out = eng.collect_finished()
+    assert cw.as_dict() == {"loads": 0, "tickets": 0, "unenumerated": 0}
+    assert [len(out[r]) for r in rids] == [g for _, g in reqs]
+    assert pc.hits >= 1
+
+
 @pytest.mark.parametrize("name", SERVE_CONFIGS)
 @pytest.mark.parametrize("num_beams", [1, 4, 8])
 def test_beam_search_launches_the_tick_kernels(cuda, name, num_beams):

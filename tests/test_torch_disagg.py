@@ -13,16 +13,16 @@ The cases are those of ``tests/test_disagg.py``: ``TestDisaggIdentity``
 (all three), ``TestDisaggAudits``' one-sync case (on the port: one
 counted fetch a segment, and one counted wait for stages per handoff
 batch, ``kv_tiers.wait_for_stages``, and nothing else) and per-pool SLO
-case, ``test_constructor_validation`` and
-``test_dispatch_candidates_carry_pool_tag``. Not run here, with what each
-waits for: ``test_zero_post_warmup_compiles_per_pool`` (compile counters
-and per-pool envelopes: the program space, ROADMAP Queue A item 6),
+case, ``test_constructor_validation``, ``test_dispatch_candidates_carry_pool_tag``
+and ``test_zero_post_warmup_compiles_per_pool`` (the pool envelopes equal
+the JAX router's, each pool warms its own keys, and the serve after it
+meets no key, library load or ticket buffer it had not: the port's
+``analysis.recompile`` budget). Not run here, with what each waits for:
 ``test_gate_auditor_observes_without_perturbing`` (the analysis gate's
-``HandoffAuditor``; the port has no gate, item 8),
-``test_cross_pool_journey_replays_bit_exactly`` (journal replay, item 6)
-and ``TestDisaggOpsSurface::test_healthz_and_capacity_report_pools`` (the
-ops endpoints, item 7). ``aot_warmup`` and ``pool_envelope`` raise
-``NotImplementedError`` until item 6: checked below.
+``HandoffAuditor``; the port has no gate, ROADMAP Queue A item 8) and
+``TestDisaggOpsSurface::test_healthz_and_capacity_report_pools`` (the ops
+endpoints, item 7). The cross-pool replay runs in
+``test_torch_autoscaler.py``.
 
 The port parks one page fewer than the JAX engine when a preempted
 request's prompt and tokens fill whole pages (``DisaggRouter``'s
@@ -276,7 +276,25 @@ def test_handoff_journal_records_match(served):
 
 
 def test_program_envelopes_not_ported(both):
-    dis = _disagg(both, True)
-    for call in (dis.aot_warmup, lambda: dis.pool_envelope("prefill")):
-        with pytest.raises(NotImplementedError, match="item 6"):
-            call()
+    """Once not ported, now held: each pool's envelope equals the JAX
+    router's, ``aot_warmup`` runs each replica's pool keys (the JAX key
+    counts), and a serve after it stays inside them."""
+    from paddle_tpu.observability import journal as jjournal
+    from paddle_tpu_torch.analysis import recompile
+    from paddle_tpu_torch.observability import journal as tjournal
+
+    jdis, dis = _disagg(both, False), _disagg(both, True)
+    for pool in ("prefill", "decode"):
+        assert tjournal.describe_envelope(dis.pool_envelope(pool)) == \
+            jjournal.describe_envelope(jdis.pool_envelope(pool))
+    got = dis.aot_warmup()
+    want = {i: r.engine.program_space(jdis.pool_envelope(r.pool))
+            for i, r in enumerate(jdis._replicas)}
+    assert {i: {f: v["keys"] for f, v in fams.items()}
+            for i, fams in got.items()} == \
+        {i: {f: len(k) for f, k in fams.items()}
+         for i, fams in want.items()}
+    reqs = _reqs(both[0].vocab_size)
+    with recompile.enforce_zero_compiles("disaggregated serve"):
+        dis.serve(_burst(reqs)(tsched))
+    assert dis.handoffs and len(dis.results()) == len(reqs)

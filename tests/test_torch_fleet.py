@@ -23,10 +23,9 @@ and no other device read). Not run here, with what each waits for:
   Queue A item 6;
 * ``TestCacheDirectory::test_healthz_and_capacity_tiers_breakdown``: the
   ops endpoints (``exporter.py``), item 7;
-* the journal-replay cases (``observability/replay.py``): item 6;
-* ``FleetRouter.aot_warmup`` and ``autoscaler=`` raise
-  ``NotImplementedError`` until the program space (item 6) and
-  ``autoscaler.py`` (item 1.6) are ported: checked below.
+* the journal-replay cases and the elastic fleet (``autoscaler=``,
+  ``aot_warmup``) run in ``test_torch_autoscaler.py``; below, that both
+  are wired.
 """
 
 import numpy as np
@@ -433,12 +432,28 @@ class TestCacheDirectory:
 
 
 def test_autoscaler_and_aot_warmup_not_ported(both):
-    _, _, tcfg, tparams = both
+    """Once not ported, now wired: ``autoscaler=`` binds the policy (one
+    replica serving, the other an offline standby) and ``aot_warmup``
+    runs each replica's program space, the JAX router's key counts."""
+    from paddle_tpu_torch.inference.autoscaler import Autoscaler
+
+    cfg, params, tcfg, tparams = both
     engines = tfleet.build_fleet(tcfg, tparams, 2, device="cpu", **DENSE)
-    with pytest.raises(NotImplementedError, match="item 1.6"):
-        tfleet.FleetRouter(engines, autoscaler=object())
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tfleet.FleetRouter(engines).aot_warmup()
+    asc = Autoscaler(min_replicas=1, initial_replicas=1)
+    router = tfleet.FleetRouter(engines, autoscaler=asc)
+    assert router.autoscalers == [asc] and asc.max_replicas == 2
+    assert [r.lifecycle for r in router._replicas] == ["serving",
+                                                       "offline"]
+    assert router._dispatch_candidates() == router._replicas[:1]
+    got = tfleet.FleetRouter(engines).aot_warmup()
+    jengines = jfleet.build_fleet(cfg, params, 2, **DENSE)
+    want = {i: e.program_space() for i, e in enumerate(jengines)}
+    assert {i: {f: v["keys"] for f, v in fams.items()}
+            for i, fams in got.items()} == \
+        {i: {f: len(k) for f, k in fams.items()}
+         for i, fams in want.items()}
+    assert all(e.prog_key_hits == {} and e.aot_warmup_s > 0
+               for e in engines)
 
 
 def test_build_fleet_devices_moves_params(both):

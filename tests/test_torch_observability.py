@@ -468,8 +468,10 @@ class TestMonitors:
                   measured={"per_tick_s": 0.008, "slot_occupancy": 0.7})
         assert tcap.capacity_plan(stats, **kw) == \
             jcap.capacity_plan(stats, **kw)
-        with pytest.raises(NotImplementedError, match="chip-fit"):
-            tcap.capacity_plan(stats, hbm_bytes=80 << 30, **kw)
+        # hbm_bytes alone (no cfg) prices no chip fit, on both packages
+        got = tcap.capacity_plan(stats, hbm_bytes=80 << 30, **kw)
+        assert got == jcap.capacity_plan(stats, hbm_bytes=80 << 30, **kw)
+        assert got["chip_fit"] is None
 
 
 class TestPoolAndMeters:
