@@ -226,6 +226,26 @@ Phases (any failed check raises and the script exits non-zero):
    (the 161 params are one bf16 group); (6.4) three O2
    ``AdamW(multi_precision=True)`` steps, one adam-with-master launch
    each;
+6b. BASELINE config 0 (benchmarks/mnist_fit.py): ``Model(LeNet())`` on the
+   6000-sample synthetic ``MNIST(mode="train")``, prepared with
+   ``Adam(1e-3)``, ``CrossEntropyLoss`` and ``Accuracy``, ``fit(epochs=1,
+   batch_size=256)``: (6b.1) two 4-step fits in order from the same
+   seeded LeNet under deterministic cuDNN, through ``multi_tensor_update``
+   and through its plain version: losses and every parameter within
+   ``MTU_TOL``, 4 launches against 0; (6b.2) the recipe, one warm fit then
+   one timed fit of 24 batches: samples/s, ms a step, the loader's and
+   ``train_batch``'s ms a batch, launches a step (1: LeNet's 10 fp32
+   params are one group), then a profiled fit (the busy share from its
+   device time and its own wall; its host time inside ``train_batch``
+   split by call: forward, loss, backward, update, pack, unpack, read,
+   ...; host operators by self time), the synchronising calls a batch of
+   a fit under ``set_sync_debug_mode("warn")`` (1: the loss and the
+   accuracy matrix in one read) and ``evaluate`` on
+   ``MNIST(mode="test")``; (6b.3) a fit with
+   ``CosineAnnealingDecay`` stepped by the ``LRScheduler`` callback,
+   ``ClipGradByGlobalNorm(1.0)`` and ``L2Decay(1e-4)``: one launch a step,
+   each at ``lr.py``'s rate; (6b.4) ``Model.save``, ``load`` into a fresh
+   model, equal ``evaluate`` logs;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -237,7 +257,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 6 and 7 is driven with every launch count set to 0 just
+   3-3k, 5b, 6, 6b and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -253,6 +273,7 @@ import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 from pathlib import Path
@@ -972,13 +993,17 @@ def _clone(bufs):
     return p.clone(), g.clone(), {k: v.clone() for k, v in s.items()}
 
 
-def multi_tensor_checks(torch, mtu, shapes, variant, gen):
-    """One ``multi_tensor_update`` variant at ResNet-50's population: the
+def multi_tensor_checks(torch, mtu, shapes, variant, gen,
+                        shape_name="resnet50"):
+    """One ``multi_tensor_update`` variant at a parameter population
+    (ResNet-50's unless named): the
     kernel against its plain version on the same buffers (padding stays
     zero), then the kernel (in place, over and over), its plain version
     and, where one PyTorch call makes the same update on the shaped list,
     that call, timed. Bound: each buffer the kernel reads read once, each
-    one it writes written once."""
+    one it writes written once, over the parameters' own elements (the
+    plan's padding lanes and rows are the kernel's choice, not the
+    update's work)."""
     name, kind, hyper, pdt, sdt, master, lib = variant
     pdt = getattr(torch, pdt)
     sdt = getattr(torch, sdt) if sdt else None
@@ -1004,7 +1029,7 @@ def multi_tensor_checks(torch, mtu, shapes, variant, gen):
         err = max(err, (got.float() - want.float()).abs().max().item())
         if got.reshape(-1)[~used].any():
             raise AssertionError(f"{name} {key}: padding is not zero")
-    elems = plan.total_rows * plan.LANES
+    elems = sum(plan.sizes)
     st = bufs[2]
     if kind == "lamb":  # reads the master or p, writes the moments and r
         reads = [st.get("master", bufs[0]), bufs[1], st["moment1"],
@@ -1030,6 +1055,16 @@ def multi_tensor_checks(torch, mtu, shapes, variant, gen):
                     momentum=hyper.get("momentum", 0.0), lr=0.1,
                     dampening=0.0, nesterov=bool(hyper.get("nesterov")),
                     maximize=False, is_first_step=False)
+        elif lib == "adam":  # Adam on the fp32 shaped list: 28 B each
+            M = [torch.zeros_like(t) for t in P]
+            V2 = [torch.zeros_like(t) for t in P]
+            steps = [torch.tensor(3.0, device=DEVICE) for _ in P]
+
+            def library(i):
+                torch._fused_adam_(
+                    P, G, M, V2, [], steps, lr=0.1, beta1=0.9, beta2=0.999,
+                    weight_decay=0.0, eps=1e-8, amsgrad=False,
+                    maximize=False)
         else:  # AdamW on the fp32 master list: 28 B per element to our 30
             M = [torch.zeros_like(t) for t in P]
             V2 = [torch.zeros_like(t) for t in P]
@@ -1045,12 +1080,13 @@ def multi_tensor_checks(torch, mtu, shapes, variant, gen):
                 lambda i: mtu.flat_update_plain(kind, *pb, hyper, 0.1, 3),
                 library, bound_ms(nbytes, 12 * elems, VECTOR_OPS),
                 plain_iters=20)
-    row.update(shape="resnet50", dtype=name, elements=elems,
+    row.update(shape=shape_name, dtype=name, elements=elems,
+               padded_elements=plan.total_rows * plan.LANES,
                bytes_per_element=nbytes / elems,
-               library=("torch._fused_sgd_ on the shaped list"
-                        if lib == "sgd" else
-                        "torch._fused_adamw_ on the fp32 master list"
-                        if lib == "adamw" else "none"))
+               library={"sgd": "torch._fused_sgd_ on the shaped list",
+                        "adam": "torch._fused_adam_ on the shaped list",
+                        "adamw": "torch._fused_adamw_ on the fp32 master "
+                                 "list"}.get(lib, "none"))
     return row
 
 
@@ -2938,7 +2974,7 @@ def train_vs_plain(torch, llama, fa, hd, params, cfg, tokens):
     return out
 
 
-def device_profile(torch, run, kinds=None):
+def device_profile(torch, run, kinds=None, spans=()):
     """Device time of ``run()`` by kernel from ``torch.profiler``: total
     ms, its split by ``kinds`` (category -> substrings of kernel names, in
     order; by default the port's hand-written kernels and cuBLAS matmuls)
@@ -2948,7 +2984,10 @@ def device_profile(torch, run, kinds=None):
     same time again, and the profiler's own buffer and module-loading
     records are no kernels. ``wall_ms`` is the host clock around the same
     ``run()`` and its synchronize, so the busy share it gives reads device
-    and wall time from one run (the profiler's host cost included)."""
+    and wall time from one run (the profiler's host cost included).
+    ``spans`` names ``record_function`` ranges (``host_spans``) whose host
+    ms, inclusive and self, and calls are returned apart from the
+    operators."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -2958,10 +2997,15 @@ def device_profile(torch, run, kinds=None):
         run()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    rows, host = [], []
+    rows, host, span_ms = [], [], {}
     for e in prof.key_averages():
         us = e.self_device_time_total
-        if (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
+        if e.key in spans:  # a range, on the host (or its device mirror)
+            if e.device_type == torch.autograd.DeviceType.CPU:
+                span_ms[e.key] = {"host_ms": e.cpu_time_total / 1e3,
+                                  "self_ms": e.self_cpu_time_total / 1e3,
+                                  "calls": e.count}
+        elif (e.device_type == torch.autograd.DeviceType.CUDA and us > 0
                 and not e.key.startswith(PROFILER_RECORDS)):
             rows.append((e.key, us / 1e3, e.count))
         elif e.device_type == torch.autograd.DeviceType.CPU:
@@ -2984,7 +3028,28 @@ def device_profile(torch, run, kinds=None):
             "top": [{"name": k[:90], "ms": ms, "calls": c}
                     for k, ms, c in rows[:12]],
             "host_top": [{"name": k[:60], "self_ms": ms, "calls": c}
-                         for k, ms, c in host[:10]]}
+                         for k, ms, c in host[:10]],
+            "spans": span_ms}
+
+
+def host_spans(targets):
+    """A context in which each call of ``getattr(obj, attr)``, for each
+    ``(obj, attr, name)`` of ``targets``, runs inside
+    ``torch.profiler.record_function(name)`` (so a profile splits the
+    host time by the calls that spend it); the attributes are restored
+    after."""
+    from torch.profiler import record_function
+
+    def wrap(inner, name):
+        def wrapped(*args, **kwargs):
+            with record_function(name):
+                return inner(*args, **kwargs)
+        return wrapped
+    stack = contextlib.ExitStack()
+    for obj, attr, name in targets:
+        stack.enter_context(
+            mock.patch.object(obj, attr, wrap(getattr(obj, attr), name)))
+    return stack
 
 
 def train_run(torch, llama, fns, params, cfg, tokens, lr=1e-4, warmup=2,
@@ -3219,6 +3284,313 @@ def resnet_adamw(torch, port, fns, model, x, y, steps=3):
     if not all(math.isfinite(v) for v in losses):
         raise AssertionError(f"non-finite ResNet-50 AdamW loss: {losses}")
     return {"steps": steps, "losses": losses}, launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: BASELINE config 0, Model.fit of LeNet on MNIST
+# ---------------------------------------------------------------------------
+
+# BASELINE config 0, as benchmarks/mnist_fit.py runs it: LeNet on the
+# 6000-sample synthetic MNIST (the reference's RandomState(42) set),
+# Model.prepare(Adam(1e-3), CrossEntropyLoss, Accuracy), fit(epochs=1,
+# batch_size=256): 24 batches, the last of 112; LeNet's 10 fp32 params
+# are one flat group, so each step makes one multi_tensor_update launch
+MNIST_BATCH, MNIST_LR = 256, 1e-3
+MNIST_BATCHES = 24      # ceil(6000 / 256)
+MNIST_VS_PLAIN_STEPS = 4
+# the scheduled, clipped fit: a cosine over the fit's 24 steps, a global
+# norm of 1 and L2 decay of 1e-4 (PaddleClas' recipe shape at LeNet size)
+MNIST_T_MAX, MNIST_CLIP, MNIST_L2 = MNIST_BATCHES, 1.0, 1e-4
+# multi_tensor_update at LeNet's population (10 tensors of 61,610
+# elements in 486 rows of 128, the plan padded to 496 rows: 63,488): fp32
+# Adam, the fit's update, against torch._fused_adam_
+LENET_VARIANT = ("adam_fp32", "adam", dict(_ADAM), "float32", "float32",
+                 False, "adam")
+
+
+def lenet_shapes(models, device_mod):
+    """LeNet's parameter shapes in ``parameters()`` order (built on the
+    CPU: only the shapes are kept)."""
+    prev = device_mod.set_device("cpu")
+    try:
+        model = models.LeNet()
+    finally:
+        device_mod.set_device(prev)
+    return [tuple(p.shape) for p in model.parameters()]
+
+
+def mnist_model(port, seed=0, **opt_kw):
+    """The recipe's ``Model``: LeNet from the port's initializers under
+    ``seed``, prepared with Adam (``MNIST_LR`` unless ``learning_rate`` is
+    given), ``CrossEntropyLoss`` and ``Accuracy``."""
+    port.seed(seed)
+    net = port.vision.models.LeNet()
+    model = port.Model(net)
+    opt_kw.setdefault("learning_rate", MNIST_LR)
+    model.prepare(port.optimizer.Adam(parameters=net.parameters(), **opt_kw),
+                  port.nn.CrossEntropyLoss(), port.metric.Accuracy())
+    return model
+
+
+def mnist_recorder(port):
+    """A callback that times each batch: the loader's share (from the end
+    of one batch to the start of the next: the ``DataLoader``'s collate
+    and the copy to the card), and records each batch's loss and the
+    optimizer's learning rate."""
+
+    class Recorder(port.callbacks.Callback):
+        def on_epoch_begin(self, epoch, logs=None):
+            self.loader_s, self.losses, self.lrs = [], [], []
+            self._t = time.perf_counter()
+
+        def on_train_batch_begin(self, step, logs=None):
+            self.loader_s.append(time.perf_counter() - self._t)
+            self.lrs.append(self.model._optimizer.get_lr())
+
+        def on_train_batch_end(self, step, logs=None):
+            self.losses.append(logs["loss"])
+            self._t = time.perf_counter()
+    return Recorder()
+
+
+def timed_train_batch(model):
+    """Wrap ``model.train_batch`` so each call's host seconds are kept in
+    the returned list (the call ends in the batch's one device read, so
+    its time covers the step on the card)."""
+    times, inner = [], model.train_batch
+
+    def train_batch(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return inner(*args, **kwargs)
+        finally:
+            times.append(time.perf_counter() - t0)
+    model.train_batch = train_batch
+    return times
+
+
+def mnist_vs_plain(torch, port, mtu, fns, train):
+    """Phase 6b.1: two fits of ``MNIST_VS_PLAIN_STEPS`` steps from the
+    same seeded LeNet, in order and under deterministic cuDNN, one through
+    the kernel and one through its plain version: every batch's loss and
+    every parameter within ``MTU_TOL``, and exactly one launch a step on
+    the kernel fit, none on the plain fit."""
+    steps = MNIST_VS_PLAIN_STEPS
+    torch.backends.cudnn.deterministic = True
+    runs = []
+    try:
+        for plain in (False, True):
+            model = mnist_model(port)
+            rec = mnist_recorder(port)
+            zero_counts(fns)
+            with (mock.patch.object(mtu, "multi_tensor_update",
+                                    mtu.flat_update_plain) if plain
+                  else contextlib.nullcontext()):
+                model.fit(train, epochs=1, batch_size=MNIST_BATCH,
+                          shuffle=False, verbose=0, num_iters=steps,
+                          callbacks=[rec])
+            n = read_counts(fns)
+            if not plain:
+                check_counts(n, {"multi_tensor_update": steps},
+                             "the LeNet kernel fit")
+            elif any(n.values()):
+                raise AssertionError(f"launches on the plain LeNet fit: {n}")
+            runs.append((rec.losses, {k: v.detach().clone() for k, v in
+                                      model.network.state_dict().items()}))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    (lk, sk), (lp, sp) = runs
+    out = {"steps": steps, "losses_kernel": lk, "losses_plain": lp,
+           "param_max_abs_err": 0.0, "bit_identical": True}
+    rtol, atol = MTU_TOL["torch.float32"]
+    np.testing.assert_allclose(lk, lp, rtol=rtol, atol=atol,
+                               err_msg="LeNet losses, kernel against plain")
+    out["loss_max_abs_err"] = max(abs(a - b) for a, b in zip(lk, lp))
+    for k, got in sk.items():
+        want = sp[k]
+        out["bit_identical"] &= torch.equal(got, want)
+        torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                                   msg=lambda m: f"LeNet {k}: {m}")
+        out["param_max_abs_err"] = max(
+            out["param_max_abs_err"], (got - want).abs().max().item())
+    return out
+
+
+# the calls a profiled fit's host time is split by (``host_spans``): one
+# range each, nested as the calls are (the update holds the pack and the
+# unpack; train_batch holds the rest). The kernel's launch is no range of
+# its own (its wrapper counts launches through its module name, which a
+# wrapper of ours would take): its host time is in the update's self time
+MNIST_SPANS = ("mnist.train_batch", "mnist.to_device", "mnist.forward",
+               "mnist.loss", "mnist.accuracy", "mnist.backward",
+               "mnist.clip", "mnist.update", "mnist.pack", "mnist.unpack",
+               "mnist.fetch", "mnist.metrics", "mnist.telemetry")
+
+
+def mnist_span_targets(torch, port, mtu, model):
+    """(object, attribute, span) for each of ``MNIST_SPANS``: the
+    ``Model``'s batch and its parts, the fused step's ``autograd.grad``,
+    the optimizer's clip and update, and inside the update the plan's
+    pack and the unpack into views."""
+    hapi_model = sys.modules[port.Model.__module__]
+    opt = model._optimizer
+    return [
+        (model, "train_batch", "mnist.train_batch"),
+        (hapi_model, "_as_tensor_batch", "mnist.to_device"),
+        (model.network, "forward", "mnist.forward"),
+        (model, "_compute_loss", "mnist.loss"),
+        (model, "_traced_pres", "mnist.accuracy"),
+        (torch.autograd, "grad", "mnist.backward"),
+        (opt, "_clip", "mnist.clip"),
+        (opt, "_update", "mnist.update"),
+        (mtu.FlatPlan, "pack", "mnist.pack"),
+        (mtu.FlatPlan, "unpack", "mnist.unpack"),
+        (hapi_model, "_fetch", "mnist.fetch"),
+        (model, "_update_metrics", "mnist.metrics"),
+        (model, "_record_train_step", "mnist.telemetry")]
+
+
+def mnist_recipe(torch, port, mtu, fns, train, test):
+    """Phase 6b.2: benchmarks/mnist_fit.py's recipe, one warm fit then one
+    timed fit (every count at 0 before it): samples/s, ms a step, the
+    loader's and ``train_batch``'s ms a batch, launches; then one fit
+    under the profiler, its host time split by ``MNIST_SPANS``, for the
+    device's busy share and the host's bottlenecks, one under
+    ``set_sync_debug_mode("warn")`` counting synchronising calls, and
+    ``evaluate`` on the test set."""
+    model = mnist_model(port)
+    model.fit(train, epochs=1, batch_size=MNIST_BATCH, verbose=0)  # warm
+    rec = mnist_recorder(port)
+    step_s = timed_train_batch(model)
+    torch.cuda.synchronize()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    model.fit(train, epochs=1, batch_size=MNIST_BATCH, verbose=0,
+              callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    n = len(rec.losses)
+    if n != MNIST_BATCHES:
+        raise AssertionError(f"{n} batches in the MNIST fit, wanted "
+                             f"{MNIST_BATCHES}")
+    check_counts(launches, {"multi_tensor_update": n}, "the MNIST fit")
+    if not all(math.isfinite(v) for v in rec.losses):
+        raise AssertionError(f"non-finite MNIST loss: {rec.losses}")
+    out = {"batches": n, "batch": MNIST_BATCH, "samples": len(train),
+           "wall_s": wall, "samples_per_s": len(train) / wall,
+           "ms_per_step": 1e3 * wall / n,
+           "loader_ms_per_batch": 1e3 * sum(rec.loader_s) / n,
+           "train_batch_ms_per_batch": 1e3 * sum(step_s) / n,
+           "launches_per_step": launches["multi_tensor_update"] / n,
+           "first_loss": rec.losses[0], "last_loss": rec.losses[-1]}
+    step_s.clear()
+
+    def fit():
+        model.fit(train, epochs=1, batch_size=MNIST_BATCH, verbose=0)
+    # one profiled fit gives the device time, its own wall (the busy share
+    # reads both from that fit; the profiler's host cost is in its wall)
+    # and the host time inside train_batch split by the calls that spend it
+    with host_spans(mnist_span_targets(torch, port, mtu, model)):
+        prof = device_profile(torch, fit, spans=MNIST_SPANS)
+    if prof is None:
+        out["device_ms"] = "not measured"
+        out["device_busy_share"] = out["device_over_timed_wall"] = None
+    else:
+        out["device_ms"] = prof["device_ms"]
+        out["profiled_fit_wall_ms"] = prof["wall_ms"]
+        out["device_busy_share"] = prof["device_ms"] / prof["wall_ms"]
+        # the same device time over the unprofiled fit's wall: a second
+        # reading, across two fits
+        out["device_over_timed_wall"] = prof["device_ms"] / (1e3 * wall)
+        spans = prof["spans"]
+        missing = [k for k in MNIST_SPANS if k not in spans]
+        if missing:
+            raise AssertionError(f"no host span recorded for {missing}")
+        out["host_ms_per_batch"] = {
+            k: {"host_ms": v["host_ms"] / n, "self_ms": v["self_ms"] / n,
+                "calls_per_batch": v["calls"] / n}
+            for k, v in sorted(spans.items(), key=lambda kv: -kv[1][
+                "host_ms"])}
+        out["host_top"] = prof["host_top"]
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fit()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = sum(SYNC_WARNING in str(w.message) for w in caught)
+    out["syncs_per_batch"] = syncs / MNIST_BATCHES
+    logs = model.evaluate(test, batch_size=MNIST_BATCH, verbose=0)
+    out["eval"] = logs
+    if not 0.0 <= logs["acc"] <= 1.0 or not math.isfinite(logs["loss"]):
+        raise AssertionError(f"MNIST evaluate: {logs}")
+    return out, launches, model
+
+
+def mnist_scheduled(torch, port, mtu, fns, train):
+    """Phase 6b.3: a fit with ``CosineAnnealingDecay`` stepped by the
+    ``LRScheduler`` callback, ``ClipGradByGlobalNorm`` and ``L2Decay``:
+    one launch a step, and the rate each launch received equal to
+    ``lr.py``'s sequence (read by a spy that passes every call on)."""
+    lr = port.optimizer.lr
+    model = mnist_model(
+        port, learning_rate=lr.CosineAnnealingDecay(MNIST_LR, MNIST_T_MAX),
+        grad_clip=port.nn.ClipGradByGlobalNorm(MNIST_CLIP),
+        weight_decay=port.optimizer.L2Decay(MNIST_L2))
+    rec = mnist_recorder(port)
+    got, inner = [], mtu.apply_flat_update
+
+    def spy(kind, plan, pvals, gvals, svals, hyper, lr_, step, skip=None):
+        got.append(lr_)
+        return inner(kind, plan, pvals, gvals, svals, hyper, lr_, step, skip)
+    zero_counts(fns)
+    with mock.patch.object(mtu, "apply_flat_update", spy):
+        model.fit(train, epochs=1, batch_size=MNIST_BATCH, verbose=0,
+                  callbacks=[port.callbacks.LRScheduler(), rec])
+    launches = read_counts(fns)
+    check_counts(launches, {"multi_tensor_update": MNIST_BATCHES},
+                 "the scheduled MNIST fit")
+    want = lr.CosineAnnealingDecay(MNIST_LR, MNIST_T_MAX)
+    seq = []
+    for _ in range(MNIST_BATCHES):
+        seq.append(want.get_lr())
+        want.step()
+    if got != seq or rec.lrs != seq:
+        raise AssertionError(f"scheduled rates {got} / logged {rec.lrs}, "
+                             f"lr.py's {seq}")
+    if not all(math.isfinite(v) for v in rec.losses):
+        raise AssertionError(f"non-finite scheduled loss: {rec.losses}")
+    return {"lrs": got, "losses": rec.losses,
+            "launches_per_step": launches["multi_tensor_update"]
+            / MNIST_BATCHES}, launches
+
+
+def mnist_checkpoint(torch, port, model, test):
+    """Phase 6b.4: ``Model.save`` into a directory of the checkout that is
+    removed after, then ``load`` into a fresh model (other weights) and
+    ``evaluate`` both under deterministic cuDNN: equal logs."""
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory(dir=ROOT) as d:
+            path = os.path.join(d, "final")
+            model.save(path)
+            want = model.evaluate(test, batch_size=MNIST_BATCH, verbose=0)
+            fresh = mnist_model(port, seed=1)
+            before = fresh.evaluate(test, batch_size=MNIST_BATCH,
+                                    verbose=0)
+            fresh.load(path)
+            got = fresh.evaluate(test, batch_size=MNIST_BATCH, verbose=0)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    if got != want or before == want:
+        raise AssertionError(f"checkpoint round trip: {got} against "
+                             f"{want} (before loading {before})")
+    if fresh._optimizer._step_count != model._optimizer._step_count:
+        raise AssertionError("the optimizer state did not load")
+    return {"eval": got, "fresh_eval_before_load": before,
+            "optimizer_step": fresh._optimizer._step_count}
 
 
 # phase 3i: the host KV tier behind the paged prefix cache, and the SLO
@@ -4389,8 +4761,8 @@ def kernels_line(rows, by_path):
             # every variant held against its plain version in phase 2
             k["variants"] = {
                 v["dtype"]: {key: v[key] for key in (
-                    "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms", "library")}
+                    "shape", "max_abs_err", "ms", "eager_ms", "plain_ms",
+                    "bound_ms", "bound_by", "library_ms", "library")}
                 for v in rows if v["name"] == name}
         if name in ("ragged_paged_attention", "quant_matmul"):
             # every shape phase 2 times: the paged kernel's decode ticks and
@@ -4571,11 +4943,23 @@ def main() -> None:
         lib = ("null" if r["library_ms"] is None
                else f"{r['library_ms']:.6g}")
         print(f"kernel {r['name']:24s} {r['shape']:8s} {r['dtype']:18s} "
-              f"{r['elements']} elements {r['bytes_per_element']:.0f} B "
+              f"{r['elements']} elements ({r['padded_elements']} padded) "
+              f"{r['bytes_per_element']:.0f} B "
               f"each max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} "
               f"eager_ms {r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} "
               f"library_ms {lib} ({r['library']}) bound_ms "
               f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    r = multi_tensor_checks(torch, mtu,
+                            lenet_shapes(port.vision.models, device_mod),
+                            LENET_VARIANT, gen, shape_name="lenet")
+    rows.append(r)
+    print(f"kernel {r['name']:24s} {r['shape']:8s} {r['dtype']:18s} "
+          f"{r['elements']} elements ({r['padded_elements']} padded) "
+          f"{r['bytes_per_element']:.0f} B each "
+          f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} eager_ms "
+          f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
+          f"{r['library_ms']:.6g} ({r['library']}) bound_ms "
+          f"{r['bound_ms']:.6g} ({r['bound_by']})")
     mtu_skip = multi_tensor_skip_check(torch, mtu, mtu_shapes, gen)
     print(f"multi_tensor_update skip = 1 left every buffer bit-identical: "
           f"{json.dumps(mtu_skip)}")
@@ -5176,6 +5560,59 @@ def main() -> None:
           f"{', '.join(f'{v:.4f}' for v in radamw['losses'])}")
     print(f"launches on the ResNet-50 AdamW steps: {json.dumps(alaunches)}")
 
+    lap("6b")
+    # 6b. BASELINE config 0: Model.fit of LeNet on MNIST
+    mtrain = port.vision.datasets.MNIST(mode="train")
+    mtest = port.vision.datasets.MNIST(mode="test")
+    mvp = mnist_vs_plain(torch, port, mtu, fns, mtrain)
+    print(f"MNIST LeNet, kernel against plain ({card}): "
+          f"{mvp['steps']} Adam steps in order, losses "
+          f"{mvp['losses_kernel']} / {mvp['losses_plain']} (largest |err| "
+          f"{mvp['loss_max_abs_err']:.3e}), largest param error "
+          f"{mvp['param_max_abs_err']:.3e} (fp32 MTU_TOL "
+          f"{MTU_TOL['torch.float32']}), bit-identical "
+          f"{mvp['bit_identical']}; launches {mvp['steps']} against 0")
+    mfit, mlaunches, mmodel = mnist_recipe(torch, port, mtu, fns, mtrain,
+                                           mtest)
+    mbusy = mfit["device_busy_share"]
+    mover = mfit["device_over_timed_wall"]
+    print(f"MNIST LeNet fit ({card}): {mfit['batches']} batches of "
+          f"{MNIST_BATCH}: {mfit['samples_per_s']:.1f} samples/s, "
+          f"{mfit['ms_per_step']:.3f} ms/step (loader "
+          f"{mfit['loader_ms_per_batch']:.3f} ms, train_batch "
+          f"{mfit['train_batch_ms_per_batch']:.3f} ms a batch), device "
+          f"{mfit['device_ms']} ms in a profiled fit of "
+          f"{mfit.get('profiled_fit_wall_ms', 'not measured')} ms wall "
+          f"(busy share "
+          f"{'not measured' if mbusy is None else f'{mbusy:.4f}'}; the "
+          f"same device time over the timed fit's wall "
+          f"{'not measured' if mover is None else f'{mover:.4f}'}), "
+          f"multi_tensor_update launches per step "
+          f"{mfit['launches_per_step']}, synchronising calls per batch "
+          f"{mfit['syncs_per_batch']}, loss {mfit['first_loss']:.4f} -> "
+          f"{mfit['last_loss']:.4f}; evaluate on MNIST(mode='test'): "
+          f"{json.dumps(mfit['eval'])}")
+    print(f"launches on the MNIST fit: {json.dumps(mlaunches)}")
+    print(f"MNIST LeNet profiled fit, host ms a batch by call (inclusive "
+          f"and self, under the profiler): "
+          f"{json.dumps(mfit.get('host_ms_per_batch'))}; host operators by "
+          f"self time (ms, the fit's): {json.dumps(mfit.get('host_top'))}")
+    msched, mslaunches = mnist_scheduled(torch, port, mtu, fns, mtrain)
+    print(f"MNIST LeNet scheduled fit ({card}): CosineAnnealingDecay("
+          f"{MNIST_LR}, {MNIST_T_MAX}) by step, ClipGradByGlobalNorm("
+          f"{MNIST_CLIP}), L2Decay({MNIST_L2}): launches per step "
+          f"{msched['launches_per_step']}, rates equal to lr.py's "
+          f"(first {msched['lrs'][0]:.6g}, last {msched['lrs'][-1]:.6g}), "
+          f"loss {msched['losses'][0]:.4f} -> {msched['losses'][-1]:.4f}")
+    mckpt = mnist_checkpoint(torch, port, mmodel, mtest)
+    print(f"MNIST LeNet checkpoint ({card}): a fresh model loaded from "
+          f"Model.save evaluates {json.dumps(mckpt['eval'])}, equal to the "
+          f"saved model's (before loading "
+          f"{json.dumps(mckpt['fresh_eval_before_load'])})")
+    mnist = {"vs_plain": mvp, "fit": mfit, "scheduled": msched,
+             "checkpoint": mckpt}
+    del mmodel
+
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
     del rmodel, x, y
@@ -5199,6 +5636,7 @@ def main() -> None:
                "quant_fp8_drain": f8launches, "train": tlaunches,
                "quant_int8_trained_drain": qtlaunches,
                "resnet50_train": rlaunches, "resnet50_adamw": alaunches,
+               "mnist_fit": mlaunches, "mnist_fit_scheduled": mslaunches,
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
                "contiguous_prefix_burst": cblaunches["prefix_cache"],
@@ -5224,7 +5662,7 @@ def main() -> None:
                    "teacher_forced_quant": tfq, "train_vs_plain": tvp,
                    "train": train, "multi_tensor_skip": mtu_skip,
                    "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
-                   "resnet50_adamw": radamw,
+                   "resnet50_adamw": radamw, "mnist": mnist,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

@@ -14,10 +14,20 @@ page-sharing prefix cache), the online scheduler over it
 (``models.llama``); the LLaMA training step; and the eager framework's
 training path for ResNet (``vision.models``, ``nn``, ``amp``,
 ``optimizer``, ``jit.fused_train_step``) with the multi-tensor optimizer
-update.
+update; and the high-level API that BASELINE config 0 (MNIST LeNet through
+``Model.fit``) runs: ``Model`` with its ``callbacks``, ``io``
+(``DataLoader``), ``metric``, ``vision.datasets``, ``save`` / ``load``,
+``optimizer.lr``, gradient clipping (``nn.clip``) and ``L2Decay``.
 """
 
+from . import io, metric, nn, optimizer, vision
 from .device import get_device, resolve_device, set_device
+from .framework.io import load, save
+from .hapi import callbacks
+from .hapi.model import Model
+from .hapi.model_summary import flops, summary
 from .nn.initializer import seed
 
-__all__ = ["resolve_device", "set_device", "get_device", "seed"]
+__all__ = ["resolve_device", "set_device", "get_device", "seed", "Model",
+           "summary", "flops", "save", "load", "io", "metric", "callbacks",
+           "nn", "optimizer", "vision"]

@@ -20,7 +20,9 @@ from typing import Optional, Set
 
 import torch
 
-__all__ = ["auto_cast", "decorate", "GradScaler", "amp_state",
+from ..device import get_device, resolve_device
+
+__all__ = ["auto_cast", "autocast", "decorate", "GradScaler", "amp_state",
            "cast_inputs", "WHITE_LIST", "MIXED_IO_LIST", "BLACK_LIST"]
 
 # ops on the tensor cores: always worth low precision (the JAX package's
@@ -86,6 +88,8 @@ def auto_cast(enable=True, custom_white_list=None, custom_black_list=None,
         (amp_state.enabled, amp_state.dtype, amp_state.level,
          amp_state.white, amp_state.black) = prev
 
+
+autocast = auto_cast
 
 
 def cast_inputs(name: str, *tensors: Optional[torch.Tensor]):
@@ -187,6 +191,12 @@ class GradScaler:
         if not self._found_inf:
             optimizer.step()
 
+    def minimize(self, optimizer, scaled_loss):
+        """Backward from ``scaled_loss``, ``step`` and ``update``."""
+        scaled_loss.backward()
+        self.step(optimizer)
+        self.update()
+
     def update(self):
         self._unscaled = False
         if not (self._enable and self._dynamic):
@@ -204,3 +214,20 @@ class GradScaler:
                 self._scale *= self._incr_ratio
                 self._good_steps = 0
         self._found_inf = False
+
+    def is_enable(self) -> bool:
+        return self._enable
+
+    def get_loss_scaling(self) -> torch.Tensor:
+        """The loss scale as a tensor on the current device."""
+        return torch.tensor(self._scale, dtype=torch.float32,
+                            device=resolve_device(get_device()))
+
+    def state_dict(self):
+        return {"scale": self._scale, "good_steps": self._good_steps,
+                "bad_steps": self._bad_steps}
+
+    def load_state_dict(self, state):
+        self._scale = state.get("scale", self._scale)
+        self._good_steps = state.get("good_steps", 0)
+        self._bad_steps = state.get("bad_steps", 0)

@@ -3,13 +3,15 @@ optimizer update) per call.
 
 Counterpart of ``paddle_tpu/jit/__init__.py``'s ``FusedTrainStep``. The
 JAX package traces the step into one XLA program; here the step runs
-eagerly, in the same order: clear the grads, run the caller's ``loss_fn``
-(the loss in fp32), backward, cast the grads to the params' types and fold
-in L2 decay, ``opt.apply_updates`` (one ``multi_tensor_update`` launch per
-group), and count the step. BatchNorm's running statistics update in the
-forward, as the traced program's buffer writes do. Everything runs where
-the model's parameters lie. Capturing the step in a CUDA graph is later
-work.
+eagerly, in the same order: run the caller's ``loss_fn`` (the loss in
+fp32), backward (into the step: like the traced step, it leaves no
+``.grad`` behind), clip the grads (the optimizer's ``grad_clip``), cast
+them to the params' types and fold in L2 decay, ``opt.apply_updates`` (one
+``multi_tensor_update`` launch per group, at the learning rate
+``opt.get_lr()`` reads on this call), and count the step. BatchNorm's
+running statistics update in the forward, as the traced program's buffer
+writes do. Everything runs where the model's parameters lie. Capturing the
+step in a CUDA graph is later work.
 """
 
 from __future__ import annotations
@@ -39,15 +41,15 @@ class FusedTrainStep:
     def __call__(self, *inputs):
         opt = self._opt
         params = opt._params()
-        for p in params:
-            p.grad = None
         out = self._loss_fn(*inputs)
         loss, aux = (out[0], tuple(out[1:])) if self._has_aux else (out, ())
         loss = loss.float()
-        loss.backward()
-        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
-                 for p in params]
+        # a caller that checks for pending grads (hapi.Model) sees none
+        grads = [g if g is not None else torch.zeros_like(p)
+                 for p, g in zip(params, torch.autograd.grad(
+                     loss, params, allow_unused=True))]
         with torch.no_grad():
+            grads = opt._clip(params, grads)
             opt._update(params, grads, opt.get_lr(), opt._step_count + 1)
         opt._step_count += 1
         loss = loss.detach()

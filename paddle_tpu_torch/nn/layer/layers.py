@@ -142,3 +142,9 @@ class Layer(torch.nn.Module):
                 target.copy_(val)
         missing = [k for k in own if k not in state_dict]
         return missing, unexpected
+
+    load_dict = set_state_dict
+
+    def clear_gradients(self):
+        for p in self.parameters():
+            p.grad = None

@@ -1,5 +1,6 @@
 """Optimizer base, ``SGD`` and ``Momentum``: the eager optimizer over
-``.grad``, with the multi-tensor flat update.
+``.grad``, with the multi-tensor flat update; and the regularizers
+``L2Decay`` and ``L1Decay``.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``. ``apply_updates``
 dispatches as the JAX package's does on its kernel path: an optimizer with
@@ -9,6 +10,11 @@ two (same param dtype, state keys and dtypes, static extras) with one
 CPU, the kernel's plain version); every other parameter takes
 ``_update_one``. State persists between steps as flat ``[rows, 128]`` row
 segments; ``state_dict`` exports it in the parameters' shapes.
+
+A step runs in the reference's order: clip the gradients (``grad_clip``),
+cast them to the parameters' types, fold in L2 decay, update. The learning
+rate is a number or an ``lr.LRScheduler``, whose ``get_lr()`` is read at
+every step; ``state_dict()["LR_Scheduler"]`` carries the scheduler.
 
 Updated params are rebound, not copied (``p.data``, the JAX package's
 ``_inplace_set``): after a flat update each parameter is a view into its
@@ -25,8 +31,54 @@ import numpy as np
 import torch
 
 from ..ops.kernels import multi_tensor_update as mtu
+from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum"]
+__all__ = ["Optimizer", "SGD", "Momentum", "L2Decay", "L1Decay"]
+
+
+class L2Decay:
+    """L2 weight decay ``coeff * p`` folded into the gradient."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+
+class L1Decay:
+    """L1 weight decay. The reference accepts it and decays nothing (its
+    L2 coefficient stays 0.0), so the port takes only ``coeff`` 0."""
+
+    def __init__(self, coeff=0.0):
+        self.coeff = float(coeff)
+
+
+def _l2_coeff(weight_decay) -> float:
+    """The L2 coefficient of ``weight_decay``, as the reference reads it
+    from a float or an ``L2Decay``; what the reference silently ignores
+    (a nonzero int, a nonzero ``L1Decay``, any other object) is refused."""
+    if weight_decay is None or isinstance(weight_decay, float):
+        return float(weight_decay or 0.0)
+    if isinstance(weight_decay, L2Decay):
+        return weight_decay.coeff
+    if isinstance(weight_decay, int) and not isinstance(weight_decay, bool):
+        if weight_decay:
+            # the reference takes the L2 coefficient from a float (or an
+            # L2Decay) only and leaves it at 0.0 for an int: refuse the
+            # int instead of decaying where the reference does not
+            raise TypeError(
+                f"weight_decay={weight_decay!r} is an int: the reference "
+                f"optimizer ignores an integer weight_decay (its L2 "
+                f"coefficient stays 0.0); pass a float such as "
+                f"{float(weight_decay)!r}")
+        return 0.0
+    if isinstance(weight_decay, L1Decay):
+        if weight_decay.coeff:
+            raise TypeError(
+                f"L1Decay({weight_decay.coeff!r}): the reference optimizer "
+                f"accepts an L1Decay and decays nothing (its L2 coefficient "
+                f"stays 0.0); pass L1Decay(0.0), or L2Decay for decay")
+        return 0.0
+    raise TypeError(f"weight_decay must be a float, an L2Decay or None, got "
+                    f"{weight_decay!r}")
 
 
 class Optimizer:
@@ -42,39 +94,31 @@ class Optimizer:
             if parameters and isinstance(parameters[0], dict):
                 raise TypeError("param groups are not supported; pass a "
                                 "flat list")
-        if not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "learning_rate must be a number: LR schedulers wait for the "
-                "port of optimizer/lr.py")
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip waits for the port of nn/clip.py")
-        if weight_decay is not None and not isinstance(weight_decay,
-                                                       (int, float)):
-            raise NotImplementedError(
-                "weight_decay must be a number (L2 decay folded into the "
-                "gradient): regularizer objects are not ported")
-        if isinstance(weight_decay, int) and weight_decay:
-            # the reference takes the L2 coefficient from a float (or an
-            # L2Decay) only and leaves it at 0.0 for an int: refuse the
-            # int instead of decaying where the reference does not
-            raise TypeError(
-                f"weight_decay={weight_decay!r} is an int: the reference "
-                f"optimizer ignores an integer weight_decay (its L2 "
-                f"coefficient stays 0.0); pass a float such as "
-                f"{float(weight_decay)!r}")
+        if not isinstance(learning_rate, (int, float, LRScheduler)):
+            raise TypeError(f"learning_rate must be a number or an "
+                            f"LRScheduler, got {learning_rate!r}")
+        if grad_clip is not None and not callable(grad_clip):
+            raise TypeError(f"grad_clip must be a clip object (nn.clip), "
+                            f"got {grad_clip!r}")
         self._parameter_list = parameters
-        self._learning_rate = float(learning_rate)
-        self._l2_coeff = float(weight_decay or 0.0)
+        self._learning_rate = (learning_rate if isinstance(
+            learning_rate, LRScheduler) else float(learning_rate))
+        self._grad_clip = grad_clip
+        self._l2_coeff = _l2_coeff(weight_decay)
         self._accumulators: Dict[int, Dict[str, torch.Tensor]] = {}
         self._step_count = 0
         self._plans: Dict[Any, mtu.FlatPlan] = {}
 
     # -- lr ------------------------------------------------------------------
     def get_lr(self) -> float:
+        if isinstance(self._learning_rate, LRScheduler):
+            return float(self._learning_rate.get_lr())
         return self._learning_rate
 
     def set_lr(self, value: float):
+        if isinstance(self._learning_rate, LRScheduler):
+            raise RuntimeError("set_lr is not allowed when the learning "
+                               "rate is an LRScheduler")
         self._learning_rate = float(value)
 
     # -- state ---------------------------------------------------------------
@@ -93,6 +137,8 @@ class Optimizer:
     def state_dict(self) -> Dict[str, Any]:
         """``{"<param name>.<state key>": shaped tensor, ..., "@step": n}``."""
         out: Dict[str, Any] = {"LR_Scheduler": {}, "master_weights": {}}
+        if isinstance(self._learning_rate, LRScheduler):
+            out["LR_Scheduler"] = self._learning_rate.state_dict()
         for p in self._params():
             st = self._accumulators.get(id(p))
             if st is None:
@@ -106,7 +152,11 @@ class Optimizer:
         """Load the state of every parameter whose name the dict holds,
         ignoring names no parameter has; when no name matches, map the
         state onto the parameters by position (the dict's order against
-        the parameters')."""
+        the parameters'); an ``LR_Scheduler`` entry loads into the
+        optimizer's scheduler."""
+        if isinstance(self._learning_rate, LRScheduler) \
+                and state.get("LR_Scheduler"):
+            self._learning_rate.set_state_dict(dict(state["LR_Scheduler"]))
         self._step_count = int(state.get("@step", 0))
         params = {p.name: p for p in self._params()}
         grouped: Dict[str, Dict[str, Any]] = {}
@@ -154,6 +204,15 @@ class Optimizer:
     def clear_grad(self, set_to_zero: bool = False):
         for p in self._params():
             p.grad = None
+
+    clear_gradients = clear_grad
+
+    def _clip(self, params, grads):
+        """``grad_clip`` over the (param, grad) pairs (grads unchanged
+        without one)."""
+        if self._grad_clip is None:
+            return grads
+        return [g for _, g in self._grad_clip(list(zip(params, grads)))]
 
     # -- the update ----------------------------------------------------------
     def _update_one(self, p, g, state, lr, step, extras=None):
@@ -238,9 +297,17 @@ class Optimizer:
         pgs = [(p, p.grad) for p in self._params() if p.grad is not None]
         if not pgs:
             return
+        params = [p for p, _ in pgs]
+        grads = self._clip(params, [g for _, g in pgs])
         self._step_count += 1
-        self._update([p for p, _ in pgs], [g for _, g in pgs], self.get_lr(),
-                     self._step_count)
+        self._update(params, grads, self.get_lr(), self._step_count)
+
+    def minimize(self, loss, startup_program=None, parameters=None,
+                 no_grad_set=None):
+        """Backward from ``loss``, then ``step``."""
+        loss.backward()
+        self.step()
+        return None, None
 
 
 class SGD(Optimizer):

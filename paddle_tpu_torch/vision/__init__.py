@@ -1,6 +1,6 @@
-"""Vision models of the ported training paths (counterpart of
-``paddle_tpu/vision``)."""
+"""Vision models and datasets of the ported training paths (counterpart
+of ``paddle_tpu/vision``)."""
 
-from . import models
+from . import datasets, models
 
-__all__ = ["models"]
+__all__ = ["datasets", "models"]

@@ -38,6 +38,12 @@ def test_port_and_chip_smoke_import_no_jax():
     files = sorted((ROOT / "paddle_tpu_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 5
+    scanned = {str(f.relative_to(ROOT / "paddle_tpu_torch")) for f in files
+               if f.is_relative_to(ROOT / "paddle_tpu_torch")}
+    assert {"hapi/model.py", "hapi/callbacks.py", "hapi/model_summary.py",
+            "io/__init__.py", "metric/__init__.py", "framework/io.py",
+            "vision/datasets/__init__.py", "vision/models/lenet.py",
+            "optimizer/lr.py", "nn/clip.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []
@@ -86,3 +92,40 @@ def test_resnet_and_converter_default_to_cuda(monkeypatch):
     state = {k: v.detach().numpy() for k, v in model.state_dict().items()}
     with pytest.raises(RuntimeError, match="CUDA"):
         layer_state_from_numpy(model, state)
+
+
+def test_high_level_api_defaults_to_cuda(monkeypatch, tmp_path):
+    """The high-level API's entry points (a model built for ``Model``, a
+    bare ``DataLoader``, ``load``, ``summary``) run on the card unless
+    ``set_device`` named another device: without CUDA they raise."""
+    import numpy as np
+
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LeNet()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        next(iter(pt.io.DataLoader(MNIST(mode="test", synthetic_size=4),
+                                   batch_size=2)))
+    pt.save({"w": torch.ones(2)}, str(tmp_path / "w.pd"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.load(str(tmp_path / "w.pd"))
+    assert pt.load(str(tmp_path / "w.pd"), return_numpy=True)["w"].tolist() \
+        == [1.0, 1.0]
+    prev = device.set_device("cpu")
+    try:
+        net = LeNet()
+        model = pt.Model(net)
+        model.prepare(pt.optimizer.Adam(parameters=net.parameters()),
+                      pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+    finally:
+        device.set_device(prev)
+    x = np.zeros((2, 1, 28, 28), np.float32)
+    y = np.zeros((2, 1), np.int64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        model.train_batch([x], [y])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        pt.summary(net, (1, 1, 28, 28))

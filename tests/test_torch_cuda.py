@@ -1952,3 +1952,70 @@ def test_interleaved_paged_replicas_share_the_stream(cuda, name):
     assert [outb[r] for r in brids] == alone[1]
     torch.cuda.synchronize()
     assert da._TICKETS and all(not t.any() for t in da._TICKETS.values())
+
+
+# -- BASELINE config 0: the high-level API on the card ----------------------
+
+def test_loader_batches_reach_the_card(cuda):
+    """Serial and thread-worker loaders yield batches on the current
+    device (CUDA by default), equal to the CPU collation."""
+    from paddle_tpu_torch import io as tio
+    from paddle_tpu_torch.vision.datasets import MNIST
+
+    ds = MNIST(mode="test", synthetic_size=100)
+    want = [tio.default_collate_fn([ds[i] for i in range(s, min(s + 32,
+                                                                100))])
+            for s in range(0, 100, 32)]
+    for workers in (0, 2):
+        got = list(tio.DataLoader(ds, batch_size=32, num_workers=workers))
+        assert len(got) == len(want)
+        for (x, y), (wx, wy) in zip(got, want):
+            assert x.device == cuda and y.device == cuda
+            assert torch.equal(x.cpu(), wx) and torch.equal(y.cpu(), wy)
+
+
+def test_lenet_fit_kernel_matches_plain(cuda, monkeypatch):
+    """Four unshuffled ``Model.fit`` steps of LeNet on MNIST (batch 256)
+    from the same seed, under deterministic cuDNN, through
+    ``multi_tensor_update`` (one launch a step) and through its plain
+    version (none): losses and parameters within the fp32 update's
+    tolerance (rtol 1e-6, atol 1e-7; the bias corrections' powf on the
+    card may differ from torch.pow on the host in the last bit)."""
+    import paddle_tpu_torch as pt
+    from paddle_tpu_torch.vision.datasets import MNIST
+    from paddle_tpu_torch.vision.models import LeNet
+
+    train = MNIST(mode="train", synthetic_size=1024)
+    monkeypatch.setattr(torch.backends.cudnn, "deterministic", True)
+
+    class Losses(pt.callbacks.Callback):
+        def on_train_begin(self, logs=None):
+            self.seen = []
+
+        def on_train_batch_end(self, step, logs=None):
+            self.seen.append(logs["loss"])
+
+    runs = []
+    for plain in (False, True):
+        pt.seed(0)
+        net = LeNet()
+        model = pt.Model(net)
+        model.prepare(pt.optimizer.Adam(learning_rate=1e-3,
+                                        parameters=net.parameters()),
+                      pt.nn.CrossEntropyLoss(), pt.metric.Accuracy())
+        rec = Losses()
+        before = mtu.multi_tensor_update.launches
+        with monkeypatch.context() as m:
+            if plain:
+                m.setattr(mtu, "multi_tensor_update", mtu.flat_update_plain)
+            model.fit(train, epochs=1, batch_size=256, shuffle=False,
+                      verbose=0, callbacks=[rec])
+        assert mtu.multi_tensor_update.launches - before == (0 if plain
+                                                             else 4)
+        runs.append((rec.seen, [p.detach().clone()
+                                for p in net.parameters()]))
+    (lk, pk), (lp, pp) = runs
+    np.testing.assert_allclose(lk, lp, rtol=1e-6, atol=1e-7)
+    for a, b in zip(pk, pp):
+        assert a.device == cuda
+        torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)

@@ -507,13 +507,15 @@ def test_small_and_singleton_groups_take_update_one(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,exc", [
-    (dict(grad_clip=object()), NotImplementedError),
-    (dict(learning_rate=object()), NotImplementedError),
-    (dict(weight_decay=object()), NotImplementedError),
+    (dict(grad_clip=object()), TypeError),
+    (dict(learning_rate=object()), TypeError),
+    (dict(weight_decay=object()), TypeError),
 ])
 def test_unported_options_raise(kwargs, exc):
-    """Gradient clipping, LR schedulers and regularizer objects wait for
-    their ports: they raise instead of being ignored."""
+    """Gradient clipping, LR schedulers and regularizers are ported
+    (``tests/test_torch_lr_clip.py``); an object that is none of them
+    (not callable as a clip, not a number or ``LRScheduler``, not a float
+    or ``L2Decay``) raises instead of being ignored."""
     with pytest.raises(exc):
         topt.Momentum(parameters=_port_params("float32"), **kwargs)
 
