@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths (LLaMA and
-ResNet-50) and its kernel experiments on one NVIDIA H100.
+"""Drive the PyTorch/CUDA port's serving and training paths (LLaMA,
+ResNet-50, LeNet through ``Model.fit`` and BERT/ERNIE, functional and
+eager) and its kernel experiments on one NVIDIA H100.
 
 Run from the root of a checkout, with no arguments:
 
@@ -40,9 +41,14 @@ Phases (any failed check raises and the script exits non-zero):
    and backward kernels (bf16; the backward in
    one launch of both roles, bit-identical to each role launched alone,
    and each role alone) at bench.py's training shape (B 44, S 512, 12
-   heads of D 64, causal), at llama7b width (B 1, S 2048, 32 heads of D
-   128, causal) and one non-causal shape with a ragged edge, beside
-   SDPA's forward and backward;
+   heads of D 64, causal), at phase 5c's BERT shape (the same, not
+   causal), at llama7b width (B 1, S 2048, 32 heads of D 128, causal) and
+   one non-causal shape with a ragged edge, beside SDPA's forward and
+   backward; their fp32 instance (``flash_attention_f32.cu``, fp32 FMAs on
+   the CUDA cores) within 1e-4 of the plain versions at phase 6c's shape
+   (B 8, S 512, 12 heads of D 64, not causal), a cross-attention shape
+   (Sq 384, Sk 512) and D 128 causal, timed beside SDPA in fp32, its
+   bound at the fp32 CUDA-core rate;
    ``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768)
    beside its GEMM alone; ``quant_matmul`` (int8 and fp8 weights, bf16
    x) at the decode tick's four projection shapes with B 8, lm_head with
@@ -246,6 +252,28 @@ Phases (any failed check raises and the script exits non-zero):
    ``ClipGradByGlobalNorm(1.0)`` and ``L2Decay(1e-4)``: one launch a step,
    each at ``lr.py``'s rate; (6b.4) ``Model.save``, ``load`` into a fresh
    model, equal ``evaluate`` logs;
+5c. (after 6b) BASELINE config 2, BERT-base MLM pretraining
+   (``models.bert``, ``BertConfig.bert_base``: V 30522, 12 layers, H 768,
+   12 heads of D 64, F 3072, bf16 compute over fp32 master weights from
+   seed 0, remat with attention outside the checkpointed halves): (a) at
+   B 8 x S 512 one ``loss_fn`` value and gradient through the flash
+   kernels and through their plain versions, within phase 5's budgets;
+   (b) at bench.py's B 44 x S 512 (``random_mlm_batch``, seed 0) one warm
+   and ten timed ``make_train_step`` steps (clip, AdamW 1e-4): ms a step,
+   trained tokens/s, busy share of a profiled step, peak memory, and
+   exactly 12 non-causal flash forwards and 12 one-launch backwards a
+   step; (c) one ``ernie_base`` step (V 18000) beside a forward with four
+   segment types, its launches counted;
+6c. the eager stack at the same width: ``Embedding`` ->
+   ``TransformerEncoder`` (12 x 768, 12 heads, 3072, gelu, post-LN,
+   ``attn_dropout=0.0``) -> ``Linear`` to the vocabulary,
+   ``nn.CrossEntropyLoss(ignore_index=-100)`` and ``optimizer.AdamW`` with
+   ``apply_decay_param_fun``, ``loss.backward(); opt.step();
+   opt.clear_grad()`` at B 8 x S 512 in fp32 (the fp32 flash instance)
+   and under ``amp.auto_cast(dtype="bfloat16")`` (the bf16 kernels), a
+   warm and three timed steps each: 12 forward and 12 backward launches of
+   the dtype's flash kernels a step, the flat AdamW update's launches the
+   same each step, ms a step and tokens/s;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -257,7 +285,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 6, 6b and 7 is driven with every launch count set to 0 just
+   3-3k, 5b, 5c, 6, 6b, 6c and 7 is driven with every launch count set to 0 just
    before it and read just after; a kernel's ``launches`` is its sum over
    those paths (the decode kernel's quant mode has no engine caller, as in
    the JAX package, so its count is 0 there; the experiments' kernels run
@@ -571,9 +599,21 @@ def kernel_checks(torch, F, da, tf, shape, dtype, gen):
 FLASH_SHAPES = [
     # name, B, S, H, D, causal
     ("bench", 44, 512, 12, 64, True),        # bench.py's training shape
+    ("bert", 44, 512, 12, 64, False),        # phase 5c's BERT-base step
     ("llama7b", 1, 2048, 32, 128, True),     # the TPU's blocked regime
     ("noncausal", 8, 1000, 12, 64, False),   # a ragged edge at 64 rows
 ]
+# the fp32 instance (csrc/flash_attention_f32.cu): CUDA-core FMAs, so its
+# bound's operations run at the fp32 CUDA-core peak, not a tensor core's
+FLASH_F32_SHAPES = [
+    # name, B, Sq, Sk, H, D, causal
+    ("bert", 8, 512, 512, 12, 64, False),    # phase 6c's eager fp32 step
+    ("cross", 8, 384, 512, 12, 64, False),   # cross attention, Sq != Sk
+    ("d128_causal", 2, 1024, 1024, 8, 128, True),
+]
+# fp32 kernel against its plain version: ROADMAP's fp32 bar on outputs
+# and gradients (sums in another order, exp2 of running maxima)
+FLASH_F32_ATOL = 1e-4
 
 
 def sdpa_ms(torch, F, q, k, v, do, causal):
@@ -582,7 +622,7 @@ def sdpa_ms(torch, F, q, k, v, do, causal):
     from paddle_tpu_torch.experiments._timing import backward_ms, time_ms
 
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    key = (*q.shape, causal)
+    key = (*q.shape, k.shape[1], str(q.dtype), causal)
     fwd = yardstick_ms(("sdpa forward", key), lambda: time_ms(
         lambda i: F.scaled_dot_product_attention(qt, kt, vt,
                                                  is_causal=causal)))
@@ -662,6 +702,88 @@ def flash_checks(torch, F, fa, shape, gen):
     rows[0]["library"] = "sdpa forward"
     for r in rows:
         r["shape"], r["dtype"] = name, "bfloat16"
+    return rows
+
+
+def flash_f32_checks(torch, F, fa, shape, gen):
+    """The fp32 instance's forward, one-launch backward and each role
+    alone at one shape against the plain versions (atol
+    ``FLASH_F32_ATOL``; the one-launch gradients equal the role launches'
+    bit for bit), timed beside SDPA on the same fp32 inputs; the bound's
+    operations at the fp32 CUDA-core rate (``VECTOR_OPS``)."""
+    name, B, Sq, Sk, H, D, causal = shape
+    dt = torch.float32
+
+    def randn(S):
+        return torch.randn(B, S, H, D, generator=gen, device=DEVICE)
+
+    q, k, v, do = randn(Sq), randn(Sk), randn(Sk), randn(Sq)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal)
+    ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+
+    def err(got, want, what):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        worst = 0.0
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w, rtol=0, atol=FLASH_F32_ATOL,
+                                       msg=lambda m: f"{what}: {m}")
+            worst = max(worst, (g - w).abs().max().item())
+        return worst
+
+    err_f = err(out, ref, "flash_attention_fwd fp32")
+    lse_err = err(lse, ref_lse, "flash_attention_fwd fp32 lse")
+    bwd = (q, k, v, do, ref_lse, fa.attention_delta(ref, do), causal)
+    grads = fa.flash_attention_bwd(*bwd)
+    err_b = err(grads, fa.flash_attention_bwd_grads_plain(*bwd),
+                "flash_attention_bwd fp32")
+    dq = fa.flash_attention_bwd_dq(*bwd)
+    dkv = fa.flash_attention_bwd_dkv(*bwd)
+    err_q = err(dq, fa.flash_attention_bwd_dq_plain(*bwd),
+                "flash_attention_bwd_dq fp32")
+    err_kv = err(dkv, fa.flash_attention_bwd_dkv_plain(*bwd),
+                 "flash_attention_bwd_dkv fp32")
+    if not all(torch.equal(g, r) for g, r in zip(grads, (dq, *dkv))):
+        raise AssertionError(f"flash_attention_bwd fp32 at {name}: the "
+                             f"one-launch gradients differ from the role "
+                             f"launches'")
+    # bound: inputs read once, outputs written once, 4 bytes each; lse and
+    # delta fp32; 2 * D operations a visible pair and product
+    pairs = B * H * ((Sq * (Sq + 1) // 2 + (Sk - Sq) * Sq) if causal
+                     else Sq * Sk)
+    nq, nk = B * Sq * H * D * 4, B * Sk * H * D * 4
+    stats = 2 * B * H * Sq * 4
+    rows = [
+        timed(torch, "flash_attention_fwd_f32", max(err_f, lse_err),
+              lambda i: fa.flash_attention_fwd(q, k, v, causal),
+              lambda i: fa.flash_attention_fwd_plain(q, k, v, causal), None,
+              bound_ms(2 * nq + 2 * nk + stats // 2, 4 * D * pairs,
+                       VECTOR_OPS), plain_iters=3),
+        timed(torch, "flash_attention_bwd_f32", err_b,
+              lambda i: fa.flash_attention_bwd(*bwd),
+              lambda i: fa.flash_attention_bwd_grads_plain(*bwd), None,
+              bound_ms(3 * nq + 4 * nk + stats, 10 * D * pairs, VECTOR_OPS),
+              plain_iters=3),
+        timed(torch, "flash_attention_bwd_dq_f32", err_q,
+              lambda i: fa.flash_attention_bwd_dq(*bwd),
+              lambda i: fa.flash_attention_bwd_dq_plain(*bwd), None,
+              bound_ms(3 * nq + 2 * nk + stats, 6 * D * pairs, VECTOR_OPS),
+              plain_iters=3),
+        timed(torch, "flash_attention_bwd_dkv_f32", err_kv,
+              lambda i: fa.flash_attention_bwd_dkv(*bwd),
+              lambda i: fa.flash_attention_bwd_dkv_plain(*bwd), None,
+              bound_ms(2 * nq + 4 * nk + stats, 8 * D * pairs, VECTOR_OPS),
+              plain_iters=3)]
+    lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, do, causal)
+    rows[0]["library_ms"], rows[0]["library"] = lib_fwd, "sdpa forward fp32"
+    for r in rows[1:]:
+        r["library_ms"] = lib_bwd
+        r["library"] = "sdpa backward fp32 (dq, dk and dv in one call)"
+    for r in rows:
+        r["shape"], r["dtype"] = name, "float32"
+        r["bound_peak"] = "fp32 CUDA cores (67 TFLOP/s), no tensor core"
+    rows[1]["bit_identical_to_role_launches"] = True
     return rows
 
 
@@ -1348,6 +1470,18 @@ def flash_build_report(fa, _build, logs):
                  for kind in ("fwd", "bwd") for D in (64, 128)]
     return ptxas_rows(_build, logs.get("flash_attention", ""), instances,
                       "flash_attention")
+
+
+def flash_f32_build_report(torch, fa, _build, logs):
+    """Every instance of ``csrc/flash_attention_f32.cu`` (forward and
+    backward at D 64 and 128), each with its ptxas report; raises on a
+    spill."""
+    instances = [(f"flash_{kind}_f32ILi{D}EE", f"flash_{kind}_f32 D{D}",
+                  dict(kernel=f"flash_{kind}_f32", D=D),
+                  fa.smem_bytes(kind, D, torch.float32))
+                 for kind in ("fwd", "bwd") for D in (64, 128)]
+    return ptxas_rows(_build, logs.get("flash_attention_f32", ""), instances,
+                      "flash_attention_f32")
 
 
 def rebuilt_build_report(torch, bm, da, pa, qm, hd, _build, logs):
@@ -3593,6 +3727,279 @@ def mnist_checkpoint(torch, port, model, test):
             "optimizer_step": fresh._optimizer._step_count}
 
 
+# ---------------------------------------------------------------------------
+# phases 5c and 6c: BASELINE config 2, BERT/ERNIE-base MLM pretraining
+# ---------------------------------------------------------------------------
+
+# bench.py's config-2 batch; the kernel-against-plain and eager batches
+BERT_BATCH, BERT_SEQ, BERT_VS_PLAIN_BATCH = 44, 512, 8
+BERT_LR = 1e-4
+# the kernel step's global gradient norm against the plain step's: the
+# norm sums every parameter's squares, so bf16 rounding differences
+# average out (1.2 % rounding noise of one gradient falls well inside)
+BERT_GNORM_RTOL = 1e-2
+EAGER_BATCH, EAGER_STEPS = 8, 3
+
+
+def bert_vs_plain(torch, bert, fa, params, cfg, tokens, labels):
+    """Phase 5c (a): one ``loss_fn`` value and gradient through the flash
+    kernels, through their plain versions (``mock.patch``), and through
+    the plain versions in fp32 (``cfg`` at fp32, the same master weights
+    and batch), which both bf16 paths are held to. Budgets: the loss
+    within ``TRAIN_LOSS_ATOL`` of the plain path's and the global gradient
+    norm within ``BERT_GNORM_RTOL`` of it; each parameter's gradient no
+    farther from the fp32 path's than the plain bf16 path's is, plus
+    ``TRAIN_GRAD_RTOL`` (relative Frobenius errors). A gradient that sums
+    every position (``type_embed``: all 4096 tokens of segment 0) cancels
+    in bf16 on both paths alike, so the distance between the two bf16
+    paths alone says nothing there."""
+    import dataclasses
+
+    def loss_and_grads(c, plain):
+        leaves = {k: p.detach().requires_grad_() for k, p in params.items()}
+        with contextlib.ExitStack() as stack:
+            if plain:
+                stack.enter_context(mock.patch.object(
+                    fa, "flash_attention_fwd", fa.flash_attention_fwd_plain))
+                stack.enter_context(mock.patch.object(
+                    fa, "flash_attention_bwd",
+                    fa.flash_attention_bwd_grads_plain))
+            loss = bert.loss_fn(leaves, tokens, labels, c)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), dict(zip(leaves, grads))
+
+    def rel(a, b):
+        return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+    def gnorm(g):
+        return math.sqrt(sum(x.float().square().sum().item()
+                             for x in g.values()))
+
+    lk, gk = loss_and_grads(cfg, False)
+    lp, gp = loss_and_grads(cfg, True)
+    lt, gt = loss_and_grads(dataclasses.replace(cfg, dtype=torch.float32),
+                            True)
+    errs = {k: {"kernel_vs_plain": rel(gk[k], gp[k]),
+                "kernel_vs_fp32": rel(gk[k], gt[k]),
+                "plain_vs_fp32": rel(gp[k], gt[k])} for k in gt}
+    nk, np_ = gnorm(gk), gnorm(gp)
+    if not (math.isfinite(lk) and all(torch.isfinite(g).all().item()
+                                      for g in gk.values())):
+        raise AssertionError("non-finite BERT loss or gradient on the "
+                             "kernel path")
+    if abs(lk - lp) > TRAIN_LOSS_ATOL:
+        raise AssertionError(f"BERT loss {lk} against the plain path's {lp}")
+    if abs(nk - np_) > BERT_GNORM_RTOL * np_:
+        raise AssertionError(f"BERT gradient norm {nk} against the plain "
+                             f"path's {np_}")
+    for k, e in errs.items():
+        if e["kernel_vs_fp32"] > e["plain_vs_fp32"] + TRAIN_GRAD_RTOL:
+            raise AssertionError(f"BERT gradient of {k}: {e}")
+    return {"batch": list(tokens.shape), "loss_kernels": lk,
+            "loss_plain": lp, "loss_fp32": lt, "loss_abs_err": abs(lk - lp),
+            "loss_atol": TRAIN_LOSS_ATOL, "grad_norm_kernels": nk,
+            "grad_norm_plain": np_, "grad_norm_rtol": BERT_GNORM_RTOL,
+            "grad_rel_err": errs, "grad_rtol": TRAIN_GRAD_RTOL}
+
+
+def bert_run(torch, bert, fns, params, cfg, tokens, labels, warmup=1,
+             steps=10):
+    """Phase 5c (b): ``make_train_step`` (the global-norm clip, AdamW at
+    ``BERT_LR``) at bench.py's batch; ``warmup`` steps, then ``steps``
+    timed ones with every launch count at 0 before them (the flash forward
+    and the one-launch backward once a layer a step, nothing else of the
+    port's kernels), then one profiled step for the busy share."""
+    opt = bert.init_opt_state(params)
+    step = bert.make_train_step(cfg, lr=BERT_LR, device=DEVICE)
+    losses = [step(params, opt, tokens, labels)[2].item()
+              for _ in range(warmup)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(fns)
+    timed_losses = []
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        timed_losses.append(step(params, opt, tokens, labels)[2])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts(fns)
+    L = cfg.num_layers
+    check_counts(launches, {"flash_attention_fwd": L * steps,
+                            "flash_attention_bwd": L * steps},
+                 f"{steps} BERT train steps")
+    peak = torch.cuda.max_memory_allocated()
+    losses += [t.item() for t in timed_losses]
+    if not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"non-finite BERT loss: {losses}")
+    prof = device_profile(torch, lambda: step(params, opt, tokens, labels))
+    B, S = tokens.shape
+    out = {"batch": [B, S], "lr": BERT_LR, "warmup_steps": warmup,
+           "timed_steps": steps, "wall_s": wall,
+           "ms_per_step": 1e3 * wall / steps,
+           "tokens_per_s": B * S * steps / wall,
+           "masked_tokens_per_step": int((labels != bert.IGNORE_INDEX)
+                                         .sum().item()),
+           "peak_memory_bytes": peak, "losses": losses}
+    if prof is None:
+        out["device_ms_per_step"] = "not measured"
+    else:
+        out["device_ms_per_step"] = prof["device_ms"]
+        out["profiled_step_wall_ms"] = prof["wall_ms"]
+        out["device_busy_share"] = prof["device_ms"] / prof["wall_ms"]
+        out["device_split_ms"] = prof["split_ms"]
+        out["device_top"] = prof["top"]
+    return out, launches
+
+
+def bert_phase(torch, bert, fa, fns):
+    """Phase 5c: BERT-base MLM pretraining (``BertConfig.bert_base``: V
+    30522, 12 layers, H 768, 12 heads of D 64, F 3072; bf16 compute over
+    fp32 master weights from seed 0, remat on), kernel against plain at B
+    8, then the timed run at B 44 x S 512 (``random_mlm_batch``, seed 0),
+    then one ``ernie_base`` step (V 18000, 4 segment types) at the same
+    batch with its launches counted."""
+    cfg = bert.BertConfig.bert_base()
+    params = bert.init_params(cfg, torch.Generator(device=DEVICE)
+                              .manual_seed(0), device=DEVICE)
+    tok8, lab8 = bert.random_mlm_batch(cfg, BERT_VS_PLAIN_BATCH, BERT_SEQ,
+                                       seed=1, device=DEVICE)
+    vs_plain = bert_vs_plain(torch, bert, fa, params, cfg, tok8, lab8)
+    tokens, labels = bert.random_mlm_batch(cfg, BERT_BATCH, BERT_SEQ, seed=0,
+                                           device=DEVICE)
+    run, launches = bert_run(torch, bert, fns, params, cfg, tokens, labels)
+    del params
+    ecfg = bert.BertConfig.ernie_base()
+    eparams = bert.init_params(ecfg, torch.Generator(device=DEVICE)
+                               .manual_seed(0), device=DEVICE)
+    etok, elab = bert.random_mlm_batch(ecfg, BERT_BATCH, BERT_SEQ, seed=0,
+                                       device=DEVICE)
+    types = torch.arange(BERT_SEQ, device=etok.device) * 4 // BERT_SEQ
+    opt = bert.init_opt_state(eparams)
+    zero_counts(fns)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the step with segment types: the trainer's loss has none, so the
+    # forward with token_type_ids is checked apart, beside the step
+    with torch.no_grad():
+        elogits = bert.forward(eparams, etok[:2], ecfg,
+                               token_type_ids=types.expand(2, -1))
+    _, _, eloss = bert.train_step(eparams, opt, etok, elab, ecfg,
+                                  lr=BERT_LR)
+    eloss = eloss.item()
+    torch.cuda.synchronize()
+    ems = 1e3 * (time.perf_counter() - t0)
+    elaunches = read_counts(fns)
+    L = ecfg.num_layers
+    check_counts(elaunches, {"flash_attention_fwd": 2 * L,
+                             "flash_attention_bwd": L},
+                 "one ernie_base step and a forward")
+    if not (math.isfinite(eloss) and tuple(elogits.shape) == (
+            2, BERT_SEQ, ecfg.vocab_size) and torch.isfinite(
+                elogits.float()).all().item()):
+        raise AssertionError(f"ernie_base: loss {eloss}, logits "
+                             f"{tuple(elogits.shape)}")
+    ernie = {"vocab_size": ecfg.vocab_size,
+             "type_vocab_size": ecfg.type_vocab_size,
+             "batch": [BERT_BATCH, BERT_SEQ], "loss": eloss,
+             "first_step_ms_with_forward": ems}
+    return {"vs_plain": vs_plain, "run": run, "ernie_base": ernie}, \
+        launches, elaunches
+
+
+def eager_bert(port, cfg):
+    """Phase 6c's model: ``Embedding`` -> ``TransformerEncoder`` (12 x
+    768, 12 heads, 3072, gelu, post-LN, hidden dropout 0.1,
+    ``attn_dropout=0.0``) -> ``Linear`` to the vocabulary, and AdamW with
+    BERT's decay rule (no decay on biases, norms and the embedding)."""
+    port.seed(0)
+    layer = port.nn.TransformerEncoderLayer(
+        cfg.hidden_size, cfg.num_heads, cfg.intermediate_size, dropout=0.1,
+        activation="gelu", attn_dropout=0.0)
+    model = port.nn.Sequential(
+        port.nn.Embedding(cfg.vocab_size, cfg.hidden_size),
+        port.nn.TransformerEncoder(layer, cfg.num_layers),
+        port.nn.Linear(cfg.hidden_size, cfg.vocab_size))
+    decay = {p.name for n, p in model.named_parameters()
+             if n.endswith("weight") and p.dim() == 2 and not n.startswith("0.")}
+    opt = port.optimizer.AdamW(learning_rate=BERT_LR,
+                               parameters=model.parameters(),
+                               weight_decay=0.01,
+                               apply_decay_param_fun=lambda n: n in decay)
+    return model, opt
+
+
+def eager_phase(torch, port, bert, fns):
+    """Phase 6c: the eager stack at BERT-base width, fp32 (the fp32 flash
+    instance) and under ``amp.auto_cast(dtype="bfloat16")`` (the bf16
+    kernels): ``loss.backward(); opt.step(); opt.clear_grad()`` at B 8 x
+    S 512 with ``nn.CrossEntropyLoss(ignore_index=-100)``, one warm step
+    then ``EAGER_STEPS`` timed ones each, launches counted: 12 flash
+    forwards and backwards a step of the dtype's kernels, the flat AdamW
+    update's launches the same every step."""
+    cfg = bert.BertConfig.bert_base()
+    tokens, labels = bert.random_mlm_batch(cfg, EAGER_BATCH, BERT_SEQ,
+                                           seed=2, device=DEVICE)
+    tokens, labels = tokens.long(), labels.long()
+    ce = port.nn.CrossEntropyLoss(ignore_index=-100)
+    out, launches = {}, {}
+    for mode in ("fp32", "bf16_auto_cast"):
+        model, opt = eager_bert(port, cfg)
+        amp = mode != "fp32"
+
+        def step():
+            with port.amp.auto_cast(enable=amp, dtype="bfloat16"):
+                loss = ce(model(tokens), labels)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss
+
+        zero_counts(fns)
+        losses = [step().item()]
+        torch.cuda.synchronize()
+        warm = read_counts(fns)
+        per_step = warm["multi_tensor_update"]
+        if per_step < 1:
+            raise AssertionError(f"6c {mode}: the AdamW step launched no "
+                                 f"multi_tensor_update")
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        timed_losses = [step() for _ in range(EAGER_STEPS)]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts(fns)
+        L, k = cfg.num_layers, EAGER_STEPS
+        sfx = "" if amp else "_f32"
+        check_counts(n, {f"flash_attention_fwd{sfx}": L * k,
+                         f"flash_attention_bwd{sfx}": L * k,
+                         "multi_tensor_update": per_step * k},
+                     f"{k} eager {mode} steps")
+        losses += [t.item() for t in timed_losses]
+        if not all(math.isfinite(x) for x in losses):
+            raise AssertionError(f"6c {mode}: non-finite loss {losses}")
+        out[mode] = {"batch": [EAGER_BATCH, BERT_SEQ], "timed_steps": k,
+                     "wall_s": wall, "ms_per_step": 1e3 * wall / k,
+                     "tokens_per_s": EAGER_BATCH * BERT_SEQ * k / wall,
+                     "multi_tensor_update_per_step": per_step,
+                     "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+                     "losses": losses}
+        prof = device_profile(torch, step)
+        if prof is None:
+            out[mode]["device_ms_per_step"] = "not measured"
+        else:
+            out[mode].update(
+                device_ms_per_step=prof["device_ms"],
+                profiled_step_wall_ms=prof["wall_ms"],
+                device_busy_share=prof["device_ms"] / prof["wall_ms"],
+                device_split_ms=prof["split_ms"], device_top=prof["top"][:6],
+                host_top=prof["host_top"][:6])
+        launches[f"eager_{mode}"] = n
+        del model, opt
+        torch.cuda.empty_cache()
+    return out, launches
+
+
 # phase 3i: the host KV tier behind the paged prefix cache, and the SLO
 # control plane, at bert_base_equiv width in bf16
 TIER_TENANTS = 16       # tenants, each with its own prefix
@@ -4696,6 +5103,18 @@ def kernels_line(rows, by_path):
         "flash_attention_bwd_dkv": (
             "cuda", "paddle_tpu_torch/csrc/flash_attention.cu",
             "paddle_tpu/ops/pallas/flash_attention.py:458", "bench"),
+        "flash_attention_fwd_f32": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention_f32.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:647", "bert"),
+        "flash_attention_bwd_f32": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention_f32.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:682", "bert"),
+        "flash_attention_bwd_dq_f32": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention_f32.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:442", "bert"),
+        "flash_attention_bwd_dkv_f32": (
+            "cuda", "paddle_tpu_torch/csrc/flash_attention_f32.cu",
+            "paddle_tpu/ops/pallas/flash_attention.py:458", "bert"),
         "head_dx_softmax": (
             "cuda", "paddle_tpu_torch/csrc/head_dx.cu",
             "paddle_tpu/ops/pallas/head_dx.py:86", "ce_tail"),
@@ -4723,7 +5142,11 @@ def kernels_line(rows, by_path):
                   "multi_tensor_update": "momentum_bf16",
                   "blocked_matmul": "bm128_bn256_bk32",
                   "flash_variants_fwd": "run_fwd_nsplit1",
-                  "flash_variants_bwd": "run_bwd_nsplit1"}
+                  "flash_variants_bwd": "run_bwd_nsplit1",
+                  "flash_attention_fwd_f32": "float32",
+                  "flash_attention_bwd_f32": "float32",
+                  "flash_attention_bwd_dq_f32": "float32",
+                  "flash_attention_bwd_dkv_f32": "float32"}
     # other TPU kernels the same kernels serve: the blocked flash kernels
     # (S > 512), the flash experiments' fwd2 and ablations
     also = {"flash_attention_fwd": ["paddle_tpu/ops/pallas/flash_attention.py:246"],
@@ -4731,7 +5154,12 @@ def kernels_line(rows, by_path):
                                     "paddle_tpu/ops/pallas/flash_attention.py:458"],
             "flash_variants_fwd": ["benchmarks/flash_variants.py:352",
                                    "benchmarks/flash_variants.py:465"],
-            "flash_variants_bwd": ["benchmarks/flash_variants.py:365"]}
+            "flash_variants_bwd": ["benchmarks/flash_variants.py:365"],
+            "flash_attention_fwd_f32": [
+                "paddle_tpu/ops/pallas/flash_attention.py:246"],
+            "flash_attention_bwd_f32": [
+                "paddle_tpu/ops/pallas/flash_attention.py:442",
+                "paddle_tpu/ops/pallas/flash_attention.py:458"]}
     kernels = []
     for name, (route, source, replaces, at) in meta.items():
         r = next(r for r in rows if r["name"] == name and r["shape"] == at
@@ -4754,6 +5182,18 @@ def kernels_line(rows, by_path):
             # one role of the backward kernel, launched alone; training
             # launches both roles in one grid (flash_attention_bwd)
             k["role_of"] = "flash_attention_bwd"
+        if name in ("flash_attention_bwd_dq_f32",
+                    "flash_attention_bwd_dkv_f32"):
+            k["role_of"] = "flash_attention_bwd_f32"
+        if name.endswith("_f32"):
+            # the fp32 instance: every shape phase 2 times, and its bound's
+            # peak (CUDA cores: no tensor core, no TF32)
+            k["bound_peak"] = r["bound_peak"]
+            k["shapes"] = {
+                v["shape"]: {key: v[key] for key in (
+                    "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
+                for v in rows if v["name"] == name}
         if name in line_dtype:
             k["shape"], k["mode"] = at, line_dtype[name]
         if name in ("multi_tensor_update", "blocked_matmul",
@@ -4774,6 +5214,14 @@ def kernels_line(rows, by_path):
                     if key in v}
                 for v in rows if v["name"] == name
                 and v["dtype"] == line_dtype.get(name, "bfloat16")}
+        if name in ("flash_attention_fwd", "flash_attention_bwd"):
+            # every bf16 shape phase 2 times: BERT's non-causal one too
+            k["shapes"] = {
+                v["shape"]: {key: v[key] for key in (
+                    "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
+                    "bound_by", "library_ms")}
+                for v in rows if v["name"] == name
+                and v["dtype"] == "bfloat16"}
         if name == "ragged_decode_attention":
             # the same kernel's quant mode (int8 pages with row scales, the
             # TPU kernel's k_scale / v_scale): no engine path calls it, in
@@ -4815,7 +5263,7 @@ def main() -> None:
     from paddle_tpu_torch.inference.prefix_cache import (PagedPrefixCache,
                                                          PrefixCache)
     from paddle_tpu_torch.inference.serving import ServingEngine
-    from paddle_tpu_torch.models import llama
+    from paddle_tpu_torch.models import bert, llama
     from paddle_tpu_torch.observability import journal
     from paddle_tpu_torch.observability.capacity import CapacityMonitor
     from paddle_tpu_torch.observability.quality import compare_pair
@@ -4861,6 +5309,7 @@ def main() -> None:
     print(f"build: {time.perf_counter() - t0:.2f} s")
     logs = {b["name"]: b["log"] for b in builds}
     flash_build = flash_build_report(fa, _build, logs)
+    flash_build += flash_f32_build_report(torch, fa, _build, logs)
     rebuilt_build = rebuilt_build_report(torch, bm, da, pa, qm, hd, _build,
                                          logs)
 
@@ -4905,6 +5354,15 @@ def main() -> None:
                   f"{r['plain_ms']:.6g} library_ms {r['library_ms']:.6g} "
                   f"({r['library']}) bound_ms {r['bound_ms']:.6g} "
                   f"({r['bound_by']})")
+    for shape in FLASH_F32_SHAPES:
+        for r in flash_f32_checks(torch, F, fa, shape, gen):
+            rows.append(r)
+            print(f"kernel {r['name']:28s} {r['shape']:11s} float32   "
+                  f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} "
+                  f"eager_ms {r['eager_ms']:.6g} plain_ms "
+                  f"{r['plain_ms']:.6g} library_ms {r['library_ms']:.6g} "
+                  f"({r['library']}) bound_ms {r['bound_ms']:.6g} "
+                  f"({r['bound_by']}, {r['bound_peak']})")
     r = head_dx_checks(torch, hd, gen)
     rows.append(r)
     print(f"kernel {r['name']:24s} {r['shape']:10s} bfloat16  max_abs_err "
@@ -5613,9 +6071,69 @@ def main() -> None:
              "checkpoint": mckpt}
     del mmodel
 
+    lap("5c")
+    # 5c. BASELINE config 2: BERT-base MLM pretraining on the non-causal
+    # flash kernels
+    del rmodel, x, y
+    torch.cuda.empty_cache()
+    bstats, blaunches5c, elaunches5c = bert_phase(torch, bert, fa, fns)
+    bvp, brun = bstats["vs_plain"], bstats["run"]
+    worst = max(bvp["grad_rel_err"].items(),
+                key=lambda kv: kv[1]["kernel_vs_plain"])
+    print(f"BERT-base MLM, kernels against plain ({card}): B "
+          f"{BERT_VS_PLAIN_BATCH} S {BERT_SEQ} loss "
+          f"{bvp['loss_kernels']:.6f} / {bvp['loss_plain']:.6f} (|err| "
+          f"{bvp['loss_abs_err']:.3e} <= {TRAIN_LOSS_ATOL}; fp32 "
+          f"{bvp['loss_fp32']:.6f}), gradient norm "
+          f"{bvp['grad_norm_kernels']:.6f} / {bvp['grad_norm_plain']:.6f} "
+          f"(rtol {BERT_GNORM_RTOL}); largest kernel-against-plain "
+          f"gradient error {worst[0]} {json.dumps(worst[1])}, each no "
+          f"farther from the fp32 path than the plain path + "
+          f"{TRAIN_GRAD_RTOL}: {json.dumps(bvp['grad_rel_err'])}")
+    bbusy = brun.get("device_busy_share")
+    print(f"BERT-base MLM train ({card}): bf16/fp32 master, remat, B "
+          f"{BERT_BATCH} S {BERT_SEQ}, {brun['timed_steps']} timed AdamW "
+          f"steps: {brun['tokens_per_s']:.1f} tokens/s "
+          f"({brun['masked_tokens_per_step']} masked tokens a step), "
+          f"{brun['ms_per_step']:.3f} ms/step, device "
+          f"{brun['device_ms_per_step']} ms in one profiled step of "
+          f"{brun.get('profiled_step_wall_ms', 'not measured')} ms wall "
+          f"(busy share "
+          f"{'not measured' if bbusy is None else f'{bbusy:.4f}'}), peak "
+          f"memory {brun['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+          f"{', '.join(f'{v:.4f}' for v in brun['losses'])}")
+    print(f"launches on the BERT train steps: {json.dumps(blaunches5c)}")
+    print(f"BERT device time (ms/step) by kind: "
+          f"{json.dumps(brun.get('device_split_ms'))}; largest kernels: "
+          f"{json.dumps(brun.get('device_top'))}")
+    print(f"ERNIE-base step ({card}): {json.dumps(bstats['ernie_base'])}; "
+          f"launches {json.dumps(elaunches5c)}")
+
+    lap("6c")
+    # 6c. the eager transformer stack at BERT-base width, fp32 and bf16
+    eager, elaunches6c = eager_phase(torch, port, bert, fns)
+    for mode, st in eager.items():
+        ebusy = st.get("device_busy_share")
+        print(f"eager BERT-base encoder, {mode} ({card}): B {EAGER_BATCH} S "
+              f"{BERT_SEQ}, {st['timed_steps']} timed AdamW steps: "
+              f"{st['tokens_per_s']:.1f} tokens/s, {st['ms_per_step']:.3f} "
+              f"ms/step, device {st['device_ms_per_step']} ms in one "
+              f"profiled step of "
+              f"{st.get('profiled_step_wall_ms', 'not measured')} ms wall "
+              f"(busy share "
+              f"{'not measured' if ebusy is None else f'{ebusy:.4f}'}; by "
+              f"kind {json.dumps(st.get('device_split_ms'))}), "
+              f"multi_tensor_update launches a step "
+              f"{st['multi_tensor_update_per_step']}, peak memory "
+              f"{st['peak_memory_bytes'] / 2**30:.2f} GiB, losses "
+              f"{', '.join(f'{v:.4f}' for v in st['losses'])}")
+        print(f"eager {mode} largest kernels: "
+              f"{json.dumps(st.get('device_top'))}; host operators by self "
+              f"time: {json.dumps(st.get('host_top'))}")
+    print(f"launches on the eager steps: {json.dumps(elaunches6c)}")
+
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
-    del rmodel, x, y
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     exps, dlaunches, flaunches = experiments(torch, fns, xdot, xfv)
@@ -5637,6 +6155,8 @@ def main() -> None:
                "quant_int8_trained_drain": qtlaunches,
                "resnet50_train": rlaunches, "resnet50_adamw": alaunches,
                "mnist_fit": mlaunches, "mnist_fit_scheduled": mslaunches,
+               "bert_train": blaunches5c, "ernie_step": elaunches5c,
+               **elaunches6c,
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
                "contiguous_prefix_burst": cblaunches["prefix_cache"],
@@ -5645,6 +6165,7 @@ def main() -> None:
                **{f"3j_{k}": v for k, v in jlaunches.items()},
                **{f"3k_{k}": v for k, v in klaunches.items()}}
     kernels = kernels_line(rows, by_path)
+    lap(None)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
         json.dump({"card": card, "kernel_rows": rows, "engine": stats,
@@ -5663,11 +6184,12 @@ def main() -> None:
                    "train": train, "multi_tensor_skip": mtu_skip,
                    "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
                    "resnet50_adamw": radamw, "mnist": mnist,
+                   "bert": bstats, "eager_bert": eager,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,
-                   "experiments": exps}, f, indent=1)
-    lap(None)
+                   "experiments": exps, "seconds_by_phase": laps}, f,
+                  indent=1)
     print(f"seconds by phase: {json.dumps(laps)}")
     print(f"total: {time.perf_counter() - t_start:.1f} s")
     print(card)

@@ -17,10 +17,14 @@ training path for ResNet (``vision.models``, ``nn``, ``amp``,
 update; and the high-level API that BASELINE config 0 (MNIST LeNet through
 ``Model.fit``) runs: ``Model`` with its ``callbacks``, ``io``
 (``DataLoader``), ``metric``, ``vision.datasets``, ``save`` / ``load``,
-``optimizer.lr``, gradient clipping (``nn.clip``) and ``L2Decay``.
+``optimizer.lr``, gradient clipping (``nn.clip``) and ``L2Decay``; and
+BASELINE config 2: the BERT/ERNIE MLM trainer (``models.bert``) and the
+eager transformer stack (``nn``'s transformer layers,
+``nn.functional.flash_attention``, ``incubate.nn``'s fused entry points)
+on the flash kernels, bf16 and fp32.
 """
 
-from . import io, metric, nn, optimizer, vision
+from . import incubate, io, metric, nn, optimizer, vision
 from .device import get_device, resolve_device, set_device
 from .framework.io import load, save
 from .hapi import callbacks
@@ -30,4 +34,4 @@ from .nn.initializer import seed
 
 __all__ = ["resolve_device", "set_device", "get_device", "seed", "Model",
            "summary", "flops", "save", "load", "io", "metric", "callbacks",
-           "nn", "optimizer", "vision"]
+           "nn", "optimizer", "vision", "incubate"]

@@ -4,8 +4,9 @@ package.
 The JAX package's LLaMA parameter tree, as ``{key: np.asarray(value)}``,
 becomes the port's tree with the same keys and the same stacked ``[L, ...]``
 layer weights, a quantized serving tree included; its AdamW state
-``{"step", "m", "v"}`` becomes the port's.
-A JAX ``Layer``'s ``state_dict()`` as numpy loads into the port's layer
+``{"step", "m", "v"}`` becomes the port's. The JAX BERT's parameters and
+AdamW state cross the same way (``bert_params_from_numpy``,
+``bert_opt_state_from_numpy``). A JAX ``Layer``'s ``state_dict()`` as numpy loads into the port's layer
 of the same structure (``layer_state_from_numpy``). Tests use them to make
 both packages compute the same thing, from the start or from the middle of
 a trajectory; the port never reproduces ``jax.random``.
@@ -20,9 +21,11 @@ import torch
 
 from ..device import resolve_device
 from ..quantization.serving import quantized_weight_keys
+from . import bert
 from .llama import LlamaConfig, param_shapes
 
 __all__ = ["params_from_numpy", "opt_state_from_numpy",
+           "bert_params_from_numpy", "bert_opt_state_from_numpy",
            "layer_state_from_numpy"]
 
 
@@ -86,6 +89,44 @@ def opt_state_from_numpy(np_state: Mapping[str, object], cfg: LlamaConfig,
                                  dtype=torch.int32, device=device),
             "m": params_from_numpy(np_state["m"], cfg, device, torch.float32),
             "v": params_from_numpy(np_state["v"], cfg, device, torch.float32)}
+
+
+def bert_params_from_numpy(np_params: Mapping[str, np.ndarray],
+                           cfg: "bert.BertConfig", device="cuda",
+                           dtype: Optional[torch.dtype] = None
+                           ) -> Dict[str, torch.Tensor]:
+    """The JAX BERT's parameter tree (``{key: numpy array}``) as tensors
+    on ``device`` in ``dtype`` (default fp32, the master weights), in
+    ``bert.param_shapes``' order. Raises on a missing or extra key or a
+    shape that does not match ``cfg``."""
+    device = resolve_device(device)
+    dtype = dtype or torch.float32
+    shapes = bert.param_shapes(cfg)
+    if set(np_params) != set(shapes):
+        raise KeyError(f"parameter keys {sorted(np_params)} do not match "
+                       f"the BERT tree {sorted(shapes)}")
+    out = {}
+    for name, shape in shapes.items():
+        arr = np.asarray(np_params[name])
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape} != {shape}")
+        out[name] = torch.tensor(arr.astype(np.float32), dtype=dtype,
+                                 device=device)
+    return out
+
+
+def bert_opt_state_from_numpy(np_state: Mapping[str, object],
+                              cfg: "bert.BertConfig", device="cuda"
+                              ) -> Dict[str, object]:
+    """The port's AdamW state for BERT (``bert.init_opt_state``'s layout
+    over fp32 master weights) from the JAX package's ``{"step", "m",
+    "v"}`` as numpy, checked as ``bert_params_from_numpy`` checks
+    parameters."""
+    device = resolve_device(device)
+    return {"step": torch.tensor(int(np.asarray(np_state["step"])),
+                                 dtype=torch.int32, device=device),
+            "m": bert_params_from_numpy(np_state["m"], cfg, device),
+            "v": bert_params_from_numpy(np_state["v"], cfg, device)}
 
 
 def _tensor(name: str, arr) -> torch.Tensor:

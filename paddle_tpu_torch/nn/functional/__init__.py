@@ -1,6 +1,10 @@
 """The functional ops the ported layers run: ``conv2d``, ``linear``,
 ``relu``, ``max_pool2d``, ``adaptive_avg_pool2d``, ``flatten``,
-``batch_norm`` and ``cross_entropy``.
+``batch_norm`` and ``cross_entropy``; for the transformer stack ``gelu``,
+``silu``, ``softmax``, ``layer_norm``, ``rms_norm``, ``dropout``,
+``embedding``, ``sequence_mask`` and ``scaled_dot_product_attention``,
+and the ``flash_attention`` module (``flash_attention``,
+``flash_attn_unpadded``).
 
 Counterpart of ``paddle_tpu/nn/functional/__init__.py`` (and of
 ``paddle_tpu/ops/manipulation.py``'s ``flatten``). Each op keeps the JAX
@@ -10,7 +14,9 @@ conv weight (torch's OIHW) and ``[in, out]`` linear weight, and
 ``data_format="NHWC"`` activations, which reach cuDNN as a channels-last
 view of the same memory (no copy). None of these ops is a TPU kernel of
 the JAX package (XLA computed them), so they run on PyTorch's own
-operators, as the JAX package left them to XLA.
+operators, as the JAX package left them to XLA. Attention is the exception: without a mask
+or dropout it runs the flash kernels of ``ops/kernels/flash_attention``
+(the JAX package's Pallas kernels).
 """
 
 from __future__ import annotations
@@ -19,9 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from ...amp import cast_inputs
+from ...ops.kernels import flash_attention as _fa
+from .. import initializer as _init
 
 __all__ = ["conv2d", "linear", "relu", "max_pool2d", "adaptive_avg_pool2d",
-           "flatten", "batch_norm", "cross_entropy"]
+           "flatten", "batch_norm", "cross_entropy", "gelu", "silu",
+           "softmax", "layer_norm", "rms_norm", "dropout", "embedding",
+           "sequence_mask", "scaled_dot_product_attention",
+           "flash_attention"]
 
 
 def _pair(v):
@@ -157,3 +168,148 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
         return loss
     raise ValueError(f"reduction must be mean, sum or none, got "
                      f"{reduction!r}")
+
+
+# ---------------------------------------------------------------------------
+# the transformer stack
+# ---------------------------------------------------------------------------
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16, "int64": torch.int64,
+           "int32": torch.int32, "bool": torch.bool}
+
+
+def gelu(x, approximate=False, name=None):
+    """GELU: erf by default, the tanh approximation with
+    ``approximate=True`` (``jax.nn.gelu``'s two forms)."""
+    (x,) = cast_inputs("gelu", x)
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def silu(x, name=None):
+    (x,) = cast_inputs("silu", x)
+    return F.silu(x)
+
+
+def softmax(x, axis=-1, dtype=None, name=None):
+    """Softmax over ``axis``; ``dtype`` casts the input first.
+    Black-listed under AMP: low-precision inputs go to fp32."""
+    (x,) = cast_inputs("softmax", x)
+    if dtype is not None:
+        x = x.to(_DTYPES[dtype] if isinstance(dtype, str) else dtype)
+    return torch.softmax(x, dim=axis)
+
+
+def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5,
+               name=None):
+    """Normalization over the trailing ``normalized_shape`` axes with the
+    population variance (the JAX package's ``jnp.var``; torch's default
+    ``var`` is the unbiased one), computed in the input's type; then the
+    gain and the bias. Black-listed under AMP: low-precision inputs go to
+    fp32."""
+    if isinstance(normalized_shape, int):
+        normalized_shape = [normalized_shape]
+    x, weight, bias = cast_inputs("layer_norm", x, weight, bias)
+    axes = tuple(range(x.dim() - len(normalized_shape), x.dim()))
+    v, m = torch.var_mean(x, dim=axes, correction=0, keepdim=True)
+    out = (x - m) / torch.sqrt(v + epsilon)
+    if weight is not None:
+        out = out * weight
+    if bias is not None:
+        out = out + bias
+    return out
+
+
+def rms_norm(x, weight=None, epsilon=1e-6, name=None):
+    """RMSNorm: the normalization in fp32, rounded to the input's type,
+    then times the gain (in the promoted type, as the JAX package's)."""
+    x, weight = cast_inputs("rms_norm", x, weight)
+    xf = x.float()
+    out = (xf * torch.rsqrt(xf.square().mean(-1, keepdim=True) + epsilon)
+           ).to(x.dtype)
+    return out if weight is None else out * weight
+
+
+def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
+            name=None):
+    """Dropout: each element (or each slice along ``axis``) kept with
+    probability ``1 - p``, the keep mask drawn from
+    ``nn.initializer.generator(x.device)``. ``upscale_in_train`` scales the
+    kept values by ``1 / (1 - p)`` while training; ``downscale_in_infer``
+    keeps them as they are. Outside training (or at p 0) the input comes
+    back unchanged in both modes, as in the JAX package."""
+    if not training or p == 0.0:
+        return x
+    if p == 1.0:
+        return torch.zeros_like(x)
+    if mode not in ("upscale_in_train", "downscale_in_infer"):
+        raise ValueError(f"mode must be upscale_in_train or "
+                         f"downscale_in_infer, got {mode!r}")
+    (x,) = cast_inputs("dropout", x)
+    shape = tuple(x.shape)
+    if axis is not None:
+        axes = (axis,) if isinstance(axis, int) else tuple(axis)
+        shape = tuple(s if i in axes else 1 for i, s in enumerate(shape))
+    keep = torch.rand(shape, generator=_init.generator(x.device),
+                      device=x.device) < 1.0 - p
+    if mode == "upscale_in_train":
+        return torch.where(keep, x / (1.0 - p), 0.0)
+    return torch.where(keep, x, 0.0)
+
+
+def embedding(x, weight, padding_idx=None, sparse=False, name=None):
+    """Rows of ``weight`` at the ids ``x``; positions holding
+    ``padding_idx`` read zeros (so that row gets no gradient). The
+    gradient is dense: the JAX package's ``sparse=True`` (a SelectedRows
+    gradient) is not ported."""
+    if sparse:
+        raise NotImplementedError("embedding(sparse=True): the SelectedRows "
+                                  "gradient is not ported")
+    (weight,) = cast_inputs("embedding", weight)
+    ids = x.long()
+    out = F.embedding(ids, weight)
+    if padding_idx is not None:
+        out = torch.where((ids == padding_idx)[..., None], 0.0, out)
+    return out
+
+
+def sequence_mask(lengths, maxlen=None, dtype="int64", name=None):
+    """``[..., maxlen]``: position j < lengths[...] (``maxlen`` defaults to
+    the largest length, one device read)."""
+    ml = int(maxlen) if maxlen is not None else int(lengths.max().item())
+    dt = _DTYPES[dtype] if isinstance(dtype, str) else dtype
+    pos = torch.arange(ml, device=lengths.device)
+    return (pos < lengths[..., None]).to(dt)
+
+
+def scaled_dot_product_attention(query, key, value, attn_mask=None,
+                                 dropout_p=0.0, is_causal=False,
+                                 training=True, name=None):
+    """Attention over ``[batch, seq, heads, head_dim]``, with the JAX
+    package's dispatch:
+
+    - ``dropout_p > 0`` while training: the dense probabilities
+      (``attention_probs``, fp32) with dropout applied to them, then their
+      product with ``value``: the reference's probability-level dropout,
+      which the flash kernels (no random numbers inside) cannot give;
+    - a mask (boolean, False hides a key, or additive): the dense path,
+      as the JAX entry's ``flash_path_active`` decides;
+    - everything else: ``ops.kernels.flash_attention.dot_product_attention``,
+      the flash kernels on a card (bf16 or fp32), their plain versions on
+      the CPU.
+
+    The two dense paths mirror the reference: they are not a fallback, and
+    they launch no flash kernel. White-listed under AMP: fp32 inputs (an
+    additive mask included) run in the low-precision type."""
+    if dropout_p > 0.0 and training:
+        q, k, mask = cast_inputs("sdpa_probs", query, key, attn_mask)
+        probs = _fa.attention_probs(q, k, mask=mask, is_causal=is_causal)
+        probs = dropout(probs, dropout_p, training=training)
+        probs, v = cast_inputs("sdpa_out", probs, value)
+        return _fa.attention_apply(probs, v)
+    q, k, v, mask = cast_inputs("scaled_dot_product_attention", query, key,
+                                value, attn_mask)
+    return _fa.dot_product_attention(q, k, v, mask=mask, is_causal=is_causal)
+
+
+from . import flash_attention  # noqa: E402  (the module, as in Paddle)

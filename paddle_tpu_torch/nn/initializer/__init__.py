@@ -7,7 +7,10 @@ both packages to hold the same weights carries them across as numpy
 (``models.convert.layer_state_from_numpy``). Layers draw from the
 generator ``seed`` sets (the counterpart of ``paddle.seed``), on the CPU,
 then move the values to their device, so one seed gives the same weights
-on every device.
+on every device. ``generator(device)`` is the generator random ops
+(``nn.functional.dropout``) draw from: that CPU generator on the CPU, and
+on a card one generator of its own, seeded by the same ``seed`` value, so
+masks are drawn where they are used.
 """
 
 from __future__ import annotations
@@ -18,19 +21,38 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Constant", "Uniform", "XavierUniform", "seed",
-           "default_generator"]
+__all__ = ["Initializer", "Constant", "Uniform", "Normal", "XavierUniform",
+           "seed", "default_generator", "generator"]
 
 _GENERATOR = torch.Generator().manual_seed(0)
+_SEED = [0]
+_DEVICE_GENERATORS = {}  # torch.device -> its generator, since the seed
 
 
 def seed(value: int) -> torch.Generator:
-    """Reseed the generator layers draw their initial weights from."""
+    """Reseed the generator layers draw their initial weights from, and
+    the cards' generators of random ops."""
+    _SEED[0] = int(value)
+    _DEVICE_GENERATORS.clear()
     return _GENERATOR.manual_seed(int(value))
 
 
 def default_generator() -> torch.Generator:
     return _GENERATOR
+
+
+def generator(device) -> torch.Generator:
+    """The generator a random op on ``device`` draws from: the CPU
+    generator of the weights, or the card's own, made at its first use
+    from the last ``seed`` value."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return _GENERATOR
+    g = _DEVICE_GENERATORS.get(dev)
+    if g is None:
+        g = _DEVICE_GENERATORS[dev] = torch.Generator(
+            device=dev).manual_seed(_SEED[0])
+    return g
 
 
 def _fans(shape: Sequence[int]) -> Tuple[int, int]:
@@ -67,6 +89,17 @@ class Uniform(Initializer):
                  generator=None):
         out = torch.empty(tuple(shape), dtype=torch.float32).uniform_(
             self.low, self.high, generator=generator or _GENERATOR)
+        return out.to(device=device, dtype=dtype)
+
+
+class Normal(Initializer):
+    def __init__(self, mean: float = 0.0, std: float = 1.0):
+        self.mean, self.std = mean, std
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        out = torch.empty(tuple(shape), dtype=torch.float32).normal_(
+            self.mean, self.std, generator=generator or _GENERATOR)
         return out.to(device=device, dtype=dtype)
 
 

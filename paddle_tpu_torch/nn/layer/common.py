@@ -1,13 +1,19 @@
-"""``Linear`` (counterpart of ``paddle_tpu/nn/layer/common.py``):
-``y = x @ W + b`` with Paddle's ``[in, out]`` weight."""
+"""``Linear``, ``Dropout`` and ``Embedding`` (counterpart of
+``paddle_tpu/nn/layer/common.py``): ``y = x @ W + b`` with Paddle's
+``[in, out]`` weight; dropout through ``nn.functional.dropout`` (the
+layer's ``training`` flag decides); an embedding table ``weight``
+``[num_embeddings, embedding_dim]`` drawn from ``Normal(0, 1)``, its
+``padding_idx`` row zeroed at build and read as zeros."""
 
 from __future__ import annotations
+
+import torch
 
 from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["Linear"]
+__all__ = ["Linear", "Dropout", "Embedding"]
 
 
 class Linear(Layer):
@@ -24,3 +30,35 @@ class Linear(Layer):
 
     def forward(self, x):
         return F.linear(x, self.weight, self.bias)
+
+
+class Dropout(Layer):
+    def __init__(self, p=0.5, axis=None, mode="upscale_in_train", name=None):
+        super().__init__()
+        self.p = p
+        self.axis = axis
+        self.mode = mode
+
+    def forward(self, x):
+        return F.dropout(x, self.p, axis=self.axis, training=self.training,
+                         mode=self.mode)
+
+
+class Embedding(Layer):
+    def __init__(self, num_embeddings, embedding_dim, padding_idx=None,
+                 sparse=False, weight_attr=None, name=None):
+        super().__init__()
+        self._num_embeddings = num_embeddings
+        self._embedding_dim = embedding_dim
+        self._padding_idx = padding_idx
+        self._sparse = sparse
+        self.weight = self.create_parameter(
+            [num_embeddings, embedding_dim], attr=weight_attr,
+            default_initializer=I.Normal(0.0, 1.0))
+        if padding_idx is not None:
+            with torch.no_grad():
+                self.weight[padding_idx] = 0.0
+
+    def forward(self, x):
+        return F.embedding(x, self.weight, padding_idx=self._padding_idx,
+                           sparse=self._sparse)

@@ -1,4 +1,6 @@
-"""``Sequential`` (counterpart of ``paddle_tpu/nn/layer/container.py``)."""
+"""``Sequential`` and ``LayerList`` (counterpart of
+``paddle_tpu/nn/layer/container.py``): sublayers keyed "0", "1", ...,
+so their state-dict keys are the JAX package's (``layers.1.linear1.weight``)."""
 
 from __future__ import annotations
 
@@ -6,7 +8,7 @@ from collections import OrderedDict
 
 from .layers import Layer
 
-__all__ = ["Sequential"]
+__all__ = ["Sequential", "LayerList"]
 
 
 class Sequential(Layer):
@@ -38,3 +40,41 @@ class Sequential(Layer):
         for layer in self._modules.values():
             x = layer(x)
         return x
+
+
+class LayerList(Layer):
+    def __init__(self, sublayers=None):
+        super().__init__()
+        if sublayers is not None:
+            for i, layer in enumerate(sublayers):
+                self.add_sublayer(str(i), layer)
+
+    def __getitem__(self, idx):
+        if isinstance(idx, slice):
+            return LayerList(list(self._modules.values())[idx])
+        return self._modules[str(idx if idx >= 0 else len(self) + idx)]
+
+    def __setitem__(self, idx, layer):
+        self.add_sublayer(str(idx), layer)
+
+    def __len__(self):
+        return len(self._modules)
+
+    def __iter__(self):
+        return iter(self._modules.values())
+
+    def append(self, layer):
+        self.add_sublayer(str(len(self)), layer)
+        return self
+
+    def insert(self, index, layer):
+        layers = list(self._modules.values())
+        layers.insert(index, layer)
+        self._modules.clear()
+        for i, sub in enumerate(layers):
+            self.add_sublayer(str(i), sub)
+
+    def extend(self, layers):
+        for layer in layers:
+            self.append(layer)
+        return self

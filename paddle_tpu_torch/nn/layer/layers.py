@@ -37,6 +37,18 @@ class Parameter(torch.nn.Parameter):
 
     name = None
 
+    def __deepcopy__(self, memo):
+        """A fresh copy that keeps the name, as the JAX package's
+        ``copy.deepcopy`` of a layer does (``TransformerEncoder``'s
+        layers)."""
+        if id(self) in memo:
+            return memo[id(self)]
+        out = type(self)(self.data.clone(memory_format=torch.preserve_format),
+                         self.requires_grad)
+        out.name = self.name
+        memo[id(self)] = out
+        return out
+
 
 class ParamAttr:
     """Parameter attribute bundle (``paddle.ParamAttr``): the fields the

@@ -1,8 +1,11 @@
-"""``BatchNorm2D`` (counterpart of ``paddle_tpu/nn/layer/norm.py``):
-weight 1, bias 0, running mean 0 and variance 1 in fp32 buffers
-``_mean`` / ``_variance``, Paddle's momentum convention (0.9 keeps 90 % of
-the running value); ``nn.functional.batch_norm`` updates them while
-training."""
+"""``BatchNorm2D`` and ``LayerNorm`` (counterpart of
+``paddle_tpu/nn/layer/norm.py``). BatchNorm: weight 1, bias 0, running
+mean 0 and variance 1 in fp32 buffers ``_mean`` / ``_variance``, Paddle's
+momentum convention (0.9 keeps 90 % of the running value);
+``nn.functional.batch_norm`` updates them while training. LayerNorm:
+``weight`` 1 and ``bias`` 0 over the trailing ``normalized_shape`` (either
+left out with ``False`` as its attr), through ``nn.functional.layer_norm``
+(the population variance)."""
 
 from __future__ import annotations
 
@@ -13,7 +16,7 @@ from .. import functional as F
 from .. import initializer as I
 from .layers import Layer
 
-__all__ = ["BatchNorm2D"]
+__all__ = ["BatchNorm2D", "LayerNorm"]
 
 
 class _BatchNormBase(Layer):
@@ -46,3 +49,22 @@ class _BatchNormBase(Layer):
 
 class BatchNorm2D(_BatchNormBase):
     pass
+
+
+class LayerNorm(Layer):
+    def __init__(self, normalized_shape, epsilon=1e-5, weight_attr=None,
+                 bias_attr=None, name=None):
+        super().__init__()
+        if isinstance(normalized_shape, int):
+            normalized_shape = [normalized_shape]
+        self._normalized_shape = list(normalized_shape)
+        self._epsilon = epsilon
+        self.weight = None if weight_attr is False else self.create_parameter(
+            self._normalized_shape, attr=weight_attr,
+            default_initializer=I.Constant(1.0))
+        self.bias = None if bias_attr is False else self.create_parameter(
+            self._normalized_shape, attr=bias_attr, is_bias=True)
+
+    def forward(self, x):
+        return F.layer_norm(x, self._normalized_shape, self.weight, self.bias,
+                            self._epsilon)

@@ -9,8 +9,8 @@ __all__ = ["launch_counters"]
 
 def launch_counters():
     """Each kernel's name -> (its wrapper, the attribute that counts its
-    launches). The decode kernel's quant mode is counted apart, on the
-    same wrapper."""
+    launches). The decode kernel's quant mode and the flash kernels' fp32
+    instance are counted apart, on the same wrappers."""
     from . import blocked_matmul as bm
     from . import decode_attention as da
     from . import flash_attention as fa
@@ -36,6 +36,14 @@ def launch_counters():
                                        "launches"),
             "flash_attention_bwd_dkv": (fa.flash_attention_bwd_dkv,
                                         "launches"),
+            "flash_attention_fwd_f32": (fa.flash_attention_fwd,
+                                        "f32_launches"),
+            "flash_attention_bwd_f32": (fa.flash_attention_bwd,
+                                        "f32_launches"),
+            "flash_attention_bwd_dq_f32": (fa.flash_attention_bwd_dq,
+                                           "f32_launches"),
+            "flash_attention_bwd_dkv_f32": (fa.flash_attention_bwd_dkv,
+                                            "f32_launches"),
             "head_dx_softmax": (hd.head_dx_softmax, "launches"),
             "quant_matmul": (qm.quant_matmul, "launches"),
             "multi_tensor_update": (mtu.multi_tensor_update, "launches"),

@@ -8,7 +8,11 @@ packed ``_pallas_flash_fwd_packed`` become one forward kernel; the blocked
 ``_pallas_flash_bwd_packed`` become one backward kernel whose grid holds a
 dq role and a dk/dv role. The CUDA source is
 ``paddle_tpu_torch/csrc/flash_attention.cu``; its header says what bounds
-the kernels on the H100 and how they are built.
+the kernels on the H100 and how they are built. Their fp32 instance (fp32
+q, k and v: FMAs on the CUDA cores, no TF32) is
+``paddle_tpu_torch/csrc/flash_attention_f32.cu``, with the same entry
+points; it counts its launches in each wrapper's ``f32_launches``, the
+bf16 kernels in ``launches``.
 
 Three backward entry points launch that kernel: ``flash_attention_bwd``
 (both roles in one launch: dq, dk and dv; the training path's),
@@ -21,7 +25,8 @@ package's); ``lse`` (natural log) and ``delta = rowsum(do * o)`` are
 ``[B, H, Sq]`` fp32. Causal masking is ``tril(k=Sk-Sq)``.
 
 Dispatch: a CPU tensor takes the plain version; a CUDA tensor launches the
-kernel or raises (bf16, D in {64, 128}, contiguous, 16-byte aligned).
+kernel of its dtype or raises (bf16 or fp32, D in {64, 128}, contiguous,
+16-byte aligned). An fp32 CUDA tensor never takes the plain version.
 """
 
 from __future__ import annotations
@@ -188,15 +193,16 @@ def _check(q, k, v, causal, *more):
 
 def _check_kernel(*ts):
     D = ts[0].shape[-1]
-    if ts[0].dtype != torch.bfloat16 or D not in _HEAD_DIMS:
-        raise ValueError(f"the kernels take bfloat16 with head_dim in "
-                         f"{_HEAD_DIMS}, got {ts[0].dtype}, D={D}")
+    if ts[0].dtype not in _DTYPES or D not in _HEAD_DIMS:
+        raise ValueError(f"the kernels take bfloat16 or float32 with "
+                         f"head_dim in {_HEAD_DIMS}, got {ts[0].dtype}, "
+                         f"D={D}")
     if not all(t.is_contiguous() for t in ts):
         raise ValueError("the kernels take contiguous tensors")
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("the kernels take tensors on a 16-byte boundary "
-                         "(the TMA reads tiles from 16-byte aligned "
-                         "addresses)")
+                         "(they read 16-byte pieces: the bf16 kernels' TMA "
+                         "tiles, the fp32 instance's float4 loads)")
 
 
 def _lse_shape(q):
@@ -213,15 +219,24 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     out = torch.empty_like(q)
     lse = torch.empty(_lse_shape(q), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _kernel("flash_attention_fwd", 5)(
+        err = _kernel("flash_attention_fwd", q.dtype)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), B, H, Sq, k.shape[1], D, int(causal),
             _scale(q, scale), torch.cuda.current_stream().cuda_stream)
     if err != 0:
         raise RuntimeError(f"flash_attention_fwd launch failed: CUDA error "
                            f"{err}")
-    flash_attention_fwd.launches += 1
+    _count(flash_attention_fwd, q)
     return out, lse
+
+
+def _count(wrapper, q):
+    """One launch of ``wrapper``'s kernel: the bf16 kernel's count or the
+    fp32 instance's."""
+    if q.dtype == torch.float32:
+        wrapper.f32_launches += 1
+    else:
+        wrapper.launches += 1
 
 
 def _check_bwd(q, k, v, do, lse, delta, causal):
@@ -238,7 +253,7 @@ def _launch_bwd(name, q, k, v, do, lse, delta, outs, causal, scale):
     B, Sq, H, D = q.shape
     ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
     with torch.cuda.device(q.device):
-        err = _kernel(name, len(ptrs))(
+        err = _kernel(name, q.dtype)(
             *ptrs, B, H, Sq, k.shape[1], D, int(causal), _scale(q, scale),
             torch.cuda.current_stream().cuda_stream)
     if err != 0:
@@ -255,7 +270,7 @@ def flash_attention_bwd(q, k, v, do, lse, delta, causal=False, scale=None):
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_attention_bwd", q, k, v, do, lse, delta,
                 (dq, dk, dv), causal, scale)
-    flash_attention_bwd.launches += 1
+    _count(flash_attention_bwd, q)
     return dq, dk, dv
 
 
@@ -269,7 +284,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=False,
     dq = torch.empty_like(q)
     _launch_bwd("flash_attention_bwd_dq", q, k, v, do, lse, delta, (dq,),
                 causal, scale)
-    flash_attention_bwd_dq.launches += 1
+    _count(flash_attention_bwd_dq, q)
     return dq
 
 
@@ -283,40 +298,59 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=False,
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     _launch_bwd("flash_attention_bwd_dkv", q, k, v, do, lse, delta,
                 (dk, dv), causal, scale)
-    flash_attention_bwd_dkv.launches += 1
+    _count(flash_attention_bwd_dkv, q)
     return dk, dv
 
 
-flash_attention_fwd.launches = 0
-flash_attention_bwd.launches = 0
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dkv.launches = 0
+for _wrapper in (flash_attention_fwd, flash_attention_bwd,
+                 flash_attention_bwd_dq, flash_attention_bwd_dkv):
+    _wrapper.launches = 0       # the bf16 kernels'
+    _wrapper.f32_launches = 0   # the fp32 instance's
+del _wrapper
 
 
-def smem_bytes(kind: str, D: int) -> int:
+def smem_bytes(kind: str, D: int, dtype=torch.bfloat16) -> int:
     """The dynamic shared memory one block of the ``kind`` ("fwd" or
-    "bwd") kernel at head dim ``D`` asks for (builds the library)."""
-    fn = getattr(_library(), "flash_attention_smem")
+    "bwd") kernel at head dim ``D`` asks for, for ``dtype``'s kernels
+    (builds the library)."""
+    lib = _LIBRARIES[dtype]
+    fn = getattr(_library(lib), lib + "_smem")
     fn.argtypes = [ctypes.c_int, ctypes.c_int]
     fn.restype = ctypes.c_int
     return fn(D, int(kind == "bwd"))
 
 
-def _library():
+# dtype -> the library of its kernels: ``csrc/<library>.cu``, whose entry
+# points are ``<library>_fwd``, ``<library>_bwd``, ...
+_LIBRARIES = {torch.bfloat16: "flash_attention",
+              torch.float32: "flash_attention_f32"}
+
+
+def _library(name: str):
     from ._build import load_library
 
-    return load_library("flash_attention")
+    return load_library(name)
+
+
+def entry_argtypes(name: str):
+    """The ctypes argument types of the entry ``name`` (the bf16 name,
+    e.g. ``flash_attention_bwd``): its tensor pointers, then B, H, Sq, Sk,
+    D, causal, scale and the stream; every pointer and the stream are
+    ``c_void_p`` so none is cut to 32 bits."""
+    n_ptrs = {"fwd": 5, "bwd": 9, "bwd_dq": 7, "bwd_dkv": 8}[
+        name[len("flash_attention_"):]]
+    return ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+            + [ctypes.c_float, ctypes.c_void_p])
 
 
 @functools.lru_cache(maxsize=None)
-def _kernel(name: str, n_ptrs: int):
-    """The C entry point ``name`` of ``csrc/flash_attention.cu``, built
-    and loaded at first use: ``n_ptrs`` tensor pointers, then B, H, Sq,
-    Sk, D, causal, scale and the stream; every pointer and the stream are
-    ``c_void_p`` so none is cut to 32 bits."""
-    fn = getattr(_library(), name)
-    fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
-                   + [ctypes.c_float, ctypes.c_void_p])
+def _kernel(name: str, dtype):
+    """The C entry point of ``name`` for ``dtype``'s kernels (``name``
+    in ``csrc/flash_attention.cu``, ``flash_attention_f32<suffix>`` in
+    ``csrc/flash_attention_f32.cu``), built and loaded at first use."""
+    lib = _LIBRARIES[dtype]
+    fn = getattr(_library(lib), lib + name[len("flash_attention"):])
+    fn.argtypes = entry_argtypes(name)
     fn.restype = ctypes.c_int
     return fn
 
@@ -356,9 +390,11 @@ def flash_path_active(t) -> bool:
 
 def dot_product_attention(q, k, v, mask=None, is_causal=False):
     """Attention over [B, S, H, D] with Hkv == H, differentiable. Without a
-    mask: the flash forward and backward (the kernels on a CUDA tensor,
-    their plain versions on a CPU one). With a mask: ``xla_attention``
-    and autograd, as the JAX entry does."""
+    mask: the flash forward and backward (the kernels of q's dtype, bf16
+    or fp32, on a CUDA tensor; their plain versions on a CPU one). With a
+    mask: ``xla_attention`` and autograd, as the JAX entry does (its
+    ``flash_path_active`` is False for a mask): that dense path is the
+    reference's dispatch, not a fallback."""
     if mask is not None:
         return xla_attention(q, k, v, mask=mask, is_causal=is_causal)
     return _FlashAttention.apply(q, k, v, bool(is_causal), None)

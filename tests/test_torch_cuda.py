@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from paddle_tpu_torch.device import set_device
-from paddle_tpu_torch.models import llama
+from paddle_tpu_torch.models import bert, llama
 from paddle_tpu_torch.ops.kernels import blocked_matmul as bmm
 from paddle_tpu_torch.ops.kernels import decode_attention as da
 from paddle_tpu_torch.ops.kernels import flash_attention as fa
@@ -1086,8 +1086,11 @@ class TestFlashAttention:
             assert torch.equal(g, a)
 
     def test_rejects_what_it_does_not_take(self, cuda):
-        q = torch.zeros(1, 64, 2, 64, device=cuda)
-        with pytest.raises(ValueError, match="bfloat16"):
+        q = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+        with pytest.raises(TypeError, match="bfloat16"):
+            fa.flash_attention_fwd(q, q, q)
+        q = torch.zeros(1, 64, 2, 32, device=cuda)
+        with pytest.raises(ValueError, match="head_dim"):
             fa.flash_attention_fwd(q, q, q)
         q = torch.zeros(1, 64, 2, 32, device=cuda, dtype=torch.bfloat16)
         with pytest.raises(ValueError, match="head_dim"):
@@ -1100,6 +1103,143 @@ class TestFlashAttention:
         with pytest.raises(ValueError, match="contiguous"):
             fa.flash_attention_bwd(
                 q, q, q, q, *[torch.zeros(1, 2, 64, device=cuda)] * 2)
+
+
+# the fp32 instance against the plain version: both compute in fp32, in
+# other orders (the kernel's online softmax rescales by exp2 of running
+# maxima); the fp32 bar on outputs and gradients of magnitude ~1
+F32_ATOL = 1e-4
+F32_SHAPES = [  # B, Sq, Sk, H, D, causal
+    (2, 256, 256, 3, 64, False),
+    (2, 200, 200, 3, 64, True),     # ragged 64-row tiles
+    (1, 40, 100, 2, 128, True),     # Sq < Sk: causal offset 60
+    (1, 72, 136, 2, 64, False),     # cross attention, Sq != Sk
+    (1, 130, 70, 2, 128, False),    # Sq > Sk
+    (1, 512, 512, 2, 128, True),
+]
+
+
+class TestFlashAttentionF32:
+    """The fp32 instance (``csrc/flash_attention_f32.cu``): forward, the
+    one-launch backward and each role alone against the plain versions,
+    counted in ``f32_launches`` and never in the bf16 kernels' counts."""
+
+    def _inputs(self, cuda, B, Sq, Sk, H, D):
+        gen = torch.Generator(device=cuda).manual_seed(Sq * 3 + Sk + D)
+        f = torch.float32
+        return (_randn(gen, B, Sq, H, D, dtype=f),
+                _randn(gen, B, Sk, H, D, dtype=f),
+                _randn(gen, B, Sk, H, D, dtype=f),
+                _randn(gen, B, Sq, H, D, dtype=f))
+
+    @pytest.mark.parametrize("B,Sq,Sk,H,D,causal", F32_SHAPES)
+    def test_matches_plain(self, cuda, B, Sq, Sk, H, D, causal):
+        q, k, v, do = self._inputs(cuda, B, Sq, Sk, H, D)
+        fns = (fa.flash_attention_fwd, fa.flash_attention_bwd,
+               fa.flash_attention_bwd_dq, fa.flash_attention_bwd_dkv)
+        n0 = [(f.launches, f.f32_launches) for f in fns]
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        ref, ref_lse = fa.flash_attention_fwd_plain(q, k, v, causal)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, ref, rtol=0, atol=F32_ATOL)
+        torch.testing.assert_close(lse, ref_lse, rtol=0, atol=F32_ATOL)
+        args = (q, k, v, do, ref_lse, fa.attention_delta(ref, do), causal)
+        grads = fa.flash_attention_bwd(*args)
+        roles = (fa.flash_attention_bwd_dq(*args),
+                 *fa.flash_attention_bwd_dkv(*args))
+        torch.cuda.synchronize()
+        for g, r, w in zip(grads, roles,
+                           fa.flash_attention_bwd_grads_plain(*args)):
+            assert g.dtype == torch.float32
+            torch.testing.assert_close(g, w, rtol=0, atol=F32_ATOL)
+            assert torch.equal(g, r)
+        assert [(f.launches, f.f32_launches) for f in fns] == [
+            (a, b + 1) for a, b in n0]
+
+    def test_fp32_never_takes_the_plain_version(self, cuda, monkeypatch):
+        """A CUDA fp32 tensor launches the instance or raises: with the
+        plain versions poisoned the kernels still answer, and a shape the
+        instance does not take raises."""
+        def poisoned(*a, **k):
+            raise AssertionError("the plain version ran on the card")
+        for name in ("flash_attention_fwd_plain",
+                     "flash_attention_bwd_grads_plain"):
+            monkeypatch.setattr(fa, name, poisoned)
+        q, k, v, _ = self._inputs(cuda, 1, 64, 64, 2, 64)
+        q.requires_grad_()
+        fa.dot_product_attention(q, k, v).sum().backward()
+        torch.cuda.synchronize()
+        assert torch.isfinite(q.grad).all()
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_fwd(*(t[..., :48].contiguous()
+                                     for t in (q.detach(), k, v)))
+
+
+@pytest.mark.parametrize("amp", [False, True])
+def test_eager_attention_launches_the_flash_kernels(cuda, amp):
+    """An eager ``MultiHeadAttention`` on the card: fp32 attention
+    launches the fp32 instance, under ``auto_cast`` the bf16 kernels, one
+    forward and one backward a call; a mask launches neither."""
+    import paddle_tpu_torch as port
+
+    prev = set_device(str(cuda))
+    try:
+        port.seed(0)
+        mha = port.nn.MultiHeadAttention(128, 2)
+        x = torch.randn(2, 96, 128, device=cuda)
+        fwd, bwd = fa.flash_attention_fwd, fa.flash_attention_bwd
+        attr = "launches" if amp else "f32_launches"
+        n0 = (getattr(fwd, attr), getattr(bwd, attr))
+        with port.amp.auto_cast(enable=amp, dtype="bfloat16"):
+            out = mha(x, x, x)
+        out.float().sum().backward()
+        torch.cuda.synchronize()
+        assert (getattr(fwd, attr), getattr(bwd, attr)) == (n0[0] + 1,
+                                                            n0[1] + 1)
+        mask = torch.ones(2, 1, 1, 96, dtype=torch.bool, device=cuda)
+        mha(x, attn_mask=mask).sum().backward()
+        assert (getattr(fwd, attr), getattr(bwd, attr)) == (n0[0] + 1,
+                                                            n0[1] + 1)
+    finally:
+        set_device(prev)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bert_loss_and_grads_match_plain_path(cuda, monkeypatch, dtype):
+    """``bert.loss_fn`` at D 64 (2 heads of 64, 2 layers, remat on: the
+    attention outside the checkpointed halves) through the kernels and
+    through their plain versions: one forward and one backward launch a
+    layer, non-causal; bf16 within the training budgets, fp32 within
+    1e-4 of the loss and 1e-3 of each gradient's norm."""
+    cfg = bert.BertConfig.tiny(hidden_size=128, intermediate_size=256,
+                               num_heads=2, max_seq_len=256, dtype=dtype,
+                               remat=True)
+    params = bert.init_params(cfg, torch.Generator().manual_seed(0),
+                              device=cuda)
+    tok, lab = bert.random_mlm_batch(cfg, 2, 256, device=cuda)
+    attr = "launches" if dtype == torch.bfloat16 else "f32_launches"
+
+    def run():
+        leaves = {k: p.clone().requires_grad_() for k, p in params.items()}
+        loss = bert.loss_fn(leaves, tok, lab, cfg)
+        loss.backward()
+        return loss.item(), {k: p.grad for k, p in leaves.items()}
+
+    fns = (fa.flash_attention_fwd, fa.flash_attention_bwd)
+    n0 = [getattr(f, attr) for f in fns]
+    got = run()
+    assert [getattr(f, attr) - n for f, n in zip(fns, n0)] == [2, 2]
+    monkeypatch.setattr(fa, "flash_attention_fwd",
+                        fa.flash_attention_fwd_plain)
+    monkeypatch.setattr(fa, "flash_attention_bwd",
+                        fa.flash_attention_bwd_grads_plain)
+    want = run()
+    loss_atol, grad_rtol = ((LOSS_ATOL, GRAD_RTOL) if dtype == torch.bfloat16
+                            else (1e-4, 1e-3))
+    assert abs(got[0] - want[0]) <= loss_atol
+    for k, g in want[1].items():
+        err = ((got[1][k] - g).norm() / g.norm().clamp(min=1e-12)).item()
+        assert err <= grad_rtol, (k, err)
 
 
 def _head_dx_inputs(cuda, M, V, H, seed=0):

@@ -224,3 +224,20 @@ class TestEntryPoints:
     @pytest.mark.parametrize("library", sorted(tf.ENTRIES))
     def test_every_entry_point_has_argtypes(self, library):
         assert sorted(_c_signatures(library)) == sorted(tf.ENTRIES[library])
+
+    @pytest.mark.parametrize("library", ["flash_attention",
+                                         "flash_attention_f32"])
+    def test_flash_entries_match_the_source(self, library):
+        """The flash wrappers' argtypes (``entry_argtypes``, the bf16
+        names) against both libraries' entries, the fp32 instance's named
+        ``flash_attention_f32_*``."""
+        from paddle_tpu_torch.ops.kernels import flash_attention as fa
+
+        sigs = _c_signatures(library)
+        names = ["fwd", "bwd", "bwd_dq", "bwd_dkv"]
+        assert sorted(sigs) == sorted([f"{library}_{n}" for n in names]
+                                      + [f"{library}_smem"])
+        for n in names:
+            kinds = [_KIND[t] for t in fa.entry_argtypes(
+                f"flash_attention_{n}")]
+            assert kinds == sigs[f"{library}_{n}"], n

@@ -358,8 +358,8 @@ def test_turns_need_a_gpu_and_another_checkout(monkeypatch):
 
 def test_launch_counters_name_every_counted_wrapper():
     """``launch_counters`` lists every counter a kernel wrapper keeps (a
-    function of ``ops/kernels`` with an int ``launches`` or
-    ``quant_launches``), each once."""
+    function of ``ops/kernels`` with an int ``launches``,
+    ``quant_launches`` or ``f32_launches``), each once."""
     import paddle_tpu_torch.ops.kernels as kernels
 
     listed = {(fn, attr) for fn, attr in kernels.launch_counters().values()}
@@ -370,7 +370,7 @@ def test_launch_counters_name_every_counted_wrapper():
         mod = importlib.import_module(f"{kernels.__name__}.{path.stem}")
         for fn in vars(mod).values():
             if callable(fn) and getattr(fn, "__module__", "") == mod.__name__:
-                for attr in ("launches", "quant_launches"):
+                for attr in ("launches", "quant_launches", "f32_launches"):
                     if isinstance(getattr(fn, attr, None), int):
                         found.add((fn, attr))
     assert listed == found
