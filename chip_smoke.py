@@ -44,11 +44,12 @@ Phases (any failed check raises and the script exits non-zero):
    heads of D 64, causal), at phase 5c's BERT shape (the same, not
    causal), at llama7b width (B 1, S 2048, 32 heads of D 128, causal) and
    one non-causal shape with a ragged edge, beside SDPA's forward and
-   backward; their fp32 instance (``flash_attention_f32.cu``, fp32 FMAs on
-   the CUDA cores) within 1e-4 of the plain versions at phase 6c's shape
+   backward; their fp32 instance (``flash_attention_f32.cu``, 3xTF32 on
+   the tensor cores) within 1e-4 of the plain versions at phase 6c's shape
    (B 8, S 512, 12 heads of D 64, not causal), a cross-attention shape
-   (Sq 384, Sk 512) and D 128 causal, timed beside SDPA in fp32, its
-   bound at the fp32 CUDA-core rate;
+   (Sq 384, Sk 512) and D 128 causal, timed beside SDPA's fp32 forward and
+   backward at each, its bound three TF32 passes at the TF32 tensor-core
+   rate beside the fp32 CUDA-core bound;
    ``head_dx_softmax`` at the CE tail's shape (M 22528, V 32000, H 768)
    beside its GEMM alone; ``quant_matmul`` (int8 and fp8 weights, bf16
    x) at the decode tick's four projection shapes with B 8, lm_head with
@@ -332,6 +333,7 @@ ROOT = Path(__file__).resolve().parent
 DEVICE = "cuda"
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM HBM3
+TF32_OPS = 495e12             # dense TF32 tensor-core rate
 PEAK_OPS = {"torch.bfloat16": 989e12,  # dense bf16 tensor-core rate
             "torch.float32": 67e12}    # fp32 outside the tensor cores
 VECTOR_OPS = 67e12            # fp32 CUDA-core rate: norms and rope
@@ -622,8 +624,9 @@ FLASH_SHAPES = [
     ("llama7b", 1, 2048, 32, 128, True),     # the TPU's blocked regime
     ("noncausal", 8, 1000, 12, 64, False),   # a ragged edge at 64 rows
 ]
-# the fp32 instance (csrc/flash_attention_f32.cu): CUDA-core FMAs, so its
-# bound's operations run at the fp32 CUDA-core peak, not a tensor core's
+# the fp32 instance (csrc/flash_attention_f32.cu): 3xTF32 on the tensor
+# cores, so its bound counts three TF32 passes at the TF32 rate; the fp32
+# CUDA-core bound (one pass at 67 TFLOP/s) is kept beside it
 FLASH_F32_SHAPES = [
     # name, B, Sq, Sk, H, D, causal
     ("bert", 8, 512, 512, 12, 64, False),    # phase 6c's eager fp32 step
@@ -728,8 +731,10 @@ def flash_f32_checks(torch, F, fa, shape, gen):
     """The fp32 instance's forward, one-launch backward and each role
     alone at one shape against the plain versions (atol
     ``FLASH_F32_ATOL``; the one-launch gradients equal the role launches'
-    bit for bit), timed beside SDPA on the same fp32 inputs; the bound's
-    operations at the fp32 CUDA-core rate (``VECTOR_OPS``)."""
+    bit for bit), timed beside SDPA's forward and backward on the same
+    fp32 inputs. ``bound_ms``: three TF32 passes of the products at the
+    TF32 tensor-core rate, or the bytes, whichever is larger;
+    ``cuda_core_bound_ms``: one pass at the fp32 CUDA-core rate."""
     name, B, Sq, Sk, H, D, causal = shape
     dt = torch.float32
 
@@ -773,27 +778,33 @@ def flash_f32_checks(torch, F, fa, shape, gen):
                      else Sq * Sk)
     nq, nk = B * Sq * H * D * 4, B * Sk * H * D * 4
     stats = 2 * B * H * Sq * 4
-    rows = [
-        timed(torch, "flash_attention_fwd_f32", max(err_f, lse_err),
-              lambda i: fa.flash_attention_fwd(q, k, v, causal),
-              lambda i: fa.flash_attention_fwd_plain(q, k, v, causal), None,
-              bound_ms(2 * nq + 2 * nk + stats // 2, 4 * D * pairs,
-                       VECTOR_OPS), plain_iters=3),
-        timed(torch, "flash_attention_bwd_f32", err_b,
-              lambda i: fa.flash_attention_bwd(*bwd),
-              lambda i: fa.flash_attention_bwd_grads_plain(*bwd), None,
-              bound_ms(3 * nq + 4 * nk + stats, 10 * D * pairs, VECTOR_OPS),
-              plain_iters=3),
-        timed(torch, "flash_attention_bwd_dq_f32", err_q,
-              lambda i: fa.flash_attention_bwd_dq(*bwd),
-              lambda i: fa.flash_attention_bwd_dq_plain(*bwd), None,
-              bound_ms(3 * nq + 2 * nk + stats, 6 * D * pairs, VECTOR_OPS),
-              plain_iters=3),
-        timed(torch, "flash_attention_bwd_dkv_f32", err_kv,
-              lambda i: fa.flash_attention_bwd_dkv(*bwd),
-              lambda i: fa.flash_attention_bwd_dkv_plain(*bwd), None,
-              bound_ms(2 * nq + 4 * nk + stats, 8 * D * pairs, VECTOR_OPS),
-              plain_iters=3)]
+    work = {  # name: (bytes, operations), its kernel and its plain version
+        "flash_attention_fwd_f32": (
+            2 * nq + 2 * nk + stats // 2, 4 * D * pairs,
+            lambda i: fa.flash_attention_fwd(q, k, v, causal),
+            lambda i: fa.flash_attention_fwd_plain(q, k, v, causal)),
+        "flash_attention_bwd_f32": (
+            3 * nq + 4 * nk + stats, 10 * D * pairs,
+            lambda i: fa.flash_attention_bwd(*bwd),
+            lambda i: fa.flash_attention_bwd_grads_plain(*bwd)),
+        "flash_attention_bwd_dq_f32": (
+            3 * nq + 2 * nk + stats, 6 * D * pairs,
+            lambda i: fa.flash_attention_bwd_dq(*bwd),
+            lambda i: fa.flash_attention_bwd_dq_plain(*bwd)),
+        "flash_attention_bwd_dkv_f32": (
+            2 * nq + 4 * nk + stats, 8 * D * pairs,
+            lambda i: fa.flash_attention_bwd_dkv(*bwd),
+            lambda i: fa.flash_attention_bwd_dkv_plain(*bwd))}
+    errs = (max(err_f, lse_err), err_b, err_q, err_kv)
+    rows = []
+    for (kname, (nbytes, ops, kernel, plain)), e in zip(work.items(), errs):
+        r = timed(torch, kname, e, kernel, plain, None,
+                  bound_ms(nbytes, 3 * ops, TF32_OPS), plain_iters=3)
+        r["bound_peak"] = ("3xTF32: three TF32 passes at the TF32 "
+                           "tensor-core rate (495 TFLOP/s)")
+        r["cuda_core_bound_ms"], r["cuda_core_bound_by"] = bound_ms(
+            nbytes, ops, VECTOR_OPS)
+        rows.append(r)
     lib_fwd, lib_bwd = sdpa_ms(torch, F, q, k, v, do, causal)
     rows[0]["library_ms"], rows[0]["library"] = lib_fwd, "sdpa forward fp32"
     for r in rows[1:]:
@@ -801,7 +812,8 @@ def flash_f32_checks(torch, F, fa, shape, gen):
         r["library"] = "sdpa backward fp32 (dq, dk and dv in one call)"
     for r in rows:
         r["shape"], r["dtype"] = name, "float32"
-        r["bound_peak"] = "fp32 CUDA cores (67 TFLOP/s), no tensor core"
+        r["bound_share"] = r["bound_ms"] / r["ms"]
+        r["cuda_core_bound_share"] = r["cuda_core_bound_ms"] / r["ms"]
     rows[1]["bit_identical_to_role_launches"] = True
     return rows
 
@@ -1493,14 +1505,26 @@ def flash_build_report(fa, _build, logs):
 
 def flash_f32_build_report(torch, fa, _build, logs):
     """Every instance of ``csrc/flash_attention_f32.cu`` (forward and
-    backward at D 64 and 128), each with its ptxas report; raises on a
-    spill."""
+    backward at D 64 and 128), each with its ptxas report and the count of
+    tensor-core instructions (HMMA, HGMMA) in its SASS; raises on a spill
+    or on an instance without a tensor-core instruction."""
     instances = [(f"flash_{kind}_f32ILi{D}EE", f"flash_{kind}_f32 D{D}",
                   dict(kernel=f"flash_{kind}_f32", D=D),
                   fa.smem_bytes(kind, D, torch.float32))
                  for kind in ("fwd", "bwd") for D in (64, 128)]
-    return ptxas_rows(_build, logs.get("flash_attention_f32", ""), instances,
+    rows = ptxas_rows(_build, logs.get("flash_attention_f32", ""), instances,
                       "flash_attention_f32")
+    sass = _build.sass_opcode_counts("flash_attention_f32", ("HMMA", "HGMMA"))
+    for (key, label, _, _), r in zip(instances, rows):
+        found = [n for k, n in sass.items() if key in k]
+        if len(found) != 1 or found[0] == 0:
+            raise AssertionError(f"flash_attention_f32: {label} has no "
+                                 f"tensor-core instruction in its SASS "
+                                 f"({found})")
+        r["tensor_core_instructions"] = found[0]
+        print(f"sass {label}: {found[0]} tensor-core instructions "
+              f"(HMMA/HGMMA)")
+    return rows
 
 
 def rebuilt_build_report(torch, bm, da, pa, qm, hd, _build, logs):
@@ -4136,11 +4160,15 @@ def eager_phase(torch, port, bert, fns):
                      "multi_tensor_update_per_step": per_step,
                      "peak_memory_bytes": torch.cuda.max_memory_allocated(),
                      "losses": losses}
-        prof = device_profile(torch, step)
+        # the fp32 flash kernels apart from the other hand-written ones
+        prof = device_profile(torch, step, kinds={
+            "flash_f32": ("flash_fwd_f32", "flash_bwd_f32"),
+            "hand_written": HAND_WRITTEN, "matmul": MATMUL})
         if prof is None:
             out[mode]["device_ms_per_step"] = "not measured"
         else:
             out[mode].update(
+                flash_f32_device_ms=prof["split_ms"]["flash_f32"],
                 device_ms_per_step=prof["device_ms"],
                 profiled_step_wall_ms=prof["wall_ms"],
                 device_busy_share=prof["device_ms"] / prof["wall_ms"],
@@ -5339,12 +5367,13 @@ def kernels_line(rows, by_path):
             k["role_of"] = "flash_attention_bwd_f32"
         if name.endswith("_f32"):
             # the fp32 instance: every shape phase 2 times, and its bound's
-            # peak (CUDA cores: no tensor core, no TF32)
+            # peak (3xTF32 on the tensor cores; the CUDA-core bound beside)
             k["bound_peak"] = r["bound_peak"]
             k["shapes"] = {
                 v["shape"]: {key: v[key] for key in (
                     "max_abs_err", "ms", "eager_ms", "plain_ms", "bound_ms",
-                    "bound_by", "library_ms")}
+                    "bound_by", "bound_share", "cuda_core_bound_ms",
+                    "cuda_core_bound_share", "library_ms")}
                 for v in rows if v["name"] == name}
         if name in line_dtype:
             k["shape"], k["mode"] = at, line_dtype[name]
@@ -5515,7 +5544,10 @@ def main() -> None:
                   f"eager_ms {r['eager_ms']:.6g} plain_ms "
                   f"{r['plain_ms']:.6g} library_ms {r['library_ms']:.6g} "
                   f"({r['library']}) bound_ms {r['bound_ms']:.6g} "
-                  f"({r['bound_by']}, {r['bound_peak']})")
+                  f"({r['bound_by']}, {r['bound_peak']}; share "
+                  f"{r['bound_share']:.4f}) fp32 CUDA-core bound_ms "
+                  f"{r['cuda_core_bound_ms']:.6g} (share "
+                  f"{r['cuda_core_bound_share']:.4f})")
     r = head_dx_checks(torch, hd, gen)
     rows.append(r)
     print(f"kernel {r['name']:24s} {r['shape']:10s} bfloat16  max_abs_err "
@@ -6284,7 +6316,9 @@ def main() -> None:
         print(f"eager BERT-base encoder, {mode} ({card}): B {EAGER_BATCH} S "
               f"{BERT_SEQ}, {st['timed_steps']} timed AdamW steps: "
               f"{st['tokens_per_s']:.1f} tokens/s, {st['ms_per_step']:.3f} "
-              f"ms/step, device {st['device_ms_per_step']} ms in one "
+              f"ms/step, the fp32 flash kernels "
+              f"{st.get('flash_f32_device_ms', 'not measured')} ms and "
+              f"device {st['device_ms_per_step']} ms in one "
               f"profiled step of "
               f"{st.get('profiled_step_wall_ms', 'not measured')} ms wall "
               f"(busy share "

@@ -12,247 +12,494 @@
 //
 // Conventions, as the plain versions in ops/kernels/flash_attention.py:
 // q, k, v, do, out and the gradients are fp32 [B, S, H, D]; lse (natural
-// log) and delta = rowsum(do * o) are fp32 [B, H, Sq]. Every product and
-// sum is an fp32 FMA on the CUDA cores: no tensor core, so no TF32
-// rounding anywhere; probabilities are never rounded. Scores are scaled by
+// log) and delta = rowsum(do * o) are fp32 [B, H, Sq]. Scores are scaled by
 // scale * log2(e) and the softmax runs on exp2f; dq and dk take the factor
 // `scale` at the end, dv none. Causal masking is the TPU's tril(k = Sk -
 // Sq): query row i sees keys j <= i + off, off = Sk - Sq >= 0.
 //
-// What bounds them on the H100: with no tensor core the operations do. At
-// BERT's shape (B 8, S 512, 12 heads of D 64, not causal) the forward's 2
-// products of 2 D flops per (query, key) pair are 6.4 GFLOP, 0.096 ms at
-// 67 TFLOP/s, against 0.019 ms for its 4 * 12.6 MB at 3.35 TB/s; the
-// backward's 5 products 0.24 ms. The design is the simplest that keeps the
-// [S, S] scores out of device memory:
-// - a block owns a 64-row tile (query rows in the forward and the dq
-//   role, keys in the dk/dv role) and walks the other side's 64-row tiles,
-//   each loaded into shared memory by all 256 threads (16-byte global
-//   loads, zero rows past S);
-// - a product of two tiles is register-tiled: the 16 x 16 threads each
-//   hold a 4 x 4 piece of the 64 x 64 score tile, rows ty * 4 + i and
-//   columns tx + 16 j, so a warp reads two rows of one operand (a
-//   broadcast) and sixteen rows of the other, padded to D + 1 floats so
-//   they fall in sixteen banks;
-// - the forward's softmax is online: a thread keeps its four rows'
-//   running max m and partial sums l (a row's max is reduced over the 16
-//   threads that share it, its sum once at the end), rescales its output
-//   accumulators by alpha = exp2(m_old - m_new) and writes P into the
-//   shared memory K used (K is read by then), from which P V is
-//   accumulated, rows ty * 4 + i and columns tx + 16 n of the output;
-// - the backward is one grid without atomics, as flash_attention.cu's:
-//   dq role blocks (fixed q, do; k, v streamed) recompute p and ds = p (dp
-//   - delta), put ds over v in shared memory and accumulate ds k; dk/dv
-//   role blocks (fixed k, v; q, do, lse and delta streamed) compute the
-//   transposed tiles p^T and ds^T and accumulate p^T do and ds^T q. Each
-//   role recomputes the scores it needs, so a one-role launch gives the
-//   same bits as the two-role one. Causal blocks skip the tiles wholly
-//   past (forward, dq) or before (dk/dv) their diagonal.
-// Later work makes it fast (a ring of tiles, more warps on the softmax,
-// the wider tiles that the 227 KB of shared memory allow).
+// Numerics: 3xTF32 on the tensor cores. Every operand of a product, read
+// from shared memory or taken from an accumulator (p, ds), is split in
+// registers into hi + lo: hi is x rounded to TF32 to nearest with ties away
+// from zero (cvt.rna.tf32.f32's rounding, done as two integer operations
+// on the bits, so that its low 13 bits are zero and lo = x - hi is exact),
+// and lo goes to the tensor core as it is, which reads the top 19 bits of
+// an operand. A product is three mma.sync m16n8k8 TF32 products into one
+// fp32 accumulator: hi * lo and lo * hi first, then hi * hi. What is lost
+// is lo * lo and lo's rounding, about 2^-21 of a product, where one TF32
+// product alone loses 2^-11 (tests/test_torch_flash_f32_split.py holds
+// both against the reference). The tensor core rounds its sums toward
+// zero, so a chain of products into one accumulator drifts by up to 2^-24
+// of its value a product (the most in dk and dv, whose first keys gather a
+// causal head's every query): the outputs (o, dq, dk, dv) sum each tile's
+// products from zero and add them on the CUDA cores. The softmax, its
+// scaling, lse, delta and ds = p (dp - delta) stay fp32 on the CUDA
+// cores.
+//
+// What bounds them on the H100: at BERT's shape (B 8, S 512, 12 heads of
+// D 64, not causal) the forward's 2 products of 2 D flops per (query, key)
+// pair are 6.4 GFLOP, three TF32 passes 19.3 GFLOP: 0.039 ms at 495
+// TFLOP/s, against 0.019 ms for its 4 * 12.6 MB at 3.35 TB/s; the
+// backward's 5 products 0.098 ms. So the tensor cores bound them; beside
+// the products each tile costs the splits, the fragments' shared-memory
+// reads and the softmax's exp2, issued by the same warps. The design:
+// - mma.sync and not wgmma: wgmma's TF32 form reads B (and an A in shared
+//   memory) only K-major, so p v, ds k, p^T do and ds^T q would need a
+//   transposed copy of each tile, split in shared memory; mma.sync reads
+//   any layout from padded shared memory. Every tile is stored by rows at a
+//   stride of D + 4 floats, so both fragment patterns are free of bank
+//   conflicts: x[n][k] (lanes at 4 g + t) and x[k][n] (lanes at 8 t + g).
+// - a block is WARPS warps of 16 rows each (query rows in the forward and
+//   the dq role, keys in the dk/dv role), their tile loaded once; the
+//   other side's tiles of T rows stream through a ring of two stages by
+//   16-byte cp.async (zero-filled past S), the next tile's copies issued
+//   before this tile's products. D 64: 4 warps (64 rows), T 64, two blocks
+//   an SM; D 128: the forward 4 warps and T 32 (two blocks), the backward 8
+//   warps (128 rows) and T 32 (one block: 2 x 128 fixed rows and two
+//   stages of 2 x 32 rows at a stride of 132 floats are 199 KB).
+// - p and ds never leave registers: the m16n8k8 accumulator holds a row's
+//   keys 2t and 2t + 1, and the TF32 A fragment wants k slots t and t + 4;
+//   taking slot t as key 2t and slot t + 4 as key 2t + 1 makes the
+//   accumulator the A fragment as it stands, and the B fragment of v (or
+//   k, q, do) reads rows 2t and 2t + 1 to match.
+// - the forward's softmax is online in registers: a thread holds two rows'
+//   running max m and partial sum l, reduced over the quad that shares the
+//   row; the output accumulator is rescaled by alpha = exp2(m_old - m_new)
+//   before p v. Key tile 0 holds a key every row sees (off >= 0), so m is
+//   finite from the first tile on.
+// - code size: the forward unrolls its whole tile (twice: with and without
+//   the masks); the backward, whose two roles hold seven products, keeps
+//   each role's code small (a loop over D in steps of 32, masks tested on
+//   every tile), as a backward unrolled like the forward ran slower.
+// - a warp skips a tile its rows see none of, and a causal block walks
+//   only the tiles its rows see (forward and dq role up to the last row's
+//   diagonal, the dk/dv role from the first query tile that sees its first
+//   key). The grid is one-dimensional and issues each head's heaviest
+//   blocks first (block_of).
+// - the backward is one grid without atomics: dq role blocks (fixed q, do;
+//   k, v streamed) compute s = q k^T and dp = do v^T, ds = p (dp - delta)
+//   and dq += ds k; dk/dv role blocks (fixed k, v; q, do, lse and delta
+//   streamed) compute the transposed tiles k q^T and v do^T, and dv += p^T
+//   do and dk += ds^T q. Each role recomputes the scores it needs, so a
+//   one-role launch gives the same bits as the two-role one.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 64;      // rows of a tile
-constexpr int THREADS = 256;  // 16 x 16: a 4 x 4 piece of a 64 x 64 tile each
-constexpr int PLD = TILE + 1;  // row stride of a shared score tile
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
 
-template <int D>
-struct F32 {
-  static constexpr int LD = D + 1;        // stride of a tile read by rows
-  static constexpr int T = TILE * LD;     // floats of such a tile
-  static constexpr int NJ = D / 16;       // output columns a thread holds
-  // forward: q, k (then p over it), v unpadded
-  static constexpr int FWD = 2 * T + TILE * D;
-  // backward: dq role q, do, k, v (then ds over v); dk/dv role k, v, q,
-  // do, p^T, ds^T, the query tile's lse and delta
-  static constexpr int DQ = 4 * T;
-  static constexpr int DKV = 4 * T + 2 * TILE * PLD + 2 * TILE;
-  static constexpr int BWD = DQ > DKV ? DQ : DKV;
-  static_assert(TILE * PLD <= T, "a score tile must fit over a k tile");
+// the block of one kernel: WARPS warps own R = 16 WARPS rows, the other
+// side streams in tiles of T rows
+template <int D, bool BWD>
+struct Cfg {
+  static constexpr int WARPS = BWD && D == 128 ? 8 : 4;
+  static constexpr int T = D == 64 ? 64 : 32;
+  static constexpr int MIN_BLOCKS = BWD && D == 128 ? 1 : 2;
+  static constexpr int THREADS = 32 * WARPS;
+  static constexpr int R = 16 * WARPS;
+  static constexpr int LD = D + 4;  // row stride of every tile, in floats
+  // the fixed tiles (forward: q; backward: q and do, or k and v), then two
+  // stages of the two streamed tiles (and, in the backward, the dk/dv
+  // role's T values of lse and of delta)
+  static constexpr int FIXED = (BWD ? 2 : 1) * R * LD;
+  static constexpr int STAGE = 2 * T * LD + (BWD ? 2 * T : 0);
+  static constexpr int BYTES = (FIXED + 2 * STAGE) * 4;
+  static_assert(BYTES <= 232448 / MIN_BLOCKS - 1024, "shared memory");
 };
 
-// rows r0 .. r0 + 63 of head h of batch b of a [B, S, H, D] tensor into
-// shared memory at row stride ld, zero past S
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, int ld,
+// ---------------------------------------------------------------------------
+// copies
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes, of which the first n (0 or 16) are read and the rest zeroed
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(n)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// every group but the newest has landed (this thread's copies)
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// rows r0 .. r0 + ROWS - 1 of head h of batch b of a [B, S, H, D] tensor
+// into shared memory at row stride D + 4, zero past S
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(float* dst,
                                           const float* __restrict__ src,
                                           int b, int h, int H, int S,
                                           int r0) {
-  constexpr int V4 = D / 4;
-  for (int i = threadIdx.x; i < TILE * V4; i += THREADS) {
-    const int r = i / V4, c = (i % V4) * 4, row = r0 + r;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < S)
-      x = *reinterpret_cast<const float4*>(
-          src + (((size_t)b * S + row) * H + h) * D + c);
-    float* d = dst + r * ld + c;
-    d[0] = x.x;
-    d[1] = x.y;
-    d[2] = x.z;
-    d[3] = x.w;
+  constexpr int P = D / 4;  // 16-byte pieces a row
+  static_assert(ROWS * P % THREADS == 0, "a whole number of pieces each");
+#pragma unroll
+  for (int it = 0; it < ROWS * P / THREADS; ++it) {
+    const int i = threadIdx.x + it * THREADS;
+    const int r = i / P, c = (i % P) * 4, row = r0 + r;
+    const bool in = row < S;
+    cp_async16(dst + r * (D + 4) + c,
+               src + (((size_t)b * S + (in ? row : 0)) * H + h) * D + c,
+               in ? 16 : 0);
   }
 }
 
-// s[i][j] = sum_d A[ty * 4 + i][d] * B[tx + 16 j][d], both at stride D + 1
-template <int D>
-__device__ __forceinline__ void tile_dot(float (&s)[4][4],
-                                         const float* __restrict__ A,
-                                         const float* __restrict__ B, int ty,
-                                         int tx) {
-  constexpr int LD = F32<D>::LD;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-  for (int d = 0; d < D; ++d) {
-    float a[4], bb[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) a[i] = A[(ty * 4 + i) * LD + d];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bb[j] = B[(tx + 16 * j) * LD + d];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], bb[j], s[i][j]);
+// n values from src[r0 ..] (one head's row of lse or delta), zero past S
+template <int N, int THREADS>
+__device__ __forceinline__ void load_vals(float* dst,
+                                          const float* __restrict__ src,
+                                          int S, int r0) {
+  for (int i = threadIdx.x; i < N; i += THREADS) {
+    const bool in = r0 + i < S;
+    cp_async4(dst + i, src + (in ? r0 + i : 0), in ? 4 : 0);
   }
 }
 
-// acc[i][n] += sum_c P[ty * 4 + i][c] * X[c][tx + 16 n] (P at stride PLD,
-// X at stride ldx)
+// ---------------------------------------------------------------------------
+// 3xTF32 fragments and products
+// ---------------------------------------------------------------------------
+
+// x = hi + lo: hi is x rounded to TF32 (10 mantissa bits) to nearest with
+// ties away from zero, as cvt.rna.tf32.f32 rounds, its low 13 bits zero,
+// so lo = x - hi is exact; lo goes to the tensor core as it is, which
+// reads the top 19 bits of an operand (lo rounded toward zero)
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+// the m16 x k8 A fragment and the k8 x n8 B fragment, each split
+struct FragA {
+  uint32_t h[4], l[4];
+};
+struct FragB {
+  uint32_t h[2], l[2];
+};
+
+// lane = 4 g + t
+struct Lane {
+  int g, t;
+};
+
+// A of rows 0 .. 15 and columns k .. k + 7 of a tile x[row][col] at stride
+// D + 4: (g, t), (g + 8, t), (g, t + 4), (g + 8, t + 4)
 template <int D>
-__device__ __forceinline__ void tile_pv(float (&acc)[4][D / 16],
-                                        const float* __restrict__ P,
-                                        const float* __restrict__ X, int ldx,
-                                        int ty, int tx) {
-#pragma unroll 4
-  for (int c = 0; c < TILE; ++c) {
-    float p[4];
+__device__ __forceinline__ void frag_a(FragA& a, const float* x, int k,
+                                       Lane ln) {
+  constexpr int LD = D + 4;
+  const float* p = x + ln.g * LD + k + ln.t;
+  split(p[0], a.h[0], a.l[0]);
+  split(p[8 * LD], a.h[1], a.l[1]);
+  split(p[4], a.h[2], a.l[2]);
+  split(p[8 * LD + 4], a.h[3], a.l[3]);
+}
+
+// B = x^T for a tile x[n][k] (scores against its rows): rows n .. n + 7,
+// columns k + t and k + t + 4 of row n + g
+template <int D>
+__device__ __forceinline__ void frag_b_nk(FragB& b, const float* x, int n,
+                                          int k, Lane ln) {
+  const float* p = x + (n + ln.g) * (D + 4) + k + ln.t;
+  split(p[0], b.h[0], b.l[0]);
+  split(p[4], b.h[1], b.l[1]);
+}
+
+// B = x for a tile x[k][n] whose k slots are permuted as the accumulator
+// A fragments' (acc_a): slot t is row k + 2t, slot t + 4 row k + 2t + 1
+template <int D>
+__device__ __forceinline__ void frag_b_kn(FragB& b, const float* x, int k,
+                                          int n, Lane ln) {
+  const float* p = x + (k + 2 * ln.t) * (D + 4) + n + ln.g;
+  split(p[0], b.h[0], b.l[0]);
+  split(p[D + 4], b.h[1], b.l[1]);
+}
+
+// the accumulator c of an m16 x n8 product (rows g, g + 8; columns 2t,
+// 2t + 1) as the A fragment of the next product, its 8 columns the k
+// slots permuted as frag_b_kn's
+__device__ __forceinline__ void acc_a(FragA& a, const float (&c)[4]) {
+  split(c[0], a.h[0], a.l[0]);
+  split(c[2], a.h[1], a.l[1]);
+  split(c[1], a.h[2], a.l[2]);
+  split(c[3], a.h[3], a.l[3]);
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a b in 3xTF32: the small products first, then hi * hi
+__device__ __forceinline__ void mma3(float (&c)[4], const FragA& a,
+                                     const FragB& b) {
+  mma_tf32(c, a.h, b.l[0], b.l[1]);
+  mma_tf32(c, a.l, b.h[0], b.h[1]);
+  mma_tf32(c, a.h, b.h[0], b.h[1]);
+}
+
+// s[j] = x y^T over D for the warp's 16 rows of x (at xw) and the N rows
+// of y, in N / 8 column blocks, UNROLL steps of 8 a trip of the loop over
+// D. With fewer than 8 blocks the k steps alternate between two sets of
+// accumulators, summed at the end, so that at least 8 chains of products
+// are in flight
+template <int D, int N, int UNROLL>
+__device__ __forceinline__ void scores(float (&s)[N / 8][4], const float* xw,
+                                       const float* y, Lane ln) {
+  constexpr int SETS = N >= 64 ? 1 : 2;
+  float acc[SETS][N / 8][4];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) p[i] = P[(ty * 4 + i) * PLD + c];
+  for (int u = 0; u < SETS; ++u)
 #pragma unroll
-    for (int n = 0; n < D / 16; ++n) {
-      const float x = X[c * ldx + tx + 16 * n];
+    for (int j = 0; j < N / 8; ++j)
+      acc[u][j][0] = acc[u][j][1] = acc[u][j][2] = acc[u][j][3] = 0.f;
+#pragma unroll 1
+  for (int k0 = 0; k0 < D; k0 += 8 * UNROLL) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) acc[i][n] = fmaf(p[i], x, acc[i][n]);
+    for (int u = 0; u < UNROLL; ++u) {
+      const int kk = k0 + 8 * u;
+      FragA a;
+      frag_a<D>(a, xw, kk, ln);
+#pragma unroll
+      for (int j = 0; j < N / 8; ++j) {
+        FragB b;
+        frag_b_nk<D>(b, y, 8 * j, kk, ln);
+        mma3(acc[u % SETS][j], a, b);
+      }
     }
   }
-}
-
-// reductions over the 16 threads (a half warp) that share a row
-__device__ __forceinline__ float half_max(float x) {
 #pragma unroll
-  for (int o = 8; o; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float half_sum(float x) {
+  for (int j = 0; j < N / 8; ++j)
 #pragma unroll
-  for (int o = 8; o; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+    for (int e = 0; e < 4; ++e)
+      s[j][e] = SETS == 1 ? acc[0][j][e] : acc[0][j][e] + acc[1][j][e];
 }
 
-// key tiles the query rows q0 .. q0 + 63 walk: up to the diagonal of the
-// last row under causal masking
-__device__ __forceinline__ int key_tiles(int q0, int Sk, int off,
+// acc += p y: p the N / 8 accumulators of an m16 x N product, y a tile
+// [N][D]. Each output block's products over the tile are summed from zero
+// and then added to acc on the CUDA cores: a chain of 3 N / 8 products
+// rounded toward zero, where accumulating in place would chain 3 S / 8 of
+// them over a sequence of S (see the header)
+template <int D, int N>
+__device__ __forceinline__ void apply(float (&acc)[D / 8][4],
+                                      const float (&p)[N / 8][4],
+                                      const float* y, Lane ln) {
+  FragA a[N / 8];
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) acc_a(a[j], p[j]);
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    float t[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+    for (int j = 0; j < N / 8; ++j) {
+      FragB b;
+      frag_b_kn<D>(b, y, 8 * j, 8 * n, ln);
+      mma3(t, a[j], b);
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] += t[e];
+  }
+}
+
+// reductions over the quad (4 lanes) that shares a row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// tiles of T keys that rows up to `last` walk: up to its diagonal under
+// causal masking
+template <int T>
+__device__ __forceinline__ int key_tiles(int last, int Sk, int off,
                                          int causal) {
-  const int n = (Sk + TILE - 1) / TILE;
-  return causal ? min(n, (off + q0 + TILE - 1) / TILE + 1) : n;
+  const int n = (Sk + T - 1) / T;
+  return causal ? min(n, (off + last) / T + 1) : n;
+}
+
+struct Shape {
+  int H, Sq, Sk, off, causal;
+  float c, scale;  // scale * log2(e), scale
+  int group;       // heads whose blocks are issued together (block_of)
+};
+
+// what the block blockIdx.x of a one-dimensional grid computes: the head
+// bh, the rank of its tile (0 the heaviest) and its role. Blocks are issued
+// in groups of `group` heads, a group's streamed tensors sized to stay in
+// the L2 cache; within a group the rank is the slowest axis, so every
+// head's heaviest tiles (the causal ones that walk the most tiles) start
+// first, in both roles of the backward. With role_major the role is the
+// slowest axis of all: where two blocks share an SM (the backward at D 64),
+// a dq block beside a dk/dv block makes the SM fetch both roles' code, and
+// the one-launch backward ran slower than its two roles launched apart
+struct Block {
+  int bh, rank, role;
+};
+
+__device__ __forceinline__ Block block_of(int BH, int ranks, int roles,
+                                          int group, bool role_major) {
+  int idx = blockIdx.x, role = 0;
+  if (role_major) {
+    role = idx / (BH * ranks);
+    idx -= role * BH * ranks;
+    roles = 1;
+  }
+  const int per = group * ranks * roles, grp = idx / per;
+  const int rem = idx - grp * per, heads = min(group, BH - grp * group);
+  const int rank = rem / (heads * roles), r = rem - rank * heads * roles;
+  return {grp * group + r / roles, rank, role_major ? role : r % roles};
 }
 
 // ---------------------------------------------------------------------------
 // forward: out and lse
 // ---------------------------------------------------------------------------
 
+// one key tile of the warp's rows: scores, the online softmax, o += p v.
+// lim: the last key each of the thread's two rows sees (CHECK: a tile the
+// rows do not see whole)
+template <int D, int T, bool CHECK>
+__device__ __forceinline__ void fwd_tile(const float* qw, const float* ks,
+                                         const float* vs,
+                                         float (&o)[D / 8][4], float (&m)[2],
+                                         float (&l)[2], int k0,
+                                         const int (&lim)[2], float c,
+                                         Lane ln) {
+  float s[T / 8][4];
+  scores<D, T, D / 8>(s, qw, ks, ln);
+  float mx[2] = {m[0], m[1]};
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[j][e] * c;
+      if (CHECK && k0 + 8 * j + 2 * ln.t + (e & 1) > lim[e >> 1])
+        x = -INFINITY;
+      s[j][e] = x;
+      mx[e >> 1] = fmaxf(mx[e >> 1], x);
+    }
+  float alpha[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = quad_max(mx[i]);
+    alpha[i] = exp2f(m[i] - mx[i]);  // 0 on the first tile
+    m[i] = mx[i];
+  }
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = exp2f(s[j][e] - m[e >> 1]);
+      s[j][e] = p;
+      ps[e >> 1] += p;
+    }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + ps[i];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+  apply<D, T>(o, s, vs, ln);
+}
+
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<D, false>::THREADS,
+                                  Cfg<D, false>::MIN_BLOCKS)
 flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, float* __restrict__ out,
-              float* __restrict__ lse, int H, int Sq, int Sk, int causal,
-              float c) {
-  using L = F32<D>;
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + L::T;  // then P
-  float* Vs = Ks + L::T;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // heaviest first
-  const int off = Sk - Sq;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+              float* __restrict__ lse, int B, Shape sh) {
+  using L = Cfg<D, false>;
+  constexpr int R = L::R, T = L::T, LD = L::LD;
+  extern __shared__ __align__(16) float smem[];
+  float* qs = smem;
+  float* ring = smem + L::FIXED;  // stage s: k, then v
+  const int H = sh.H, Sq = sh.Sq, Sk = sh.Sk, off = sh.off;
+  const int causal = sh.causal;
+  const float c = sh.c;
+  const int n_q = (Sq + R - 1) / R;
+  const Block blk = block_of(B * H, n_q, 1, sh.group, false);
+  const int bh = blk.bh, b = bh / H, h = bh % H;
+  const int q0 = (n_q - 1 - blk.rank) * R;  // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lane ln{lane >> 2, lane & 3};
+  const int qw = q0 + 16 * warp;  // the warp's first row
+  const int n_tiles = key_tiles<T>(q0 + R - 1, Sk, off, causal);
+  const int w_tiles = key_tiles<T>(qw + 15, Sk, off, causal);
+  // the last key each of the thread's rows sees (every row sees key 0)
+  int lim[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    lim[i] = causal ? min(Sk - 1, qw + ln.g + 8 * i + off) : Sk - 1;
 
-  load_tile<D>(Qs, L::LD, q, b, h, H, Sq, q0);
-  // this thread's rows and the last key each sees (every row sees key 0)
-  int lim[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-    lim[i] = causal ? min(Sk - 1, q0 + ty * 4 + i + off) : Sk - 1;
+  load_rows<D, R, L::THREADS>(qs, q, b, h, H, Sq, q0);
+  load_rows<D, T, L::THREADS>(ring, k, b, h, H, Sk, 0);
+  load_rows<D, T, L::THREADS>(ring + T * LD, v, b, h, H, Sk, 0);
+  cp_async_commit();
 
-  float o[4][L::NJ], m[4], l[4];
+  float o[D / 8][4], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int n = 0; n < L::NJ; ++n) o[i][n] = 0.f;
-  }
-  const int n_tiles = key_tiles(q0, Sk, off, causal);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * TILE;
-    __syncthreads();  // the tile before is consumed
-    load_tile<D>(Ks, L::LD, k, b, h, H, Sk, k0);
-    load_tile<D>(Vs, D, v, b, h, H, Sk, k0);
-    __syncthreads();
-    float s[4][4];
-    tile_dot<D>(s, Qs, Ks, ty, tx);
-    float alpha[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = m[i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float x = k0 + tx + 16 * j > lim[i] ? -INFINITY : s[i][j] * c;
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
-      }
-      mx = half_max(mx);
-      alpha[i] = exp2f(m[i] - mx);  // 0 on the first tile
-      m[i] = mx;
+  for (int n = 0; n < D / 8; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  const float* qw_s = qs + 16 * warp * LD;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {  // the next tile into the other stage
+      float* st = ring + ((i + 1) & 1) * L::STAGE;
+      load_rows<D, T, L::THREADS>(st, k, b, h, H, Sk, (i + 1) * T);
+      load_rows<D, T, L::THREADS>(st + T * LD, v, b, h, H, Sk, (i + 1) * T);
     }
-    __syncthreads();  // every thread has read k: p goes over it
-    float* Ps = Ks;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float ps = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] - m[i]);
-        ps += p;
-        Ps[(ty * 4 + i) * PLD + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha[i] + ps;
-#pragma unroll
-      for (int n = 0; n < L::NJ; ++n) o[i][n] *= alpha[i];
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();  // tile i has landed, for every thread
+    const float* ks = ring + (i & 1) * L::STAGE;
+    const int k0 = i * T;
+    if (i < w_tiles) {
+      const bool whole = k0 + T <= Sk && (!causal || k0 + T - 1 <= qw + off);
+      if (whole)
+        fwd_tile<D, T, false>(qw_s, ks, ks + T * LD, o, m, l, k0, lim, c, ln);
+      else
+        fwd_tile<D, T, true>(qw_s, ks, ks + T * LD, o, m, l, k0, lim, c, ln);
     }
-    __syncthreads();
-    tile_pv<D>(o, Ps, Vs, D, ty, tx);  // o += p v
+    __syncthreads();  // tile i is consumed: its stage may be refilled
   }
 
-  // out = o / l; lse from one thread of each row; rows past Sq not stored
+  // out = o / l, lse = (m + log2 l) ln 2; rows past Sq are not stored
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = half_sum(l[i]);
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const float li = quad_sum(l[i]);
+    const int row = qw + ln.g + 8 * i;
     if (row >= Sq) continue;
-    float* orow = out + (((size_t)b * Sq + row) * H + h) * D;
+    float* orow = out + (((size_t)b * Sq + row) * H + h) * D + 2 * ln.t;
 #pragma unroll
-    for (int n = 0; n < L::NJ; ++n) orow[tx + 16 * n] = o[i][n] / li;
-    if (tx == 0) lse[(size_t)bh * Sq + row] = (m[i] + log2f(li)) * LN2;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(orow + 8 * n) =
+          make_float2(o[n][2 * i] / li, o[n][2 * i + 1] / li);
+    if (ln.t == 0) lse[(size_t)bh * Sq + row] = (m[i] + log2f(li)) * LN2;
   }
 }
 
@@ -260,175 +507,227 @@ flash_fwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 // backward: one grid, the dq role and the dk/dv role
 // ---------------------------------------------------------------------------
 
-struct Shape {
-  int H, Sq, Sk, off, causal;
-  float c, scale;  // scale * log2(e), scale
-};
+// one key tile of the dq role's warp: p = exp2(s c - lse2), ds = p (dp -
+// delta) in place of s, dq += ds k
+template <int D, int T>
+__device__ __forceinline__ void dq_tile(const float* qw, const float* dow,
+                                        const float* ks, const float* vs,
+                                        float (&dq)[D / 8][4], int k0,
+                                        const int (&lim)[2],
+                                        const float (&lse2)[2],
+                                        const float (&dl)[2], float c,
+                                        Lane ln) {
+  float s[T / 8][4], dp[T / 8][4];
+  scores<D, T, 4>(s, qw, ks, ln);
+  scores<D, T, 4>(dp, dow, vs, ln);
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
+      float p = exp2f(fmaf(s[j][e], c, -lse2[i]));
+      if (k0 + 8 * j + 2 * ln.t + (e & 1) > lim[i]) p = 0.f;
+      s[j][e] = p * (dp[j][e] - dl[i]);
+    }
+  apply<D, T>(dq, s, ks, ln);
+}
 
-// dq of one query tile: the key tiles its rows see stream through
+// dq of the R query rows from q0: the key tiles they see stream through
 template <int D>
 __device__ __forceinline__ void bwd_dq(float* smem, const float* q,
                                        const float* k, const float* v,
                                        const float* dout, const float* lse,
                                        const float* delta, float* dq,
-                                       const Shape& sh) {
-  using L = F32<D>;
-  const int n_q = (sh.Sq + TILE - 1) / TILE;
-  if ((int)blockIdx.x >= n_q) return;
-  float* Qs = smem;
-  float* dOs = Qs + L::T;
-  float* Ks = dOs + L::T;
-  float* Vs = Ks + L::T;  // then ds
-  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
-  const int q0 = (n_q - 1 - blockIdx.x) * TILE;  // heaviest first
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
+                                       const Shape& sh, Block blk) {
+  using L = Cfg<D, true>;
+  constexpr int R = L::R, T = L::T, LD = L::LD;
+  const int n_q = (sh.Sq + R - 1) / R;
+  if (blk.rank >= n_q) return;
+  float* qs = smem;
+  float* dos = qs + R * LD;
+  float* ring = smem + L::FIXED;  // stage s: k, then v
+  const int bh = blk.bh, b = bh / sh.H, h = bh % sh.H;
+  const int q0 = (n_q - 1 - blk.rank) * R;  // heaviest first
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lane ln{lane >> 2, lane & 3};
+  const int qw = q0 + 16 * warp;
+  const int n_tiles = key_tiles<T>(q0 + R - 1, sh.Sk, sh.off, sh.causal);
+  const int w_tiles = key_tiles<T>(qw + 15, sh.Sk, sh.off, sh.causal);
 
-  load_tile<D>(Qs, L::LD, q, b, h, sh.H, sh.Sq, q0);
-  load_tile<D>(dOs, L::LD, dout, b, h, sh.H, sh.Sq, q0);
-  int lim[4];
-  float lse2[4], dl[4];
+  load_rows<D, R, L::THREADS>(qs, q, b, h, sh.H, sh.Sq, q0);
+  load_rows<D, R, L::THREADS>(dos, dout, b, h, sh.H, sh.Sq, q0);
+  load_rows<D, T, L::THREADS>(ring, k, b, h, sh.H, sh.Sk, 0);
+  load_rows<D, T, L::THREADS>(ring + T * LD, v, b, h, sh.H, sh.Sk, 0);
+  cp_async_commit();
+  int lim[2];
+  float lse2[2], dl[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + ln.g + 8 * i;
     lim[i] = sh.causal ? min(sh.Sk - 1, row + sh.off) : sh.Sk - 1;
     const bool live = row < sh.Sq;
     lse2[i] = live ? lse[(size_t)bh * sh.Sq + row] * LOG2E : 0.f;
     dl[i] = live ? delta[(size_t)bh * sh.Sq + row] : 0.f;
   }
 
-  float acc[4][L::NJ];
+  float acc[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int n = 0; n < L::NJ; ++n) acc[i][n] = 0.f;
-  const int n_tiles = key_tiles(q0, sh.Sk, sh.off, sh.causal);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int k0 = t * TILE;
+  for (int n = 0; n < D / 8; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  const float* qw_s = qs + 16 * warp * LD;
+  const float* dow_s = dos + 16 * warp * LD;
+  for (int i = 0; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) {
+      float* st = ring + ((i + 1) & 1) * L::STAGE;
+      load_rows<D, T, L::THREADS>(st, k, b, h, sh.H, sh.Sk, (i + 1) * T);
+      load_rows<D, T, L::THREADS>(st + T * LD, v, b, h, sh.H, sh.Sk,
+                                  (i + 1) * T);
+    }
+    cp_async_commit();
+    cp_async_wait1();
     __syncthreads();
-    load_tile<D>(Ks, L::LD, k, b, h, sh.H, sh.Sk, k0);
-    load_tile<D>(Vs, L::LD, v, b, h, sh.H, sh.Sk, k0);
+    const float* ks = ring + (i & 1) * L::STAGE;
+    const int k0 = i * T;
+    if (i < w_tiles)
+      dq_tile<D, T>(qw_s, dow_s, ks, ks + T * LD, acc, k0, lim, lse2, dl,
+                    sh.c, ln);
     __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dot<D>(s, Qs, Ks, ty, tx);   // q k^T
-    tile_dot<D>(dp, dOs, Vs, ty, tx);  // do v^T
-    __syncthreads();  // every thread has read v: ds goes over it
-    float* dSs = Vs;
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = exp2f(s[i][j] * sh.c - lse2[i]);
-        dSs[(ty * 4 + i) * PLD + tx + 16 * j] =
-            k0 + tx + 16 * j > lim[i] ? 0.f : p * (dp[i][j] - dl[i]);
-      }
-    __syncthreads();
-    tile_pv<D>(acc, dSs, Ks, L::LD, ty, tx);  // dq += ds k
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty * 4 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int row = qw + ln.g + 8 * i;
     if (row >= sh.Sq) continue;
-    float* drow = dq + (((size_t)b * sh.Sq + row) * sh.H + h) * D;
+    float* drow = dq + (((size_t)b * sh.Sq + row) * sh.H + h) * D + 2 * ln.t;
 #pragma unroll
-    for (int n = 0; n < L::NJ; ++n) drow[tx + 16 * n] = acc[i][n] * sh.scale;
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(drow + 8 * n) = make_float2(
+          acc[n][2 * i] * sh.scale, acc[n][2 * i + 1] * sh.scale);
   }
 }
 
-// dk and dv of one key tile: the transposed products (k q^T, v do^T) put
-// the keys on the rows; the query tiles that see the key tile stream
+// one query tile of the dk/dv role's warp (keys on the rows): p^T and ds^T
+// in place of the transposed scores and dp, dv += p^T do, dk += ds^T q.
+// key: the thread's two keys; ls, dls: the tile's lse and delta
+template <int D, int T>
+__device__ __forceinline__ void dkv_tile(const float* kw, const float* vw,
+                                         const float* qs, const float* dos,
+                                         const float* ls, const float* dls,
+                                         float (&dk)[D / 8][4],
+                                         float (&dv)[D / 8][4], int q0,
+                                         const int (&key)[2], const Shape& sh,
+                                         Lane ln) {
+  float st[T / 8][4], dpt[T / 8][4];
+  scores<D, T, 4>(st, kw, qs, ln);
+  scores<D, T, 4>(dpt, vw, dos, ln);
+#pragma unroll
+  for (int j = 0; j < T / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = 8 * j + 2 * ln.t + (e & 1), qi = q0 + col;
+      float p = exp2f(fmaf(st[j][e], sh.c, -ls[col] * LOG2E));
+      if (qi >= sh.Sq || (sh.causal && qi < key[e >> 1] - sh.off))
+        p = 0.f;
+      st[j][e] = p;
+      dpt[j][e] = p * (dpt[j][e] - dls[col]);
+    }
+  apply<D, T>(dv, st, dos, ln);
+  apply<D, T>(dk, dpt, qs, ln);
+}
+
+// dk and dv of the R keys from k0: the query tiles that see them stream
 // through with their lse and delta
 template <int D>
 __device__ __forceinline__ void bwd_dkv(float* smem, const float* q,
                                         const float* k, const float* v,
                                         const float* dout, const float* lse,
                                         const float* delta, float* dk,
-                                        float* dv, const Shape& sh) {
-  using L = F32<D>;
-  if ((int)blockIdx.x >= (sh.Sk + TILE - 1) / TILE) return;
-  float* Ks = smem;
-  float* Vs = Ks + L::T;
-  float* Qs = Vs + L::T;
-  float* dOs = Qs + L::T;
-  float* Pt = dOs + L::T;
-  float* dSt = Pt + TILE * PLD;
-  float* lse_s = dSt + TILE * PLD;
-  float* dl_s = lse_s + TILE;
-  const int bh = blockIdx.y, b = bh / sh.H, h = bh % sh.H;
-  const int k0 = blockIdx.x * TILE;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  // query tiles wholly before this key tile's diagonal see none of it
-  const int first = sh.causal ? max(0, k0 - sh.off) / TILE : 0;
-  const int n_q = (sh.Sq + TILE - 1) / TILE;
+                                        float* dv, const Shape& sh,
+                                        Block blk) {
+  using L = Cfg<D, true>;
+  constexpr int R = L::R, T = L::T, LD = L::LD;
+  if (blk.rank >= (sh.Sk + R - 1) / R) return;
+  float* ks = smem;
+  float* vs = ks + R * LD;
+  float* ring = smem + L::FIXED;  // stage s: q, do, lse, delta
+  const int bh = blk.bh, b = bh / sh.H, h = bh % sh.H;
+  const int k0 = blk.rank * R;  // causal: the first blocks are heaviest
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const Lane ln{lane >> 2, lane & 3};
+  const int kw0 = k0 + 16 * warp;  // the warp's first key
+  // query tiles wholly before a key's diagonal see none of it
+  const int first = sh.causal ? max(0, k0 - sh.off) / T : 0;
+  const int w_first = sh.causal ? max(0, kw0 - sh.off) / T : 0;
+  const int n_tiles = (sh.Sq + T - 1) / T;
+  const float* lse_h = lse + (size_t)bh * sh.Sq;
+  const float* delta_h = delta + (size_t)bh * sh.Sq;
 
-  load_tile<D>(Ks, L::LD, k, b, h, sh.H, sh.Sk, k0);
-  load_tile<D>(Vs, L::LD, v, b, h, sh.H, sh.Sk, k0);
-  // a query sees this thread's key kp when it is at least kp - off
-  int lo[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) lo[i] = sh.causal ? k0 + ty * 4 + i - sh.off : 0;
+  auto issue = [&](int tile) {
+    float* st = ring + ((tile - first) & 1) * L::STAGE;
+    const int r0 = tile * T;
+    load_rows<D, T, L::THREADS>(st, q, b, h, sh.H, sh.Sq, r0);
+    load_rows<D, T, L::THREADS>(st + T * LD, dout, b, h, sh.H, sh.Sq, r0);
+    load_vals<T, L::THREADS>(st + 2 * T * LD, lse_h, sh.Sq, r0);
+    load_vals<T, L::THREADS>(st + 2 * T * LD + T, delta_h, sh.Sq, r0);
+  };
+  load_rows<D, R, L::THREADS>(ks, k, b, h, sh.H, sh.Sk, k0);
+  load_rows<D, R, L::THREADS>(vs, v, b, h, sh.H, sh.Sk, k0);
+  if (first < n_tiles) issue(first);
+  cp_async_commit();
+  const int key[2] = {kw0 + ln.g, kw0 + ln.g + 8};
 
-  float dka[4][L::NJ], dva[4][L::NJ];
+  float dka[D / 8][4], dva[D / 8][4];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int n = 0; n < D / 8; ++n)
 #pragma unroll
-    for (int n = 0; n < L::NJ; ++n) dka[i][n] = dva[i][n] = 0.f;
-  for (int t = first; t < n_q; ++t) {
-    const int q0 = t * TILE;
+    for (int e = 0; e < 4; ++e) dka[n][e] = dva[n][e] = 0.f;
+  const float* kw_s = ks + 16 * warp * LD;
+  const float* vw_s = vs + 16 * warp * LD;
+  for (int i = first; i < n_tiles; ++i) {
+    if (i + 1 < n_tiles) issue(i + 1);
+    cp_async_commit();
+    cp_async_wait1();
     __syncthreads();
-    load_tile<D>(Qs, L::LD, q, b, h, sh.H, sh.Sq, q0);
-    load_tile<D>(dOs, L::LD, dout, b, h, sh.H, sh.Sq, q0);
-    if (threadIdx.x < TILE) {
-      const int qi = q0 + threadIdx.x;
-      const bool live = qi < sh.Sq;
-      lse_s[threadIdx.x] = live ? lse[(size_t)bh * sh.Sq + qi] * LOG2E : 0.f;
-      dl_s[threadIdx.x] = live ? delta[(size_t)bh * sh.Sq + qi] : 0.f;
-    }
+    const float* st = ring + ((i - first) & 1) * L::STAGE;
+    const int q0 = i * T;
+    if (i >= w_first)
+      dkv_tile<D, T>(kw_s, vw_s, st, st + T * LD, st + 2 * T * LD,
+                     st + 2 * T * LD + T, dka, dva, q0, key, sh, ln);
     __syncthreads();
-    float st[4][4], dpt[4][4];
-    tile_dot<D>(st, Ks, Qs, ty, tx);    // k q^T
-    tile_dot<D>(dpt, Vs, dOs, ty, tx);  // v do^T
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = tx + 16 * j, qi = q0 + col;
-      const float ls = lse_s[col], d = dl_s[col];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        float p = exp2f(st[i][j] * sh.c - ls);
-        if (qi >= sh.Sq || qi < lo[i]) p = 0.f;
-        Pt[(ty * 4 + i) * PLD + col] = p;
-        dSt[(ty * 4 + i) * PLD + col] = p * (dpt[i][j] - d);
-      }
-    }
-    __syncthreads();
-    tile_pv<D>(dva, Pt, dOs, L::LD, ty, tx);  // dv += p^T do
-    tile_pv<D>(dka, dSt, Qs, L::LD, ty, tx);  // dk += ds^T q
   }
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int kp = k0 + ty * 4 + i;
-    if (kp >= sh.Sk) continue;
-    const size_t at = (((size_t)b * sh.Sk + kp) * sh.H + h) * D;
+  for (int i = 0; i < 2; ++i) {
+    if (key[i] >= sh.Sk) continue;
+    const size_t at = (((size_t)b * sh.Sk + key[i]) * sh.H + h) * D + 2 * ln.t;
 #pragma unroll
-    for (int n = 0; n < L::NJ; ++n) {
-      dk[at + tx + 16 * n] = dka[i][n] * sh.scale;
-      dv[at + tx + 16 * n] = dva[i][n];
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(dk + at + 8 * n) = make_float2(
+          dka[n][2 * i] * sh.scale, dka[n][2 * i + 1] * sh.scale);
+      *reinterpret_cast<float2*>(dv + at + 8 * n) =
+          make_float2(dva[n][2 * i], dva[n][2 * i + 1]);
     }
   }
 }
 
-// role 0 (dq) or 1 (dk and dv): role0 + blockIdx.z
+// role 0 (dq) or 1 (dk and dv): role0 plus the block's role (block_of)
 template <int D>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(Cfg<D, true>::THREADS,
+                                  Cfg<D, true>::MIN_BLOCKS)
 flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
               const float* __restrict__ v, const float* __restrict__ dout,
               const float* __restrict__ lse, const float* __restrict__ delta,
               float* __restrict__ dq, float* __restrict__ dk,
-              float* __restrict__ dv, Shape sh, int role0) {
-  extern __shared__ float smem[];
-  if (role0 + blockIdx.z == 0)
-    bwd_dq<D>(smem, q, k, v, dout, lse, delta, dq, sh);
+              float* __restrict__ dv, int B, Shape sh, int role0,
+              int n_roles) {
+  using L = Cfg<D, true>;
+  extern __shared__ __align__(16) float smem[];
+  const int n_q = (sh.Sq + L::R - 1) / L::R, n_k = (sh.Sk + L::R - 1) / L::R;
+  const int ranks = n_roles == 2 ? max(n_q, n_k) : role0 == 0 ? n_q : n_k;
+  const Block blk =
+      block_of(B * sh.H, ranks, n_roles, sh.group, L::MIN_BLOCKS > 1);
+  if (role0 + blk.role == 0)
+    bwd_dq<D>(smem, q, k, v, dout, lse, delta, dq, sh, blk);
   else
-    bwd_dkv<D>(smem, q, k, v, dout, lse, delta, dk, dv, sh);
+    bwd_dkv<D>(smem, q, k, v, dout, lse, delta, dk, dv, sh, blk);
 }
 
 // ---------------------------------------------------------------------------
@@ -438,6 +737,13 @@ flash_bwd_f32(const float* __restrict__ q, const float* __restrict__ k,
 bool bad_shape(int B, int H, int Sq, int Sk, int D, int causal) {
   return B < 1 || H < 1 || (long long)B * H > 65535 || Sq < 1 || Sk < 1 ||
          (causal && Sq > Sk) || (D != 64 && D != 128);
+}
+
+// heads of `head_bytes` of streamed tensors each whose blocks are issued
+// together (block_of): as many as fit in 16 MB, a third of the L2 cache
+int group_of(int BH, long long head_bytes) {
+  const long long g = (16LL << 20) / head_bytes;
+  return g < 1 ? 1 : g > BH ? BH : static_cast<int>(g);
 }
 
 // above 48 KB a block's shared memory must be asked for, once per kernel
@@ -451,12 +757,15 @@ template <int D>
 int fwd(const float* q, const float* k, const float* v, float* out,
         float* lse, int B, int H, int Sq, int Sk, int causal, float scale,
         cudaStream_t s) {
-  constexpr size_t smem = F32<D>::FWD * sizeof(float);
-  static const int attr = prepare(flash_fwd_f32<D>, smem);
+  using L = Cfg<D, false>;
+  static const int attr = prepare(flash_fwd_f32<D>, L::BYTES);
   if (attr) return attr;
-  const dim3 grid((Sq + TILE - 1) / TILE, B * H);
-  flash_fwd_f32<D><<<grid, THREADS, smem, s>>>(q, k, v, out, lse, H, Sq, Sk,
-                                              causal, scale * LOG2E);
+  // the streamed k and v of a group of heads: up to 16 MB
+  const Shape sh{H, Sq, Sk, Sk - Sq, causal, scale * LOG2E, scale,
+                 group_of(B * H, 2LL * Sk * D * 4)};
+  const int grid = B * H * ((Sq + L::R - 1) / L::R);
+  flash_fwd_f32<D><<<grid, L::THREADS, L::BYTES, s>>>(q, k, v, out, lse, B,
+                                                       sh);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -466,17 +775,19 @@ int bwd(const float* q, const float* k, const float* v, const float* dout,
         const float* lse, const float* delta, float* dq, float* dk,
         float* dv, int B, int H, int Sq, int Sk, int causal, float scale,
         int role0, int n_roles, cudaStream_t s) {
-  constexpr size_t smem = F32<D>::BWD * sizeof(float);
-  static const int attr = prepare(flash_bwd_f32<D>, smem);
+  using L = Cfg<D, true>;
+  static const int attr = prepare(flash_bwd_f32<D>, L::BYTES);
   if (attr) return attr;
-  const int n_q = (Sq + TILE - 1) / TILE, n_k = (Sk + TILE - 1) / TILE;
-  const int nx = n_roles == 2 ? (n_q > n_k ? n_q : n_k)
-                : role0 == 0  ? n_q
-                              : n_k;
-  const Shape sh{H, Sq, Sk, Sk - Sq, causal, scale * LOG2E, scale};
-  const dim3 grid(nx, B * H, n_roles);
-  flash_bwd_f32<D><<<grid, THREADS, smem, s>>>(q, k, v, dout, lse, delta, dq,
-                                              dk, dv, sh, role0);
+  const int n_q = (Sq + L::R - 1) / L::R, n_k = (Sk + L::R - 1) / L::R;
+  const int ranks = n_roles == 2 ? (n_q > n_k ? n_q : n_k)
+                   : role0 == 0  ? n_q
+                                 : n_k;
+  // the streamed tensors of a group of heads (q, do, k, v): up to 16 MB
+  const Shape sh{H, Sq, Sk, Sk - Sq, causal, scale * LOG2E, scale,
+                 group_of(B * H, 2LL * (Sq + Sk) * D * 4)};
+  const int grid = B * H * ranks * n_roles;
+  flash_bwd_f32<D><<<grid, L::THREADS, L::BYTES, s>>>(
+      q, k, v, dout, lse, delta, dq, dk, dv, B, sh, role0, n_roles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -565,7 +876,6 @@ extern "C" int flash_attention_f32_bwd_dkv(const void* q, const void* k,
 
 // The dynamic shared memory one block of the D-wide kernels asks for.
 extern "C" int flash_attention_f32_smem(int D, int backward) {
-  if (backward)
-    return D == 64 ? F32<64>::BWD * 4 : F32<128>::BWD * 4;
-  return D == 64 ? F32<64>::FWD * 4 : F32<128>::FWD * 4;
+  if (backward) return D == 64 ? Cfg<64, true>::BYTES : Cfg<128, true>::BYTES;
+  return D == 64 ? Cfg<64, false>::BYTES : Cfg<128, false>::BYTES;
 }

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Dict, List
 
 __all__ = ["CSRC_DIR", "BUILD_DIR", "NVCC_FLAGS", "build", "build_all",
-           "load_library", "ptxas_report"]
+           "load_library", "ptxas_report", "sass_opcode_counts"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC_DIR = _PKG / "csrc"
@@ -124,4 +124,32 @@ def ptxas_report(log: str) -> Dict[str, Dict[str, int]]:
         if m:
             out[name]["registers"] = int(m.group(1))
             out[name]["smem"] = int(m.group(2) or 0)
+    return out
+
+
+_FUNCTION = re.compile(r"Function : (\S+)")
+
+
+def sass_opcode_counts(name: str, opcodes) -> Dict[str, int]:
+    """Per kernel (mangled name) of ``csrc/<name>.cu``'s library: how many
+    of its SASS instructions (``cuobjdump -sass``, beside ``nvcc``) have
+    an opcode in ``opcodes`` (``HMMA`` matches ``HMMA.1684.F32.TF32``)."""
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    proc = subprocess.run([str(tool), "-sass", build(name)["path"]],
+                          capture_output=True, text=True, timeout=600)
+    if proc.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed for {name}: {proc.stderr}")
+    op = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)")
+    wanted = set(opcodes)
+    out: Dict[str, int] = {}
+    fn = None
+    for line in proc.stdout.splitlines():
+        m = _FUNCTION.search(line)
+        if m:
+            fn = m.group(1)
+            out[fn] = 0
+            continue
+        m = op.search(line)
+        if fn is not None and m and m.group(1) in wanted:
+            out[fn] += 1
     return out

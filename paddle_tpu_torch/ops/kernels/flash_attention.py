@@ -9,10 +9,13 @@ packed ``_pallas_flash_fwd_packed`` become one forward kernel; the blocked
 dq role and a dk/dv role. The CUDA source is
 ``paddle_tpu_torch/csrc/flash_attention.cu``; its header says what bounds
 the kernels on the H100 and how they are built. Their fp32 instance (fp32
-q, k and v: FMAs on the CUDA cores, no TF32) is
-``paddle_tpu_torch/csrc/flash_attention_f32.cu``, with the same entry
-points; it counts its launches in each wrapper's ``f32_launches``, the
-bf16 kernels in ``launches``.
+q, k and v: 3xTF32 on the tensor cores, each operand split into a TF32
+high and low part and each product the sum of three TF32 products, fp32
+accumulation) is ``paddle_tpu_torch/csrc/flash_attention_f32.cu``, with
+the same entry points; it counts its launches in each wrapper's
+``f32_launches``, the bf16 kernels in ``launches``. It does not read
+``torch.backends.cuda.matmul.allow_tf32``: three TF32 passes are its fp32
+arithmetic.
 
 Three backward entry points launch that kernel: ``flash_attention_bwd``
 (both roles in one launch: dq, dk and dv; the training path's),
@@ -202,7 +205,7 @@ def _check_kernel(*ts):
     if any(t.data_ptr() % 16 for t in ts):
         raise ValueError("the kernels take tensors on a 16-byte boundary "
                          "(they read 16-byte pieces: the bf16 kernels' TMA "
-                         "tiles, the fp32 instance's float4 loads)")
+                         "tiles, the fp32 instance's cp.async copies)")
 
 
 def _lse_shape(q):

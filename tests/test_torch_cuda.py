@@ -11,6 +11,7 @@ run this file there without the suite's conftest (which imports JAX):
 This file imports nothing of JAX or of ``paddle_tpu``.
 """
 
+import json
 import math
 
 import numpy as np
@@ -1116,6 +1117,12 @@ F32_SHAPES = [  # B, Sq, Sk, H, D, causal
     (1, 72, 136, 2, 64, False),     # cross attention, Sq != Sk
     (1, 130, 70, 2, 128, False),    # Sq > Sk
     (1, 512, 512, 2, 128, True),
+    (1, 150, 150, 2, 128, True),    # ragged at the backward's 128 rows
+    (2, 1, 77, 2, 64, True),        # Sq 1: one row sees every key
+    (1, 1, 1, 1, 128, False),
+    (1, 33, 200, 2, 64, True),      # Sq < Sk at D 64: offset 167
+    (1, 97, 161, 2, 128, True),     # ragged 32-key tiles, offset 64
+    (4, 512, 512, 16, 128, False),  # D 128 at B * H 64: the grid filled
 ]
 
 
@@ -1155,6 +1162,39 @@ class TestFlashAttentionF32:
             assert torch.equal(g, r)
         assert [(f.launches, f.f32_launches) for f in fns] == [
             (a, b + 1) for a, b in n0]
+
+    @pytest.mark.parametrize("D", [64, 128])
+    def test_smem_bytes_is_the_launch_request(self, cuda, tmp_path, D):
+        """``smem_bytes(kind, D, float32)`` equals the shared memory the
+        launches of the forward and the one-launch backward asked for, as
+        the profiler's trace records it (dynamic plus static: the kernels
+        declare no static shared memory)."""
+        from torch.profiler import ProfilerActivity, profile
+
+        q, k, v, do = self._inputs(cuda, 1, 128, 128, 2, D)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        args = (q, k, v, do, lse, fa.attention_delta(out, do))
+        torch.cuda.synchronize()
+        got = {}
+        # a profiling session may miss a kernel's record: up to three
+        # sessions, until both launches are recorded
+        for attempt in range(3):
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fa.flash_attention_fwd(q, k, v)
+                fa.flash_attention_bwd(*args)
+                torch.cuda.synchronize()
+            trace = tmp_path / f"trace{attempt}.json"
+            prof.export_chrome_trace(str(trace))
+            for e in json.loads(trace.read_text())["traceEvents"]:
+                for kind in ("fwd", "bwd"):
+                    if (e.get("cat") == "kernel"
+                            and f"flash_{kind}_f32" in e.get("name", "")):
+                        got.setdefault(kind, set()).add(
+                            e["args"]["shared memory"])
+            if len(got) == 2:
+                break
+        assert got == {kind: {fa.smem_bytes(kind, D, torch.float32)}
+                       for kind in ("fwd", "bwd")}
 
     def test_fp32_never_takes_the_plain_version(self, cuda, monkeypatch):
         """A CUDA fp32 tensor launches the instance or raises: with the
