@@ -294,6 +294,32 @@ Phases (any failed check raises and the script exits non-zero):
    fused Momentum steps at B 32 (finite losses, one update launch a step
    for each flat group, ms of the second and peak memory); phase 2 also
    times the Momentum update at MobileNetV3-large's 174 parameters;
+6e. the text models, the other optimizers and the losses (after 6d;
+   ``paddle_tpu_torch.text.recipes``): (a) ``Model.fit`` of
+   ``SentimentBiLSTM`` (``Embedding(5000, 128)``, a two-layer
+   bidirectional ``LSTM`` of 198, the last step's 396 features ->
+   ``Linear(396, 96)`` -> ``Tanh`` -> ``Linear(96, 2)``: 21 parameters,
+   one flat group) on ``text.Imdb`` at its defaults with ``Adam``,
+   ``CrossEntropyLoss`` and ``Accuracy``, batch 64: four steps in order
+   through ``multi_tensor_update`` and through its plain version (losses
+   and parameters within ``MTU_TOL``, 4 launches against 0), then two
+   timed epochs (samples/s, ms a step, one launch a step, test accuracy
+   after each; above 0.5 at the end) and a profiled stretch of 2 steps
+   (busy share, the flat kernel's device ms a step); (b) ``NGramGRU`` on
+   ``text.Imikolov`` (the 4 context words -> ``Embedding(2000, 128)`` ->
+   ``GRU(128, 256)`` -> ``Linear(256, 2000)`` -> ``log_softmax`` ->
+   ``NLLLoss``), ``RMSProp(centered=True, momentum=0.9)``, batch 256, one
+   epoch: predicted tokens/s and the mean loss over the training set
+   before and after, which must fall; (c)
+   ``paddle_tpu_torch.experiments.parity.optimizer_parity``:
+   each of the ten optimizers that step parameters one by one (``LBFGS``
+   with ``"strong_wolfe"``) three full-batch steps on ``UCIHousing`` (a
+   five-layer MLP) on the card and on the CPU from the same weights,
+   within 1e-5, and its loss falling over 50 steps on the card; (d)
+   ``parity.loss_parity``: every loss forward and backward on the card
+   and on the CPU at B 64 within 1e-5 (``ctc_loss`` at T 200, B 32, C 30,
+   label length 40); phase 2 also times the Adam update at the BiLSTM's
+   21 parameters;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -305,7 +331,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 5c, 6, 6b, 6c, 6d and 7 is driven with every launch count set
+   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e and 7 is driven with every launch count set
    to 0 just before it and read just after; a kernel's ``launches`` is its
    sum over those paths (the decode kernel's quant mode has no engine
    caller, as in the JAX package, so its count is 0 there; the experiments' kernels run
@@ -5250,6 +5276,225 @@ def elastic_phase(torch, sched, fleet, disagg, autoscaler, kv_tiers,
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6e: the text models through Model.fit, the other optimizers and the
+# losses on the card
+# ---------------------------------------------------------------------------
+
+# Imdb at its defaults (2000 training documents of 64 tokens: 32 batches an
+# epoch, the last of 16); the BiLSTM's 21 fp32 params are one flat group
+IMDB_BATCH, IMDB_EPOCHS, IMDB_VS_PLAIN_STEPS, IMDB_PROFILED_STEPS = \
+    64, 2, 4, 2
+# Imikolov's 5000 training 4-grams: 20 batches, the last of 136
+IMIKOLOV_BATCH, IMIKOLOV_LR = 256, 1e-3
+# multi_tensor_update at the BiLSTM's population (21 tensors of 2,141,922
+# elements, 2,144,256 padded): fp32 Adam, its fit's update, against torch._fused_adam_
+BILSTM_VARIANT = LENET_VARIANT
+# the BiLSTM's parameters, kernel path against plain path after
+# IMDB_VS_PLAIN_STEPS Adam steps: within 1 % of one step's size (Adam's lr
+# 1e-3). The kernel and its plain version differ in the last bit (powf
+# against torch.pow for the bias corrections, contracted multiply-adds);
+# the next steps' gradients carry that, and an embedding row whose
+# gradient nearly cancels turns it into a visible share of its normalized
+# step (on an H100 80GB HBM3: 6 of 640,000 embedding entries 9.5e-7 apart,
+# the plain path deterministic)
+IMDB_PARAM_ATOL = 1e-5
+TEXT_KINDS = {"update": RESNET_KINDS["update"],
+              "pack": RESNET_KINDS["pack"], "matmul": MATMUL}
+
+
+def imdb_model(port, recipes):
+    """6e(a)'s ``Model``: the BiLSTM from the port's initializers under
+    seed 0, prepared with ``Adam``, ``CrossEntropyLoss`` and
+    ``Accuracy``."""
+    port.seed(0)
+    net = recipes.SentimentBiLSTM()
+    model = port.Model(net)
+    model.prepare(port.optimizer.Adam(parameters=net.parameters()),
+                  port.nn.CrossEntropyLoss(), port.metric.Accuracy())
+    return model
+
+
+def imdb_vs_plain(torch, port, recipes, mtu, fns, train):
+    """6e(a.1): fits of ``IMDB_VS_PLAIN_STEPS`` steps in order from the
+    same seeded BiLSTM under ``torch.use_deterministic_algorithms``, once
+    through the kernel and twice through its plain version (the repeat
+    says whether the step itself is deterministic on the card): every
+    batch's loss within ``MTU_TOL``, and each parameter within
+    ``IMDB_PARAM_ATOL`` of the plain run's, plus however far the second
+    plain run is from the first; one launch a step on the kernel fit,
+    none on the plain fits."""
+    steps, runs = IMDB_VS_PLAIN_STEPS, []
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore")
+            for plain in (False, True, True):
+                model = imdb_model(port, recipes)
+                rec = mnist_recorder(port)
+                zero_counts(fns)
+                with (mock.patch.object(mtu, "multi_tensor_update",
+                                        mtu.flat_update_plain) if plain
+                      else contextlib.nullcontext()):
+                    model.fit(train, epochs=1, batch_size=IMDB_BATCH,
+                              shuffle=False, verbose=0, num_iters=steps,
+                              callbacks=[rec])
+                n = read_counts(fns)
+                if not plain:
+                    check_counts(n, {"multi_tensor_update": steps},
+                                 "the BiLSTM kernel fit")
+                elif any(n.values()):
+                    raise AssertionError(f"launches on the plain BiLSTM "
+                                         f"fit: {n}")
+                runs.append((rec.losses, {
+                    k: v.detach().clone()
+                    for k, v in model.network.state_dict().items()}))
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (lk, sk), (lp, sp), (_, sp2) = runs
+    rtol, atol = MTU_TOL["torch.float32"]
+    np.testing.assert_allclose(lk, lp, rtol=rtol, atol=atol,
+                               err_msg="BiLSTM losses, kernel against plain")
+    repeat = all(torch.equal(v, sp2[k]) for k, v in sp.items())
+    for k, got in sk.items():
+        slack = (sp2[k] - sp[k]).abs() + IMDB_PARAM_ATOL + rtol * sp[
+            k].abs()
+        if not ((got - sp[k]).abs() <= slack).all():
+            raise AssertionError(
+                f"BiLSTM {k}: kernel against plain "
+                f"{(got - sp[k]).abs().max().item():.3e}, plain against "
+                f"plain {(sp2[k] - sp[k]).abs().max().item():.3e}")
+    return {"steps": steps, "losses_kernel": lk, "losses_plain": lp,
+            "loss_max_abs_err": max(abs(a - b) for a, b in zip(lk, lp)),
+            "param_max_abs_err": max((v - sp[k]).abs().max().item()
+                                     for k, v in sk.items()),
+            "plain_repeat_max_abs_err": max(
+                (v - sp[k]).abs().max().item() for k, v in sp2.items()),
+            "plain_repeat_bit_identical": repeat,
+            "bit_identical": all(torch.equal(v, sp[k])
+                                 for k, v in sk.items())}
+
+
+def imdb_fit(torch, port, recipes, fns, train, test):
+    """6e(a.2): two timed epochs of the BiLSTM (every count at 0 before
+    each): samples/s, ms a step, launches a step and the test set's
+    ``evaluate`` after each; then ``IMDB_PROFILED_STEPS`` more steps under
+    the profiler for the busy share and the flat update's device time a
+    step."""
+    model = imdb_model(port, recipes)
+    batches = math.ceil(len(train) / IMDB_BATCH)
+    epochs, launches = [], {}
+    np.random.seed(0)  # the loader's shuffles
+    for epoch in range(IMDB_EPOCHS):
+        rec = mnist_recorder(port)
+        torch.cuda.synchronize()
+        zero_counts(fns)
+        t0 = time.perf_counter()
+        model.fit(train, epochs=1, batch_size=IMDB_BATCH, verbose=0,
+                  callbacks=[rec])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        n = read_counts(fns)
+        check_counts(n, {"multi_tensor_update": batches},
+                     f"BiLSTM epoch {epoch}")
+        launches = {k: launches.get(k, 0) + v for k, v in n.items()}
+        if not all(math.isfinite(v) for v in rec.losses):
+            raise AssertionError(f"non-finite BiLSTM loss: {rec.losses}")
+        epochs.append({
+            "samples_per_s": len(train) / wall,
+            "ms_per_step": 1e3 * wall / batches,
+            "loader_ms_per_batch": 1e3 * sum(rec.loader_s) / batches,
+            "launches_per_step": n["multi_tensor_update"] / batches,
+            "first_loss": rec.losses[0], "last_loss": rec.losses[-1],
+            "test": model.evaluate(test, batch_size=IMDB_BATCH, verbose=0)})
+    if not epochs[-1]["test"]["acc"] > 0.5:
+        raise AssertionError(f"BiLSTM test accuracy after {IMDB_EPOCHS} "
+                             f"epochs: {epochs[-1]['test']}")
+    out = {"batches_per_epoch": batches, "epochs": epochs,
+           "parameters": len(model.network.parameters())}
+    prof = device_profile(torch, lambda: model.fit(
+        train, epochs=1, batch_size=IMDB_BATCH, verbose=0,
+        num_iters=IMDB_PROFILED_STEPS), kinds=TEXT_KINDS)
+    if prof is None:
+        out["device_busy_share"] = None
+    else:
+        n = IMDB_PROFILED_STEPS
+        out.update(device_ms_per_step=prof["device_ms"] / n,
+                   profiled_wall_ms_per_step=prof["wall_ms"] / n,
+                   device_busy_share=prof["device_ms"] / prof["wall_ms"],
+                   update_device_ms_per_step=prof["split_ms"]["update"] / n,
+                   device_split_ms_per_step={
+                       k: v / n for k, v in prof["split_ms"].items()},
+                   device_top=prof["top"][:6], host_top=prof["host_top"])
+    return out, launches
+
+
+def lm_mean_loss(torch, port, net, data):
+    """The mean NLL of ``NGramGRU`` over ``data`` (eval mode, no grad)."""
+    net.eval()
+    total = 0.0
+    with torch.no_grad():
+        for batch in port.io.DataLoader(data, batch_size=1024):
+            total += port.nn.functional.nll_loss(
+                net(*batch[:-1]), batch[-1].reshape(-1),
+                reduction="sum").item()
+    net.train()
+    return total / len(data)
+
+
+def imikolov_fit(torch, port, recipes, fns):
+    """6e(b): one epoch of the n-gram GRU with centered RMSProp and
+    momentum (no flat kind: no kernel launch): predicted tokens/s, the
+    first and last batch's loss, and the mean loss over the training set
+    before and after, which must fall."""
+    port.seed(0)
+    net = recipes.NGramGRU()
+    model = port.Model(net)
+    model.prepare(port.optimizer.RMSProp(
+        learning_rate=IMIKOLOV_LR, centered=True, momentum=0.9,
+        parameters=net.parameters()), recipes.NGramLoss())
+    train = port.text.Imikolov(mode="train")
+    before = lm_mean_loss(torch, port, net, train)
+    rec = mnist_recorder(port)
+    torch.cuda.synchronize()
+    zero_counts(fns)
+    t0 = time.perf_counter()
+    model.fit(train, epochs=1, batch_size=IMIKOLOV_BATCH, verbose=0,
+              callbacks=[rec])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if any(read_counts(fns).values()):
+        raise AssertionError(f"kernel launches on the RMSProp fit: "
+                             f"{read_counts(fns)}")
+    after = lm_mean_loss(torch, port, net, train)
+    if not after < before:
+        raise AssertionError(f"the GRU LM's training loss did not fall: "
+                             f"{before} -> {after}")
+    return {"batches": len(rec.losses), "tokens_per_s": len(train) / wall,
+            "ms_per_step": 1e3 * wall / len(rec.losses),
+            "first_batch_loss": rec.losses[0],
+            "last_batch_loss": rec.losses[-1],
+            "mean_loss_before": before, "mean_loss_after": after}
+
+
+def text_phase(torch, port, recipes, parity, mtu, fns):
+    """Phase 6e: (a) the BiLSTM on Imdb, (b) the GRU LM on Imikolov, (c)
+    the other optimizers and (d) the losses, each card against the CPU."""
+    train = port.text.Imdb(mode="train")
+    test = port.text.Imdb(mode="test")
+    vsp = imdb_vs_plain(torch, port, recipes, mtu, fns, train)
+    fit, launches = imdb_fit(torch, port, recipes, fns, train, test)
+    lm = imikolov_fit(torch, port, recipes, fns)
+    t0 = time.perf_counter()
+    opts = parity.optimizer_parity(DEVICE)
+    opt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    losses = parity.loss_parity(DEVICE)
+    return {"imdb_vs_plain": vsp, "imdb_fit": fit, "imikolov": lm,
+            "optimizers": opts, "optimizers_s": opt_s, "losses": losses,
+            "losses_s": time.perf_counter() - t0}, launches
+
+
 def kernels_line(rows, by_path):
     """The kernels' JSON line: for each kernel its route, source, the
     TPU kernel it replaces, its launches summed over the driven paths
@@ -5462,6 +5707,8 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
     from paddle_tpu_torch.quantization import serving as qs
+    from paddle_tpu_torch.experiments import parity
+    from paddle_tpu_torch.text import recipes
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5594,29 +5841,21 @@ def main() -> None:
               f"eager_ms {r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} "
               f"library_ms {lib} ({r['library']}) bound_ms "
               f"{r['bound_ms']:.6g} ({r['bound_by']})")
-    r = multi_tensor_checks(torch, mtu,
-                            param_shapes(device_mod, models.LeNet),
-                            LENET_VARIANT, gen, shape_name="lenet")
-    rows.append(r)
-    print(f"kernel {r['name']:24s} {r['shape']:8s} {r['dtype']:18s} "
-          f"{r['elements']} elements ({r['padded_elements']} padded) "
-          f"{r['bytes_per_element']:.0f} B each "
-          f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} eager_ms "
-          f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
-          f"{r['library_ms']:.6g} ({r['library']}) bound_ms "
-          f"{r['bound_ms']:.6g} ({r['bound_by']})")
-    r = multi_tensor_checks(torch, mtu, param_shapes(
-        device_mod, lambda: models.mobilenet_v3_large(
-            num_classes=ZOO_CLASSES)), MTU_VARIANTS[0], gen,
-        shape_name="mobilenet_v3_large")
-    rows.append(r)
-    print(f"kernel {r['name']:24s} {r['shape']:8s} {r['dtype']:18s} "
-          f"{r['elements']} elements ({r['padded_elements']} padded) "
-          f"{r['bytes_per_element']:.0f} B each "
-          f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} eager_ms "
-          f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
-          f"{r['library_ms']:.6g} ({r['library']}) bound_ms "
-          f"{r['bound_ms']:.6g} ({r['bound_by']})")
+    for build, variant, shape_name in (
+            (models.LeNet, LENET_VARIANT, "lenet"),
+            (lambda: models.mobilenet_v3_large(num_classes=ZOO_CLASSES),
+             MTU_VARIANTS[0], "mobilenet_v3_large"),
+            (recipes.SentimentBiLSTM, BILSTM_VARIANT, "bilstm")):
+        r = multi_tensor_checks(torch, mtu, param_shapes(device_mod, build),
+                                variant, gen, shape_name=shape_name)
+        rows.append(r)
+        print(f"kernel {r['name']:24s} {r['shape']:8s} {r['dtype']:18s} "
+              f"{r['elements']} elements ({r['padded_elements']} padded) "
+              f"{r['bytes_per_element']:.0f} B each "
+              f"max_abs_err {r['max_abs_err']:.3e} ms {r['ms']:.6g} eager_ms "
+              f"{r['eager_ms']:.6g} plain_ms {r['plain_ms']:.6g} library_ms "
+              f"{r['library_ms']:.6g} ({r['library']}) bound_ms "
+              f"{r['bound_ms']:.6g} ({r['bound_by']})")
     mtu_skip = multi_tensor_skip_check(torch, mtu, mtu_shapes, gen)
     print(f"multi_tensor_update skip = 1 left every buffer bit-identical: "
           f"{json.dumps(mtu_skip)}")
@@ -6394,6 +6633,57 @@ def main() -> None:
                  "mobilenet_v3_large_train": zrun, "families": zoo,
                  "seconds": zoo_s}
 
+    lap("6e")
+    # 6e. the text models, the other optimizers and the losses
+    torch.cuda.empty_cache()
+    text, tlaunches = text_phase(torch, port, recipes, parity, mtu, fns)
+    tvp, tfit, tlm = text["imdb_vs_plain"], text["imdb_fit"], text["imikolov"]
+    print(f"Imdb BiLSTM, kernel against plain ({card}): {tvp['steps']} Adam "
+          f"steps in order, losses {tvp['losses_kernel']} / "
+          f"{tvp['losses_plain']} (largest |err| "
+          f"{tvp['loss_max_abs_err']:.3e}), largest param error "
+          f"{tvp['param_max_abs_err']:.3e} (two plain runs "
+          f"{tvp['plain_repeat_max_abs_err']:.3e}; atol "
+          f"{IMDB_PARAM_ATOL}), "
+          f"bit-identical {tvp['bit_identical']} (plain repeat "
+          f"{tvp['plain_repeat_bit_identical']}); launches {tvp['steps']} "
+          f"against 0")
+    for e, ep in enumerate(tfit["epochs"]):
+        print(f"Imdb BiLSTM fit epoch {e + 1} ({card}): "
+              f"{tfit['parameters']} params, {tfit['batches_per_epoch']} "
+              f"batches of {IMDB_BATCH}: {ep['samples_per_s']:.1f} "
+              f"samples/s, {ep['ms_per_step']:.3f} ms/step (loader "
+              f"{ep['loader_ms_per_batch']:.3f} ms a batch), "
+              f"multi_tensor_update launches a step "
+              f"{ep['launches_per_step']}, loss {ep['first_loss']:.4f} -> "
+              f"{ep['last_loss']:.4f}; evaluate on Imdb(mode='test'): "
+              f"{json.dumps(ep['test'])}")
+    tbusy = tfit.get("device_busy_share")
+    print(f"Imdb BiLSTM profiled {IMDB_PROFILED_STEPS} steps ({card}): "
+          f"device {tfit.get('device_ms_per_step', 'not measured')} ms a "
+          f"step of {tfit.get('profiled_wall_ms_per_step', 'not measured')} "
+          f"ms wall (busy share "
+          f"{'not measured' if tbusy is None else f'{tbusy:.4f}'}), "
+          f"multi_tensor_update "
+          f"{tfit.get('update_device_ms_per_step', 'not measured')} ms a "
+          f"step; by kind {json.dumps(tfit.get('device_split_ms_per_step'))}"
+          f"; largest kernels {json.dumps(tfit.get('device_top'))}; host "
+          f"operators by self time {json.dumps(tfit.get('host_top'))}")
+    print(f"launches on the Imdb BiLSTM fit: {json.dumps(tlaunches)}")
+    print(f"Imikolov GRU LM fit ({card}): {tlm['batches']} batches of "
+          f"{IMIKOLOV_BATCH}, centered RMSProp with momentum: "
+          f"{tlm['tokens_per_s']:.1f} predicted tokens/s, "
+          f"{tlm['ms_per_step']:.3f} ms/step, batch loss "
+          f"{tlm['first_batch_loss']:.4f} -> {tlm['last_batch_loss']:.4f}, "
+          f"mean training loss {tlm['mean_loss_before']:.4f} -> "
+          f"{tlm['mean_loss_after']:.4f}")
+    print(f"optimizers on UCIHousing, card against CPU over 3 steps, and the "
+          f"card's loss over 50 ({card}, {text['optimizers_s']:.1f} s): "
+          f"{json.dumps(text['optimizers'])}")
+    print(f"losses forward and backward, card against CPU, largest |err| "
+          f"({card}, {text['losses_s']:.1f} s): "
+          f"{json.dumps(text['losses'])}")
+
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
     torch.cuda.empty_cache()
@@ -6420,6 +6710,7 @@ def main() -> None:
                "bert_train": blaunches5c, "ernie_step": elaunches5c,
                **elaunches6c,
                "zoo_mobilenet_v3_large": zlaunches,
+               "imdb_bilstm_fit": tlaunches,
                **{f"zoo_{n}": v for n, v in zflaunches.items()},
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
@@ -6449,6 +6740,7 @@ def main() -> None:
                    "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
                    "resnet50_adamw": radamw, "mnist": mnist,
                    "bert": bstats, "eager_bert": eager, "zoo": zoo_stats,
+                   "text": text,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

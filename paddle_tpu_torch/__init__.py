@@ -24,10 +24,13 @@ eager transformer stack (``nn``'s transformer layers,
 on the flash kernels, bf16 and fp32; and the PaddleClas model zoo
 (``vision.models``: AlexNet, VGG, SqueezeNet, MobileNet V1/V2/V3,
 ShuffleNetV2, DenseNet, GoogLeNet, InceptionV3) on every layer of ``nn``'s
-activation, common, container, conv, norm and pooling files.
+activation, common, container, conv, norm and pooling files; and the rest
+of ``nn`` (the losses, the recurrent layers, the extras, ``nn.utils``), the
+other optimizers with ``LBFGS``, and ``text`` (the Imdb, Imikolov and
+UCIHousing datasets, Viterbi decoding).
 """
 
-from . import incubate, io, metric, nn, optimizer, vision
+from . import incubate, io, metric, nn, optimizer, text, vision
 from .device import get_device, resolve_device, set_device
 from .framework.io import load, save
 from .hapi import callbacks
@@ -37,4 +40,4 @@ from .nn.initializer import seed
 
 __all__ = ["resolve_device", "set_device", "get_device", "seed", "Model",
            "summary", "flops", "save", "load", "io", "metric", "callbacks",
-           "nn", "optimizer", "vision", "incubate"]
+           "nn", "optimizer", "vision", "incubate", "text"]

@@ -6,9 +6,12 @@ convolutions and their transposes, every pool (max, average, adaptive,
 unpool, Lp and fractional), ``unfold``, ``interpolate``, ``pixel_shuffle``
 and ``pad``, the norms (batch, layer, RMS, instance, group, local
 response, ``normalize``), the dropouts, ``embedding``,
-``cosine_similarity``, ``cross_entropy``, ``sequence_mask`` and
+``cosine_similarity``, ``sequence_mask`` and
 ``scaled_dot_product_attention``, and the ``flash_attention`` module
-(``flash_attention``, ``flash_attn_unpadded``).
+(``flash_attention``, ``flash_attn_unpadded``); the losses (``loss.py``:
+``cross_entropy`` with its whole signature and every other loss of the
+reference) and the sampling, pixel and random ops (``extras.py``:
+``affine_grid``, ``grid_sample``, ``gumbel_softmax``, ``fold``, ...).
 
 Each op keeps the JAX package's op name, which ``amp.cast_inputs`` keys
 the AMP casts on, its signature, defaults and layouts at the public
@@ -62,7 +65,7 @@ __all__ = [
     "batch_norm", "layer_norm", "rms_norm", "instance_norm", "group_norm",
     "local_response_norm", "normalize", "dropout", "dropout2d",
     "dropout3d", "alpha_dropout", "feature_alpha_dropout", "embedding",
-    "cosine_similarity", "cross_entropy",
+    "cosine_similarity",
     # attention
     "sequence_mask", "scaled_dot_product_attention", "flash_attention"]
 
@@ -947,33 +950,6 @@ def batch_norm(x, running_mean, running_var, weight=None, bias=None,
     return out.movedim(1, channel_axis) if channel_axis != 1 else out
 
 
-def cross_entropy(input, label, weight=None, ignore_index=-100,
-                  reduction="mean", soft_label=False, axis=-1,
-                  use_softmax=True, label_smoothing=0.0, name=None):
-    """Softmax cross-entropy over hard labels (``label`` with or without a
-    trailing 1 axis); a label equal to ``ignore_index`` scores 0 and is
-    left out of the mean. Black-listed under AMP: the logits go to fp32."""
-    if weight is not None or soft_label or not use_softmax \
-            or label_smoothing > 0:
-        raise NotImplementedError("cross_entropy ports hard labels without "
-                                  "class weights or smoothing")
-    (logits,) = cast_inputs("cross_entropy", input)
-    logp = torch.log_softmax(logits, dim=axis)
-    lab = label.squeeze(axis) if label.dim() == logp.dim() else label
-    lab = lab.long()
-    mask = lab != ignore_index
-    picked = logp.gather(axis, torch.where(mask, lab, 0).unsqueeze(axis))
-    loss = torch.where(mask, -picked.squeeze(axis), 0.0)
-    if reduction == "mean":
-        return loss.sum() / mask.sum().clamp(min=1)
-    if reduction == "sum":
-        return loss.sum()
-    if reduction == "none":
-        return loss
-    raise ValueError(f"reduction must be mean, sum or none, got "
-                     f"{reduction!r}")
-
-
 # ---------------------------------------------------------------------------
 # the transformer stack
 # ---------------------------------------------------------------------------
@@ -1235,3 +1211,9 @@ def feature_alpha_dropout(x, p=0.5, training=True, name=None):
 
 
 from . import flash_attention  # noqa: E402  (the module, as in Paddle)
+from .extras import *  # noqa: E402,F401,F403
+from .extras import __all__ as _extras
+from .loss import *  # noqa: E402,F401,F403
+from .loss import __all__ as _losses
+
+__all__ += [*_losses, *_extras]

@@ -73,6 +73,10 @@ class ParamAttr:
         raise TypeError(f"cannot convert {attr!r} to ParamAttr")
 
 
+# the handle ``register_forward_pre_hook`` / ``_post_hook`` return
+HookRemoveHelper = torch.utils.hooks.RemovableHandle
+
+
 class Layer(torch.nn.Module):
     """Base class of the ported layers."""
 
@@ -98,6 +102,22 @@ class Layer(torch.nn.Module):
         p = Parameter(value, requires_grad=attr.trainable)
         p.name = attr.name or f"{self._name_scope}_{next(_names)}"
         return p
+
+    def add_parameter(self, name: str, parameter: Optional[torch.Tensor]):
+        """Register ``parameter`` under ``name`` (after the layer's other
+        parameters, so it keeps the reference's order and key)."""
+        if parameter is not None and not isinstance(parameter,
+                                                    torch.nn.Parameter):
+            raise TypeError(f"add_parameter expects a Parameter, got "
+                            f"{type(parameter)}")
+        self.register_parameter(name, parameter)
+        return parameter
+
+    def register_forward_post_hook(self, hook) -> HookRemoveHelper:
+        """``hook(layer, inputs, outputs)`` after each forward; a value it
+        returns replaces the outputs. (torch's ``register_forward_pre_hook``
+        already has the reference's ``hook(layer, inputs)`` form.)"""
+        return self.register_forward_hook(hook)
 
     def add_sublayer(self, name: str, sublayer: "Layer"):
         self.add_module(str(name), sublayer)

@@ -1,5 +1,7 @@
 """Optimizer base, ``SGD`` and ``Momentum``: the eager optimizer over
-``.grad``, with the multi-tensor flat update; and the regularizers
+``.grad``, with the multi-tensor flat update; ``Adagrad``, ``Adadelta``,
+``RMSProp``, ``ASGD`` and ``Rprop``, which have no flat kind in either
+package and step each parameter on its own; and the regularizers
 ``L2Decay`` and ``L1Decay``.
 
 Counterpart of ``paddle_tpu/optimizer/optimizer.py``. ``apply_updates``
@@ -33,7 +35,8 @@ import torch
 from ..ops.kernels import multi_tensor_update as mtu
 from .lr import LRScheduler
 
-__all__ = ["Optimizer", "SGD", "Momentum", "L2Decay", "L1Decay"]
+__all__ = ["Optimizer", "SGD", "Momentum", "Adagrad", "Adadelta", "RMSProp",
+           "ASGD", "Rprop", "L2Decay", "L1Decay"]
 
 
 class L2Decay:
@@ -183,7 +186,10 @@ class Optimizer:
     def _shaped_state(self, p, sv: Dict[str, torch.Tensor]
                       ) -> Dict[str, torch.Tensor]:
         """State in the parameter's shape (the flat update keeps it as
-        ``[rows, 128]`` row segments)."""
+        ``[rows, 128]`` row segments; an optimizer without a flat kind
+        never does)."""
+        if self._FUSED_KIND is None or not sv:
+            return sv
         n = p.numel()
         rows = -(-n // mtu.FlatPlan.LANES)
         out = {}
@@ -343,3 +349,156 @@ class Momentum(Optimizer):
         upd = g + mu * v if self._nesterov else v
         return (p - mtu.weak_scalar(lr, p.dtype) * upd.to(p.dtype),
                 {"velocity": v})
+
+
+class Adagrad(Optimizer):
+    """``m += g^2``; ``p -= lr g / (sqrt(m) + epsilon)``."""
+
+    def __init__(self, learning_rate, epsilon=1e-6, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 initial_accumulator_value=0.0, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._init_val = initial_accumulator_value
+
+    def _state_names(self):
+        return ["moment"]
+
+    def _init_state(self, p):
+        return {"moment": torch.full_like(p.detach(), self._init_val)}
+
+    def _update_one(self, p, g, state, lr, step, extras=None):
+        m = state["moment"] + g * g
+        return (p - mtu.weak_scalar(lr, p.dtype) * g / (m.sqrt()
+                                                        + self._epsilon),
+                {"moment": m})
+
+
+class Adadelta(Optimizer):
+    """Step ``g sqrt(E[u^2] + eps) / sqrt(E[g^2] + eps)`` times ``lr``,
+    both averages decayed by ``rho``."""
+
+    def __init__(self, learning_rate=0.001, epsilon=1e-6, rho=0.95,
+                 parameters=None, weight_decay=None, grad_clip=None,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._epsilon = epsilon
+        self._rho = rho
+
+    def _state_names(self):
+        return ["avg_squared_grad", "avg_squared_update"]
+
+    def _init_state(self, p):
+        return {"avg_squared_grad": torch.zeros_like(p.detach()),
+                "avg_squared_update": torch.zeros_like(p.detach())}
+
+    def _update_one(self, p, g, state, lr, step, extras=None):
+        rho, eps = self._rho, self._epsilon
+        ag = rho * state["avg_squared_grad"] + (1 - rho) * g * g
+        upd = g * (state["avg_squared_update"] + eps).sqrt() / (ag
+                                                                 + eps).sqrt()
+        au = rho * state["avg_squared_update"] + (1 - rho) * upd * upd
+        return p - mtu.weak_scalar(lr, p.dtype) * upd, {
+            "avg_squared_grad": ag, "avg_squared_update": au}
+
+
+class RMSProp(Optimizer):
+    """``E[g^2]`` decayed by ``rho`` (``centered`` subtracts ``E[g]^2``),
+    and a momentum buffer ``mu v + lr g / sqrt(. + eps)`` subtracted from
+    the parameter."""
+
+    def __init__(self, learning_rate, rho=0.95, epsilon=1e-6, momentum=0.0,
+                 centered=False, parameters=None, weight_decay=None,
+                 grad_clip=None, name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._rho = rho
+        self._epsilon = epsilon
+        self._momentum = momentum
+        self._centered = centered
+
+    def _state_names(self):
+        return ["mean_square", "mean_grad", "momentum"]
+
+    def _init_state(self, p):
+        return {k: torch.zeros_like(p.detach()) for k in self._state_names()}
+
+    def _update_one(self, p, g, state, lr, step, extras=None):
+        rho, eps, mu = self._rho, self._epsilon, self._momentum
+        ms = rho * state["mean_square"] + (1 - rho) * g * g
+        mg = state["mean_grad"]
+        if self._centered:
+            mg = rho * mg + (1 - rho) * g
+            denom = (ms - mg * mg + eps).sqrt()
+        else:
+            denom = (ms + eps).sqrt()
+        mom = mu * state["momentum"] + mtu.weak_scalar(lr, p.dtype) * g / denom
+        return p - mom, {"mean_square": ms, "mean_grad": mg, "momentum": mom}
+
+
+class ASGD(Optimizer):
+    """Averaged SGD: ``d``, the sum of the last ``batch_num`` gradients
+    (each kept in the cyclic buffer ``ys``, ``[batch_num, *p.shape]`` on the
+    parameter's device), stepped as ``p -= lr d / min(step, batch_num)``."""
+
+    def __init__(self, learning_rate=0.001, batch_num=1, parameters=None,
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         name)
+        self._batch_num = int(batch_num)
+
+    def _state_names(self):
+        return ["d", "ys"]
+
+    def _init_state(self, p):
+        p = p.detach()
+        return {"d": torch.zeros_like(p),
+                "ys": torch.zeros((self._batch_num,) + tuple(p.shape),
+                                  dtype=p.dtype, device=p.device)}
+
+    def _update_one(self, p, g, state, lr, step, extras=None):
+        idx = (step - 1) % self._batch_num
+        d = state["d"] - state["ys"][idx] + g
+        ys = state["ys"].clone()
+        ys[idx] = g
+        rate = np.float32(lr) / np.float32(min(step, self._batch_num))
+        return p - mtu.weak_scalar(rate, p.dtype) * d, {"d": d, "ys": ys}
+
+
+class Rprop(Optimizer):
+    """Resilient backprop: a step size per element, grown by ``etas[1]``
+    while the gradient keeps its sign and shrunk by ``etas[0]`` when it
+    flips (within ``learning_rate_range``); the step is its sign times the
+    size, and a flipped gradient steps 0 and is forgotten.
+    ``weight_decay`` is not taken, as in the reference."""
+
+    def __init__(self, learning_rate=0.001, learning_rate_range=(1e-5, 50),
+                 parameters=None, etas=(0.5, 1.2), grad_clip=None,
+                 multi_precision=False, name=None):
+        super().__init__(learning_rate, parameters, None, grad_clip, name)
+        self._lr_min, self._lr_max = (float(learning_rate_range[0]),
+                                      float(learning_rate_range[1]))
+        self._eta_n, self._eta_p = float(etas[0]), float(etas[1])
+        self._init_lr = float(learning_rate)
+
+    def _state_names(self):
+        return ["prev_grad", "learning_rate"]
+
+    def _init_state(self, p):
+        return {"prev_grad": torch.zeros_like(p.detach()),
+                "learning_rate": torch.full_like(p.detach(), self._init_lr)}
+
+    def _update_one(self, p, g, state, lr, step, extras=None):
+        sign = g * state["prev_grad"]
+        rate = state["learning_rate"]
+        lr_e = torch.where(
+            sign > 0, torch.clamp(rate * self._eta_p, max=self._lr_max),
+            torch.where(sign < 0,
+                        torch.clamp(rate * self._eta_n, min=self._lr_min),
+                        rate))
+        g_eff = torch.where(sign < 0, 0.0, g)
+        return p - g_eff.sign() * lr_e.to(p.dtype), {
+            "prev_grad": g_eff, "learning_rate": lr_e}

@@ -2199,3 +2199,26 @@ def test_lenet_fit_kernel_matches_plain(cuda, monkeypatch):
     for a, b in zip(pk, pp):
         assert a.device == cuda
         torch.testing.assert_close(a, b, rtol=1e-6, atol=1e-7)
+
+
+def test_other_optimizers_match_cpu(cuda):
+    """Each optimizer that steps parameters one by one (``Adagrad`` to
+    ``LBFGS("strong_wolfe")``): three full-batch steps of a five-layer MLP
+    on ``UCIHousing`` on the card and on the CPU from the same weights,
+    every parameter within 1e-5, and the card's loss falling over 50
+    steps (``chip_smoke.py`` phase 6e(c))."""
+    from paddle_tpu_torch.experiments import parity
+
+    out = parity.optimizer_parity(cuda)
+    assert sorted(out) == sorted(parity.OPTIMIZERS)
+
+
+@pytest.mark.parametrize("names", [["ctc_loss"], None], ids=["ctc", "all"])
+def test_losses_match_cpu(cuda, names):
+    """``ctc_loss`` at T 200, B 32, C 30 and label length 40, then every
+    loss of the sweep, forward and backward on the card against the CPU
+    within 1e-5 (``chip_smoke.py`` phase 6e(d))."""
+    from paddle_tpu_torch.experiments import parity
+
+    out = parity.loss_parity(cuda, names=names)
+    assert sorted(out) == sorted(names or parity.LOSS_SWEEP)
