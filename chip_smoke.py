@@ -151,11 +151,13 @@ Phases (any failed check raises and the script exits non-zero):
    chunked segments issued with no sync; (b) greedy ``speculative=4`` on
    the random weights (against (a)'s serve: divergences only at near
    ties; verify ticks against its ticks, acceptance, reads a segment) and
-   on 3e's memorized model: its continuations identical to its
-   non-speculative serve, and a repeated-stretch class whose divergences
-   must sit at near ties; some asserted class accepts drafts; (c)
-   sampling (T 0.8, top-k 32) at K 0 and 4: two serves with the same
-   seeds equal, ``top_k=1`` equal to greedy up to near ties; (d)
+   on 3e's memorized model: its first 16 continuations identical to its
+   non-speculative serve, and 8 of a repeated-stretch class whose
+   divergences must sit at near ties; some asserted class accepts
+   drafts; (c) sampling (T 0.8, top-k 32) at K 0 and 4 on 4 requests:
+   two serves with the same seeds equal, ``top_k=1`` equal to greedy up
+   to near ties (the depth of (b) and (c) cut from 32, 16 and 8
+   requests, for the script's time); (d)
    ``seq_parallel=2`` with a 2000-token prompt and 7 requests behind it
    in segments of 8 steps: the prefill spans segments, TTFT against a
    chunked engine without sp (buckets to 2048), agreement; (e)
@@ -320,6 +322,49 @@ Phases (any failed check raises and the script exits non-zero):
    and on the CPU at B 64 within 1e-5 (``ctc_loss`` at T 200, B 32, C 30,
    label length 40); phase 2 also times the Adam update at the BiLSTM's
    21 parameters;
+6f. the vision slice and quantization (after 6e): (a)
+   ``paddle_tpu_torch.experiments.vision_quant.flowers_fit``: Flowers-102
+   fine-tuning as PaddleClas's quick start sets it up
+   (``vision.recipes``: ``resnet50(num_classes=102)`` under O2 bf16 with
+   ``Momentum(0.0125, 0.9, 1e-4)``, ``RandomResizedCrop(224)``,
+   ``RandomHorizontalFlip``, ``Normalize``; ``Resize(256)`` and
+   ``CenterCrop(224)`` to evaluate) through ``Model.fit`` at batch 32 on
+   the synthetic ``Flowers`` (1020 images of 3 x 96 x 96): first three
+   steps on one batch through the flat update and through its plain
+   version under deterministic cuDNN (losses within 1e-3 and falling,
+   every parameter and BN statistic within the update's tolerance), then
+   one epoch with a serial loader and one with four worker threads:
+   images/s, ms a step,
+   the loader's and ``train_batch``'s ms a batch, one flat update a step
+   for the optimizer's one group, a profiled stretch's busy share, test
+   accuracy, and the serial epoch's batches as the card received them
+   equal bit for bit to the same epoch's transforms run again on the CPU
+   under the same seed; (b) ``parity.detection_parity``: every
+   ``vision.ops`` operator at PaddleDetection's widths (``generate_proposals``
+   on a C4 RPN at 800 x 1333, ``nms`` at 6000 boxes and category-aware
+   over 80 classes, ``distribute_fpn_proposals`` into per-level
+   ``roi_align`` over FPN levels 2-5, ``roi_pool`` at Fast R-CNN VGG16's
+   conv5, ``psroi_pool`` at R-FCN's 81 x 49 maps, ``yolo_box`` on
+   YOLOv3's three heads at 608 x 608 and B 8, ``box_coder`` and
+   ``prior_box`` at SSD300's six maps and 1000 x 81 decodes, DCNv2 3 x 3
+   convolutions at C5 and C3 of 800 x 1333) on the card and on the CPU:
+   kept indices, proposals and priors equal, outputs within 1e-5 (boxes
+   in pixels in units of the image) and the RoI operators' gradients
+   within 1e-5, the deformable convolutions' within 1e-5 by relative
+   Frobenius error, each call's card ms (the per-level ``roi_align``
+   compared on its first 32 RoIs an image and the level's tallest and
+   widest, at the sampling ratio of the call timed over all); (c)
+   ``vision_quant.qat_bert``: 6c's fp32 encoder under ``QAT`` (every
+   ``Linear``, 73, with ``FakeQuanterWithAbsMax`` on activations and
+   weights): three timed steps (12 fp32 flash forwards and backwards and
+   the flat AdamW update's launches a step, the quanters' device reads a
+   step), ``convert`` to ``Int8Linear`` (``torch._int_mm``, zero-padded)
+   and the int8 forward against the fp32 one and against the same model
+   on the CPU on one row (fed the card's codes: every int32 accumulator
+   and the logits equal; on its own codes: the flipped codes by layer, and
+   the logits within ``vision_quant.LOGIT_ERR`` of their largest
+   magnitude), then PTQ (``AbsmaxObserver``, four calibration batches)
+   and its int8 logits against the fp32 ones;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -331,11 +376,14 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e and 7 is driven with every launch count set
-   to 0 just before it and read just after; a kernel's ``launches`` is its
-   sum over those paths (the decode kernel's quant mode has no engine
-   caller, as in the JAX package, so its count is 0 there; the experiments' kernels run
-   on phase 7's paths alone, as in the JAX package).
+   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f and 7 is driven with every launch
+   count set to 0 just before it and read just after; a kernel's
+   ``launches`` is its sum over those paths (the decode kernel's quant
+   mode has no engine caller, as in the JAX package, so its count is 0
+   there; the experiments' kernels run on phase 7's paths alone, as in
+   the JAX package). ``check_paths`` guards the line: every path's counts
+   are a dict of their own, and every kernel launched on each path of
+   ``KERNEL_PATHS``, or the script exits non-zero.
 
 Exits non-zero, printing no result, without a CUDA device or outside a
 checkout of the repository. Imports nothing of JAX or of ``paddle_tpu``.
@@ -2530,6 +2578,10 @@ def preempt_and_abort(torch, ServingEngine, PrefixCache, PagedPrefixCache,
 
 FAMILY_CHUNKS = (16, 32, 64)
 SPEC_K = 4
+# 3h's depth, cut to keep the script near its 600 s aim: the memorized
+# continuations and the repeated-stretch class of (b) on their first 16 and
+# 8 requests (of 32 and 16), sampling in (c) on the first 4 (of 8)
+SPEC_MEMORIZED, SPEC_REPEATED, SAMPLED_REQUESTS = 16, 8, 4
 SAMPLED = {"temperature": 0.8, "top_k": 32}
 SP = 2
 SP_PROMPT = 2000
@@ -2732,10 +2784,11 @@ def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
     """Phase 3h (b): greedy speculation, K = 4. On the random weights the
     32 mixed requests, against (a)'s unchunked serve ``plain`` (verify
     ticks against its ticks). On the memorized model, against its own
-    non-speculative serve: phase 3e's continuations ``mreqs`` (the
-    sequences from position 0, which it follows), where the top logits are
-    far apart, every request identical; and 16 of the repeated-stretch
-    class (``repeated_prompts``). The random and repeated serves are
+    non-speculative serve: the first ``SPEC_MEMORIZED`` of phase 3e's
+    continuations ``mreqs`` (the sequences from position 0, which it
+    follows), where the top logits are far apart, every request
+    identical; and ``SPEC_REPEATED`` of the repeated-stretch class
+    (``repeated_prompts``). The random and repeated serves are
     identical or part first at a near tie (the two tokens' logits within
     ``LOGIT_ATOL``, ``near_tie``). Some asserted class must accept drafts,
     so that ticks emitting several tokens a slot are held too."""
@@ -2753,11 +2806,12 @@ def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
     st["plain_ticks"] = plain[1]["ticks"]
     out["random"], launches["family_spec"] = st, n
 
+    mreqs = mreqs[:SPEC_MEMORIZED]
+    rep = repeated_prompts(seqs, reqs[:SPEC_REPEATED])
     for key, rs, start_at in (
             ("memorized", mreqs, [len(q) for q, _ in mreqs]),
-            ("repeated", [(q, g) for q, g, _ in repeated_prompts(seqs,
-                                                                reqs[:16])],
-             [c for _, _, c in repeated_prompts(seqs, reqs[:16])])):
+            ("repeated", [(q, g) for q, g, _ in rep],
+             [c for _, _, c in rep])):
         arr = [sched.Arrival(0.0, q, g) for q, g in rs]
         serves = {}
         for which, kw in (("spec", dict(speculative=SPEC_K)), ("plain", {})):
@@ -2789,12 +2843,13 @@ def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
 
 def sampled_phase(torch, sched, llama, ServingEngine, fns, params, cfg,
                   reqs):
-    """Phase 3h (c): sampling (T 0.8, top-k 32) at K = 0 and K = 4 on 8
-    of the mixed requests: each serve twice on fresh engines gives the
+    """Phase 3h (c): sampling (T 0.8, top-k 32) at K = 0 and K = 4 on
+    ``SAMPLED_REQUESTS`` of the mixed requests: each serve twice on fresh
+    engines gives the
     same tokens (the per-request seeds replay), and ``top_k=1`` equals the
     greedy serve, or parts first at a near tie (``near_tie``)."""
     L = cfg.num_layers
-    rs = reqs[:8]
+    rs = reqs[:SAMPLED_REQUESTS]
     arrivals = [sched.Arrival(0.0, p, g) for p, g in rs]
     greedy = family_serve(torch, sched, fns,
                           family_engine(ServingEngine, params, cfg),
@@ -5495,6 +5550,206 @@ def text_phase(torch, port, recipes, parity, mtu, fns):
             "losses_s": time.perf_counter() - t0}, launches
 
 
+# ---------------------------------------------------------------------------
+# phase 6f: vision.transforms, vision.ops and QAT/PTQ on the card
+# ---------------------------------------------------------------------------
+
+def vision_phase(torch, port, bert, parity, vision_quant, fns, eager_fp32,
+                 card):
+    """Phase 6f: (a) the PaddleClas input pipeline through ``Model.fit``
+    (``vision_quant.flowers_fit``), (b) the detection operators card
+    against CPU at PaddleDetection's widths (``parity.detection_parity``),
+    (c) QAT and PTQ at BERT-base width (``vision_quant.qat_bert``), held
+    against 6c's unquantized fp32 step ``eager_fp32``. Prints each part;
+    returns its stats and the launches of each path."""
+    counts = (lambda: zero_counts(fns), lambda: read_counts(fns))
+    t6f, fsecs = time.perf_counter(), {}
+    flowers, vlaunches = vision_quant.flowers_fit(
+        counts, lambda run: device_profile(torch, run, kinds=RESNET_KINDS))
+    fsecs["a"] = round(time.perf_counter() - t6f, 1)
+    fp = flowers["against_plain"]
+    print(f"6f (a) Flowers-102, {fp['steps']} steps on one batch, the flat "
+          f"update against its plain version ({card}): losses "
+          f"{fp['losses_kernel']} and {fp['losses_plain']}, largest "
+          f"difference {fp['max_abs_err']:.3e}, bit-identical "
+          f"{fp['bit_identical']}")
+    for nw in (0, 4):
+        st = flowers[f"workers_{nw}"]
+        print(f"6f (a) Flowers-102 fit, num_workers={nw} ({card}): "
+              f"resnet50(102) O2 bf16 Momentum, {flowers['batches']} "
+              f"batches of {flowers['batch']} at 224x224: "
+              f"{st['images_per_s']:.1f} images/s, {st['ms_per_step']:.3f} "
+              f"ms/step (loader {st['loader_ms_per_batch']:.3f} ms, "
+              f"train_batch {st['train_batch_ms_per_batch']:.3f} ms a "
+              f"batch), multi_tensor_update launches a step "
+              f"{st['launches_per_step']} for {flowers['flat_groups']} flat "
+              f"groups, loss {st['first_loss']:.4f} -> {st['last_loss']:.4f}")
+    fbusy = flowers.get("device_busy_share")
+    print(f"6f (a) profiled {flowers.get('profiled_steps')} steps ({card}): "
+          f"device {flowers.get('device_ms_per_step', 'not measured')} ms a "
+          f"step of {flowers.get('profiled_wall_ms_per_step', 'not measured')}"
+          f" ms wall (busy share "
+          f"{'not measured' if fbusy is None else f'{fbusy:.4f}'}), by kind "
+          f"{json.dumps(flowers.get('device_split_ms'))}; evaluate on "
+          f"Flowers(mode='test'): {json.dumps(flowers['eval'])}; the serial "
+          f"epoch replayed on the CPU: "
+          f"{json.dumps(flowers['replayed_on_cpu'])}")
+    print(f"launches on the Flowers fits: {json.dumps(vlaunches)}")
+    det = parity.detection_parity(DEVICE)
+    fsecs["b"] = round(time.perf_counter() - t6f, 1)
+    fpn = det.pop("fpn")
+    shown = ("ms", "ms_bwd", "max_abs_err", "max_abs_ref", "grad_max_abs_err",
+             "grad_max_abs_ref")
+    for name, r in det.items():
+        bwd = (f", backward {r['ms_bwd']:.4f} ms (gradient max |err| "
+               f"{r['grad_max_abs_err']:.3e} of {r['grad_max_abs_ref']:.3e})"
+               if "ms_bwd" in r else "")
+        rest = {k: v for k, v in r.items() if k not in shown}
+        print(f"6f (b) {name} ({card}): forward {r['ms']:.4f} ms, max |err| "
+              f"{r['max_abs_err']:.3e} of {r['max_abs_ref']:.3e}{bwd}; "
+              f"{json.dumps(rest)}")
+    print(f"6f (b) distribute_fpn_proposals ({card}): "
+          f"{json.dumps(fpn['distribute_fpn_proposals'])}; roi_align by "
+          f"level: {json.dumps(fpn['levels'])}")
+    det["fpn"] = fpn
+    bcfg = bert.BertConfig.bert_base()
+    qtok, qlab = bert.random_mlm_batch(bcfg, EAGER_BATCH, BERT_SEQ, seed=2,
+                                       device=DEVICE)
+    qat, qatlaunches = vision_quant.qat_bert(
+        lambda: eager_bert(port, bcfg), qtok.long(), qlab.long(), counts,
+        lambda run: device_profile(torch, run, kinds={
+            "flash_f32": ("flash_fwd_f32", "flash_bwd_f32"),
+            "hand_written": HAND_WRITTEN, "matmul": MATMUL}),
+        layers=bcfg.num_layers)
+    fsecs["c"] = round(time.perf_counter() - t6f, 1)
+    e32 = eager_fp32
+    qbusy = qat.get("device_busy_share")
+    print(f"6f (c) QAT at BERT-base width ({card}): {qat['quanted_linears']} "
+          f"QuantedLinear, B {EAGER_BATCH} S {BERT_SEQ} fp32 AdamW, "
+          f"{qat['timed_steps']} timed steps: {qat['ms_per_step']:.3f} ms a "
+          f"step against 6c's unquantized fp32 {e32['ms_per_step']:.3f} "
+          f"({qat['ms_per_step'] / e32['ms_per_step']:.3f}x), device "
+          f"{qat.get('device_ms_per_step', 'not measured')} ms of "
+          f"{qat.get('profiled_step_wall_ms', 'not measured')} ms wall (busy "
+          f"share {'not measured' if qbusy is None else f'{qbusy:.4f}'}; 6c "
+          f"{e32.get('device_busy_share')}), synchronising calls a step "
+          f"{qat['syncs_per_step']}, multi_tensor_update launches a step "
+          f"{qat['multi_tensor_update_per_step']}, losses "
+          f"{', '.join(f'{v:.4f}' for v in qat['losses'])}")
+    ic = qat["int8_against_cpu"]
+    print(f"6f (c) int8 after QAT.convert ({card}): forward "
+          f"{qat['int8_forward_ms']:.3f} ms against the fp32 forward's "
+          f"{qat['fp32_forward_ms']:.3f} ms; PTQ (AbsmaxObserver): forward "
+          f"{qat['ptq_int8_forward_ms']:.3f} ms, int8 logits against fp32 "
+          f"{json.dumps(qat['ptq'])}")
+    print(f"6f (c) the converted model against the CPU on {ic['rows']} "
+          f"row(s) ({card}): {ic['products']} int8 products; fed the card's "
+          f"codes, accumulators equal {ic['accumulators_equal']} and logits "
+          f"equal {ic['pinned_logits_equal']}, the CPU's own codes flipped "
+          f"{sum(ic['pinned_flips'])} of {sum(ic['codes'])} (largest share "
+          f"of a layer {ic['pinned_max_flip_share']:.3e}, largest step "
+          f"{ic['pinned_max_code_step']}); on its own codes "
+          f"{sum(ic['free_flips'])} flipped (largest share "
+          f"{ic['free_max_flip_share']:.3e}, step "
+          f"{ic['free_max_code_step']}; by product "
+          f"{ic['free_flips']}), logits max |err| "
+          f"{ic['logit_max_abs_err']:.3e} of {ic['logit_max_abs']:.3e}, "
+          f"top-1 agreement {ic['top1_agreement']:.4f}")
+    print(f"launches on the QAT steps and the int8 forward: "
+          f"{json.dumps(qatlaunches)}")
+    print(f"phase 6f seconds to the end of each part: {json.dumps(fsecs)}")
+    return ({"flowers": flowers, "detection": det, "qat": qat,
+             "seconds_to_end_of": fsecs}, {**vlaunches, **qatlaunches})
+
+
+
+# the driven paths on which each kernel must launch (the launches column of
+# PERF.md's table of TPU kernels). Exceptions, launched on no engine or
+# training path: the decode kernel's quant mode (no engine caller, in the
+# JAX package as here), the bf16 backward's two roles alone (the flash
+# experiment launches them; training launches both roles in one grid) and
+# the fp32 backward's roles alone (held against plain in phase 2 only)
+SERVE_TICK = ("contiguous_drain", "paged_drain", "prefix_burst",
+              "long_admit", "cpu_small_contiguous_drain",
+              "cpu_small_paged_drain", "quant_int8_drain", "quant_fp8_drain",
+              "quant_int8_trained_drain", "fused_drain",
+              "contiguous_prefix_burst", "contiguous_burst_no_cache",
+              "generate_beam", "generate_beam_eos", "generate_sampled",
+              "preempt_contiguous", "abort_contiguous", "preempt_paged",
+              "abort_paged", "family_chunked", "family_unchunked",
+              "family_sampled_k0", "family_long_context", "tier_audited",
+              "tier_tiered", "tier_untiered", "tier_no_cache",
+              "tier_int8_tiered", "tier_int8_no_cache", "slo_serve",
+              "slo_monitored", "3j_fleet", "3j_fleet_failover", "3j_disagg",
+              "3j_disagg_co_resident", "3k_warmed_serve", "3k_episode")
+CONTIGUOUS = ("contiguous_drain", "cpu_small_contiguous_drain",
+              "fused_drain", "contiguous_prefix_burst",
+              "contiguous_burst_no_cache", "generate_beam",
+              "generate_beam_eos", "generate_sampled", "preempt_contiguous",
+              "abort_contiguous")
+PAGED = ("paged_drain", "prefix_burst", "long_admit", "cpu_small_paged_drain",
+         "preempt_paged", "abort_paged", "family_chunked",
+         "family_unchunked", "family_spec", "family_spec_memorized",
+         "family_spec_repeated", "family_sampled_k0", "family_sampled_k4",
+         "family_long_context", "tier_audited", "tier_tiered",
+         "tier_untiered", "tier_no_cache", "slo_serve", "slo_monitored",
+         "3j_fleet", "3j_fleet_failover", "3j_disagg",
+         "3j_disagg_co_resident", "3k_warmed_serve", "3k_episode")
+FLAT_UPDATE = ("resnet50_train", "resnet50_adamw", "mnist_fit",
+               "mnist_fit_scheduled", "eager_fp32", "eager_bf16_auto_cast",
+               "zoo_mobilenet_v3_large", "imdb_bilstm_fit",
+               "flowers_fit_workers_0", "flowers_fit_workers_4", "bert_qat")
+KERNEL_PATHS = {
+    "ragged_decode_attention": CONTIGUOUS,
+    "fused_rms_norm": SERVE_TICK,
+    "fused_add_rms_norm": SERVE_TICK,
+    "fused_rope_qk": SERVE_TICK,
+    "ragged_paged_attention": PAGED,
+    "quant_matmul": ("quant_int8_drain", "quant_fp8_drain",
+                     "quant_int8_trained_drain", "tier_int8_tiered",
+                     "tier_int8_no_cache", "3j_fleet", "3j_fleet_failover"),
+    "flash_attention_fwd": ("train", "bert_train", "ernie_step",
+                            "eager_bf16_auto_cast", "flash_experiment"),
+    "flash_attention_bwd": ("train", "bert_train", "ernie_step",
+                            "eager_bf16_auto_cast", "flash_experiment"),
+    "flash_attention_bwd_dq": ("flash_experiment",),
+    "flash_attention_bwd_dkv": ("flash_experiment",),
+    "flash_attention_fwd_f32": ("eager_fp32", "bert_qat",
+                                "bert_qat_int8_forward"),
+    "flash_attention_bwd_f32": ("eager_fp32", "bert_qat"),
+    "flash_attention_bwd_dq_f32": (),
+    "flash_attention_bwd_dkv_f32": (),
+    "head_dx_softmax": ("train",),
+    "multi_tensor_update": FLAT_UPDATE,
+    "blocked_matmul": ("dot_experiment",),
+    "flash_variants_fwd": ("flash_experiment",),
+    "flash_variants_bwd": ("flash_experiment",),
+}
+
+
+def check_paths(by_path, kernels):
+    """The guard on the kernels' line: every path's counts are an object
+    of their own (two names bound to one dict would count one run twice
+    and lose the other), every kernel of the line has its paths in
+    ``KERNEL_PATHS``, and each launched on each of them. Exits non-zero
+    otherwise."""
+    seen = {}
+    for path, counts in by_path.items():
+        if id(counts) in seen:
+            fail(f"the launch counts of {path!r} are those of "
+                 f"{seen[id(counts)]!r} (one object under two paths)")
+        seen[id(counts)] = path
+    names = {k["name"] for k in kernels}
+    if names != set(KERNEL_PATHS):
+        fail(f"KERNEL_PATHS names {sorted(set(KERNEL_PATHS))}, the line "
+             f"{sorted(names)}")
+    missing = [f"{name} on {path}" for name, paths in KERNEL_PATHS.items()
+               for path in paths if by_path.get(path, {}).get(name, 0) <= 0]
+    if missing:
+        fail(f"kernels with no launch on a path that runs them: "
+             f"{missing}")
+
+
 def kernels_line(rows, by_path):
     """The kernels' JSON line: for each kernel its route, source, the
     TPU kernel it replaces, its launches summed over the driven paths
@@ -5707,7 +5962,7 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
     from paddle_tpu_torch.quantization import serving as qs
-    from paddle_tpu_torch.experiments import parity
+    from paddle_tpu_torch.experiments import parity, vision_quant
     from paddle_tpu_torch.text import recipes
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6198,10 +6453,12 @@ def main() -> None:
     print(f"3h (b) random weights against the plain serve: "
           f"{json.dumps(rnd['against_plain'])}, parted at near ties "
           f"{json.dumps(rnd['parted_at_near_ties'])}; "
-          f"memorized: {mem['identical']}/32 identical, tokens following "
+          f"memorized: {mem['identical']}/{SPEC_MEMORIZED} identical, "
+          f"tokens following "
           f"the training sequence {mem['sequence_token_rate']:.4f}, plain "
           f"{mem['plain_tokens_per_s']:.1f} tokens/s; repeated stretch: "
-          f"{rep['identical']}/16 identical, parted at near ties "
+          f"{rep['identical']}/{SPEC_REPEATED} identical, parted at near "
+          f"ties "
           f"{json.dumps(rep['parted_at_near_ties'])}, tokens retracing the "
           f"sequence {rep['sequence_token_rate']:.4f}")
     family["sampled"], n = sampled_phase(torch, sched, llama, ServingEngine,
@@ -6636,21 +6893,21 @@ def main() -> None:
     lap("6e")
     # 6e. the text models, the other optimizers and the losses
     torch.cuda.empty_cache()
-    text, tlaunches = text_phase(torch, port, recipes, parity, mtu, fns)
-    tvp, tfit, tlm = text["imdb_vs_plain"], text["imdb_fit"], text["imikolov"]
-    print(f"Imdb BiLSTM, kernel against plain ({card}): {tvp['steps']} Adam "
-          f"steps in order, losses {tvp['losses_kernel']} / "
-          f"{tvp['losses_plain']} (largest |err| "
-          f"{tvp['loss_max_abs_err']:.3e}), largest param error "
-          f"{tvp['param_max_abs_err']:.3e} (two plain runs "
-          f"{tvp['plain_repeat_max_abs_err']:.3e}; atol "
+    text, xlaunches = text_phase(torch, port, recipes, parity, mtu, fns)
+    ivp, ifit, ilm = text["imdb_vs_plain"], text["imdb_fit"], text["imikolov"]
+    print(f"Imdb BiLSTM, kernel against plain ({card}): {ivp['steps']} Adam "
+          f"steps in order, losses {ivp['losses_kernel']} / "
+          f"{ivp['losses_plain']} (largest |err| "
+          f"{ivp['loss_max_abs_err']:.3e}), largest param error "
+          f"{ivp['param_max_abs_err']:.3e} (two plain runs "
+          f"{ivp['plain_repeat_max_abs_err']:.3e}; atol "
           f"{IMDB_PARAM_ATOL}), "
-          f"bit-identical {tvp['bit_identical']} (plain repeat "
-          f"{tvp['plain_repeat_bit_identical']}); launches {tvp['steps']} "
+          f"bit-identical {ivp['bit_identical']} (plain repeat "
+          f"{ivp['plain_repeat_bit_identical']}); launches {ivp['steps']} "
           f"against 0")
-    for e, ep in enumerate(tfit["epochs"]):
+    for e, ep in enumerate(ifit["epochs"]):
         print(f"Imdb BiLSTM fit epoch {e + 1} ({card}): "
-              f"{tfit['parameters']} params, {tfit['batches_per_epoch']} "
+              f"{ifit['parameters']} params, {ifit['batches_per_epoch']} "
               f"batches of {IMDB_BATCH}: {ep['samples_per_s']:.1f} "
               f"samples/s, {ep['ms_per_step']:.3f} ms/step (loader "
               f"{ep['loader_ms_per_batch']:.3f} ms a batch), "
@@ -6658,31 +6915,38 @@ def main() -> None:
               f"{ep['launches_per_step']}, loss {ep['first_loss']:.4f} -> "
               f"{ep['last_loss']:.4f}; evaluate on Imdb(mode='test'): "
               f"{json.dumps(ep['test'])}")
-    tbusy = tfit.get("device_busy_share")
+    ibusy = ifit.get("device_busy_share")
     print(f"Imdb BiLSTM profiled {IMDB_PROFILED_STEPS} steps ({card}): "
-          f"device {tfit.get('device_ms_per_step', 'not measured')} ms a "
-          f"step of {tfit.get('profiled_wall_ms_per_step', 'not measured')} "
+          f"device {ifit.get('device_ms_per_step', 'not measured')} ms a "
+          f"step of {ifit.get('profiled_wall_ms_per_step', 'not measured')} "
           f"ms wall (busy share "
-          f"{'not measured' if tbusy is None else f'{tbusy:.4f}'}), "
+          f"{'not measured' if ibusy is None else f'{ibusy:.4f}'}), "
           f"multi_tensor_update "
-          f"{tfit.get('update_device_ms_per_step', 'not measured')} ms a "
-          f"step; by kind {json.dumps(tfit.get('device_split_ms_per_step'))}"
-          f"; largest kernels {json.dumps(tfit.get('device_top'))}; host "
-          f"operators by self time {json.dumps(tfit.get('host_top'))}")
-    print(f"launches on the Imdb BiLSTM fit: {json.dumps(tlaunches)}")
-    print(f"Imikolov GRU LM fit ({card}): {tlm['batches']} batches of "
+          f"{ifit.get('update_device_ms_per_step', 'not measured')} ms a "
+          f"step; by kind {json.dumps(ifit.get('device_split_ms_per_step'))}"
+          f"; largest kernels {json.dumps(ifit.get('device_top'))}; host "
+          f"operators by self time {json.dumps(ifit.get('host_top'))}")
+    print(f"launches on the Imdb BiLSTM fit: {json.dumps(xlaunches)}")
+    print(f"Imikolov GRU LM fit ({card}): {ilm['batches']} batches of "
           f"{IMIKOLOV_BATCH}, centered RMSProp with momentum: "
-          f"{tlm['tokens_per_s']:.1f} predicted tokens/s, "
-          f"{tlm['ms_per_step']:.3f} ms/step, batch loss "
-          f"{tlm['first_batch_loss']:.4f} -> {tlm['last_batch_loss']:.4f}, "
-          f"mean training loss {tlm['mean_loss_before']:.4f} -> "
-          f"{tlm['mean_loss_after']:.4f}")
+          f"{ilm['tokens_per_s']:.1f} predicted tokens/s, "
+          f"{ilm['ms_per_step']:.3f} ms/step, batch loss "
+          f"{ilm['first_batch_loss']:.4f} -> {ilm['last_batch_loss']:.4f}, "
+          f"mean training loss {ilm['mean_loss_before']:.4f} -> "
+          f"{ilm['mean_loss_after']:.4f}")
     print(f"optimizers on UCIHousing, card against CPU over 3 steps, and the "
           f"card's loss over 50 ({card}, {text['optimizers_s']:.1f} s): "
           f"{json.dumps(text['optimizers'])}")
     print(f"losses forward and backward, card against CPU, largest |err| "
           f"({card}, {text['losses_s']:.1f} s): "
           f"{json.dumps(text['losses'])}")
+
+    lap("6f")
+    # 6f. the vision slice and quantization
+    torch.cuda.empty_cache()
+    vision_stats, vqlaunches = vision_phase(torch, port, bert, parity,
+                                            vision_quant, fns, eager["fp32"],
+                                            card)
 
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
@@ -6710,7 +6974,7 @@ def main() -> None:
                "bert_train": blaunches5c, "ernie_step": elaunches5c,
                **elaunches6c,
                "zoo_mobilenet_v3_large": zlaunches,
-               "imdb_bilstm_fit": tlaunches,
+               "imdb_bilstm_fit": xlaunches, **vqlaunches,
                **{f"zoo_{n}": v for n, v in zflaunches.items()},
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
@@ -6720,6 +6984,7 @@ def main() -> None:
                **{f"3j_{k}": v for k, v in jlaunches.items()},
                **{f"3k_{k}": v for k, v in klaunches.items()}}
     kernels = kernels_line(rows, by_path)
+    check_paths(by_path, kernels)
     lap(None)
     os.makedirs(ROOT / "chiprun_out", exist_ok=True)
     with open(ROOT / "chiprun_out" / "chip_smoke.json", "w") as f:
@@ -6740,7 +7005,7 @@ def main() -> None:
                    "resnet50_vs_plain": rvp, "resnet50_train": rtrain,
                    "resnet50_adamw": radamw, "mnist": mnist,
                    "bert": bstats, "eager_bert": eager, "zoo": zoo_stats,
-                   "text": text,
+                   "text": text, "vision_quant": vision_stats,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

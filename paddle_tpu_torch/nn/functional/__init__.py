@@ -72,6 +72,15 @@ __all__ = [
 _CHANNEL_LAST = ("NHWC", "NLC", "NDHWC")
 
 
+def _div(a, k):
+    """``a / k`` for a Python number ``k`` as a true division on every
+    device, as XLA divides: CUDA divides a tensor by a host number through
+    its reciprocal, one ulp off the quotient at times. The divisor is
+    filled on the device (a tensor made from a host number would copy it
+    there and wait)."""
+    return a / torch.full((), k, dtype=a.dtype, device=a.device)
+
+
 def _pair(v, n=2):
     """The JAX package's rule: a sequence of ``n`` as it is, another
     sequence repeated ``n`` times, a scalar ``n`` times."""

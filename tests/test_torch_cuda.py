@@ -2222,3 +2222,55 @@ def test_losses_match_cpu(cuda, names):
 
     out = parity.loss_parity(cuda, names=names)
     assert sorted(out) == sorted(names or parity.LOSS_SWEEP)
+
+
+def test_detection_ops_match_cpu(cuda):
+    """Every ``vision.ops`` operator at ``parity.DETECTION_SMALL`` on the
+    card against the CPU (``chip_smoke.py`` phase 6f(b) at a few pixels
+    and channels): outputs and the RoI and deformable operators'
+    gradients within 1e-5, kept indices, proposals and priors equal."""
+    from paddle_tpu_torch.experiments import parity
+
+    out = parity.detection_parity(cuda, parity.DETECTION_SMALL)
+    assert {"generate_proposals", "nms", "nms_categories", "fpn",
+            "roi_pool", "psroi_pool", "prior_box", "box_coder_decode",
+            "box_coder_encode"} <= set(out)
+    assert out["nms"]["kept"] > 0 and out["prior_box"]["priors"] == 8732
+    assert any(k.startswith("deform_conv2d") for k in out)
+    assert any(lv.get("compared_rois") for lv in out["fpn"]["levels"])
+
+
+@pytest.mark.parametrize("M,K,N", [(5, 120, 84), (1, 30, 10), (17, 7, 3),
+                                   (16, 768, 30522), (32, 16, 24),
+                                   (17, 120, 88), (33, 120, 88),
+                                   (100, 50, 7), (4096, 768, 3072)])
+def test_int8_linear_padded_exact(cuda, M, K, N):
+    """``Int8Linear`` through ``torch._int_mm`` at shapes outside its card
+    rules (M <= 16, K or N no multiple of 8; LeNet's 120 -> 84, BERT's
+    30522-word head at one row), at shapes inside them that cuBLASLt
+    refuses unpadded (M 17, K 120, N 88), and at BERT-base's FFN:
+    zero-padded to multiples of 16, exact against int32 numpy. The
+    unpadded call at a shape outside the rules raises, which is why the
+    padding is there."""
+    from paddle_tpu_torch import quantization as Q
+
+    rng = np.random.RandomState(M + K + N)
+    w = rng.randn(K, N).astype(np.float32)
+    w_scales = np.abs(w).max(axis=0)
+    wi8 = np.round(w / w_scales * 127).astype(np.int8)
+    bias = rng.randn(N).astype(np.float32)
+    x = np.clip(rng.randn(M, K), -2, 2).astype(np.float32)
+    lin = Q.Int8Linear(wi8, w_scales, 2.0,
+                       bias=torch.from_numpy(bias).to(cuda))
+    got = lin(torch.from_numpy(x).to(cuda))
+    assert got.device == cuda
+    xi8 = np.clip(np.round(x / np.float32(2.0) * np.float32(127)), -127,
+                  127).astype(np.int32)
+    acc = xi8 @ wi8.astype(np.int32)
+    want = (acc.astype(np.float32) * (w_scales * np.float32(2.0)
+                                      / np.float32(127 * 127)) + bias)
+    np.testing.assert_array_equal(got.cpu().numpy(), want)
+    if M <= 16 or K % 8 or N % 8:
+        with pytest.raises(RuntimeError):
+            torch._int_mm(torch.from_numpy(xi8.astype(np.int8)).to(cuda),
+                          torch.from_numpy(wi8).to(cuda))
