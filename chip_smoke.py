@@ -149,14 +149,15 @@ Phases (any failed check raises and the script exits non-zero):
    chunked (chunks of 16, 32 or 64) and unchunked: every count, no page
    leaked, one fetch a segment, TTFT and e2e percentiles, agreement, and
    chunked segments issued with no sync; (b) greedy ``speculative=4`` on
-   the random weights (against (a)'s serve: divergences only at near
-   ties; verify ticks against its ticks, acceptance, reads a segment) and
+   the random weights, the first 16 of the 32 requests (against the same
+   16 of (a)'s serve: divergences only at near ties; verify ticks,
+   acceptance, reads a segment) and
    on 3e's memorized model: its first 16 continuations identical to its
    non-speculative serve, and 8 of a repeated-stretch class whose
    divergences must sit at near ties; some asserted class accepts
    drafts; (c) sampling (T 0.8, top-k 32) at K 0 and 4 on 4 requests:
    two serves with the same seeds equal, ``top_k=1`` equal to greedy up
-   to near ties (the depth of (b) and (c) cut from 32, 16 and 8
+   to near ties (the depth of (b) and (c) cut from 32, 32, 16 and 8
    requests, for the script's time); (d)
    ``seq_parallel=2`` with a 2000-token prompt and 7 requests behind it
    in segments of 8 steps: the prefill spans segments, TTFT against a
@@ -365,6 +366,24 @@ Phases (any failed check raises and the script exits non-zero):
    the logits within ``vision_quant.LOGIT_ERR`` of their largest
    magnitude), then PTQ (``AbsmaxObserver``, four calibration batches)
    and its int8 logits against the fp32 ones;
+6g. the tensor core and the op corpus (``experiments/op_corpus.py``): (a)
+   every one of the 303 names of ``all_ops()`` on the card and on the
+   CPU on the same seeded inputs (1024^2 fp32; the decompositions on
+   8 x 256^2; the products and reductions on zero-mean inputs), outputs
+   and the gradients of every differentiable op within ``op_corpus.TOL``
+   of the largest value (the spectra within ``op_corpus.SPECTRA_TOL``),
+   the decompositions by their invariants, the sorts by integer-valued
+   inputs that tie, the
+   random ops by shape, dtype, range, moments and repetition under
+   ``seed``; (b) ``README.md``'s quickstart (lines 10-29, the two import
+   lines naming ``paddle_tpu_torch``) run on the card, then 20 AdamW
+   steps of its model (784 -> 256 -> 10, batch 32) written with Tensor
+   methods (run as a script's code, so that its two ``x.matmul`` take
+   the reference's form, the op through ``run_op``: checked), each loss
+   within ``op_corpus.LOSS_RTOL`` of the same steps on the CPU from the
+   same weights; its AdamW updates 4 tensors, below the flat update's 9, so
+   the path (``readme_quickstart``) launches no hand-written kernel, as
+   the reference's runs no Pallas one;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -376,7 +395,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f and 7 is driven with every launch
+   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f, 6g and 7 is driven with every launch
    count set to 0 just before it and read just after; a kernel's
    ``launches`` is its sum over those paths (the decode kernel's quant
    mode has no engine caller, as in the JAX package, so its count is 0
@@ -2580,8 +2599,13 @@ FAMILY_CHUNKS = (16, 32, 64)
 SPEC_K = 4
 # 3h's depth, cut to keep the script near its 600 s aim: the memorized
 # continuations and the repeated-stretch class of (b) on their first 16 and
-# 8 requests (of 32 and 16), sampling in (c) on the first 4 (of 8)
+# 8 requests (of 32 and 16), sampling in (c) on the first 4 (of 8); and
+# (b)'s random-weights class on the first 16 of the 32 mixed requests,
+# held against the same 16 of (a)'s unchunked serve: it was (b)'s longest
+# serve (its near-tie checks forward every request that parts), and 16
+# requests of the mixed lengths still fill the verify ticks' slots
 SPEC_MEMORIZED, SPEC_REPEATED, SAMPLED_REQUESTS = 16, 8, 4
+SPEC_RANDOM = 16
 SAMPLED = {"temperature": 0.8, "top_k": 32}
 SP = 2
 SP_PROMPT = 2000
@@ -2782,8 +2806,9 @@ def repeated_prompts(seqs, reqs):
 def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
                plain, mparams, mreqs, seqs):
     """Phase 3h (b): greedy speculation, K = 4. On the random weights the
-    32 mixed requests, against (a)'s unchunked serve ``plain`` (verify
-    ticks against its ticks). On the memorized model, against its own
+    first ``SPEC_RANDOM`` of the 32 mixed requests, against the same
+    requests of (a)'s unchunked serve ``plain`` (whose verify ticks served
+    all 32). On the memorized model, against its own
     non-speculative serve: the first ``SPEC_MEMORIZED`` of phase 3e's
     continuations ``mreqs`` (the sequences from position 0, which it
     follows), where the top logits are far apart, every request
@@ -2793,17 +2818,20 @@ def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
     ``LOGIT_ATOL``, ``near_tie``). Some asserted class must accept drafts,
     so that ticks emitting several tokens a slot are held too."""
     L = cfg.num_layers
-    arrivals = [sched.Arrival(0.02 * i, p, g) for i, (p, g) in enumerate(reqs)]
+    rreqs = reqs[:SPEC_RANDOM]
+    arrivals = [sched.Arrival(0.02 * i, p, g)
+                for i, (p, g) in enumerate(rreqs)]
     out, launches = {}, {}
     eng = family_engine(ServingEngine, params, cfg, speculative=SPEC_K)
     st, n, toks = family_serve(torch, sched, fns, eng, arrivals)
     check_counts(n, family_counts(L, st["steps"], 0, False),
                  f"3h spec: {st['steps']} steps, {st['ticks']} verify ticks")
-    st["against_plain"] = agreement(toks, plain[0])
+    ptoks = plain[0][:SPEC_RANDOM]
+    st["against_plain"] = agreement(toks, ptoks)
     st["parted_at_near_ties"] = parted_at_near_ties(
-        torch, llama, params, cfg, [p for p, _ in reqs], toks, plain[0],
+        torch, llama, params, cfg, [p for p, _ in rreqs], toks, ptoks,
         "3h spec random")
-    st["plain_ticks"] = plain[1]["ticks"]
+    st["plain_ticks"] = f"{plain[1]['ticks']} (for all {len(reqs)})"
     out["random"], launches["family_spec"] = st, n
 
     mreqs = mreqs[:SPEC_MEMORIZED]
@@ -5554,6 +5582,69 @@ def text_phase(torch, port, recipes, parity, mtu, fns):
 # phase 6f: vision.transforms, vision.ops and QAT/PTQ on the card
 # ---------------------------------------------------------------------------
 
+def corpus_phase(torch, op_corpus, fns, card):
+    """Phase 6g: (a) every op of ``all_ops()`` on the card against the CPU
+    (``op_corpus.op_sweep``: outputs, gradients, the decompositions'
+    invariants, the random ops' distributions), (b) the README's
+    quickstart on the card and ``op_corpus.STEPS`` AdamW steps of its
+    model written with Tensor methods, each loss against the CPU's, no
+    kernel launched (``op_corpus.readme_phase``). Prints each part;
+    returns its stats and the launches of (b)'s steps."""
+    counts = (lambda: zero_counts(fns), lambda: read_counts(fns))
+    t6g = time.perf_counter()
+    try:
+        sweep = op_corpus.op_sweep(DEVICE)
+    except AssertionError as e:
+        fail(f"6g (a): {e}")
+    errs = " ".join(
+        f"{name}={r['err']:.1e}" + ("" if r["grad_err"] is None
+                                    else f"/{r['grad_err']:.1e}")
+        for name, r in sweep["ops"].items())
+    print(f"6g (a) ops held, card against CPU ({card}; {op_corpus.N}^2 "
+          f"fp32, decompositions {op_corpus.BATCH}x{op_corpus.K}^2; largest "
+          f"difference over max(1, largest value), output/gradient): {errs}")
+    print(f"6g (a) random ops on the card ({card}): "
+          f"{json.dumps(sweep['random'])}")
+    slow = sorted(sweep["ops"].items(), key=lambda kv: -(kv[1]["ms"] or 0))
+    print(f"6g (a) {sweep['held']} ops held, largest error "
+          f"{sweep['max_err']:.3e} ({sweep['worst']}; tolerance "
+          f"{op_corpus.TOL}, the spectra's {op_corpus.SPECTRA_TOL}), "
+          f"{sweep['seconds']} s; the card's slowest calls (ms, with the "
+          f"backward, first calls included): "
+          f"{json.dumps({k: v['ms'] for k, v in slow[:10]})}")
+    readme = op_corpus.readme_phase(DEVICE, counts=counts)
+    sc, launches = readme["script"], readme["launches"]
+    if not (np.isfinite(sc["loss"]) and sc["loss_type"] == "Tensor"):
+        fail(f"6g (b): the README script's loss {sc}")
+    # the README's AdamW updates 4 tensors: below the flat update's 9, the
+    # reference (paddle_tpu/optimizer/optimizer.py:204) and the port
+    # (optimizer/optimizer.py:246) update each parameter apart, so no
+    # hand-written kernel runs on this path
+    if any(sc["launches"].values()) or any(launches.values()):
+        fail(f"6g (b): the README's 4-tensor AdamW launched kernels: "
+             f"{sc['launches']}, {launches}")
+    # the step's two ``x.matmul`` took the reference's form (the op, through
+    # ``run_op``) on the card
+    if readme["step_ops"].count("matmul") != 2:
+        fail(f"6g (b): the method step ran {readme['step_ops']} as ops")
+    if not readme["loss_max_rel_err"] <= op_corpus.LOSS_RTOL:
+        fail(f"6g (b): losses {readme['losses']} against the CPU's "
+             f"{readme['losses_cpu']}")
+    print(f"6g (b) README quickstart on the card ({card}): loss "
+          f"{sc['loss']:.4f} ({sc['loss_type']}), no kernel launched (its "
+          f"AdamW updates 4 tensors apart, as the reference's does below "
+          f"9); {readme['steps']} AdamW steps written with Tensor methods "
+          f"(ops through run_op in a step: {readme['step_ops']}) "
+          f"at 784 -> 256 -> 10, batch 32: losses "
+          f"{', '.join(f'{v:.5f}' for v in readme['losses'])}, largest "
+          f"relative difference from the CPU's "
+          f"{readme['loss_max_rel_err']:.3e} (<= {op_corpus.LOSS_RTOL}), "
+          f"{readme['seconds']} s")
+    secs = round(time.perf_counter() - t6g, 1)
+    print(f"phase 6g (the tensor core and the op corpus): {secs} s")
+    return {"sweep": sweep, "readme": readme, "seconds": secs}, launches
+
+
 def vision_phase(torch, port, bert, parity, vision_quant, fns, eager_fp32,
                  card):
     """Phase 6f: (a) the PaddleClas input pipeline through ``Model.fit``
@@ -5962,7 +6053,7 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import quant_matmul as qm
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
     from paddle_tpu_torch.quantization import serving as qs
-    from paddle_tpu_torch.experiments import parity, vision_quant
+    from paddle_tpu_torch.experiments import op_corpus, parity, vision_quant
     from paddle_tpu_torch.text import recipes
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6948,6 +7039,11 @@ def main() -> None:
                                             vision_quant, fns, eager["fp32"],
                                             card)
 
+    lap("6g")
+    # 6g. the tensor core and the op corpus, and the README's script
+    torch.cuda.empty_cache()
+    corpus, rqlaunches = corpus_phase(torch, op_corpus, fns, card)
+
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
     torch.cuda.empty_cache()
@@ -6975,6 +7071,7 @@ def main() -> None:
                **elaunches6c,
                "zoo_mobilenet_v3_large": zlaunches,
                "imdb_bilstm_fit": xlaunches, **vqlaunches,
+               "readme_quickstart": rqlaunches,
                **{f"zoo_{n}": v for n, v in zflaunches.items()},
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
@@ -7006,6 +7103,7 @@ def main() -> None:
                    "resnet50_adamw": radamw, "mnist": mnist,
                    "bert": bstats, "eager_bert": eager, "zoo": zoo_stats,
                    "text": text, "vision_quant": vision_stats,
+                   "op_corpus": corpus,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

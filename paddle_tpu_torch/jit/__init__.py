@@ -20,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-__all__ = ["FusedTrainStep", "fused_train_step"]
+__all__ = ["FusedTrainStep", "fused_train_step", "to_static"]
 
 
 class FusedTrainStep:
@@ -63,3 +63,12 @@ def fused_train_step(loss_fn=None, optimizer=None,
                      has_aux: bool = False) -> FusedTrainStep:
     """Build a training step function (see ``FusedTrainStep``)."""
     return FusedTrainStep(loss_fn, optimizer, model, has_aux=has_aux)
+
+
+def to_static(function=None, input_spec=None, build_strategy=None,
+              full_graph=False, backend=None, **kwargs):
+    """Not ported yet: ``jit.to_static`` (and ``static`` and
+    ``enable_static``) wait for ROADMAP Queue A item 8."""
+    raise NotImplementedError(
+        "paddle_tpu_torch.jit.to_static is not ported yet (ROADMAP Queue A "
+        "item 8: compile, analysis and profiler paths)")

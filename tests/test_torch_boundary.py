@@ -43,7 +43,14 @@ def test_port_and_chip_smoke_import_no_jax():
     assert {"hapi/model.py", "hapi/callbacks.py", "hapi/model_summary.py",
             "io/__init__.py", "metric/__init__.py", "framework/io.py",
             "vision/datasets/__init__.py", "vision/models/lenet.py",
-            "optimizer/lr.py", "nn/clip.py"} <= scanned
+            "optimizer/lr.py", "nn/clip.py", "core/tensor.py",
+            "core/dtype.py", "core/autograd.py", "device.py", "flags.py",
+            "enforce.py", "framework/random.py", "ops/registry.py",
+            "ops/dispatch.py", "ops/creation.py", "ops/math.py",
+            "ops/logic.py", "ops/reduction.py", "ops/manipulation.py",
+            "ops/linalg.py", "ops/special.py", "ops/tail.py",
+            "ops/_tensor_methods.py", "_C_ops.py", "autograd/__init__.py",
+            "fft.py", "experiments/op_corpus.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []
@@ -129,3 +136,23 @@ def test_high_level_api_defaults_to_cuda(monkeypatch, tmp_path):
         model.train_batch([x], [y])
     with pytest.raises(RuntimeError, match="CUDA"):
         pt.summary(net, (1, 1, 28, 28))
+
+
+def test_tensor_core_defaults_to_cuda(monkeypatch):
+    """``to_tensor`` and the creation ops run on the card unless
+    ``set_device`` or ``place`` names the CPU: without CUDA they raise."""
+    import paddle_tpu_torch as pt
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    assert device.get_device() == "cuda"
+    for make in (lambda: pt.to_tensor([1.0]), lambda: pt.ones([2]),
+                 lambda: pt.randn([2]), lambda: pt.linspace(0, 1, 3),
+                 lambda: pt.fft.fftfreq(4)):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert pt.to_tensor([1.0], place="cpu").device.type == "cpu"
+    prev = device.set_device("cpu")
+    try:
+        assert pt.arange(3).device.type == "cpu"
+    finally:
+        device.set_device(prev)
