@@ -2012,18 +2012,20 @@ def prefix_burst(torch, sched, ServingEngine, fns, params, cfg, paged,
     return out, launches
 
 
-def paged_counts(L, steps, decode, quant=False):
+def paged_counts(L, steps, decode, quant=False, projections=7):
     """The launches a paged drain of ``steps`` steps (``decode`` of them
     decode ticks, the rest admits) needs: the tick kernels on every decode
     tick; the paged kernel on every step of an unquantized pool, none on a
     quantized one (the dequantizing gather); on a quantized tree,
-    ``quant_matmul`` for the tick's 7 projections per layer and lm_head,
-    and the admit's lm_head."""
+    ``quant_matmul`` for the tick's ``projections`` per layer (7, or 4
+    with ``fused_weights``: wqkv, wo, w_gate_up, w_down) and lm_head, and
+    the admit's lm_head."""
     want = {"fused_rms_norm": (L + 1) * decode,
             "fused_add_rms_norm": L * decode, "fused_rope_qk": L * decode,
             "ragged_paged_attention": 0 if quant else L * steps}
     if quant:
-        want["quant_matmul"] = (7 * L + 1) * decode + (steps - decode)
+        want["quant_matmul"] = ((projections * L + 1) * decode
+                                + (steps - decode))
     return want
 
 
@@ -2599,12 +2601,16 @@ FAMILY_CHUNKS = (16, 32, 64)
 SPEC_K = 4
 # 3h's depth, cut to keep the script near its 600 s aim: the memorized
 # continuations and the repeated-stretch class of (b) on their first 16 and
-# 8 requests (of 32 and 16), sampling in (c) on the first 4 (of 8); and
+# 4 requests (of 32 and 16), sampling in (c) on the first 4 (of 8); and
 # (b)'s random-weights class on the first 16 of the 32 mixed requests,
 # held against the same 16 of (a)'s unchunked serve: it was (b)'s longest
 # serve (its near-tie checks forward every request that parts), and 16
-# requests of the mixed lengths still fill the verify ticks' slots
-SPEC_MEMORIZED, SPEC_REPEATED, SAMPLED_REQUESTS = 16, 8, 4
+# requests of the mixed lengths still fill the verify ticks' slots. The
+# repeated class went from 8 to 4 requests to make room for phase 6h: its
+# prompts repeat a stretch of the memorized sequences, so each request
+# drafts and accepts as the others do, and 4 still take the verify ticks
+# through acceptance and rejection alike
+SPEC_MEMORIZED, SPEC_REPEATED, SAMPLED_REQUESTS = 16, 4, 4
 SPEC_RANDOM = 16
 SAMPLED = {"temperature": 0.8, "top_k": 32}
 SP = 2
@@ -5645,6 +5651,162 @@ def corpus_phase(torch, op_corpus, fns, card):
     return {"sweep": sweep, "readme": readme, "seconds": secs}, launches
 
 
+# phase 6h's bounds, set from the H100's readings (PERF.md): the
+# fused bf16-gradient step's loss against phase 5's unfused fp32-gradient
+# step, relative, over the 12 steps (read 3.146e-4 twice: the steps are
+# deterministic; the bound is 3.2x); the first decode tick's logits of the
+# fused tree against the unfused one's, int8 weights and bf16 through the
+# paged kernel (read 0 in both: one bf16 ulp at the logits' magnitude,
+# 4-8, is allowed, a single rounding that lands the other way)
+FUSED_LOSS_RTOL = 1e-3
+FUSED_INT8_LOGIT_ATOL = 2.0 ** -5
+FUSED_BF16_LOGIT_ATOL = 2.0 ** -5
+# bf16 paged serve of 6h (c): the first requests of the mixed workload
+FUSED_BF16_REQUESTS = 8
+
+
+def llama_opts_phase(torch, llama, rlo, tf, qm, ServingEngine, fns, card,
+                     train5, params5, tok5):
+    """Phase 6h (``experiments/runtime_llama_opts.py``): (a) the runtime
+    modules on the card; (b) bench.py's step with ``fused_weights`` and
+    ``bf16_grads`` from phase 5's initial fp32 weights (``params5``, on
+    the host) and batch (``tok5``), each loss against phase 5's
+    (``train5``) and the launches a step; (c) the int8
+    paged drain of phase 3d with ``fused_weights`` (49 ``quant_matmul``
+    launches a decode step against 85), tokens against the unfused drain,
+    and a short bf16 paged serve through the paged kernel, each with its
+    first tick's logits against the unfused tree's, and ``quant_matmul``'s
+    columns at both widths; and the rope on q and k read by their stride
+    out of a fused product. Returns (stats, launches by path)."""
+    counts = (lambda: zero_counts(fns), lambda: read_counts(fns))
+    t6h, secs = time.perf_counter(), {}
+    try:
+        rt = rlo.runtime_checks(DEVICE)
+    except AssertionError as e:
+        fail(f"6h (a): {e}")
+    secs["a"] = round(time.perf_counter() - t6h, 1)
+    print(f"6h (a) runtime modules on the card ({card}): devices "
+          f"{rt['devices']}; memory statistics equal torch.cuda's before, "
+          f"holding 1 GiB and after its release (allocated "
+          f"{rt['memory']['before'][0]} -> {rt['memory']['holding'][0]} -> "
+          f"{rt['memory']['freed'][0]} B); a side-stream copy joined by "
+          f"wait_stream right; Event.query {rt['event_query']}; "
+          f"custom_relu built with g++ and run on "
+          f"{rt['custom_relu']['device']} ({rt['custom_relu']['elements']} "
+          f"elements, C backward equal to the plain gradient); dlpack "
+          f"shares memory; the tensor checker named log; run_check: "
+          f"{rt['run_check']!r}; version.cuda() {rt['version_cuda']}")
+
+    cfg = llama.LlamaConfig.bert_base_equiv()
+    params = {k: v.to(DEVICE) for k, v in params5.items()}
+    L = cfg.num_layers
+    fb, tlaunches = rlo.fused_train(
+        llama, cfg, params, tok5, counts,
+        profile=lambda run: device_profile(torch, run))
+    del params
+    steps = fb["timed_steps"]
+    try:
+        check_counts(tlaunches, {"flash_attention_fwd": L * steps,
+                                 "flash_attention_bwd": L * steps,
+                                 "head_dx_softmax": steps},
+                     f"6h (b): {steps} fused bf16-gradient steps")
+    except AssertionError as e:
+        fail(str(e))
+    gaps = [abs(a - b) / abs(b) for a, b in zip(fb["losses"],
+                                                train5["losses"])]
+    fb["loss_rel_gap"] = gaps
+    fb["phase5_losses"] = train5["losses"]
+    if len(gaps) != len(train5["losses"]) or max(gaps) > FUSED_LOSS_RTOL:
+        fail(f"6h (b): fused bf16-gradient losses {fb['losses']} against "
+             f"phase 5's {train5['losses']}: relative gaps {gaps}")
+    secs["b"] = round(time.perf_counter() - t6h, 1)
+    print(f"6h (b) bench.py's step with fused_weights and bf16_grads "
+          f"({card}): B 44 S 512, {fb['warmup_steps']} + {steps} steps from "
+          f"phase 5's initial weights (wq/wk/wv, w_gate/w_up concatenated): "
+          f"losses {', '.join(f'{x:.5f}' for x in fb['losses'])}; largest "
+          f"relative gap from phase 5's {max(gaps):.3e} (<= "
+          f"{FUSED_LOSS_RTOL}); {fb['ms_per_step']:.3f} ms/step (phase 5 "
+          f"{train5['ms_per_step']:.3f}), device "
+          f"{fb.get('device_ms_per_step')} ms in one profiled step (phase 5 "
+          f"{train5.get('device_ms_per_step')}); launches a step: flash "
+          f"forward {tlaunches['flash_attention_fwd'] // steps}, backward "
+          f"{tlaunches['flash_attention_bwd'] // steps}, head_dx_softmax "
+          f"{tlaunches['head_dx_softmax'] // steps}")
+    print(f"6h (b) device time (ms/step) by kind: "
+          f"{json.dumps(fb.get('device_split_ms'))} (phase 5 "
+          f"{json.dumps(train5.get('device_split_ms'))}); largest kernels: "
+          f"{json.dumps(fb.get('device_top'))}")
+
+    params = llama.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    reqs = mixed_workload(np.random.RandomState(0), 32, cfg.vocab_size)
+    need = max(len(p) + g - 1 for p, g in reqs)
+    max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
+    serves, launches = {}, {}
+    for key, path, rs, quant, atol in (
+            ("int8", "quant_int8_fused_drain", reqs, "int8",
+             FUSED_INT8_LOGIT_ATOL),
+            ("bf16", "paged_fused_drain", reqs[:FUSED_BF16_REQUESTS], None,
+             FUSED_BF16_LOGIT_ATOL)):
+        st, n = rlo.fused_serve(llama, ServingEngine, cfg, params, rs,
+                                quant=quant, counts=counts, max_len=max_len,
+                                page_size=PAGE)
+        f = st["fused"]
+        try:
+            check_counts(n, paged_counts(L, f["steps"], f["decode_steps"],
+                                         bool(quant), projections=4),
+                         f"6h (c) {key}: {f['steps']} steps, "
+                         f"{f['decode_steps']} decode")
+        except AssertionError as e:
+            fail(str(e))
+        if not st["tick_logit_max_abs_err"] <= atol:
+            fail(f"6h (c) {key}: the first tick's logits of the fused tree "
+                 f"{st['tick_logit_max_abs_err']} from the unfused one's")
+        serves[key], launches[path] = st, n
+        tick_q = (n.get("quant_matmul", 0) - (f["steps"] - f["decode_steps"])
+                  ) / max(1, f["decode_steps"])
+        print(f"6h (c) {key} paged drain with fused_weights ({card}): "
+              f"{st['requests']} requests, {st['new_tokens']} tokens, "
+              f"{st['identical_requests']}/{st['requests']} identical to the "
+              f"unfused drain (matched-prefix rate "
+              f"{st['matched_prefix_rate']:.4f}); first tick's logits max "
+              f"|err| {st['tick_logit_max_abs_err']:.3e} of "
+              f"{st['tick_logit_max_abs']:.3e} (<= {atol}), argmax agreement "
+              f"{st['tick_argmax_agree']:.4f}, prefill logits "
+              f"{st['prefill_logit_max_abs_err']:.3e}; "
+              f"{f['tokens_per_s']:.1f} tokens/s against "
+              f"{st['unfused']['tokens_per_s']:.1f} unfused; "
+              + (f"quant_matmul {tick_q:g} a decode step (85 unfused); "
+                 if quant else "")
+              + f"launches {json.dumps(n)}")
+    col = rlo.quant_column_check(llama, qm, cfg, params)
+    serves["int8"]["column_check"] = col
+    print(f"6h (c) quant_matmul's columns at N {col['N'][0]} against the "
+          f"same columns at N {col['N'][1]} ({card}; tiling (columns a "
+          f"block, blocks along K) {col['tiling'][0]} and "
+          f"{col['tiling'][1]}): fp32 outputs {col['fp32_max_abs_diff']:.3e} "
+          f"apart, {col['rounded_differ_share']:.4f} of the entries differ "
+          f"in bf16")
+    del params
+    from paddle_tpu_torch.experiments._timing import time_ms
+    st = rlo.strided_rope_check(tf, DEVICE, cfg, timer=time_ms)
+    if st["against_contiguous"] != 0.0 or not st["plain_ok"]:
+        fail(f"6h: the rope on strided rows {st}")
+    serves["strided_rope"] = st
+    print(f"6h rope on q and k read by their row stride from a fused "
+          f"[{st['rows']}, {st['width']}] bf16 product ({card}): equal to "
+          f"the launch on contiguous copies, "
+          f"{st['against_plain']:.3e} from the plain version (rtol 1.6e-2, "
+          f"atol {st['plain_atol']:.3e}); {st['ms_strided']} ms a launch "
+          f"on the strided rows, {st['ms_contiguous']} on contiguous rows, "
+          f"{st['ms_copies_and_launch']} with the two copies")
+    secs["c"] = round(time.perf_counter() - t6h, 1)
+    print(f"phase 6h seconds to the end of each part: {json.dumps(secs)}")
+    return ({"runtime": rt, "train": fb, "serve": serves,
+             "seconds_to_end_of": secs},
+            {"train_fused_bf16_grads": tlaunches, **launches})
+
+
 def vision_phase(torch, port, bert, parity, vision_quant, fns, eager_fp32,
                  card):
     """Phase 6f: (a) the PaddleClas input pipeline through ``Model.fit``
@@ -5763,6 +5925,7 @@ def vision_phase(torch, port, bert, parity, vision_quant, fns, eager_fp32,
 SERVE_TICK = ("contiguous_drain", "paged_drain", "prefix_burst",
               "long_admit", "cpu_small_contiguous_drain",
               "cpu_small_paged_drain", "quant_int8_drain", "quant_fp8_drain",
+              "quant_int8_fused_drain", "paged_fused_drain",
               "quant_int8_trained_drain", "fused_drain",
               "contiguous_prefix_burst", "contiguous_burst_no_cache",
               "generate_beam", "generate_beam_eos", "generate_sampled",
@@ -5785,7 +5948,10 @@ PAGED = ("paged_drain", "prefix_burst", "long_admit", "cpu_small_paged_drain",
          "family_long_context", "tier_audited", "tier_tiered",
          "tier_untiered", "tier_no_cache", "slo_serve", "slo_monitored",
          "3j_fleet", "3j_fleet_failover", "3j_disagg",
-         "3j_disagg_co_resident", "3k_warmed_serve", "3k_episode")
+         "3j_disagg_co_resident", "3k_warmed_serve", "3k_episode",
+         "paged_fused_drain")
+# LLaMA's trainers keep their own AdamW (as the JAX package's), so
+# "train" and "train_fused_bf16_grads" are not flat-update paths
 FLAT_UPDATE = ("resnet50_train", "resnet50_adamw", "mnist_fit",
                "mnist_fit_scheduled", "eager_fp32", "eager_bf16_auto_cast",
                "zoo_mobilenet_v3_large", "imdb_bilstm_fit",
@@ -5798,11 +5964,14 @@ KERNEL_PATHS = {
     "ragged_paged_attention": PAGED,
     "quant_matmul": ("quant_int8_drain", "quant_fp8_drain",
                      "quant_int8_trained_drain", "tier_int8_tiered",
-                     "tier_int8_no_cache", "3j_fleet", "3j_fleet_failover"),
+                     "tier_int8_no_cache", "3j_fleet", "3j_fleet_failover",
+                     "quant_int8_fused_drain"),
     "flash_attention_fwd": ("train", "bert_train", "ernie_step",
-                            "eager_bf16_auto_cast", "flash_experiment"),
+                            "eager_bf16_auto_cast", "flash_experiment",
+                            "train_fused_bf16_grads"),
     "flash_attention_bwd": ("train", "bert_train", "ernie_step",
-                            "eager_bf16_auto_cast", "flash_experiment"),
+                            "eager_bf16_auto_cast", "flash_experiment",
+                            "train_fused_bf16_grads"),
     "flash_attention_bwd_dq": ("flash_experiment",),
     "flash_attention_bwd_dkv": ("flash_experiment",),
     "flash_attention_fwd_f32": ("eager_fp32", "bert_qat",
@@ -5810,7 +5979,7 @@ KERNEL_PATHS = {
     "flash_attention_bwd_f32": ("eager_fp32", "bert_qat"),
     "flash_attention_bwd_dq_f32": (),
     "flash_attention_bwd_dkv_f32": (),
-    "head_dx_softmax": ("train",),
+    "head_dx_softmax": ("train", "train_fused_bf16_grads"),
     "multi_tensor_update": FLAT_UPDATE,
     "blocked_matmul": ("dot_experiment",),
     "flash_variants_fwd": ("flash_experiment",),
@@ -6054,6 +6223,7 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
     from paddle_tpu_torch.quantization import serving as qs
     from paddle_tpu_torch.experiments import op_corpus, parity, vision_quant
+    from paddle_tpu_torch.experiments import runtime_llama_opts as rlo
     from paddle_tpu_torch.text import recipes
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -6427,6 +6597,8 @@ def main() -> None:
     tparams = llama.init_params(
         tcfg, torch.Generator(device="cuda").manual_seed(0), device="cuda",
         dtype=torch.float32)
+    # phase 6h (b) starts its fused steps from these weights
+    params5 = {k: v.detach().cpu().clone() for k, v in tparams.items()}
     rng = np.random.RandomState(0)
     tok8 = torch.from_numpy(rng.randint(0, tcfg.vocab_size, (8, 512))
                             .astype(np.int32)).to(DEVICE)
@@ -6465,7 +6637,7 @@ def main() -> None:
     sparams = {k: v.detach().to(torch.bfloat16) for k, v in tparams.items()}
     seqs = tok44.cpu().numpy()
     mreqs = [(seqs[i, :len(p)].copy(), g) for i, (p, g) in enumerate(reqs)]
-    del tparams, tok8, tok44
+    del tparams, tok8
     qtrained, qtlaunches = quant_trained(
         torch, ServingEngine, compare_pair, fns, sparams, cfg, mreqs,
         max_len)
@@ -7044,6 +7216,15 @@ def main() -> None:
     torch.cuda.empty_cache()
     corpus, rqlaunches = corpus_phase(torch, op_corpus, fns, card)
 
+    lap("6h")
+    # 6h. the runtime modules, and LLaMA's single-device options trained
+    # and served
+    torch.cuda.empty_cache()
+    llama_opts, olaunches = llama_opts_phase(torch, llama, rlo, tf, qm,
+                                             ServingEngine, fns, card, train,
+                                             params5, tok44)
+    del params5, tok44
+
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
     torch.cuda.empty_cache()
@@ -7071,7 +7252,7 @@ def main() -> None:
                **elaunches6c,
                "zoo_mobilenet_v3_large": zlaunches,
                "imdb_bilstm_fit": xlaunches, **vqlaunches,
-               "readme_quickstart": rqlaunches,
+               "readme_quickstart": rqlaunches, **olaunches,
                **{f"zoo_{n}": v for n, v in zflaunches.items()},
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
@@ -7103,7 +7284,7 @@ def main() -> None:
                    "resnet50_adamw": radamw, "mnist": mnist,
                    "bert": bstats, "eager_bert": eager, "zoo": zoo_stats,
                    "text": text, "vision_quant": vision_stats,
-                   "op_corpus": corpus,
+                   "op_corpus": corpus, "llama_opts": llama_opts,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

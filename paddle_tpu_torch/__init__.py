@@ -32,7 +32,10 @@ corpus (``core``: dtypes, places, the ``Tensor`` subclass of
 ``torch.Tensor``, autograd; ``ops``: the reference's 303 registered ops,
 ``fft`` among them; ``_C_ops``; ``autograd``; ``flags``;
 ``framework.random``), so an ``import paddle`` script runs with
-``import paddle_tpu_torch as paddle``.
+``import paddle_tpu_torch as paddle``; and the runtime modules
+(``device``: counts, memory statistics, streams and events; ``utils``
+with ``cpp_extension`` and ``dlpack``; ``amp.debugging``; ``version``;
+``sysconfig``).
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from . import autograd  # noqa: F401
 from . import fft  # noqa: F401
 from . import incubate, io, jit, metric, nn, optimizer, text, vision  # noqa: F401
 from . import profiler  # noqa: F401
+from . import device, sysconfig, utils, version  # noqa: F401
 from .hapi import callbacks  # noqa: F401  (paddle.callbacks alias)
 from .hapi.model import Model  # noqa: F401
 from .hapi.model_summary import flops, summary  # noqa: F401

@@ -231,3 +231,6 @@ class GradScaler:
         self._scale = state.get("scale", self._scale)
         self._good_steps = state.get("good_steps", 0)
         self._bad_steps = state.get("bad_steps", 0)
+
+
+from . import debugging  # noqa: E402,F401

@@ -1,6 +1,8 @@
 // Rotate-half rope on the decode tick's flat q and k projections, both in
 // one launch:
-//   zq [B, nH * D], zk [B, Hkv * D]; row b at position pos[b]; for each head
+//   zq [B, nH * D], zk [B, Hkv * D], each row at its own stride (ldq, ldk
+//   values: a fused qkv product's q and k columns are read in place, with
+//   no copy); row b at position pos[b]; for each head
 //   and i < D / 2, with x1 = z[i], x2 = z[i + D / 2] of the head:
 //   out[i] = x1 cos_i - x2 sin_i,  out[i + D / 2] = x1 sin_i + x2 cos_i,
 //   angle_i = pos * theta^(-2 i / D) in fp32, cos and sin rounded to the
@@ -94,28 +96,40 @@ __device__ __forceinline__ void store(T* p, const Pack<T, VEC>& r) {
 }
 
 // grid (B, ceil((nH + Hkv) / hpb)); block y takes heads y hpb .. of the
-// row's nH q heads followed by its Hkv k heads. cs: 2 (D / 2) floats of
-// dynamic shared memory.
+// row's nH q heads followed by its Hkv k heads; input rows at strides ldq
+// and ldk, output rows contiguous. cs: 2 (D / 2) floats of dynamic shared
+// memory.
 template <typename T, int VEC>
 __global__ void __launch_bounds__(THREADS)
 rope_qk(const T* __restrict__ zq, const T* __restrict__ zk,
         T* __restrict__ oq, T* __restrict__ ok,
         const int32_t* __restrict__ pos, int nH, int Hkv, int D, int hpb,
-        float theta) {
+        int ldq, int ldk, float theta) {
   extern __shared__ float cs[];
   const int b = blockIdx.x;
   const int half = D / 2;
   const int units = half / VEC;  // vectors in a head's half
   const int h0 = blockIdx.y * hpb;
   const int tasks = min(hpb, nH + Hkv - h0) * units;
-  // task e: the pairs i0 .. i0 + VEC - 1 of head h0 + e / units
-  auto at = [&](int e, const T*& src, T*& dst, int& i0) {
+  // task e: the pairs i0 .. i0 + VEC - 1 of head h0 + e / units, read
+  // from its input row (at the row's stride) and written to its output row
+  struct Task {
+    const T* src;
+    T* dst;
+    int i0;
+  };
+  auto at = [&](int e) {
     const int h = h0 + e / units;
-    i0 = (e % units) * VEC;
-    const size_t row = h < nH ? ((size_t)b * nH + h) * D
-                              : ((size_t)b * Hkv + (h - nH)) * D;
-    src = (h < nH ? zq : zk) + row;
-    dst = (h < nH ? oq : ok) + row;
+    Task t;
+    t.i0 = (e % units) * VEC;
+    if (h < nH) {
+      t.src = zq + (size_t)b * ldq + (size_t)h * D;
+      t.dst = oq + ((size_t)b * nH + h) * D;
+    } else {
+      t.src = zk + (size_t)b * ldk + (size_t)(h - nH) * D;
+      t.dst = ok + ((size_t)b * Hkv + (h - nH)) * D;
+    }
+    return t;
   };
   auto rotate = [&](const Pack<T, VEC>& x1, const Pack<T, VEC>& x2, T* dst,
                     int i0) {
@@ -134,16 +148,14 @@ rope_qk(const T* __restrict__ zq, const T* __restrict__ zk,
   };
 
   // the thread's first pair of vectors is loaded before the angles are
-  // computed, so their trip to memory overlaps the powf and the sincosf
-  const T* src0 = zq;
-  T* dst0 = oq;
-  int i00 = 0;
+  // computed, so their trip to memory overlaps the powf and the sincosf;
+  // only the loaded values stay live across that loop (the task's
+  // addresses are formed again after it)
   Pack<T, VEC> x1, x2;
-  const bool first = threadIdx.x < tasks;
-  if (first) {
-    at(threadIdx.x, src0, dst0, i00);
-    x1 = load<T, VEC>(src0 + i00);
-    x2 = load<T, VEC>(src0 + half + i00);
+  if (threadIdx.x < tasks) {
+    const Task t = at(threadIdx.x);
+    x1 = load<T, VEC>(t.src + t.i0);
+    x2 = load<T, VEC>(t.src + half + t.i0);
   }
   const float p = static_cast<float>(pos[b]);
   for (int i = threadIdx.x; i < half; i += THREADS) {
@@ -157,20 +169,20 @@ rope_qk(const T* __restrict__ zq, const T* __restrict__ zk,
   }
   __syncthreads();
 
-  if (first) rotate(x1, x2, dst0, i00);
-  for (int e = threadIdx.x + THREADS; e < tasks; e += THREADS) {
-    const T* src;
-    T* dst;
-    int i0;
-    at(e, src, dst, i0);
-    rotate(load<T, VEC>(src + i0), load<T, VEC>(src + half + i0), dst, i0);
+  for (int e = threadIdx.x; e < tasks; e += THREADS) {
+    const Task t = at(e);
+    if (e == (int)threadIdx.x)
+      rotate(x1, x2, t.dst, t.i0);
+    else
+      rotate(load<T, VEC>(t.src + t.i0), load<T, VEC>(t.src + half + t.i0),
+             t.dst, t.i0);
   }
 }
 
 template <typename T, int VEC>
 int launch(const void* zq, const void* zk, void* oq, void* ok,
-           const void* pos, int B, int nH, int Hkv, int D, float theta,
-           cudaStream_t s) {
+           const void* pos, int B, int nH, int Hkv, int D, int ldq, int ldk,
+           float theta, cudaStream_t s) {
   const int units = D / 2 / VEC;
   const int hpb = units >= THREADS ? 1 : THREADS / units;  // heads a block
   const int groups = (nH + Hkv + hpb - 1) / hpb;
@@ -186,7 +198,7 @@ int launch(const void* zq, const void* zk, void* oq, void* ok,
   rope_qk<T, VEC><<<grid, THREADS, smem, s>>>(
       static_cast<const T*>(zq), static_cast<const T*>(zk),
       static_cast<T*>(oq), static_cast<T*>(ok),
-      static_cast<const int32_t*>(pos), nH, Hkv, D, hpb, theta);
+      static_cast<const int32_t*>(pos), nH, Hkv, D, hpb, ldq, ldk, theta);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -194,36 +206,42 @@ int launch(const void* zq, const void* zk, void* oq, void* ok,
 // row starts on a 16-byte boundary, else one value at a time
 template <typename T>
 int launch_t(const void* zq, const void* zk, void* oq, void* ok,
-             const void* pos, int B, int nH, int Hkv, int D, float theta,
-             cudaStream_t s) {
+             const void* pos, int B, int nH, int Hkv, int D, int ldq,
+             int ldk, float theta, cudaStream_t s) {
   constexpr int VEC = 16 / (int)sizeof(T);
   const uintptr_t any = reinterpret_cast<uintptr_t>(zq) |
                         reinterpret_cast<uintptr_t>(zk) |
                         reinterpret_cast<uintptr_t>(oq) |
-                        reinterpret_cast<uintptr_t>(ok);
+                        reinterpret_cast<uintptr_t>(ok) |
+                        ((uintptr_t)ldq * sizeof(T)) |
+                        ((uintptr_t)ldk * sizeof(T));
   if ((D / 2) % VEC == 0 && any % 16 == 0)
-    return launch<T, VEC>(zq, zk, oq, ok, pos, B, nH, Hkv, D, theta, s);
-  return launch<T, 1>(zq, zk, oq, ok, pos, B, nH, Hkv, D, theta, s);
+    return launch<T, VEC>(zq, zk, oq, ok, pos, B, nH, Hkv, D, ldq, ldk,
+                          theta, s);
+  return launch<T, 1>(zq, zk, oq, ok, pos, B, nH, Hkv, D, ldq, ldk, theta,
+                      s);
 }
 
 }  // namespace
 
-// dtype_code: 0 = float32, 1 = bfloat16. Device pointers, contiguous: zq /
-// oq [B, nH * D], zk / ok [B, Hkv * D] of the dtype, pos [B] int32; D even,
+// dtype_code: 0 = float32, 1 = bfloat16. Device pointers: zq [B, nH * D]
+// with rows ldq values apart, zk [B, Hkv * D] with rows ldk apart (each row
+// contiguous), oq / ok contiguous, all of the dtype; pos [B] int32; D even,
 // at most 8192. Returns the cudaError_t of the launch (0 = success),
-// cudaErrorInvalidValue for a shape or dtype it does not take.
+// cudaErrorInvalidValue for a shape, stride or dtype it does not take.
 extern "C" int fused_rope_qk(const void* zq, const void* zk, void* oq,
                              void* ok, const void* pos, int B, int nH,
-                             int Hkv, int D, int dtype_code, float theta,
-                             void* stream) {
+                             int Hkv, int D, int ldq, int ldk, int dtype_code,
+                             float theta, void* stream) {
   if (B < 1 || nH < 0 || Hkv < 0 || nH + Hkv < 1 || D < 2 || D % 2 != 0 ||
-      D > MAX_D)
+      D > MAX_D || ldq < nH * D || ldk < Hkv * D)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype_code == 0)
-    return launch_t<float>(zq, zk, oq, ok, pos, B, nH, Hkv, D, theta, s);
+    return launch_t<float>(zq, zk, oq, ok, pos, B, nH, Hkv, D, ldq, ldk,
+                           theta, s);
   if (dtype_code == 1)
-    return launch_t<__nv_bfloat16>(zq, zk, oq, ok, pos, B, nH, Hkv, D, theta,
-                                   s);
+    return launch_t<__nv_bfloat16>(zq, zk, oq, ok, pos, B, nH, Hkv, D, ldq,
+                                   ldk, theta, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

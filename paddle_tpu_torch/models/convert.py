@@ -50,8 +50,10 @@ def params_from_numpy(np_params: Mapping[str, np.ndarray], cfg: LlamaConfig,
     every use site computes in) from a numpy parameter tree. A quantized
     tree (``quantize_llama_params``: every quantized weight beside its
     ``<name>_scale``) keeps its narrow weights narrow and its scales fp32.
-    Raises on a missing or extra key (a fused-weights or partly quantized
-    tree) or a shape that does not match ``cfg``."""
+    The tree's layout must be ``cfg``'s (``fused_weights``: ``wqkv`` and
+    ``w_gate_up``). Raises on a missing or extra key (a tree of the other
+    layout, or a partly quantized one) or a shape that does not match
+    ``cfg``."""
     device = resolve_device(device)
     dtype = dtype or cfg.dtype
     shapes = param_shapes(cfg)

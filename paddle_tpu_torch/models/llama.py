@@ -26,6 +26,25 @@ attention and the CE tail's dx run as the hand-written kernels of
   training attention and its backward, ``head_dx_softmax`` (CUDA C++) the
   softmax term of the custom CE tail's dh.
 
+The config takes every field of the JAX package's. ``fused_weights``
+stores wq/wk/wv as one ``wqkv`` [L, H, H + 2 Hkv] and w_gate/w_up as one
+``w_gate_up`` [L, H, 2F], so each is one product whose output splits into
+q/k/v (gate/up) by columns: the decode tick's rope reads q and k from that
+output by its row stride, without a copy. ``bf16_grads`` differentiates
+with respect to ``cfg.dtype`` copies of fp32 parameters, so the gradients
+stay in that type through the clip; AdamW updates the fp32 masters.
+``bwd_barriers`` names cotangents the JAX package fences with an
+optimization barrier; eager PyTorch materialises every cotangent once, so
+a barrier would be the identity in value and gradient: the names are
+validated and change nothing. ``fused_tick_epilogue=False`` runs the
+decode tick's rms, add + rms and rope as the inline chains; its attention
+keeps the decode kernel on the contiguous cache and the paged kernel on a
+pool, whose dispatch the JAX package keys on the shape alone.
+``scan_layers`` and ``sharding_stage`` change nothing on one device
+(layers always run unrolled; without a mesh the JAX package's sharding
+constraints are no-ops), and ``sequence_parallel`` without a ``sep`` axis
+computes plain attention, as the JAX package falls back to it.
+
 Layout follows the JAX package so the two are compared like with like:
 parameters are a dict with the same keys and stacked ``[L, ...]`` layer
 weights, the cache is ``{"k", "v"}`` of ``[L, B, max_len, Hkv, D]``, the
@@ -56,8 +75,10 @@ from ..ops.kernels import tick_fusion as _tf
 from ..quantization.serving import (dequantize_weight, quant_dtype,
                                     quantize_kv_rows)
 
-__all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "init_params",
-           "layer_params", "init_kv_cache", "init_paged_pool",
+__all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "param_shapes",
+           "init_params", "fuse_params", "layer_keys", "layer_params",
+           "init_kv_cache",
+           "init_paged_pool",
            "forward_with_cache", "forward_with_pages", "prompt_kv",
            "sample_filter_logits", "generate", "beam_search_generate",
            "forward_hidden", "forward",
@@ -67,6 +88,10 @@ __all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "init_params",
 # stacked [L, ...] per-layer weights, in the JAX package's key names
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
               "ln_attn", "ln_mlp")
+_LAYER_KEYS_FUSED = ("wqkv", "wo", "w_gate_up", "w_down", "ln_attn",
+                     "ln_mlp")
+SP_IMPLS = ("ring", "ulysses")
+BWD_BARRIERS = ("mlp", "qkv", "logits")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -92,6 +117,36 @@ class LlamaConfig:
     # head + CE as one autograd Function whose backward runs the softmax
     # term of dh as the head_dx_softmax kernel and gathers W's gold columns
     ce_tail_custom: bool = False
+    # the JAX package's mesh options: on one device ZeRO's stage and the
+    # layer scan change nothing (layers run unrolled), and sequence
+    # parallelism computes plain attention (no 'sep' axis to shard over);
+    # sp_impl must still name one of SP_IMPLS
+    sharding_stage: int = 1
+    scan_layers: bool = True
+    sequence_parallel: bool = False
+    sp_impl: str = "ring"
+    # comma-joined cotangent barrier sites among BWD_BARRIERS: validated,
+    # and nothing to do here (see the module's docstring)
+    bwd_barriers: str = ""
+    # wq/wk/wv as one [L, H, H + 2 Hkv] "wqkv", w_gate/w_up as one
+    # [L, H, 2F] "w_gate_up": one wider product each
+    fused_weights: bool = False
+    # differentiate with respect to cfg.dtype copies of the fp32 weights:
+    # gradients stay in cfg.dtype until AdamW reads them
+    bf16_grads: bool = False
+    # the decode tick's rms, add + rms and rope as the tick kernels (False:
+    # the inline chains; its attention keeps the decode or paged kernel)
+    fused_tick_epilogue: bool = True
+
+    def __post_init__(self):
+        if self.sp_impl not in SP_IMPLS:
+            raise ValueError(f"sp_impl must be one of {SP_IMPLS}, got "
+                             f"{self.sp_impl!r}")
+        bad = [b for b in self.bwd_barriers.split(",")
+               if b.strip() and b.strip() not in BWD_BARRIERS]
+        if bad:
+            raise ValueError(f"bwd_barriers: unknown sites {bad}; expected "
+                             f"a comma-joined subset of {BWD_BARRIERS}")
 
     @property
     def head_dim(self) -> int:
@@ -113,7 +168,8 @@ class LlamaConfig:
         custom CE tail, as in the JAX package."""
         d = dict(vocab_size=32000, hidden_size=768, intermediate_size=3072,
                  num_layers=12, num_heads=12, num_kv_heads=12,
-                 max_seq_len=512, remat=False, ce_tail_custom=True)
+                 max_seq_len=512, remat=False, scan_layers=False,
+                 ce_tail_custom=True)
         d.update(kw)
         return cls(**d)
 
@@ -122,7 +178,7 @@ class LlamaConfig:
         """~3M-param decoder, fp32: the serving benchmarks' CPU shape."""
         d = dict(vocab_size=2048, hidden_size=128, intermediate_size=512,
                  num_layers=4, num_heads=8, num_kv_heads=8, max_seq_len=512,
-                 dtype=torch.float32, remat=False)
+                 dtype=torch.float32, remat=False, scan_layers=False)
         d.update(kw)
         return cls(**d)
 
@@ -131,8 +187,7 @@ class LlamaConfig:
         return cls(**kw)  # the defaults are 7B
 
 
-def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
-    """Shape of every parameter, keyed as in the JAX package."""
+def _split_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
     H, F_, V, L = (cfg.hidden_size, cfg.intermediate_size, cfg.vocab_size,
                    cfg.num_layers)
     Hkv = cfg.num_kv_heads * cfg.head_dim
@@ -140,6 +195,37 @@ def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
             "wv": (L, H, Hkv), "wo": (L, H, H), "w_gate": (L, H, F_),
             "w_up": (L, H, F_), "w_down": (L, F_, H), "ln_attn": (L, H),
             "ln_mlp": (L, H), "ln_f": (H,), "lm_head": (H, V)}
+
+
+def _fuse(d: dict, join) -> dict:
+    """The split tree ``d`` in the fused layout (``fused_weights``): wq, wk,
+    wv -> wqkv and w_gate, w_up -> w_gate_up, each ``join``ed in that order
+    along the output columns (the JAX package's ``_fuse_keys`` and
+    ``init_params``)."""
+    out = {k: v for k, v in d.items()
+           if k not in ("wq", "wk", "wv", "w_gate", "w_up")}
+    out["wqkv"] = join(d["wq"], d["wk"], d["wv"])
+    out["w_gate_up"] = join(d["w_gate"], d["w_up"])
+    return out
+
+
+def fuse_params(params) -> Dict[str, torch.Tensor]:
+    """A split parameter tree in the fused layout, the same values
+    concatenated: the fused model computes the split one's function."""
+    return _fuse(params, lambda *ts: torch.cat(ts, dim=-1))
+
+
+def param_shapes(cfg: LlamaConfig) -> Dict[str, tuple]:
+    """Shape of every parameter, keyed as in the JAX package."""
+    shapes = _split_shapes(cfg)
+    if not cfg.fused_weights:
+        return shapes
+    return _fuse(shapes, lambda *ss: ss[0][:-1] + (sum(s[-1] for s in ss),))
+
+
+def layer_keys(cfg: LlamaConfig):
+    """The stacked per-layer keys of ``cfg``'s layout."""
+    return _LAYER_KEYS_FUSED if cfg.fused_weights else LAYER_KEYS
 
 
 def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
@@ -154,21 +240,24 @@ def init_params(cfg: LlamaConfig, generator: Optional[torch.Generator] = None,
     dtype = dtype or cfg.dtype
     g = generator if generator is not None else torch.Generator().manual_seed(0)
     out = {}
-    for name, shape in param_shapes(cfg).items():
+    # drawn in the split layout, then fused: a fused tree is the split one
+    # with the same generator, concatenated
+    for name, shape in _split_shapes(cfg).items():
         if name.startswith("ln"):
             t = torch.ones(shape)
         else:
             scale = 0.02 if name == "embed" else 1.0 / math.sqrt(shape[-2])
             t = torch.randn(shape, generator=g, device=g.device) * scale
         out[name] = t.to(device=device, dtype=dtype)
-    return out
+    return fuse_params(out) if cfg.fused_weights else out
 
 
-def layer_params(params) -> Dict[str, torch.Tensor]:
-    """The stacked per-layer weights, with the ``<name>_scale`` planes of a
-    quantized tree (stacked on the same [L] axis)."""
+def layer_params(params, cfg: LlamaConfig) -> Dict[str, torch.Tensor]:
+    """The stacked per-layer weights of ``cfg``'s layout, with the
+    ``<name>_scale`` planes of a quantized tree (stacked on the same [L]
+    axis)."""
     out = {}
-    for kk in LAYER_KEYS:
+    for kk in layer_keys(cfg):
         out[kk] = params[kk]
         if kk + "_scale" in params:
             out[kk + "_scale"] = params[kk + "_scale"]
@@ -198,6 +287,27 @@ def _mm(h, p, name, dt):
     return h @ _w(p, name, dt)
 
 
+def _qkv_split(cfg: LlamaConfig, h, lp, dt):
+    """The q, k, v projections of ``h`` [..., H], flat ([..., nH D],
+    [..., Hkv D], [..., Hkv D]): three products, or one product with
+    ``wqkv`` split by columns (views of it)."""
+    if not cfg.fused_weights:
+        return _mm(h, lp, "wq", dt), _mm(h, lp, "wk", dt), _mm(h, lp, "wv", dt)
+    Hkv = cfg.num_kv_heads * cfg.head_dim
+    return _mm(h, lp, "wqkv", dt).split([cfg.hidden_size, Hkv, Hkv], dim=-1)
+
+
+def _mlp(cfg: LlamaConfig, h, lp, dt):
+    """silu(h @ w_gate) * (h @ w_up) @ w_down, the gate and up products as
+    one with ``w_gate_up`` under ``fused_weights``."""
+    if cfg.fused_weights:
+        zg, up = _mm(h, lp, "w_gate_up", dt).split(cfg.intermediate_size,
+                                                   dim=-1)
+    else:
+        zg, up = _mm(h, lp, "w_gate", dt), _mm(h, lp, "w_up", dt)
+    return _mm(F.silu(zg) * up, lp, "w_down", dt)
+
+
 # ---------------------------------------------------------------------------
 # prefill path (T > 1): plain torch, the reference's inline chains
 # ---------------------------------------------------------------------------
@@ -222,9 +332,10 @@ def _qkv_proj(cfg: LlamaConfig, x, lp, positions):
     B, S, _ = x.shape
     dt = cfg.dtype
     h = _tf.rms_norm_plain(x, lp["ln_attn"], cfg.rms_eps)
-    q = _mm(h, lp, "wq", dt).reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = _mm(h, lp, "wk", dt).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = _mm(h, lp, "wv", dt).reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    zq, zk, zv = _qkv_split(cfg, h, lp, dt)
+    q = zq.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = zk.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = zv.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
     return (_rope_at(q, cfg.rope_theta, positions),
             _rope_at(k, cfg.rope_theta, positions), v)
 
@@ -235,8 +346,7 @@ def _layer_post(cfg: LlamaConfig, x, attn, lp):
     dt = cfg.dtype
     x = x + _mm(attn.reshape(B, S, H), lp, "wo", dt)
     h = _tf.rms_norm_plain(x, lp["ln_mlp"], cfg.rms_eps)
-    return x + _mm(F.silu(_mm(h, lp, "w_gate", dt)) * _mm(h, lp, "w_up", dt),
-                   lp, "w_down", dt)
+    return x + _mlp(cfg, h, lp, dt)
 
 
 def _dense_cache_attention(cfg: Optional[LlamaConfig], q, kc, vc, positions,
@@ -267,16 +377,18 @@ def _dense_cache_attention(cfg: Optional[LlamaConfig], q, kc, vc, positions,
 # ---------------------------------------------------------------------------
 
 def _decode_qkv(cfg: LlamaConfig, x, lp, pos_b):
-    """x [B, H] -> q [B, nH, D], k/v [B, Hkv, D]: one rms launch, the three
-    projection matmuls, one rope launch for q and k together."""
+    """x [B, H] -> q [B, nH, D], k/v [B, Hkv, D]: one rms launch, the
+    projection matmuls (one under ``fused_weights``: the rope reads q and k
+    out of its rows by their stride), one rope launch for q and k
+    together."""
     B = x.shape[0]
     dt = cfg.dtype
     h = _tf.fused_rms_norm(x, lp["ln_attn"], cfg.rms_eps)
-    zq, zk = _tf.fused_rope_qk(_mm(h, lp, "wq", dt), _mm(h, lp, "wk", dt),
-                               pos_b, cfg.head_dim, cfg.rope_theta)
+    zq, zk, zv = _qkv_split(cfg, h, lp, dt)
+    zq, zk = _tf.fused_rope_qk(zq, zk, pos_b, cfg.head_dim, cfg.rope_theta)
     return (zq.reshape(B, cfg.num_heads, cfg.head_dim),
             zk.reshape(B, cfg.num_kv_heads, cfg.head_dim),
-            _mm(h, lp, "wv", dt).reshape(B, cfg.num_kv_heads, cfg.head_dim))
+            zv.reshape(B, cfg.num_kv_heads, cfg.head_dim))
 
 
 def _decode_post(cfg: LlamaConfig, x, attn, lp):
@@ -286,8 +398,7 @@ def _decode_post(cfg: LlamaConfig, x, attn, lp):
     dt = cfg.dtype
     x2, h = _tf.fused_add_rms_norm(x, _mm(attn.reshape(B, H), lp, "wo", dt),
                                    lp["ln_mlp"], cfg.rms_eps)
-    return x2 + _mm(F.silu(_mm(h, lp, "w_gate", dt)) * _mm(h, lp, "w_up", dt),
-                    lp, "w_down", dt)
+    return x2 + _mlp(cfg, h, lp, dt)
 
 
 def init_kv_cache(cfg: LlamaConfig, batch: int, max_len: int, device
@@ -311,7 +422,10 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
     position, or from ``logit_pos`` (an int, or a [B] tensor: each row's
     true last token of a bucket-padded prompt).
 
-    T == 1 runs the decode tick through the kernels of ``ops/kernels``;
+    T == 1 attends through ``ragged_decode_attention``, as the JAX
+    package's ``_cache_attention`` dispatches by shape alone; with
+    ``cfg.fused_tick_epilogue`` its rms, add + rms and rope run as the tick
+    kernels of ``ops/kernels``, without as the inline chains of T > 1.
     T > 1 (prefill) is plain torch with dense cache attention."""
     B, T = tokens.shape
     x = params["embed"][tokens.long()]                  # [B, T, H]
@@ -320,11 +434,12 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
         raise ValueError("per-slot pos requires single-token decode (T=1)")
     kcs, vcs = cache["k"], cache["v"]
     rows = torch.arange(B, device=x.device)
-    layers = layer_params(params)
+    layers = layer_params(params, cfg)
     if T == 1:
         pos_b = (pos.to(torch.int32) if ragged else torch.full(
             (B,), int(pos), dtype=torch.int32, device=x.device))
         pos_l = pos_b.long()
+    if T == 1 and cfg.fused_tick_epilogue:
         x = x[:, 0]
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
@@ -337,13 +452,21 @@ def forward_with_cache(params, tokens, cfg: LlamaConfig, cache, pos,
             x = _decode_post(cfg, x, attn, lp)
         last = _tf.fused_rms_norm(x, params["ln_f"], cfg.rms_eps)
     else:
-        positions = int(pos) + torch.arange(T, device=x.device)
+        positions = (pos_l[:, None] if T == 1
+                     else int(pos) + torch.arange(T, device=x.device))
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
             q, k_new, v_new = _qkv_proj(cfg, x, lp, positions)
-            kcs[i, :, int(pos):int(pos) + T] = k_new.to(kcs.dtype)
-            vcs[i, :, int(pos):int(pos) + T] = v_new.to(vcs.dtype)
-            attn = _dense_cache_attention(cfg, q, kcs[i], vcs[i], positions)
+            if T == 1:
+                kcs[i, rows, pos_l] = k_new[:, 0].to(kcs.dtype)
+                vcs[i, rows, pos_l] = v_new[:, 0].to(vcs.dtype)
+                attn = _da.ragged_decode_attention(q[:, 0], kcs[i], vcs[i],
+                                                   pos_b)[:, None]
+            else:
+                kcs[i, :, int(pos):int(pos) + T] = k_new.to(kcs.dtype)
+                vcs[i, :, int(pos):int(pos) + T] = v_new.to(vcs.dtype)
+                attn = _dense_cache_attention(cfg, q, kcs[i], vcs[i],
+                                              positions)
             x = _layer_post(cfg, x, attn, lp)
         if logit_pos is None:
             x = x[:, -1]
@@ -418,8 +541,9 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
     Attention is ``ragged_paged_attention`` for both T == 1 and T > 1
     (the JAX package's ``_paged_attention``): the kernel on a CUDA
     tensor, the gather and dense plain version on a CPU one. T == 1 runs
-    the tick kernels as ``forward_with_cache`` does; T > 1 the plain
-    projections with per-row positions.
+    the tick kernels as ``forward_with_cache`` does (with
+    ``cfg.fused_tick_epilogue``; without, the plain chains of T > 1); T > 1
+    the plain projections with per-row positions.
 
     A quantized pool (``"ks"`` in ``pool``) stores each new row narrow
     with its scale (``quantize_kv_rows``) at the same [page, row], and
@@ -441,7 +565,7 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
     if live is not None:
         writable = writable & live[:, None]
     phys = torch.where(writable, phys, 0)
-    layers = layer_params(params)
+    layers = layer_params(params, cfg)
     quant = "ks" in pool
 
     def attend(i, q, k_new, v_new):
@@ -459,7 +583,7 @@ def forward_with_pages(params, tokens, cfg: LlamaConfig, pool, page_table,
         return _gather_attention(cfg, q, kc, vc, page_table, positions,
                                  ks, vs)
 
-    if T == 1:
+    if T == 1 and cfg.fused_tick_epilogue:
         x = x[:, 0]
         for i in range(cfg.num_layers):
             lp = _layer(layers, i)
@@ -681,11 +805,16 @@ def _layer_qkv(cfg: LlamaConfig, x, lp):
         rep = cfg.num_heads // cfg.num_kv_heads
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    return q, k, v
+    # q and k come out of the rope contiguous; under fused_weights v is a
+    # view of the fused product's columns, which the flash kernels do not
+    # read: one copy (a no-op otherwise)
+    return q, k, v.contiguous()
 
 
 def _attention(cfg: LlamaConfig, q, k, v):
-    """Training attention: causal, through the flash kernels on the card."""
+    """Training attention: causal, through the flash kernels on the card.
+    ``sequence_parallel`` computes the same: with no 'sep' axis the JAX
+    package's ring and Ulysses forms fall back to this attention."""
     return _fa.dot_product_attention(q, k, v, is_causal=True)
 
 
@@ -706,9 +835,10 @@ def forward_hidden(params, tokens, cfg: LlamaConfig):
     # one cast and one unbind per stacked weight: their backward is one
     # cast and one stack, where indexing layer i would make autograd add a
     # zero-filled [L, ...] gradient per layer
-    layers = {kk: params[kk].to(dt).unbind(0) for kk in LAYER_KEYS}
+    keys = layer_keys(cfg)
+    layers = {kk: params[kk].to(dt).unbind(0) for kk in keys}
     for i in range(cfg.num_layers):
-        lp = {kk: layers[kk][i] for kk in LAYER_KEYS}
+        lp = {kk: layers[kk][i] for kk in keys}
         if split:
             q, k, v = checkpoint(_layer_qkv, cfg, x, lp, use_reentrant=False)
             attn = _attention(cfg, q, k, v)
@@ -880,9 +1010,21 @@ def train_step(params, opt_state, tokens, labels, cfg: LlamaConfig,
                lr=3e-4):
     """One step: loss and gradients, the global-norm clip
     ``min(1, 1 / (|g| + 1e-6))``, then AdamW. Updates ``params`` and
-    ``opt_state`` in place; returns (params, opt_state, loss)."""
+    ``opt_state`` in place; returns (params, opt_state, loss).
+
+    ``cfg.bf16_grads``: the gradients are taken with respect to
+    ``cfg.dtype`` copies of the fp32 parameters (the forward is the same
+    arithmetic: every use site casts to ``cfg.dtype``), so they stay in
+    that type through the clip; AdamW reads them as fp32 and updates the
+    fp32 masters."""
     keys = list(params)
-    leaves = {k: params[k].detach().requires_grad_() for k in keys}
+    if cfg.bf16_grads:
+        leaves = {k: (params[k].detach().to(cfg.dtype)
+                      if params[k].dtype == torch.float32
+                      else params[k].detach()).requires_grad_()
+                  for k in keys}
+    else:
+        leaves = {k: params[k].detach().requires_grad_() for k in keys}
     with torch.enable_grad():
         loss = loss_fn(leaves, tokens, labels, cfg)
         grads = torch.autograd.grad(loss, [leaves[k] for k in keys])

@@ -169,7 +169,9 @@ def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
     """Rope both projections in one launch. zq: [B, nH*D]; zk: [B, Hkv*D];
     pos: [B] int32, each row at its own position. cos/sin are computed in
     the kernel from ``pos`` (in fp32, rounded to the dtype, as
-    ``rope_qk_plain``)."""
+    ``rope_qk_plain``). zq and zk may be column slices of a wider product
+    (a fused qkv projection): the kernel reads each row at its stride and
+    writes contiguous outputs."""
     if (zq.dim() != 2 or zk.dim() != 2 or zk.shape[0] != zq.shape[0]
             or head_dim % 2 or zq.shape[1] % head_dim
             or zk.shape[1] % head_dim):
@@ -186,8 +188,10 @@ def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
                          f"{zq.device}")
     if zq.device.type == "cpu":
         return rope_qk_plain(zq, zk, pos, head_dim, theta)
-    if not all(t.is_contiguous() for t in (zq, zk, pos)):
-        raise ValueError("fused_rope_qk: inputs must be contiguous")
+    if not (zq.stride(1) == 1 and zk.stride(1) == 1
+            and pos.is_contiguous()):
+        raise ValueError("fused_rope_qk: the rows of zq and zk, and pos, "
+                         "must be contiguous")
     if head_dim > _ROPE_MAX_D:
         raise ValueError(f"fused_rope_qk: the kernel takes head_dim at most "
                          f"{_ROPE_MAX_D}, got {head_dim}")
@@ -197,8 +201,9 @@ def fused_rope_qk(zq, zk, pos, head_dim: int, theta: float):
         _launched("fused_rope_qk", _entry("rope", "fused_rope_qk")(
             zq.data_ptr(), zk.data_ptr(), oq.data_ptr(), ok.data_ptr(),
             pos.data_ptr(), B, zq.shape[1] // head_dim,
-            zk.shape[1] // head_dim, head_dim, _DTYPE_CODES[zq.dtype],
-            theta, torch.cuda.current_stream().cuda_stream))
+            zk.shape[1] // head_dim, head_dim, zq.stride(0), zk.stride(0),
+            _DTYPE_CODES[zq.dtype], theta,
+            torch.cuda.current_stream().cuda_stream))
     fused_rope_qk.launches += 1
     return oq, ok
 
@@ -217,8 +222,9 @@ ENTRIES = {
         "set_pdl": [_I],
     },
     "rope": {
-        # zq, zk, oq, ok, pos, B, nH, Hkv, D, dtype code, theta, stream
-        "fused_rope_qk": [_P] * 5 + [_I] * 5 + [_F, _P],
+        # zq, zk, oq, ok, pos, B, nH, Hkv, D, ldq, ldk, dtype code, theta,
+        # stream
+        "fused_rope_qk": [_P] * 5 + [_I] * 7 + [_F, _P],
     },
 }
 

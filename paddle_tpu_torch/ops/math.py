@@ -12,8 +12,9 @@ reference's win: ``cumsum`` / ``cumprod`` flatten when no axis is given,
 ``cummax`` / ``cummin`` return the values only (over the last axis by
 default), ``float_power`` keeps float32 for float32 inputs, ``outer``
 flattens its inputs, and ``lerp`` is ``x + w * (y - x)``. ``gammainc`` /
-``gammaincc`` differentiate with respect to ``y`` only: torch has no
-derivative with respect to ``x`` (the JAX package differentiates both).
+``gammaincc`` differentiate in both arguments, as the JAX package's:
+torch has no derivative of the incomplete gamma in its first argument,
+so ``_IncGamma`` computes the one XLA computes for ``igamma_grad_a``.
 """
 
 from __future__ import annotations
@@ -143,12 +144,125 @@ erfinv = _unary("erfinv", lambda a: torch.erfinv(_float(a)))
 lgamma = _unary("lgamma", lambda a: torch.lgamma(_float(a)))
 digamma = _unary("digamma", lambda a: torch.digamma(_float(a)))
 gammaln = _unary("gammaln", lambda a: torch.lgamma(_float(a)))
+
+
+def _series_grad_a(a, x):
+    """dP(a, x)/da by the power series P = x^a e^-x / Gamma(a + 1) *
+    sum_n x^n / ((a + 1) ... (a + n)), differentiated term by term (XLA's
+    ``IgammaSeries`` in its derivative mode). float64, x < a + 1."""
+    eps = torch.finfo(a.dtype).eps
+    r, c, ans = a.clone(), torch.ones_like(a), torch.ones_like(a)
+    dc, dans = torch.zeros_like(a), torch.zeros_like(a)
+    for _ in range(2000):
+        r = r + 1
+        dc = dc * (x / r) - (c * x) / (r * r)
+        dans = dans + dc
+        c = c * (x / r)
+        ans = ans + c
+        if not bool((dc.abs() > eps * dans.abs()).any()):
+            break
+    ax = torch.exp(a * torch.log(x) - x - torch.lgamma(a))
+    dlogax = torch.log(x) - torch.digamma(a + 1)
+    return ax * (ans * dlogax + dans) / a
+
+
+def _fraction_grad_a(a, x):
+    """dQ(a, x)/da by the continued fraction of Q = x^a e^-x / Gamma(a) *
+    1 / (x + 1 - a - ...), its derivative carried through the recurrences
+    of the convergents p_k / q_k (XLA's ``IgammacContinuedFraction`` in
+    its derivative mode, with its rescaling). float64, x >= a + 1."""
+    eps = torch.finfo(a.dtype).eps
+    y = 1 - a
+    z = x + y + 1
+    c = torch.zeros_like(x)
+    pkm2, qkm2 = torch.ones_like(x), x.clone()
+    pkm1, qkm1 = x + 1, z * x
+    ans = pkm1 / qkm1
+    dpkm2, dqkm2 = torch.zeros_like(x), torch.zeros_like(x)
+    dpkm1, dqkm1 = torch.zeros_like(x), -x
+    dans = (dpkm1 - ans * dqkm1) / qkm1
+    for _ in range(2000):
+        c = c + 1
+        y = y + 1
+        z = z + 2
+        yc = y * c
+        pk = pkm1 * z - pkm2 * yc
+        qk = qkm1 * z - qkm2 * yc
+        nz = qk != 0
+        ans = torch.where(nz, pk / torch.where(nz, qk, 1), ans)
+        dpk = dpkm1 * z - pkm1 - dpkm2 * yc + pkm2 * c
+        dqk = dqkm1 * z - qkm1 - dqkm2 * yc + qkm2 * c
+        dans_new = torch.where(nz, (dpk - ans * dqk) / torch.where(nz, qk, 1),
+                               dans)
+        moving = torch.where(nz, (dans_new - dans).abs(),
+                             torch.ones_like(dans)) > eps * dans_new.abs()
+        dans = dans_new
+        pkm2, pkm1, qkm2, qkm1 = pkm1, pk, qkm1, qk
+        dpkm2, dpkm1, dqkm2, dqkm1 = dpkm1, dpk, dqkm1, dqk
+        big = pk.abs() > 1 / eps
+        if bool(big.any()):
+            s = torch.where(big, eps, 1.0)
+            pkm2, pkm1, qkm2, qkm1 = pkm2 * s, pkm1 * s, qkm2 * s, qkm1 * s
+            dpkm2, dpkm1 = dpkm2 * s, dpkm1 * s
+            dqkm2, dqkm1 = dqkm2 * s, dqkm1 * s
+        if not bool(moving.any()):
+            break
+    ax = torch.exp(a * torch.log(x) - x - torch.lgamma(a))
+    return ax * (ans * (torch.log(x) - torch.digamma(a)) + dans)
+
+
+def _gammainc_grad_a(a, x):
+    """dP(a, x)/da in float64 over broadcast ``a`` and ``x``: the series
+    where x < a + 1, else minus the continued fraction's dQ/da; 0 at x = 0,
+    NaN outside the domain (a <= 0 or x < 0), as XLA's."""
+    a, x = torch.broadcast_tensors(a.double(), x.double())
+    out = torch.zeros_like(a)
+    ok = (a > 0) & (x > 0)
+    series = ok & (x < a + 1)
+    frac = ok & ~series
+    if bool(series.any()):
+        out[series] = _series_grad_a(a[series], x[series])
+    if bool(frac.any()):
+        out[frac] = -_fraction_grad_a(a[frac], x[frac])
+    return torch.where((a <= 0) | (x < 0) | a.isnan() | x.isnan(),
+                       float("nan"), out)
+
+
+class _IncGamma(torch.autograd.Function):
+    """Regularized incomplete gamma P(a, x) (``upper``: Q = 1 - P) with
+    both derivatives: dP/dx = x^(a-1) e^-x / Gamma(a), dP/da from
+    ``_gammainc_grad_a``, each computed in float64 and returned in its
+    input's dtype; Q's are their negatives."""
+
+    @staticmethod
+    def forward(ctx, a, x, upper):
+        ctx.save_for_backward(a, x)
+        ctx.upper = upper
+        fn = torch.special.gammaincc if upper else torch.special.gammainc
+        return fn(a, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        a, x = ctx.saved_tensors
+        sign = -1.0 if ctx.upper else 1.0
+        ga = gx = None
+        if ctx.needs_input_grad[0]:
+            d = _gammainc_grad_a(a, x) * sign
+            ga = (g.double() * d).sum_to_size(a.shape).to(a.dtype)
+        if ctx.needs_input_grad[1]:
+            ad, xd = a.double(), x.double()
+            d = torch.exp((ad - 1) * torch.log(xd) - xd - torch.lgamma(ad))
+            ga_x = torch.where(xd == 0, (ad == 1).double(), d) * sign
+            gx = (g.double() * ga_x).sum_to_size(x.shape).to(x.dtype)
+        return ga, gx, None
+
+
 # regularized lower/upper incomplete gamma: paddle's (x, y) argument order
 # is (a, x) of P(a, x)
-gammainc = _binary("gammainc", lambda a, x: torch.special.gammainc(
-    _float(a).detach(), _float(x)))
-gammaincc = _binary("gammaincc", lambda a, x: torch.special.gammaincc(
-    _float(a).detach(), _float(x)))
+gammainc = _binary("gammainc", lambda a, x: _IncGamma.apply(
+    _float(a), _float(x), False))
+gammaincc = _binary("gammaincc", lambda a, x: _IncGamma.apply(
+    _float(a), _float(x), True))
 deg2rad = _unary("deg2rad", lambda a: torch.deg2rad(_float(a)))
 rad2deg = _unary("rad2deg", lambda a: torch.rad2deg(_float(a)))
 isnan = _unary("isnan", torch.isnan, differentiable=False)

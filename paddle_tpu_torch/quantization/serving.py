@@ -59,8 +59,13 @@ def quant_dtype(mode: str) -> torch.dtype:
 
 def quantized_weight_keys(cfg) -> Tuple[str, ...]:
     """The parameter keys quantization narrows: every per-layer matmul
-    weight and lm_head (the port's tree has the split layout only)."""
-    return ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down", "lm_head")
+    weight (the fused or the split layout, by ``cfg.fused_weights``) and
+    lm_head. Norm gains and the embedding stay in floating point."""
+    if cfg.fused_weights:
+        layer = ("wqkv", "wo", "w_gate_up", "w_down")
+    else:
+        layer = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+    return layer + ("lm_head",)
 
 
 def _narrow(xf: torch.Tensor, scale: torch.Tensor, dtype: torch.dtype):

@@ -50,7 +50,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "ops/logic.py", "ops/reduction.py", "ops/manipulation.py",
             "ops/linalg.py", "ops/special.py", "ops/tail.py",
             "ops/_tensor_methods.py", "_C_ops.py", "autograd/__init__.py",
-            "fft.py", "experiments/op_corpus.py"} <= scanned
+            "fft.py", "experiments/op_corpus.py", "version.py",
+            "sysconfig.py", "utils/__init__.py", "utils/dlpack.py",
+            "utils/cpp_extension/__init__.py", "amp/debugging.py",
+            "experiments/runtime_llama_opts.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []

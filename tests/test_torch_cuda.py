@@ -11,6 +11,7 @@ run this file there without the suite's conftest (which imports JAX):
 This file imports nothing of JAX or of ``paddle_tpu``.
 """
 
+import dataclasses
 import json
 import math
 
@@ -585,6 +586,29 @@ class TestTickFusion:
         assert tf.fused_rope_qk.launches == before + 1
         self._rope_close(zq, zk, pos, D, max_len, dtype, got)
 
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("nH,Hkv,D", [(12, 12, 64), (4, 2, 32),
+                                          (6, 3, 24)])
+    def test_rope_reads_rows_of_a_fused_product(self, cuda, dtype, nH, Hkv,
+                                                D):
+        """q and k as column slices of one [B, (nH + 2 Hkv) D] product (the
+        fused_weights tick): the kernel reads each row by its stride and
+        gives the bits of the launch on contiguous copies."""
+        g = torch.Generator(device=cuda).manual_seed(5)
+        z = torch.randn(8, (nH + 2 * Hkv) * D, generator=g, device=cuda,
+                        dtype=dtype)
+        pos = torch.randint(0, 384, (8,), generator=g, device=cuda,
+                            dtype=torch.int32)
+        zq, zk = z[:, :nH * D], z[:, nH * D:(nH + Hkv) * D]
+        got = tf.fused_rope_qk(zq, zk, pos, D, 10000.0)
+        want = tf.fused_rope_qk(zq.contiguous(), zk.contiguous(), pos, D,
+                                10000.0)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        with pytest.raises(ValueError, match="contiguous"):
+            tf.fused_rope_qk(z.t().contiguous().t()[:, :nH * D], zk, pos, D,
+                             10000.0)
+
     def test_rope_two_launches_give_the_same_bits(self, cuda):
         zq, zk, pos = self._rope_case(cuda, torch.bfloat16, 12, 12, 64, 384)
         a = tf.fused_rope_qk(zq, zk, pos, 64, 10000.0)
@@ -644,6 +668,37 @@ def test_decode_tick_matches_plain_path(cuda, monkeypatch):
         monkeypatch.setattr(da, "ragged_decode_attention",
                             da.ragged_decode_attention_plain)
         want = tick()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_unfused_epilogue_tick_launches_decode_attention(cuda):
+    """``fused_tick_epilogue=False`` on the card: a ragged tick of the
+    contiguous cache runs the inline rms and rope chains, yet attends
+    through ``ragged_decode_attention`` (one launch a layer, no tick kernel
+    launched), and its logits match the fused tick's."""
+    cfg = llama.LlamaConfig(vocab_size=512, hidden_size=256,
+                            intermediate_size=512, num_layers=2,
+                            num_heads=4, num_kv_heads=2, max_seq_len=128,
+                            dtype=torch.float32)
+    params = llama.init_params(cfg, torch.Generator().manual_seed(0),
+                               device=cuda)
+    rng = np.random.RandomState(0)
+    prompt = torch.from_numpy(rng.randint(0, 512, (4, 16))).to(cuda)
+    pos = torch.tensor([16, 3, 9, 127], dtype=torch.int32, device=cuda)
+    nxt = torch.from_numpy(rng.randint(0, 512, (4, 1))).to(cuda)
+
+    def tick(c):
+        cache = llama.init_kv_cache(c, 4, 128, cuda)
+        llama.forward_with_cache(params, prompt, c, cache, 0)
+        return _tick_launches(
+            lambda: llama.forward_with_cache(params, nxt, c, cache, pos)[0])
+
+    with torch.no_grad():
+        got, launches = tick(dataclasses.replace(cfg,
+                                                 fused_tick_epilogue=False))
+        want, _ = tick(cfg)
+    assert launches == {n: 2 if n == "ragged_decode_attention" else 0
+                        for n in launches}
     torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
 
 

@@ -9,6 +9,8 @@ float32 transcendentals are fast approximations) and greedy tokens are
 identical.
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -65,8 +67,13 @@ class TestParams:
             np.testing.assert_array_equal(tparams[k].numpy(), np.asarray(v))
 
     def test_rejects_foreign_trees(self):
+        """A fused tree loads under a fused config and raises under an
+        unfused one; a wrong shape raises."""
         cfg = jl.LlamaConfig.tiny(fused_weights=True)
         params = {k: np.asarray(v) for k, v in jl.init_params(cfg).items()}
+        fused = params_from_numpy(params, dataclasses.replace(
+            _port_cfg(cfg), fused_weights=True), "cpu")
+        assert set(fused) == set(params)
         with pytest.raises(KeyError, match="wqkv"):
             params_from_numpy(params, _port_cfg(cfg), "cpu")
         cfg = jl.LlamaConfig.tiny()
@@ -168,7 +175,7 @@ class TestCpuSmallTick:
         x = torch.from_numpy(rng.randn(B, tcfg.hidden_size)
                              .astype(np.float32))
         pos = torch.tensor([0, 7, 300, 511], dtype=torch.int32)
-        lp = tl._layer(tl.layer_params(tparams), 1)
+        lp = tl._layer(tl.layer_params(tparams, tcfg), 1)
         h = tf.rms_norm_plain(x, lp["ln_attn"], tcfg.rms_eps)
         zq = tl._mm(h, lp, "wq", tcfg.dtype)
         zk = tl._mm(h, lp, "wk", tcfg.dtype)

@@ -180,9 +180,15 @@ def _call(name, P):
 
 
 def test_all_ops_lists_are_equal():
-    assert pp.all_ops() == pt.all_ops()
-    assert len(pp.all_ops()) == 303
-    assert set(pp.ops.OPS) == set(pt.ops.registry.OPS)
+    # a custom C++ op registers as custom_<fn>; the reference's own
+    # tests/test_cpp_extension.py leaves its ops in the registry of a
+    # worker that runs several files, so those names are set aside
+    def own(names):
+        return [n for n in names if not n.startswith("custom_")]
+
+    assert own(pp.all_ops()) == own(pt.all_ops())
+    assert len(own(pp.all_ops())) == 303
+    assert set(own(pp.ops.OPS)) == set(own(pt.ops.registry.OPS))
     for name in pp.all_ops():
         assert (pp.ops.get_op(name).differentiable
                 == pt.ops.registry.get_op(name).differentiable), name

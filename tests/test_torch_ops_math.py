@@ -79,10 +79,10 @@ CASES += [
     ("lcm", "lcm", lambda r: ([r.i(3, 4, lo=1, hi=12),
                                r.i(3, 4, lo=1, hi=12)], {}), False),
     ("gammainc", "gammainc", lambda r: ([r.u(3, 4, lo=0.5, hi=3),
-                                         r.u(3, 4, lo=0.2, hi=3)], {}), False),
+                                         r.u(3, 4, lo=0.2, hi=3)], {}), True),
     ("gammaincc", "gammaincc", lambda r: ([r.u(3, 4, lo=0.5, hi=3),
                                            r.u(3, 4, lo=0.2, hi=3)], {}),
-     False),
+     True),
     ("isnan", "isnan", lambda r: ([np.array([1.0, np.nan, np.inf, -np.inf],
                                             np.float32)], {}), False),
     ("isinf", "isinf", lambda r: ([np.array([1.0, np.nan, np.inf, -np.inf],
@@ -178,16 +178,43 @@ def test_increment_and_rsqrt_inplace():
 
 
 def test_gammainc_gradient_in_y():
-    """The port differentiates ``gammainc`` in ``y`` (torch has no
-    derivative in ``x``); ``y``'s gradient matches the reference's."""
+    """The port differentiates ``gammainc`` in ``y`` as the reference does,
+    and in ``x`` too (torch has no derivative there: the port computes
+    XLA's ``igamma_grad_a``)."""
     r = R("gammainc_grad")
     a, xv = r.u(5, lo=0.5, hi=3), r.u(5, lo=0.2, hi=3)
+    ar = pt.to_tensor(a, stop_gradient=False)
     xr = pt.to_tensor(xv, stop_gradient=False)
-    pt.sum(pt.gammainc(pt.to_tensor(a), xr)).backward()
+    pt.sum(pt.gammainc(ar, xr)).backward()
+    ap = pp.to_tensor(a, stop_gradient=False)
     xp = pp.to_tensor(xv, stop_gradient=False)
-    pp.gammainc(pp.to_tensor(a), xp).sum().backward()
+    pp.gammainc(ap, xp).sum().backward()
     np.testing.assert_allclose(xp.grad.numpy(), xr.grad.numpy(), rtol=2e-4,
                                atol=1e-5)
+    np.testing.assert_allclose(ap.grad.numpy(), ar.grad.numpy(), rtol=2e-4,
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("op", ["gammainc", "gammaincc"])
+def test_gammainc_gradient_in_a_on_a_grid(op):
+    """The derivative in the first argument against ``jax.grad`` at rtol
+    1e-5 on a grid of a in [0.5, 20] and x in [0.1, 30] that crosses
+    x = a + 1 (the port's switch from the series to the continued
+    fraction) and x = a (XLA's); the port computes in float64."""
+    import jax
+    import jax.scipy.special as jss
+
+    A = np.float32([0.5, 0.9, 1.5, 3.0, 5.5, 8.0, 12.0, 20.0])
+    X = np.float32([0.1, 0.6, 1.2, 2.0, 4.0, 6.5, 9.0, 13.0, 21.0, 30.0])
+    a, x = (g.ravel() for g in np.meshgrid(A, X, indexing="ij"))
+    jfn = getattr(jss, op)
+    ja, jx = jax.jit(jax.vmap(jax.grad(jfn, argnums=(0, 1))))(a, x)
+    at = torch.tensor(a, requires_grad=True)
+    xt = torch.tensor(x, requires_grad=True)
+    getattr(pp, op)(at, xt).sum().backward()
+    assert at.grad.dtype == torch.float32
+    np.testing.assert_allclose(at.grad.numpy(), np.asarray(ja), rtol=1e-5)
+    np.testing.assert_allclose(xt.grad.numpy(), np.asarray(jx), rtol=1e-5)
 
 
 def test_int_results_keep_int64():
