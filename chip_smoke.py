@@ -149,11 +149,11 @@ Phases (any failed check raises and the script exits non-zero):
    chunked (chunks of 16, 32 or 64) and unchunked: every count, no page
    leaked, one fetch a segment, TTFT and e2e percentiles, agreement, and
    chunked segments issued with no sync; (b) greedy ``speculative=4`` on
-   the random weights, the first 16 of the 32 requests (against the same
-   16 of (a)'s serve: divergences only at near ties; verify ticks,
+   the random weights, the first 8 of the 32 requests (against the same
+   8 of (a)'s serve: divergences only at near ties; verify ticks,
    acceptance, reads a segment) and
    on 3e's memorized model: its first 16 continuations identical to its
-   non-speculative serve, and 8 of a repeated-stretch class whose
+   non-speculative serve, and 4 of a repeated-stretch class whose
    divergences must sit at near ties; some asserted class accepts
    drafts; (c) sampling (T 0.8, top-k 32) at K 0 and 4 on 4 requests:
    two serves with the same seeds equal, ``top_k=1`` equal to greedy up
@@ -199,7 +199,7 @@ Phases (any failed check raises and the script exits non-zero):
    shadow, no page leaked after ``reset``, tokens equal to one replica's
    or parted at a near tie, and a ``QualityMonitor`` pair for every
    mirrored request; the dispatch and ``t_sync`` stamps of the first
-   turns are printed; two replicas against one timed in five pairs,
+   turns are printed; two replicas against one timed in two pairs,
    the order alternating (tokens/s and medians); (b) the same fleet with
    ``FaultInjector(crash={1: 3})``: nothing lost, one failover, tokens
    held as in (a); (c) a ``DisaggRouter`` (one prefill and one decode
@@ -210,7 +210,7 @@ Phases (any failed check raises and the script exits non-zero):
 3k. (after 3j, on the same model and engine geometry) the elastic fleet:
    (a) ``aot_warmup`` of one replica under its default envelope, 3k's
    (segments of 32 behind a prefix cache of page blocks) and a
-   ``DisaggRouter``'s pool envelopes, keys and seconds by family; five
+   ``DisaggRouter``'s pool envelopes, keys and seconds by family; two
    pairs in turns of a cold engine's first segment against a warmed
    one's; the warmed replica serving 3j's trace with no library load,
    no split-KV ticket buffer and no key outside its envelope
@@ -384,6 +384,26 @@ Phases (any failed check raises and the script exits non-zero):
    same weights; its AdamW updates 4 tensors, below the flat update's 9, so
    the path (``readme_quickstart``) launches no hand-written kernel, as
    the reference's runs no Pallas one;
+6i. LLaMA's hybrid-parallel step (``experiments/mesh_train.py``): (a) a
+   world of one on NCCL, ``create_hybrid_mesh()`` with every degree 1 and
+   ``make_sharded_train_step`` from phase 5's initial weights on its B 44
+   batch, each of 3 losses equal to phase 5's bit for bit, the flash
+   forward and backward 12 times and ``head_dx_softmax`` once a step;
+   (b) one world of 4 gloo ranks sharing the card (``spawn``: every join
+   under a deadline; a failed rank fails the phase), three layouts in
+   turn at ``bert_base_equiv`` width, B 8 x S 512, bf16, remat on, 2
+   steps each: dp 2 x mp 2 at ZeRO stage 3, mp 2 x sep 2 with the ring
+   and with Ulysses; step 0's loss held to one rank's ``loss_fn`` on the
+   same weights, batch and loss arithmetic (``mesh_train.LOSS_ATOL``), and
+   each gathered gradient's distance from the same step in fp32 to at
+   most ``mesh_train.GRAD_RATIO`` times one bf16 rank's; every rank counts
+   its launches from 0 before each layout and asserts the flash forward
+   and backward once a layer and step (remat keeps attention outside the
+   checkpoint), none for the ring (its chunks plain torch, as in the
+   reference), the kernels line taking the four ranks' sum; the flash
+   kernels on 6 local heads (dp 2 x mp 2) and on 3 heads of the whole
+   sequence (Ulysses), and the calls the collective layer staged through
+   the host under gloo counted;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -395,7 +415,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f, 6g and 7 is driven with every launch
+   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f, 6g, 6h, 6i and 7 is driven with every launch
    count set to 0 just before it and read just after; a kernel's
    ``launches`` is its sum over those paths (the decode kernel's quant
    mode has no engine caller, as in the JAX package, so its count is 0
@@ -2602,16 +2622,17 @@ SPEC_K = 4
 # 3h's depth, cut to keep the script near its 600 s aim: the memorized
 # continuations and the repeated-stretch class of (b) on their first 16 and
 # 4 requests (of 32 and 16), sampling in (c) on the first 4 (of 8); and
-# (b)'s random-weights class on the first 16 of the 32 mixed requests,
-# held against the same 16 of (a)'s unchunked serve: it was (b)'s longest
-# serve (its near-tie checks forward every request that parts), and 16
-# requests of the mixed lengths still fill the verify ticks' slots. The
+# (b)'s random-weights class on the first 8 of the 32 mixed requests,
+# held against the same 8 of (a)'s unchunked serve: it was (b)'s longest
+# serve (its near-tie checks forward every request that parts), and 8
+# requests of the mixed lengths still fill the verify ticks' slots (the
+# engine's 8 slots; it went from 16 to 8 for phase 6i). The
 # repeated class went from 8 to 4 requests to make room for phase 6h: its
 # prompts repeat a stretch of the memorized sequences, so each request
 # drafts and accepts as the others do, and 4 still take the verify ticks
 # through acceptance and rejection alike
 SPEC_MEMORIZED, SPEC_REPEATED, SAMPLED_REQUESTS = 16, 4, 4
-SPEC_RANDOM = 16
+SPEC_RANDOM = 8
 SAMPLED = {"temperature": 0.8, "top_k": 32}
 SP = 2
 SP_PROMPT = 2000
@@ -2829,7 +2850,10 @@ def spec_phase(torch, sched, llama, ServingEngine, fns, params, cfg, reqs,
                 for i, (p, g) in enumerate(rreqs)]
     out, launches = {}, {}
     eng = family_engine(ServingEngine, params, cfg, speculative=SPEC_K)
-    st, n, toks = family_serve(torch, sched, fns, eng, arrivals)
+    # the verify step's device time comes from the memorized class's
+    # profiled serve (the same ticks; a profile costs a serve's time again)
+    st, n, toks = family_serve(torch, sched, fns, eng, arrivals,
+                               profile=False)
     check_counts(n, family_counts(L, st["steps"], 0, False),
                  f"3h spec: {st['steps']} steps, {st['ticks']} verify ticks")
     ptoks = plain[0][:SPEC_RANDOM]
@@ -2891,9 +2915,11 @@ def sampled_phase(torch, sched, llama, ServingEngine, fns, params, cfg,
     out, launches = {}, {}
     for K in (0, SPEC_K):
         kw = dict(speculative=K, sampling=SAMPLED)
+        # K 4's verify ticks are profiled in (b); K 0's ticks here
         st, n, toks = family_serve(
             torch, sched, fns, family_engine(ServingEngine, params, cfg,
-                                             **kw), arrivals)
+                                             **kw), arrivals,
+            profile=K == 0)
         check_counts(n, family_counts(L, st["steps"], st["ticks"], K == 0),
                      f"3h sampled K={K}: {st['steps']} steps")
         if st["fetches"] != st["segments"] and K == 0:
@@ -4717,7 +4743,7 @@ def slo_phase(torch, sched, journal, ServingEngine, fns, params, cfg):
 
 FLEET_ROUNDS = 2        # rounds of the tenant trace in phase 3j
 FLEET_MAX_QUEUE = 4     # each replica's intake bound in 3j's audited serves
-FLEET_PAIRS = 5         # timed (two replicas, one replica) pairs
+FLEET_PAIRS = 2         # timed (two replicas, one replica) pairs
 FLEET_SHADOW_P = 0.5    # the int8 shadow's sample rate
 FLEET_CRASH = {1: 3}    # 3j (b): replica 1 crashes at its 4th segment
 DISAGG_PREFILL_STEPS = 8
@@ -5052,7 +5078,7 @@ def fleet_phase(torch, sched, fleet, disagg, kv_tiers, journal, llama,
 # ---------------------------------------------------------------------------
 
 ELASTIC_REPLICAS = 4
-ELASTIC_PAIRS = 5       # (cold, warmed) first segments, in turns
+ELASTIC_PAIRS = 2       # (cold, warmed) first segments, in turns
 ELASTIC_SEG_STEPS = 32
 ELASTIC_QUEUE_HIGH = 8  # summed queue depth that asks for a replica
 
@@ -5661,7 +5687,11 @@ def corpus_phase(torch, op_corpus, fns, card):
 FUSED_LOSS_RTOL = 1e-3
 FUSED_INT8_LOGIT_ATOL = 2.0 ** -5
 FUSED_BF16_LOGIT_ATOL = 2.0 ** -5
-# bf16 paged serve of 6h (c): the first requests of the mixed workload
+# 6h (c)'s drains: the first requests of the mixed workload. The int8
+# pair (fused and unfused) went from 32 to 16 requests for phase 6i: its
+# launches a decode step and its first tick's logits do not depend on
+# how many requests the drain holds; the tokens of 16 are still compared
+FUSED_INT8_REQUESTS = 16
 FUSED_BF16_REQUESTS = 8
 
 
@@ -5671,8 +5701,9 @@ def llama_opts_phase(torch, llama, rlo, tf, qm, ServingEngine, fns, card,
     modules on the card; (b) bench.py's step with ``fused_weights`` and
     ``bf16_grads`` from phase 5's initial fp32 weights (``params5``, on
     the host) and batch (``tok5``), each loss against phase 5's
-    (``train5``) and the launches a step; (c) the int8
-    paged drain of phase 3d with ``fused_weights`` (49 ``quant_matmul``
+    (``train5``) and the launches a step; (c) the int8 paged drain of
+    phase 3d's first ``FUSED_INT8_REQUESTS`` requests with
+    ``fused_weights`` (49 ``quant_matmul``
     launches a decode step against 85), tokens against the unfused drain,
     and a short bf16 paged serve through the paged kernel, each with its
     first tick's logits against the unfused tree's, and ``quant_matmul``'s
@@ -5744,7 +5775,8 @@ def llama_opts_phase(torch, llama, rlo, tf, qm, ServingEngine, fns, card,
     max_len = min(cfg.max_seq_len, -(-need // 128) * 128)
     serves, launches = {}, {}
     for key, path, rs, quant, atol in (
-            ("int8", "quant_int8_fused_drain", reqs, "int8",
+            ("int8", "quant_int8_fused_drain", reqs[:FUSED_INT8_REQUESTS],
+             "int8",
              FUSED_INT8_LOGIT_ATOL),
             ("bf16", "paged_fused_drain", reqs[:FUSED_BF16_REQUESTS], None,
              FUSED_BF16_LOGIT_ATOL)):
@@ -5805,6 +5837,95 @@ def llama_opts_phase(torch, llama, rlo, tf, qm, ServingEngine, fns, card,
     return ({"runtime": rt, "train": fb, "serve": serves,
              "seconds_to_end_of": secs},
             {"train_fused_bf16_grads": tlaunches, **launches})
+
+
+# phase 6i: the mesh steps on phase 5's weights and batch
+MESH_WORLD1_STEPS = 3
+MESH_LAYOUT_BATCH = 8
+MESH_LAYOUT_STEPS = 2
+MESH_TIMEOUT_S = 240
+
+
+def mesh_phase(torch, llama, mesh_train, fns, card, train5, params5, tok5):
+    """Phase 6i (``experiments/mesh_train.py``): (a) a world of one (NCCL)
+    and ``make_sharded_train_step`` on a mesh with every degree 1 from
+    phase 5's initial weights and batch: each loss equal to phase 5's bit
+    for bit, 12 / 12 / 1 launches a step; (b) one world of 4 gloo ranks
+    sharing the card, dp 2 x mp 2 at ZeRO 3, mp 2 x sep 2 with the ring
+    and with Ulysses, each against one rank's step on the same weights
+    and batch. Returns (stats, launches by path)."""
+    t6i, secs = time.perf_counter(), {}
+    cfg = llama.LlamaConfig.bert_base_equiv()
+    params = {k: v.to(DEVICE) for k, v in params5.items()}
+    counts = (lambda: zero_counts(fns), lambda: read_counts(fns))
+    w1 = mesh_train.world1_steps(llama, cfg, params, tok5,
+                                 MESH_WORLD1_STEPS, counts)
+    del params
+    want = train5["losses"][:MESH_WORLD1_STEPS]
+    L = cfg.num_layers
+    for i, n in enumerate(w1["launches"]):
+        try:
+            check_counts(n, {"flash_attention_fwd": L,
+                             "flash_attention_bwd": L,
+                             "head_dx_softmax": 1}, f"6i (a) step {i}")
+        except AssertionError as e:
+            fail(str(e))
+    if w1["losses"] != want:
+        fail(f"6i (a): losses {w1['losses']} on a mesh of one against "
+             f"phase 5's {want}")
+    secs["a"] = round(time.perf_counter() - t6i, 1)
+    print(f"6i (a) make_sharded_train_step on a mesh of one ({card}; "
+          f"{w1['backend']}, world {w1['world_size']}): losses "
+          f"{w1['losses']} equal to phase 5's bit for bit, launches a step "
+          f"{json.dumps({k: v for k, v in w1['launches'][-1].items() if v})}"
+          f", ms a step {[round(x, 3) for x in w1['ms_per_step']]} "
+          f"(phase 5: {train5['ms_per_step']:.3f})")
+    tok8 = tok5[:MESH_LAYOUT_BATCH].cpu().numpy()
+    try:
+        ranks = mesh_train.spawn(mesh_train.layouts_vs_single, 4,
+                                 args=({}, tok8, MESH_LAYOUT_STEPS),
+                                 device="cuda", backend="gloo",
+                                 timeout=MESH_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"6i (b): {e}")
+    rep = ranks[0]["report"]
+    one = rep.pop("one_rank")
+    g3 = lambda d: {k: float(f"{v:.3e}") for k, v in d.items()}
+    print(f"6i (b) one rank ({card}, B {MESH_LAYOUT_BATCH} S 512): loss "
+          f"bf16 {one['loss_bf16']:.8f}, fp32 {one['loss_fp32']:.8f}, bf16 "
+          f"with the custom CE tail {one['loss_ce_tail']:.8f}; the custom "
+          f"tail's gradients against the plain CE's, relative to the norm "
+          f"{json.dumps(g3(one['ce_tail_vs_plain']))}, against fp32 "
+          f"{json.dumps(g3(one['ce_tail_vs_fp32']))}")
+    launches = {"6i_world1": sum_counts(*w1["launches"])}
+    for name, row in rep.items():
+        per_rank = [r["launches"][name] for r in ranks]
+        summed = sum_counts(*per_rank)
+        print(f"6i (b) {name} ({card}, 4 gloo ranks on one card, B "
+              f"{MESH_LAYOUT_BATCH} S 512 bf16, remat): losses "
+              f"{row['losses']}, step 0 against one rank's "
+              f"{row['loss_single']:.8f} (|err| {row['loss_abs_err']:.3e} "
+              f"<= {mesh_train.LOSS_ATOL}); each gradient's distance from "
+              f"the fp32 step at most {row['grad_ratio_worst']} times one "
+              f"bf16 rank's (<= {mesh_train.GRAD_RATIO}); relative to the "
+              f"norm, against one bf16 rank "
+              f"{json.dumps(g3(row['grad_vs_one_rank']))}, against fp32 "
+              f"{json.dumps(g3(row['grad_vs_fp32']))}, one bf16 rank "
+              f"against fp32 {json.dumps(g3(row['one_rank_vs_fp32']))}; "
+              f"flash launches a rank "
+              f"{[(r['flash_attention_fwd'], r['flash_attention_bwd']) for r in per_rank]}"
+              f" at (heads, rows) {row['flash_heads_rows']}; calls staged "
+              f"through the host in step 0 {json.dumps(row['staged_step0'])}"
+              f"; {row['seconds']:.1f} s")
+        launches[f"6i_{name}"] = {k: summed.get(k, 0) for k in fns}
+    heads = {n: r["flash_heads_rows"] for n, r in rep.items()}
+    if heads != {"dp2_mp2_zero3": [(6, 512)], "mp2_sep2_ring": [],
+                 "mp2_sep2_ulysses": [(3, 512)]}:
+        fail(f"6i (b): the flash kernels ran at (heads, rows) {heads}")
+    secs["b"] = round(time.perf_counter() - t6i, 1)
+    print(f"phase 6i seconds to the end of each part: {json.dumps(secs)}")
+    return {"world1": w1, "layouts": rep, "seconds_to_end_of": secs}, \
+        launches
 
 
 def vision_phase(torch, port, bert, parity, vision_quant, fns, eager_fp32,
@@ -5968,10 +6089,12 @@ KERNEL_PATHS = {
                      "quant_int8_fused_drain"),
     "flash_attention_fwd": ("train", "bert_train", "ernie_step",
                             "eager_bf16_auto_cast", "flash_experiment",
-                            "train_fused_bf16_grads"),
+                            "train_fused_bf16_grads", "6i_world1",
+                            "6i_dp2_mp2_zero3", "6i_mp2_sep2_ulysses"),
     "flash_attention_bwd": ("train", "bert_train", "ernie_step",
                             "eager_bf16_auto_cast", "flash_experiment",
-                            "train_fused_bf16_grads"),
+                            "train_fused_bf16_grads", "6i_world1",
+                            "6i_dp2_mp2_zero3", "6i_mp2_sep2_ulysses"),
     "flash_attention_bwd_dq": ("flash_experiment",),
     "flash_attention_bwd_dkv": ("flash_experiment",),
     "flash_attention_fwd_f32": ("eager_fp32", "bert_qat",
@@ -5979,7 +6102,7 @@ KERNEL_PATHS = {
     "flash_attention_bwd_f32": ("eager_fp32", "bert_qat"),
     "flash_attention_bwd_dq_f32": (),
     "flash_attention_bwd_dkv_f32": (),
-    "head_dx_softmax": ("train", "train_fused_bf16_grads"),
+    "head_dx_softmax": ("train", "train_fused_bf16_grads", "6i_world1"),
     "multi_tensor_update": FLAT_UPDATE,
     "blocked_matmul": ("dot_experiment",),
     "flash_variants_fwd": ("flash_experiment",),
@@ -6223,6 +6346,7 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
     from paddle_tpu_torch.quantization import serving as qs
     from paddle_tpu_torch.experiments import op_corpus, parity, vision_quant
+    from paddle_tpu_torch.experiments import mesh_train
     from paddle_tpu_torch.experiments import runtime_llama_opts as rlo
     from paddle_tpu_torch.text import recipes
 
@@ -6732,8 +6856,9 @@ def main() -> None:
         print(f"3h (c) sampled T 0.8 top-k 32, {key} ({card}): "
               f"{st['tokens_per_s']:.1f} tokens/s, {st['ms_per_token']:.3f}"
               f" ms/token, {st['ms_per_step']:.3f} ms/step wall, "
-              f"{st['device_ms_per_step']} ms/step device, busy "
-              f"{st['busy_share']}, {st['fetches']} fetches for "
+              f"{st.get('device_ms_per_step', 'not measured')} ms/step "
+              f"device, busy {st.get('busy_share', 'not measured')}, "
+              f"{st['fetches']} fetches for "
               f"{st['segments']} segments; seeds replayed; top_k=1 against "
               f"greedy: {json.dumps(st['top_k_1'])}")
     family["long_context"], n = long_context_phase(
@@ -7223,6 +7348,13 @@ def main() -> None:
     llama_opts, olaunches = llama_opts_phase(torch, llama, rlo, tf, qm,
                                              ServingEngine, fns, card, train,
                                              params5, tok44)
+
+    lap("6i")
+    # 6i. LLaMA's hybrid-parallel step: a mesh of one, then three layouts
+    # of 4 gloo ranks sharing the card
+    torch.cuda.empty_cache()
+    mesh_stats, milaunches = mesh_phase(torch, llama, mesh_train, fns, card,
+                                        train, params5, tok44)
     del params5, tok44
 
     lap("7")
@@ -7252,7 +7384,7 @@ def main() -> None:
                **elaunches6c,
                "zoo_mobilenet_v3_large": zlaunches,
                "imdb_bilstm_fit": xlaunches, **vqlaunches,
-               "readme_quickstart": rqlaunches, **olaunches,
+               "readme_quickstart": rqlaunches, **olaunches, **milaunches,
                **{f"zoo_{n}": v for n, v in zflaunches.items()},
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
@@ -7285,6 +7417,7 @@ def main() -> None:
                    "bert": bstats, "eager_bert": eager, "zoo": zoo_stats,
                    "text": text, "vision_quant": vision_stats,
                    "op_corpus": corpus, "llama_opts": llama_opts,
+                   "mesh": mesh_stats,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

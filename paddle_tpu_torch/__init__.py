@@ -35,7 +35,11 @@ corpus (``core``: dtypes, places, the ``Tensor`` subclass of
 ``import paddle_tpu_torch as paddle``; and the runtime modules
 (``device``: counts, memory statistics, streams and events; ``utils``
 with ``cpp_extension`` and ``dlpack``; ``amp.debugging``; ``version``;
-``sysconfig``).
+``sysconfig``); and training on a mesh over ``torch.distributed``
+(``distributed``: the environment and ``fleet``'s tensor-parallel layers;
+``parallel``: the hybrid mesh; ``ops.ring_attention``; LLaMA's and BERT's
+``make_sharded_train_step`` with Megatron TP, sequence parallelism and
+ZeRO 1-3).
 """
 
 from __future__ import annotations
@@ -70,13 +74,14 @@ from . import fft  # noqa: F401
 from . import incubate, io, jit, metric, nn, optimizer, text, vision  # noqa: F401
 from . import profiler  # noqa: F401
 from . import device, sysconfig, utils, version  # noqa: F401
+from . import distributed, parallel  # noqa: F401
 from .hapi import callbacks  # noqa: F401  (paddle.callbacks alias)
 from .hapi.model import Model  # noqa: F401
 from .hapi.model_summary import flops, summary  # noqa: F401
 from .nn.layer.layers import ParamAttr  # noqa: F401
 
 # modules that wait for a later slice, by their ROADMAP Queue A item
-_WAITING = {"distributed": 5, "static": 8}
+_WAITING = {"static": 8}
 
 
 def __getattr__(name):

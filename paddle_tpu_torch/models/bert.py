@@ -18,8 +18,17 @@ padded batch (``pad_mask``) takes the dense masked path, as in the JAX
 package (its ``flash_path_active`` is False for a mask): that is the
 reference's dispatch, not a fallback, and it launches no flash kernel.
 
-The JAX module's ``param_specs``, ``opt_state_specs`` and
-``make_sharded_train_step`` wait for the distributed slice.
+On a mesh (``param_specs``, ``opt_state_specs``, ``shard_state``,
+``gather_state``, ``make_sharded_train_step``) each rank holds its shards:
+qkv and fc-in split by columns over mp (``wqkv``'s q, k and v blocks laid
+out per rank, and ``bqkv`` and ``b_in`` with them), proj and fc-out by
+rows, the embedding by vocabulary (tied to the MLM decoder, whose
+``mlm_bias`` follows it), ZeRO over ("dp", "sharding") by the tables;
+the Megatron collectives of ``distributed.fleet``'s ``mp_layers`` and the
+sharded step of ``parallel/sharded.py``, as LLaMA's. The batch is split
+over ("dp", "sharding"); sep and the other axes replicate it (the
+reference's sequence-parallel constraint moves no number: its attention
+has no ring branch).
 """
 
 from __future__ import annotations
@@ -33,13 +42,17 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    copy_to, parallel_cross_entropy, reduce_from, vocab_parallel_lookup)
 from ..ops.kernels import flash_attention as _fa
 from .llama import adamw_update, init_opt_state
 
 __all__ = ["BertConfig", "IGNORE_INDEX", "LAYER_KEYS", "NO_DECAY_KEYS",
            "param_shapes", "init_params", "encode", "mlm_logits", "forward",
            "loss_fn", "init_opt_state", "adamw_update", "train_step",
-           "make_train_step", "random_mlm_batch"]
+           "make_train_step", "random_mlm_batch", "param_specs",
+           "opt_state_specs", "shard_state", "gather_state",
+           "make_sharded_train_step"]
 
 IGNORE_INDEX = -100
 
@@ -164,12 +177,14 @@ def _ln(x, g, b, eps):
     return y.to(dt) * g.to(dt) + b.to(dt)
 
 
-def _layer_qkv(cfg: BertConfig, x, lp):
-    """The qkv projection, split into q, k, v of [B, S, heads, D]."""
+def _layer_qkv(cfg: BertConfig, x, lp, mp=None):
+    """The qkv projection, split into q, k, v of [B, S, heads, D]. Over an
+    mp group (``mp``) ``wqkv`` and ``bqkv`` hold this rank's [q_r | k_r |
+    v_r] columns, entered through ``copy_to``: q, k, v are its heads."""
     B, S, _ = x.shape
     dt = x.dtype
-    qkv = x @ lp["wqkv"].to(dt) + lp["bqkv"].to(dt)
-    shape = (B, S, cfg.num_heads, cfg.head_dim)
+    qkv = copy_to(x, mp) @ lp["wqkv"].to(dt) + lp["bqkv"].to(dt)
+    shape = (B, S, -1, cfg.head_dim)
     q, k, v = qkv.chunk(3, dim=-1)
     return q.reshape(shape), k.reshape(shape), v.reshape(shape)
 
@@ -181,31 +196,38 @@ def _attention(q, k, v, pad_mask):
     return _fa.dot_product_attention(q, k, v, mask=mask, is_causal=False)
 
 
-def _layer_post(cfg: BertConfig, x, attn, lp):
+def _layer_post(cfg: BertConfig, x, attn, lp, mp=None):
     """Output projection, residual and LayerNorm, then the tanh-GELU
-    feed-forward, residual and LayerNorm (post-LN)."""
-    B, S, H = x.shape
+    feed-forward, residual and LayerNorm (post-LN). Over an mp group wo
+    and w_out are row-parallel (their whole biases added after
+    ``reduce_from``), w_in column-parallel after ``copy_to``."""
+    B, S, _ = x.shape
     dt = x.dtype
-    x = _ln(x + (attn.reshape(B, S, H) @ lp["wo"].to(dt) + lp["bo"].to(dt)),
+    x = _ln(x + (reduce_from(attn.reshape(B, S, -1) @ lp["wo"].to(dt), mp)
+                 + lp["bo"].to(dt)),
             lp["ln1_g"], lp["ln1_b"], cfg.ln_eps)
-    h = F.gelu(x @ lp["w_in"].to(dt) + lp["b_in"].to(dt), approximate="tanh")
-    return _ln(x + (h @ lp["w_out"].to(dt) + lp["b_out"].to(dt)),
+    h = F.gelu(copy_to(x, mp) @ lp["w_in"].to(dt) + lp["b_in"].to(dt),
+               approximate="tanh")
+    return _ln(x + (reduce_from(h @ lp["w_out"].to(dt), mp)
+                    + lp["b_out"].to(dt)),
                lp["ln2_g"], lp["ln2_b"], cfg.ln_eps)
 
 
-def _encoder_layer(cfg: BertConfig, x, lp, pad_mask):
-    q, k, v = _layer_qkv(cfg, x, lp)
-    return _layer_post(cfg, x, _attention(q, k, v, pad_mask), lp)
+def _encoder_layer(cfg: BertConfig, x, lp, pad_mask, mp=None):
+    q, k, v = _layer_qkv(cfg, x, lp, mp)
+    return _layer_post(cfg, x, _attention(q, k, v, pad_mask), lp, mp)
 
 
 def encode(params, tokens, cfg: BertConfig, token_type_ids=None,
-           pad_mask=None):
+           pad_mask=None, mp=None):
     """Contextual embeddings: tokens [B, S] -> [B, S, H] in cfg.dtype.
     Parameters may be fp32 master weights: each use site casts its weight
-    to cfg.dtype, so gradients reach them in fp32."""
+    to cfg.dtype, so gradients reach them in fp32. ``mp`` (a process
+    group, on a mesh): ``params`` are this rank's shards, the vocabulary
+    and the blocks' heads and columns split over it."""
     dt = cfg.dtype
     S = tokens.shape[1]
-    x = params["embed"].to(dt)[tokens.long()]
+    x = vocab_parallel_lookup(params["embed"].to(dt), tokens, mp)
     x = x + params["pos_embed"].to(dt)[None, :S]
     if token_type_ids is None:
         token_type_ids = torch.zeros_like(tokens)
@@ -219,34 +241,37 @@ def encode(params, tokens, cfg: BertConfig, token_type_ids=None,
     for i in range(cfg.num_layers):
         lp = {kk: layers[kk][i] for kk in LAYER_KEYS}
         if split:
-            q, k, v = checkpoint(_layer_qkv, cfg, x, lp, use_reentrant=False)
+            q, k, v = checkpoint(_layer_qkv, cfg, x, lp, mp,
+                                 use_reentrant=False)
             attn = _attention(q, k, v, None)
-            x = checkpoint(_layer_post, cfg, x, attn, lp,
+            x = checkpoint(_layer_post, cfg, x, attn, lp, mp,
                            use_reentrant=False)
         elif cfg.remat:
-            x = checkpoint(_encoder_layer, cfg, x, lp, pad_mask,
+            x = checkpoint(_encoder_layer, cfg, x, lp, pad_mask, mp,
                            use_reentrant=False)
         else:
-            x = _encoder_layer(cfg, x, lp, pad_mask)
+            x = _encoder_layer(cfg, x, lp, pad_mask, mp)
     return x
 
 
-def mlm_logits(params, x, cfg: BertConfig):
+def mlm_logits(params, x, cfg: BertConfig, mp=None):
     """The MLM head: a tanh-GELU transform and LayerNorm, then the decoder
     tied to the token embedding (``embed.T``) plus ``mlm_bias``.
-    x [B, S, H] -> [B, S, V]."""
+    x [B, S, H] -> [B, S, V] (over an mp group, this rank's V / mp
+    columns)."""
     dt = x.dtype
     h = F.gelu(x @ params["mlm_w"].to(dt) + params["mlm_b"].to(dt),
                approximate="tanh")
     h = _ln(h, params["mlm_ln_g"], params["mlm_ln_b"], cfg.ln_eps)
-    return h @ params["embed"].to(dt).t() + params["mlm_bias"].to(dt)
+    return (copy_to(h, mp) @ params["embed"].to(dt).t()
+            + params["mlm_bias"].to(dt))
 
 
 def forward(params, tokens, cfg: BertConfig, token_type_ids=None,
-            pad_mask=None):
+            pad_mask=None, mp=None):
     """MLM logits [B, S, V] in cfg.dtype."""
-    x = encode(params, tokens, cfg, token_type_ids, pad_mask)
-    return mlm_logits(params, x, cfg)
+    x = encode(params, tokens, cfg, token_type_ids, pad_mask, mp)
+    return mlm_logits(params, x, cfg, mp)
 
 
 def loss_fn(params, tokens, labels, cfg: BertConfig):
@@ -316,3 +341,123 @@ def random_mlm_batch(cfg: BertConfig, batch: int, seq: int, seed=0,
     dev = resolve_device(device)
     return (torch.tensor(tokens, dtype=torch.int32, device=dev),
             torch.tensor(labels, dtype=torch.int32, device=dev))
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: BertConfig):
+    """The reference's table: qkv and fc-in column-parallel, proj and
+    fc-out row-parallel, the embedding vocabulary-parallel; ZeRO stage 3
+    splits the remaining dimension over ("dp", "sharding")."""
+    from ..parallel.mesh import P
+
+    z = ("dp", "sharding") if cfg.sharding_stage >= 3 else None
+    return {
+        "embed": P("mp", z), "pos_embed": P(None, z),
+        "type_embed": P(None, z), "ln_embed_g": P(z), "ln_embed_b": P(z),
+        "wqkv": P(None, z, "mp"), "bqkv": P(None, "mp"),
+        "wo": P(None, "mp", z), "bo": P(None, z),
+        "ln1_g": P(None, z), "ln1_b": P(None, z),
+        "w_in": P(None, z, "mp"), "b_in": P(None, "mp"),
+        "w_out": P(None, "mp", z), "b_out": P(None, z),
+        "ln2_g": P(None, z), "ln2_b": P(None, z),
+        "mlm_w": P(z, None), "mlm_b": P(None),
+        "mlm_ln_g": P(None), "mlm_ln_b": P(None),
+        "mlm_bias": P("mp"),
+    }
+
+
+def opt_state_specs(cfg: BertConfig):
+    """Moments split over ("dp", "sharding") from stage 1 (the
+    reference's table; the mp-split biases and the MLM head's vectors
+    stay as their parameters)."""
+    from ..parallel.mesh import P
+
+    if cfg.sharding_stage < 1:
+        return param_specs(cfg)
+    z = ("dp", "sharding")
+    sp = dict(param_specs(cfg))
+    if cfg.sharding_stage < 3:
+        sp.update({
+            "embed": P("mp", z), "pos_embed": P(None, z),
+            "type_embed": P(None, z), "ln_embed_g": P(z), "ln_embed_b": P(z),
+            "wqkv": P(None, z, "mp"), "wo": P(None, "mp", z),
+            "bo": P(None, z), "ln1_g": P(None, z), "ln1_b": P(None, z),
+            "w_in": P(None, z, "mp"), "w_out": P(None, "mp", z),
+            "b_out": P(None, z), "ln2_g": P(None, z), "ln2_b": P(None, z),
+            "mlm_w": P(z, None),
+        })
+    return sp
+
+
+def _column_blocks(cfg: BertConfig):
+    H = cfg.hidden_size
+    return {"wqkv": (H, H, H), "bqkv": (H, H, H)}
+
+
+def shard_state(cfg: BertConfig, mesh, params, opt_state=None):
+    """Each rank's shards of whole parameters (and AdamW state) under
+    ``param_specs`` / ``opt_state_specs``, on the mesh's device: the
+    reference's ``device_put`` to the hybrid shardings. ``wqkv`` and
+    ``bqkv``'s columns are laid out per rank as [q_r | k_r | v_r]."""
+    from ..parallel import sharded
+
+    return sharded.shard_state(mesh, param_specs(cfg), opt_state_specs(cfg),
+                               params, opt_state, _column_blocks(cfg))
+
+
+def gather_state(cfg: BertConfig, mesh, params, opt_state=None):
+    """Whole host arrays (numpy) from every rank's shards: the inverse of
+    ``shard_state``, every rank taking part."""
+    from ..parallel import sharded
+
+    return sharded.gather_state(mesh, param_specs(cfg), opt_state_specs(cfg),
+                                params, opt_state, _column_blocks(cfg))
+
+
+def _mesh_loss(cfg: BertConfig, mp, w, batch):
+    """This rank's share of the masked-LM loss: its rows' sum over the
+    global count of labelled positions, the vocab-sharded logits through
+    ``parallel_cross_entropy``."""
+    tokens, labels, count = batch
+    logits = forward(w, tokens, cfg, mp=mp)
+    return parallel_cross_entropy(logits, labels, mp,
+                                  IGNORE_INDEX).sum() / count
+
+
+def make_sharded_train_step(cfg: BertConfig, mesh, lr=1e-4, device="cuda"):
+    """``step(params, opt_state, tokens, labels) -> (params, opt_state,
+    loss)`` on each rank's shards (``shard_state``), updated in place;
+    ``tokens`` and ``labels`` are the global batch, split over ("dp",
+    "sharding"). On a mesh of one rank it is ``make_train_step``'s
+    step. ``device`` (the card unless the caller names the CPU) must be
+    the mesh's."""
+    dev = resolve_device(device)
+    if mesh is None or mesh.device_type != dev.type:
+        raise ValueError(f"make_sharded_train_step: the mesh's device "
+                         f"{getattr(mesh, 'device_type', None)!r} is not "
+                         f"{dev.type!r}")
+    if mesh.mesh.numel() == 1:
+        return make_train_step(cfg, lr=lr, device=dev)
+    from ..parallel.mesh import P, axis_group, axis_size, local_shard
+    from ..parallel.sharded import ShardedStep
+
+    n = axis_size(mesh, "mp")
+    if cfg.num_heads % n:
+        raise ValueError(f"num_heads {cfg.num_heads} does not divide over "
+                         f"mp {n}")
+    mp = axis_group(mesh, "mp")
+    rows = P(("dp", "sharding"), None)
+
+    def batch_fn(tokens, labels):
+        tokens = torch.as_tensor(tokens).to(dev).long()
+        labels = torch.as_tensor(labels).to(dev).long()
+        count = float((labels != IGNORE_INDEX).sum().clamp(min=1))
+        return ("dp", "sharding"), (local_shard(tokens, rows, mesh),
+                                    local_shard(labels, rows, mesh), count)
+
+    return ShardedStep(mesh, param_specs(cfg), opt_state_specs(cfg),
+                       lambda w, b: _mesh_loss(cfg, mp, w, b), batch_fn,
+                       lr, NO_DECAY_KEYS, clip_in_grad_dtype=False)

@@ -45,6 +45,16 @@ pool, whose dispatch the JAX package keys on the shape alone.
 constraints are no-ops), and ``sequence_parallel`` without a ``sep`` axis
 computes plain attention, as the JAX package falls back to it.
 
+On a mesh (``param_specs``, ``opt_state_specs``, ``shard_state``,
+``gather_state``, ``make_sharded_train_step``) each rank holds its shards
+and the step runs the reference's multi-device branch: Megatron's
+column- and row-parallel products with ``copy_to`` / ``reduce_from`` over
+mp (``distributed.fleet``'s ``mp_layers``), the vocab-parallel embedding
+and ``parallel_cross_entropy`` (no custom CE tail, no chunks), the rows
+split over sep under ``sequence_parallel`` (rope at global positions;
+ring or Ulysses attention), ZeRO 1–3 and the global-norm clip in
+``parallel/sharded.py``. The flash kernels serve each rank's local heads.
+
 Layout follows the JAX package so the two are compared like with like:
 parameters are a dict with the same keys and stacked ``[L, ...]`` layer
 weights, the cache is ``{"k", "v"}`` of ``[L, B, max_len, Hkv, D]``, the
@@ -66,6 +76,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..distributed.fleet.meta_parallel.parallel_layers.mp_layers import (
+    copy_to, parallel_cross_entropy, reduce_from, vocab_parallel_lookup)
 from ..ops.kernels import decode_attention as _da
 from ..ops.kernels import flash_attention as _fa
 from ..ops.kernels import head_dx as _hd
@@ -83,7 +95,8 @@ __all__ = ["LlamaConfig", "LAYER_KEYS", "NO_DECAY_KEYS", "param_shapes",
            "sample_filter_logits", "generate", "beam_search_generate",
            "forward_hidden", "forward",
            "loss_fn", "init_opt_state", "adamw_update", "train_step",
-           "make_train_step"]
+           "make_train_step", "param_specs", "opt_state_specs",
+           "shard_state", "gather_state", "make_sharded_train_step"]
 
 # stacked [L, ...] per-layer weights, in the JAX package's key names
 LAYER_KEYS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down",
@@ -287,25 +300,42 @@ def _mm(h, p, name, dt):
     return h @ _w(p, name, dt)
 
 
-def _qkv_split(cfg: LlamaConfig, h, lp, dt):
+def _heads(cfg: LlamaConfig, m=None):
+    """(query heads, kv heads) this rank computes: all of them on one
+    device, its mp share on a mesh (``m``, a ``_Shard``)."""
+    return (cfg.num_heads, cfg.num_kv_heads) if m is None else (m.heads,
+                                                               m.kv_heads)
+
+
+def _mp(m=None):
+    """The mp group of ``m`` (None on one device: Megatron's ``copy_to``
+    and ``reduce_from`` are then the identity)."""
+    return None if m is None else m.mp
+
+
+def _qkv_split(cfg: LlamaConfig, h, lp, dt, m=None):
     """The q, k, v projections of ``h`` [..., H], flat ([..., nH D],
-    [..., Hkv D], [..., Hkv D]): three products, or one product with
-    ``wqkv`` split by columns (views of it)."""
+    [..., Hkv D], [..., Hkv D]; this rank's heads on a mesh): three
+    products, or one product with ``wqkv`` split by columns (views of
+    it)."""
     if not cfg.fused_weights:
         return _mm(h, lp, "wq", dt), _mm(h, lp, "wk", dt), _mm(h, lp, "wv", dt)
-    Hkv = cfg.num_kv_heads * cfg.head_dim
-    return _mm(h, lp, "wqkv", dt).split([cfg.hidden_size, Hkv, Hkv], dim=-1)
+    nh, nkv = _heads(cfg, m)
+    D = cfg.head_dim
+    return _mm(h, lp, "wqkv", dt).split([nh * D, nkv * D, nkv * D], dim=-1)
 
 
-def _mlp(cfg: LlamaConfig, h, lp, dt):
+def _mlp(cfg: LlamaConfig, h, lp, dt, mp=None):
     """silu(h @ w_gate) * (h @ w_up) @ w_down, the gate and up products as
-    one with ``w_gate_up`` under ``fused_weights``."""
+    one with ``w_gate_up`` under ``fused_weights``. Over an mp group the
+    gate and up columns and w_down's rows are this rank's: ``h`` enters
+    through ``copy_to`` and the output leaves through ``reduce_from``."""
+    h = copy_to(h, mp)
     if cfg.fused_weights:
-        zg, up = _mm(h, lp, "w_gate_up", dt).split(cfg.intermediate_size,
-                                                   dim=-1)
+        zg, up = _mm(h, lp, "w_gate_up", dt).chunk(2, dim=-1)
     else:
         zg, up = _mm(h, lp, "w_gate", dt), _mm(h, lp, "w_up", dt)
-    return _mm(F.silu(zg) * up, lp, "w_down", dt)
+    return reduce_from(_mm(F.silu(zg) * up, lp, "w_down", dt), mp)
 
 
 # ---------------------------------------------------------------------------
@@ -327,26 +357,29 @@ def _rope_at(x, theta, positions):
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
 
-def _qkv_proj(cfg: LlamaConfig, x, lp, positions):
-    """rms -> q/k/v projections -> rope. q [B,S,nH,D], k/v [B,S,Hkv,D]."""
+def _qkv_proj(cfg: LlamaConfig, x, lp, positions, m=None):
+    """rms -> q/k/v projections -> rope. q [B,S,nH,D], k/v [B,S,Hkv,D]
+    (on a mesh, this rank's heads: column-parallel after ``copy_to``)."""
     B, S, _ = x.shape
     dt = cfg.dtype
-    h = _tf.rms_norm_plain(x, lp["ln_attn"], cfg.rms_eps)
-    zq, zk, zv = _qkv_split(cfg, h, lp, dt)
-    q = zq.reshape(B, S, cfg.num_heads, cfg.head_dim)
-    k = zk.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
-    v = zv.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    nh, nkv = _heads(cfg, m)
+    h = copy_to(_tf.rms_norm_plain(x, lp["ln_attn"], cfg.rms_eps), _mp(m))
+    zq, zk, zv = _qkv_split(cfg, h, lp, dt, m)
+    q = zq.reshape(B, S, nh, cfg.head_dim)
+    k = zk.reshape(B, S, nkv, cfg.head_dim)
+    v = zv.reshape(B, S, nkv, cfg.head_dim)
     return (_rope_at(q, cfg.rope_theta, positions),
             _rope_at(k, cfg.rope_theta, positions), v)
 
 
-def _layer_post(cfg: LlamaConfig, x, attn, lp):
-    """Output projection, residual, mlp."""
-    B, S, H = x.shape
+def _layer_post(cfg: LlamaConfig, x, attn, lp, m=None):
+    """Output projection, residual, mlp (on a mesh, wo and w_down
+    row-parallel before ``reduce_from``)."""
+    B, S, _ = x.shape
     dt = cfg.dtype
-    x = x + _mm(attn.reshape(B, S, H), lp, "wo", dt)
+    x = x + reduce_from(_mm(attn.reshape(B, S, -1), lp, "wo", dt), _mp(m))
     h = _tf.rms_norm_plain(x, lp["ln_mlp"], cfg.rms_eps)
-    return x + _mlp(cfg, h, lp, dt)
+    return x + _mlp(cfg, h, lp, dt, _mp(m))
 
 
 def _dense_cache_attention(cfg: Optional[LlamaConfig], q, kc, vc, positions,
@@ -795,14 +828,17 @@ def beam_search_generate(params, prompt, cfg: LlamaConfig,
 NO_DECAY_KEYS = ("ln_attn", "ln_mlp", "ln_f", "embed")
 
 
-def _layer_qkv(cfg: LlamaConfig, x, lp):
-    """Pre-attention half of a block: rms, q/k/v projections, rope at
-    0..S-1, then the GQA repeat of the kv heads (``jnp.repeat`` on the
-    head axis: head j reads kv head j // rep)."""
-    positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = _qkv_proj(cfg, x, lp, positions)
-    if cfg.num_kv_heads != cfg.num_heads:
-        rep = cfg.num_heads // cfg.num_kv_heads
+def _layer_qkv(cfg: LlamaConfig, x, lp, m=None):
+    """Pre-attention half of a block: rms, q/k/v projections, rope at the
+    rows' global positions (0..S-1 unless ``m`` splits the sequence), then
+    the GQA repeat of the kv heads (``jnp.repeat`` on the head axis: head
+    j reads kv head j // rep)."""
+    offset = 0 if m is None else m.offset
+    positions = torch.arange(offset, offset + x.shape[1], device=x.device)
+    q, k, v = _qkv_proj(cfg, x, lp, positions, m)
+    nh, nkv = _heads(cfg, m)
+    if nkv != nh:
+        rep = nh // nkv
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
     # q and k come out of the rope contiguous; under fused_weights v is a
@@ -811,24 +847,35 @@ def _layer_qkv(cfg: LlamaConfig, x, lp):
     return q, k, v.contiguous()
 
 
-def _attention(cfg: LlamaConfig, q, k, v):
-    """Training attention: causal, through the flash kernels on the card.
-    ``sequence_parallel`` computes the same: with no 'sep' axis the JAX
-    package's ring and Ulysses forms fall back to this attention."""
+def _attention(cfg: LlamaConfig, q, k, v, m=None):
+    """Training attention, causal: on a mesh whose rows are split over
+    sep (``m.seq_split``, sequence parallelism), the ring or Ulysses form
+    of ``cfg.sp_impl``; else the flash kernels on the card (on one device
+    ``sequence_parallel`` computes this too: with no 'sep' axis the JAX
+    package's ring and Ulysses forms fall back to it)."""
+    if m is not None and m.seq_split:
+        from ..ops.ring_attention import ring_attention, ulysses_attention
+
+        fn = {"ring": ring_attention, "ulysses": ulysses_attention}[
+            cfg.sp_impl]
+        return fn(q, k, v, axis_name="sep", is_causal=True, mesh=m.mesh)
     return _fa.dot_product_attention(q, k, v, is_causal=True)
 
 
-def _decoder_layer(cfg: LlamaConfig, x, lp):
-    q, k, v = _layer_qkv(cfg, x, lp)
-    return _layer_post(cfg, x, _attention(cfg, q, k, v), lp)
+def _decoder_layer(cfg: LlamaConfig, x, lp, m=None):
+    q, k, v = _layer_qkv(cfg, x, lp, m)
+    return _layer_post(cfg, x, _attention(cfg, q, k, v, m), lp, m)
 
 
-def forward_hidden(params, tokens, cfg: LlamaConfig):
+def forward_hidden(params, tokens, cfg: LlamaConfig, m=None):
     """Final hidden states (post ln_f). tokens [B, S] -> [B, S, H] in
     cfg.dtype. Parameters may be fp32 master weights: each use site casts
-    its weight to cfg.dtype, so gradients reach them in fp32."""
+    its weight to cfg.dtype, so gradients reach them in fp32. ``m`` (a
+    ``_Shard``, on a mesh): ``params`` are this rank's shards and
+    ``tokens`` its rows, the embedding's vocabulary and the blocks' heads
+    and columns split over mp."""
     dt = cfg.dtype
-    x = params["embed"].to(dt)[tokens.long()]
+    x = vocab_parallel_lookup(params["embed"].to(dt), tokens, _mp(m))
     # on the flash path attention stays outside the checkpointed halves,
     # so its O(S) residuals are saved rather than recomputed
     split = cfg.remat and _fa.flash_path_active(x)
@@ -840,14 +887,16 @@ def forward_hidden(params, tokens, cfg: LlamaConfig):
     for i in range(cfg.num_layers):
         lp = {kk: layers[kk][i] for kk in keys}
         if split:
-            q, k, v = checkpoint(_layer_qkv, cfg, x, lp, use_reentrant=False)
-            attn = _attention(cfg, q, k, v)
-            x = checkpoint(_layer_post, cfg, x, attn, lp,
+            q, k, v = checkpoint(_layer_qkv, cfg, x, lp, m,
+                                 use_reentrant=False)
+            attn = _attention(cfg, q, k, v, m)
+            x = checkpoint(_layer_post, cfg, x, attn, lp, m,
                            use_reentrant=False)
         elif cfg.remat:
-            x = checkpoint(_decoder_layer, cfg, x, lp, use_reentrant=False)
+            x = checkpoint(_decoder_layer, cfg, x, lp, m,
+                           use_reentrant=False)
         else:
-            x = _decoder_layer(cfg, x, lp)
+            x = _decoder_layer(cfg, x, lp, m)
     return _tf.rms_norm_plain(x, params["ln_f"], cfg.rms_eps)
 
 
@@ -1054,3 +1103,197 @@ def make_train_step(cfg: LlamaConfig, lr=3e-4, device="cuda"):
         return train_step(params, opt_state, tokens, labels, cfg, lr=lr)
 
     return step
+
+
+# ---------------------------------------------------------------------------
+# training on a mesh: the spec tables, explicit shards and Megatron's
+# collectives (``parallel/sharded.py`` holds ZeRO and the clip)
+# ---------------------------------------------------------------------------
+
+def param_specs(cfg: LlamaConfig):
+    """PartitionSpec of every parameter (the reference's table): wq, wk,
+    wv, w_gate, w_up and lm_head split by columns over mp, wo and w_down
+    by rows, the embedding by vocabulary; ZeRO stage 3 also splits the
+    other dimension over ("dp", "sharding")."""
+    from ..parallel.mesh import P
+
+    zdim = ("dp", "sharding") if cfg.sharding_stage >= 3 else None
+    specs = {
+        "embed": P("mp", zdim),
+        "wq": P(None, zdim, "mp"),
+        "wk": P(None, zdim, "mp"),
+        "wv": P(None, zdim, "mp"),
+        "wo": P(None, "mp", zdim),
+        "w_gate": P(None, zdim, "mp"),
+        "w_up": P(None, zdim, "mp"),
+        "w_down": P(None, "mp", zdim),
+        "ln_attn": P(None, None),
+        "ln_mlp": P(None, None),
+        "ln_f": P(None),
+        "lm_head": P(zdim, "mp"),
+    }
+    return _fuse_keys(cfg, specs)
+
+
+def _fuse_keys(cfg: LlamaConfig, d):
+    """A per-key table in the fused_weights layout: wqkv takes wq's entry,
+    w_gate_up w_gate's."""
+    return _fuse(d, lambda first, *rest: first) if cfg.fused_weights else d
+
+
+def opt_state_specs(cfg: LlamaConfig):
+    """The moments' specs: from stage 1 every moment is split over
+    ("dp", "sharding") on its first free dimension (the reference's
+    table); stage 0 keeps the parameters' specs."""
+    from ..parallel.mesh import P
+
+    if cfg.sharding_stage < 1:
+        return param_specs(cfg)
+    z = ("dp", "sharding")
+    return _fuse_keys(cfg, {
+        "embed": P("mp", z),
+        "wq": P(None, z, "mp"),
+        "wk": P(None, z, "mp"),
+        "wv": P(None, z, "mp"),
+        "wo": P(None, "mp", z),
+        "w_gate": P(None, z, "mp"),
+        "w_up": P(None, z, "mp"),
+        "w_down": P(None, "mp", z),
+        "ln_attn": P(None, z),
+        "ln_mlp": P(None, z),
+        "ln_f": P(z),
+        "lm_head": P(z, "mp"),
+    })
+
+
+def _act_spec(cfg: LlamaConfig):
+    """Activations: batch over ("dp", "sharding"), the sequence over sep
+    under sequence parallelism."""
+    from ..parallel.mesh import P
+
+    return P(("dp", "sharding"), "sep" if cfg.sequence_parallel else None,
+             None)
+
+
+def _column_blocks(cfg: LlamaConfig):
+    """The fused weights' column blocks, laid out per mp rank by
+    ``shard_state``."""
+    if not cfg.fused_weights:
+        return {}
+    Hkv = cfg.num_kv_heads * cfg.head_dim
+    F_ = cfg.intermediate_size
+    return {"wqkv": (cfg.hidden_size, Hkv, Hkv), "w_gate_up": (F_, F_)}
+
+
+def shard_state(cfg: LlamaConfig, mesh, params, opt_state=None):
+    """Each rank's shards of whole parameters (and AdamW state) under
+    ``param_specs`` / ``opt_state_specs``, on the mesh's device: the
+    reference's ``device_put`` to the hybrid shardings. The fused weights'
+    columns are laid out as Megatron's per-rank [q_r | k_r | v_r]."""
+    from ..parallel import sharded
+
+    return sharded.shard_state(mesh, param_specs(cfg), opt_state_specs(cfg),
+                               params, opt_state, _column_blocks(cfg))
+
+
+def gather_state(cfg: LlamaConfig, mesh, params, opt_state=None):
+    """Whole host arrays (numpy) from every rank's shards: the inverse of
+    ``shard_state``, every rank taking part."""
+    from ..parallel import sharded
+
+    return sharded.gather_state(mesh, param_specs(cfg), opt_state_specs(cfg),
+                                params, opt_state, _column_blocks(cfg))
+
+
+class _Shard:
+    """One rank's view of the mesh for the forward: its mp group and
+    heads, whether the sequence is split over sep, and its rows' global
+    offset."""
+
+    def __init__(self, cfg: LlamaConfig, mesh, seq_len: int):
+        from ..ops.ring_attention import sp_divides
+        from ..parallel.mesh import axis_group, axis_index, axis_size
+
+        self.mesh = mesh
+        self.mp = axis_group(mesh, "mp")
+        self.mp_size = axis_size(mesh, "mp")
+        for name, n in (("num_heads", cfg.num_heads),
+                        ("num_kv_heads", cfg.num_kv_heads)):
+            if n % self.mp_size:
+                raise ValueError(f"{name} {n} does not divide over mp "
+                                 f"{self.mp_size}")
+        self.heads = cfg.num_heads // self.mp_size
+        self.kv_heads = cfg.num_kv_heads // self.mp_size
+        # the sequence is split over sep where the reference's attention
+        # shards it; where the reference takes its dense branch, the rows
+        # stay whole on every sep rank (the same function)
+        self.seq_split = cfg.sequence_parallel and sp_divides(
+            (1, seq_len, cfg.num_heads), mesh, "sep", head_axes="mp",
+            needs_head_divisible=cfg.sp_impl == "ulysses")
+        self.sep_size = axis_size(mesh, "sep") if self.seq_split else 1
+        self.offset = (axis_index(mesh, "sep") * (seq_len // self.sep_size)
+                       if self.seq_split else 0)
+        self.data_axes = ("dp", "sharding") + (("sep",) if self.seq_split
+                                               else ())
+
+
+def _mesh_loss(cfg: LlamaConfig, m: _Shard, w, batch):
+    """This rank's share of the loss: the weighted token nll of its rows
+    over the global B * (S - 1) (the reference's multi-device branch of
+    ``loss_fn``: no CE tail, no chunks; under mp the vocab-sharded
+    lm_head through ``parallel_cross_entropy``)."""
+    tokens, targets, wgt, count = batch
+    h = copy_to(forward_hidden(w, tokens, cfg, m), m.mp)
+    logits = h @ w["lm_head"].to(cfg.dtype)
+    nll = parallel_cross_entropy(logits, targets, m.mp)
+    return (nll * wgt).sum() / count
+
+
+def make_sharded_train_step(cfg: LlamaConfig, mesh, lr=3e-4, device="cuda"):
+    """The reference's ``make_sharded_train_step``: ``step(params,
+    opt_state, tokens, labels) -> (params, opt_state, loss)`` on each
+    rank's shards (``shard_state``), updated in place; ``tokens`` and
+    ``labels`` are the global batch, of which each rank takes its rows
+    (over ("dp", "sharding"); and its columns over sep under sequence
+    parallelism). On a mesh of one rank the step is ``make_train_step``'s,
+    as the reference takes the single-device path there. ``device`` (the
+    card unless the caller names the CPU) must be the mesh's."""
+    dev = resolve_device(device)
+    if mesh is None or mesh.device_type != dev.type:
+        raise ValueError(f"make_sharded_train_step: the mesh's device "
+                         f"{getattr(mesh, 'device_type', None)!r} is not "
+                         f"{dev.type!r}")
+    if mesh.mesh.numel() == 1:
+        return make_train_step(cfg, lr=lr, device=dev)
+    from ..parallel.mesh import P, local_shard
+    from ..parallel.sharded import ShardedStep
+
+    ctx = {}
+
+    def batch_fn(tokens, labels):
+        tokens = torch.as_tensor(tokens).to(dev).long()
+        labels = torch.as_tensor(labels).to(dev).long()
+        B, S = tokens.shape
+        m = ctx.get(S)
+        if m is None:
+            m = ctx[S] = _Shard(cfg, mesh, S)
+        # every position scored against the next label, the last with
+        # weight 0: the reference's shift, split like the tokens
+        targets = torch.cat([labels[:, 1:], labels.new_zeros(B, 1)], dim=1)
+        wgt = torch.ones(S, device=dev)
+        wgt[-1] = 0.0
+        rows = P(("dp", "sharding"), "sep" if m.seq_split else None)
+        cut = (lambda t, s: local_shard(t, s, mesh))
+        batch = (cut(tokens, rows), cut(targets, rows),
+                 cut(wgt, P(rows[1])), float(B * (S - 1)))
+        return m.data_axes, (m, batch)
+
+    def loss_fn(w, mb):
+        m, batch = mb
+        return _mesh_loss(cfg, m, w, batch)
+
+    leaf = ((lambda p: cfg.dtype if p.dtype == torch.float32 else p.dtype)
+            if cfg.bf16_grads else None)
+    return ShardedStep(mesh, param_specs(cfg), opt_state_specs(cfg),
+                       loss_fn, batch_fn, lr, NO_DECAY_KEYS,
+                       leaf_dtype=leaf, clip_in_grad_dtype=True)

@@ -21,7 +21,8 @@ from typing import Sequence, Tuple
 import numpy as np
 import torch
 
-__all__ = ["Initializer", "Constant", "Uniform", "Normal", "XavierUniform",
+__all__ = ["Initializer", "Constant", "Uniform", "Normal", "XavierNormal",
+           "XavierUniform",
            "seed", "default_generator", "generator"]
 
 _GENERATOR = torch.Generator().manual_seed(0)
@@ -101,6 +102,19 @@ class Normal(Initializer):
         out = torch.empty(tuple(shape), dtype=torch.float32).normal_(
             self.mean, self.std, generator=generator or _GENERATOR)
         return out.to(device=device, dtype=dtype)
+
+
+class XavierNormal(Initializer):
+    def __init__(self, fan_in=None, fan_out=None, gain: float = 1.0):
+        self.fan_in, self.fan_out, self.gain = fan_in, fan_out, gain
+
+    def __call__(self, shape, dtype=torch.float32, device="cpu",
+                 generator=None):
+        fi, fo = _fans(shape)
+        fi = self.fan_in if self.fan_in is not None else fi
+        fo = self.fan_out if self.fan_out is not None else fo
+        std = self.gain * math.sqrt(2.0 / (fi + fo))
+        return Normal(0.0, std)(shape, dtype, device, generator)
 
 
 class XavierUniform(Initializer):

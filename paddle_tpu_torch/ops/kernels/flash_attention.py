@@ -391,13 +391,15 @@ def flash_path_active(t) -> bool:
     return t.device.type == "cuda"
 
 
-def dot_product_attention(q, k, v, mask=None, is_causal=False):
+def dot_product_attention(q, k, v, mask=None, is_causal=False, scale=None):
     """Attention over [B, S, H, D] with Hkv == H, differentiable. Without a
     mask: the flash forward and backward (the kernels of q's dtype, bf16
     or fp32, on a CUDA tensor; their plain versions on a CPU one). With a
     mask: ``xla_attention`` and autograd, as the JAX entry does (its
     ``flash_path_active`` is False for a mask): that dense path is the
-    reference's dispatch, not a fallback."""
+    reference's dispatch, not a fallback. ``scale`` defaults to
+    1 / sqrt(D)."""
     if mask is not None:
-        return xla_attention(q, k, v, mask=mask, is_causal=is_causal)
-    return _FlashAttention.apply(q, k, v, bool(is_causal), None)
+        return xla_attention(q, k, v, mask=mask, is_causal=is_causal,
+                             scale=scale)
+    return _FlashAttention.apply(q, k, v, bool(is_causal), scale)

@@ -65,6 +65,13 @@ def _index(i):
     return i.long() if i.dtype != torch.long else i
 
 
+def _wrapped(i, n):
+    """Index ``i`` into an axis of ``n`` with negatives counted from the
+    end, as ``jnp.take`` reads them."""
+    i = _index(i)
+    return torch.where(i < 0, i + n, i)
+
+
 @register_op()
 def reshape(x, shape, name=None):
     shp = _shape_arg(shape)
@@ -292,7 +299,7 @@ def gather(x, index, axis=0, name=None):
     axis = _int(axis)
 
     def f(a, i):
-        i = _index(i)
+        i = _wrapped(i, a.shape[axis])
         return torch.index_select(a, axis, i.reshape(-1)).reshape(
             a.shape[:axis % a.ndim] + i.shape + a.shape[axis % a.ndim + 1:])
 
@@ -336,7 +343,7 @@ def scatter_nd_add(x, index, updates, name=None):
 @register_op()
 def index_select(x, index, axis=0, name=None):
     return run_op("index_select", lambda a, i: torch.index_select(
-        a, axis, _index(i)), x, index)
+        a, axis, _wrapped(i, a.shape[axis])), x, index)
 
 
 @register_op()

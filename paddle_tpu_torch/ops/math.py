@@ -88,9 +88,37 @@ add = _binary("add", torch.add)
 subtract = _binary("subtract", torch.subtract)
 multiply = _binary("multiply", torch.multiply)
 divide = _binary("divide", torch.true_divide)
-# a step function: its gradient is 0 (torch defines none)
-floor_divide = _binary("floor_divide", lambda a, b: torch.floor_divide(
-    a.detach(), b.detach()))
+def _floor_divide(a, b):
+    """Floor division, a step function (gradient 0). Floats follow
+    CPython's ``float_divmod`` as ``jnp.floor_divide`` does: the quotient
+    is ``(a - fmod(a, b)) / b``, so a division by ±0 (and any NaN or
+    infinite dividend) gives NaN where ``torch.floor_divide`` gives ±inf."""
+    a, b = a.detach(), b.detach()
+    if not torch.promote_types(a.dtype, b.dtype).is_floating_point:
+        return torch.floor_divide(a, b)
+    mod = torch.fmod(a, b)
+    div = (a - mod) / b
+    ind = (mod != 0) & (torch.sign(b) != torch.sign(mod))
+    return torch.round(torch.where(ind, div - 1, div))
+
+
+def _sign(a):
+    """``jnp.sign``: NaN stays NaN and ±0 keeps its sign (``torch.sign``
+    gives 0 for NaN and +0 for -0). Its gradient is 0, as torch's."""
+    if a.is_complex():
+        return torch.sgn(a)
+    keep = (a == 0) | torch.isnan(a) if a.is_floating_point() else None
+    s = torch.sign(a)
+    return s if keep is None else torch.where(keep, a.detach(), s)
+
+
+def _digamma(a):
+    """digamma with NaN at ±0, as at the other poles (torch gives ∓inf)."""
+    a = _float(a)
+    return torch.where(a == 0, float("nan"), torch.digamma(a))
+
+
+floor_divide = _binary("floor_divide", _floor_divide)
 mod = _binary("mod", torch.remainder)
 remainder = mod
 pow = _binary("pow", torch.pow)
@@ -111,7 +139,7 @@ lcm = _binary("lcm", torch.lcm)
 
 neg = _unary("neg", torch.neg)
 abs = _unary("abs", torch.abs)
-sign = _unary("sign", torch.sign)
+sign = _unary("sign", _sign)
 exp = _unary("exp", lambda a: torch.exp(_float(a)))
 expm1 = _unary("expm1", lambda a: torch.expm1(_float(a)))
 log = _unary("log", lambda a: torch.log(_float(a)))
@@ -142,7 +170,7 @@ frac = _unary("frac", lambda a: a - torch.trunc(a))
 erf = _unary("erf", lambda a: torch.erf(_float(a)))
 erfinv = _unary("erfinv", lambda a: torch.erfinv(_float(a)))
 lgamma = _unary("lgamma", lambda a: torch.lgamma(_float(a)))
-digamma = _unary("digamma", lambda a: torch.digamma(_float(a)))
+digamma = _unary("digamma", _digamma)
 gammaln = _unary("gammaln", lambda a: torch.lgamma(_float(a)))
 
 

@@ -3,6 +3,8 @@
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
@@ -10,7 +12,8 @@ from ..core.tensor import to_tensor
 from ..enforce import InvalidArgumentError
 from .dispatch import run_op
 from .math import _binary as _math_binary
-from .math import _float
+from .manipulation import _wrapped
+from .math import _float, _sign
 from .math import _unary as _u
 from .registry import OPS as _OPS
 from .registry import register_op
@@ -63,7 +66,8 @@ conj = _u("conj", lambda a: torch.conj(a).resolve_conj())
 real = _u("real", lambda a: torch.real(a).clone() if a.is_complex() else a)
 imag = _u("imag", lambda a: torch.imag(a) if a.is_complex()
           else torch.zeros_like(a))
-angle = _u("angle", torch.angle)
+angle = _u("angle", lambda a: torch.angle(a) if a.is_complex() else
+           torch.where(torch.signbit(a) & (a == 0), math.pi, torch.angle(a)))
 
 copysign = _b("copysign", lambda a, b: torch.copysign(_float(a), b))
 nextafter = _b("nextafter", lambda a, b: torch.nextafter(a, b.to(a.dtype)),
@@ -133,7 +137,7 @@ def tril_indices(row, col=None, offset=0, dtype="int64", name=None):
 @register_op("sgn")
 def sgn(x, name=None):
     """sign for real, unit phasor for complex."""
-    return run_op("sgn", torch.sgn, x)
+    return run_op("sgn", _sign, x)
 
 
 @register_op(differentiable=False)
@@ -248,7 +252,7 @@ def take(x, index, mode="raise", name=None):
         if mode == "wrap":
             idx = torch.remainder(iv, n)
         else:  # "raise" and "clip": python-style negatives, then clip
-            idx = torch.where(iv < 0, iv + n, iv).clamp(0, n - 1)
+            idx = _wrapped(iv, n).clamp(0, n - 1)
         return torch.take(a, idx)
 
     return run_op("take", f, x)

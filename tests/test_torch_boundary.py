@@ -53,7 +53,10 @@ def test_port_and_chip_smoke_import_no_jax():
             "fft.py", "experiments/op_corpus.py", "version.py",
             "sysconfig.py", "utils/__init__.py", "utils/dlpack.py",
             "utils/cpp_extension/__init__.py", "amp/debugging.py",
-            "experiments/runtime_llama_opts.py"} <= scanned
+            "experiments/runtime_llama_opts.py", "distributed/env.py",
+            "distributed/_comm.py", "parallel/mesh.py", "parallel/sharded.py",
+            "distributed/fleet/meta_parallel/parallel_layers/mp_layers.py",
+            "ops/ring_attention.py", "experiments/mesh_train.py"} <= scanned
     bad = [(str(f.relative_to(ROOT)), name) for f in files
            for name in _imports(f) if _forbidden(name)]
     assert bad == []
@@ -159,3 +162,29 @@ def test_tensor_core_defaults_to_cuda(monkeypatch):
         assert pt.arange(3).device.type == "cpu"
     finally:
         device.set_device(prev)
+
+
+def test_mesh_entry_points_default_to_cuda(monkeypatch):
+    """Without CUDA, the distributed entry points called with no device
+    raise instead of running on the CPU and gloo: ``init_parallel_env``,
+    ``create_hybrid_mesh`` and both ``make_sharded_train_step``s (which
+    also refuse a mesh of another device)."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.models import bert
+    from paddle_tpu_torch.parallel import create_hybrid_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        init_parallel_env()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_hybrid_mesh()
+    assert not dist.is_initialized()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        llama.make_sharded_train_step(llama.LlamaConfig.tiny(), None)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        bert.make_sharded_train_step(bert.BertConfig.tiny(), None)
+    with pytest.raises(ValueError, match="device"):
+        llama.make_sharded_train_step(llama.LlamaConfig.tiny(), None,
+                                      device="cpu")

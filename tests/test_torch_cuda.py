@@ -2329,3 +2329,100 @@ def test_int8_linear_padded_exact(cuda, M, K, N):
         with pytest.raises(RuntimeError):
             torch._int_mm(torch.from_numpy(xi8.astype(np.int8)).to(cuda),
                           torch.from_numpy(wi8).to(cuda))
+
+
+# tiny's depth at a head dim of 64 (4 heads of H 256)
+MESH_WIDTH = dict(hidden_size=256, intermediate_size=512)
+
+
+def test_sharded_step_on_a_mesh_of_one_is_make_train_step(cuda):
+    """A world of one on NCCL and ``create_hybrid_mesh()`` with every degree
+    1: ``make_sharded_train_step`` takes the single-device path, as the
+    reference does there, so its losses equal ``make_train_step``'s bit
+    for bit, with the flash forward and backward once a layer and
+    ``head_dx_softmax`` once a step."""
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.ops.kernels import launch_counters
+    from paddle_tpu_torch.parallel import create_hybrid_mesh, set_mesh
+
+    # D 64: a head dim the flash kernels take
+    cfg = llama.LlamaConfig.tiny(dtype=torch.bfloat16, ce_tail_custom=True,
+                                 **MESH_WIDTH)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    full = llama.init_params(cfg, gen, device="cuda", dtype=torch.float32)
+    tok = torch.randint(0, cfg.vocab_size, (4, 128), device="cuda",
+                        generator=gen, dtype=torch.int32)
+    p1 = {k: v.clone() for k, v in full.items()}
+    o1 = llama.init_opt_state(p1)
+    single = llama.make_train_step(cfg, lr=1e-3)
+    want = [single(p1, o1, tok, tok)[2].item() for _ in range(3)]
+    fns = launch_counters()
+    init_parallel_env(device="cuda")
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        mesh = create_hybrid_mesh()
+        p, o = llama.shard_state(cfg, mesh, full, llama.init_opt_state(full))
+        step = llama.make_sharded_train_step(cfg, mesh, lr=1e-3)
+        got = []
+        for _ in range(3):
+            for fn, attr in fns.values():
+                setattr(fn, attr, 0)
+            got.append(step(p, o, tok, tok)[2].item())
+            n = {k: getattr(fn, attr) for k, (fn, attr) in fns.items()}
+            assert n["flash_attention_fwd"] == cfg.num_layers
+            assert n["flash_attention_bwd"] == cfg.num_layers
+            assert n["head_dx_softmax"] == 1
+        assert got == want
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def test_bert_sharded_step_on_a_mesh_of_one_is_make_train_step(cuda):
+    import torch.distributed as dist
+
+    from paddle_tpu_torch.distributed import init_parallel_env
+    from paddle_tpu_torch.parallel import create_hybrid_mesh, set_mesh
+
+    cfg = bert.BertConfig.tiny(dtype=torch.bfloat16, hidden_size=256,
+                               intermediate_size=512)
+    full = bert.init_params(cfg, torch.Generator(device="cuda").manual_seed(1),
+                            device="cuda")
+    tok, lab = bert.random_mlm_batch(cfg, 4, 64, seed=2)
+    p1 = {k: v.clone() for k, v in full.items()}
+    o1 = bert.init_opt_state(p1)
+    single = bert.make_train_step(cfg, lr=1e-3)
+    want = [single(p1, o1, tok, lab)[2].item() for _ in range(2)]
+    init_parallel_env(device="cuda")
+    try:
+        mesh = create_hybrid_mesh()
+        p, o = bert.shard_state(cfg, mesh, full, bert.init_opt_state(full))
+        step = bert.make_sharded_train_step(cfg, mesh, lr=1e-3)
+        assert [step(p, o, tok, lab)[2].item() for _ in range(2)] == want
+    finally:
+        set_mesh(None)
+        dist.destroy_process_group()
+
+
+def test_mesh_layouts_on_gloo_ranks_sharing_the_card(cuda):
+    """Phase 6i (b) (``mesh_train.layouts_vs_single``) at tiny width in
+    bf16: three layouts of 4 gloo ranks on one card, each held to one
+    rank's step (it asserts LOSS_ATOL and GRAD_RATIO, and each rank's
+    flash launches: once a layer and step under remat)."""
+    from paddle_tpu_torch.experiments import mesh_train
+
+    tok = np.random.RandomState(0).randint(0, 256, (8, 64)).astype(np.int32)
+    ranks = mesh_train.spawn(mesh_train.layouts_vs_single, 4, args=(
+        dict(dtype=torch.bfloat16, num_kv_heads=4, **MESH_WIDTH), tok, 2,
+        1e-4, 0, "tiny", "cuda"),
+        device="cuda", backend="gloo", timeout=240)
+    rep = ranks[0]["report"]
+    assert set(rep) == {n for n, _, _ in mesh_train.LAYOUTS} | {"one_rank"}
+    for r in ranks:
+        assert r["launches"]["dp2_mp2_zero3"]["flash_attention_fwd"] == 4
+        assert r["launches"]["mp2_sep2_ring"]["flash_attention_fwd"] == 0
+    assert rep["dp2_mp2_zero3"]["flash_heads_rows"] == [(2, 64)]
+    assert rep["mp2_sep2_ulysses"]["flash_heads_rows"] == [(1, 64)]
+    assert rep["mp2_sep2_ring"]["flash_heads_rows"] == []

@@ -13,7 +13,7 @@ import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as pp
-from torch_ops_common import R, assert_close, ids, on_cpu, run_case  # noqa: F401
+from torch_ops_common import R, assert_close, ids, on_cpu, run_case, to_np  # noqa: F401
 
 I64 = np.int64
 
@@ -268,3 +268,22 @@ def test_split_and_transpose_methods_take_both_forms():
     idx = pp.to_tensor(np.array([[1], [0]], np.int64))
     assert x.gather(1, idx).numpy().tolist() == [[1.0], [6.0]]  # torch
     assert list(x.gather(idx.reshape([-1])).shape) == [2, 6]  # paddle rows
+
+
+@pytest.mark.parametrize("op", ["gather", "index_select"])
+def test_negative_index_wraps(op):
+    """A negative index counts from the end of the axis, as ``jnp.take``
+    reads it, in the output and in the gradient."""
+    a = np.arange(10, dtype=np.float32).reshape(2, 5)
+    idx = np.array([-1, 2], np.int64)
+    xr = pt.to_tensor(a, stop_gradient=False)
+    xp = pp.to_tensor(a, place="cpu", stop_gradient=False)
+    want = getattr(pt, op)(xr, pt.to_tensor(idx), axis=1)
+    got = getattr(pp, op)(xp, pp.to_tensor(idx, place="cpu"), axis=1)
+    np.testing.assert_array_equal(to_np(want), [[4, 2], [9, 7]])
+    np.testing.assert_array_equal(to_np(got), to_np(want))
+    w = np.array([[1.0, 2.0], [3.0, 4.0]], np.float32)
+    pt.sum(pt.multiply(want, pt.to_tensor(w))).backward()
+    (got * torch.from_numpy(w)).sum().backward()
+    np.testing.assert_array_equal(to_np(xp.grad), to_np(xr.grad))
+    assert to_np(xp.grad)[0, 4] == 1.0 and to_np(xp.grad)[1, 4] == 3.0

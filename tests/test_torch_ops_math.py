@@ -9,7 +9,7 @@ import torch
 
 import paddle_tpu as pt
 import paddle_tpu_torch as pp
-from torch_ops_common import R, ids, on_cpu, run_case  # noqa: F401
+from torch_ops_common import R, ids, on_cpu, run_case, to_np  # noqa: F401
 
 S = (3, 4)
 
@@ -223,3 +223,48 @@ def test_int_results_keep_int64():
     a = np.array([1, 2, 3], np.int64)
     assert pp.add(pp.to_tensor(a), 1).dtype == torch.int64
     assert str(pt.add(pt.to_tensor(a), 1).dtype) == "int32"
+
+
+def _exact(got, want, rtol=0.0):
+    """NaN at the same positions and each zero's sign equal (``allclose``
+    treats -0 and +0 alike); the other values equal, or within ``rtol``
+    for a transcendental function."""
+    got, want = np.asarray(to_np(got)), np.asarray(to_np(want))
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=rtol, atol=0)
+
+
+SPECIAL = np.array([np.nan, -0.0, 0.0, 3.0, -2.0], np.float32)
+
+
+def test_sign_keeps_nan_and_signed_zero():
+    want = pt.sign(pt.to_tensor(SPECIAL))
+    _exact(want, np.array([np.nan, -0.0, 0.0, 1.0, -1.0], np.float32))
+    x = pp.to_tensor(SPECIAL, place="cpu")
+    _exact(pp.sign(x), want)
+    _exact(x.sign(), want)
+    assert torch.signbit(pp.sign(x)[1]) and not torch.signbit(pp.sign(x)[2])
+
+
+def test_digamma_is_nan_at_both_zeros():
+    a = np.array([0.0, -0.0, -1.0, -2.0, -7.0, 0.5, 3.0], np.float32)
+    want = pt.digamma(pt.to_tensor(a))
+    assert np.isnan(to_np(want)[:5]).all()
+    _exact(pp.digamma(pp.to_tensor(a, place="cpu")), want, rtol=1e-6)
+
+
+def test_float_floor_divide_by_signed_zero_is_nan():
+    a = np.array([3.0, -2.0, np.inf, 7.0, -7.0, 0.0], np.float32)
+    b = np.array([0.0, -0.0, 0.0, 2.0, 2.0, 0.0], np.float32)
+    want = pt.floor_divide(pt.to_tensor(a), pt.to_tensor(b))
+    assert np.isnan(to_np(want)[:3]).all()
+    _exact(pp.floor_divide(pp.to_tensor(a, place="cpu"),
+                           pp.to_tensor(b, place="cpu")), want)
+    ai = np.array([7, -7, 7, -7], np.int64)
+    bi = np.array([2, 2, -2, -2], np.int64)
+    got = pp.floor_divide(pp.to_tensor(ai, place="cpu"),
+                          pp.to_tensor(bi, place="cpu"))
+    np.testing.assert_array_equal(to_np(got), ai // bi)

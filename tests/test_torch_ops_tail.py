@@ -6,8 +6,9 @@ import numpy as np
 import pytest
 import torch
 
+import paddle_tpu as pt
 import paddle_tpu_torch as pp
-from torch_ops_common import ids, on_cpu, run_case  # noqa: F401
+from torch_ops_common import ids, on_cpu, run_case, to_np  # noqa: F401
 
 I64 = np.int64
 
@@ -172,3 +173,32 @@ def test_complex_tensors_stay_on_their_device():
     assert t.place == pp.device.expected_place()  # the CPU, set here
     assert t.dtype == torch.complex64  # complex128 data: complex64
     assert pp.real(t * 2).numpy().tolist() == [2.0]
+
+
+def _exact(got, want, rtol=0.0):
+    """NaN at the same positions and each zero's sign equal (``allclose``
+    treats -0 and +0 alike); the other values equal, or within ``rtol``
+    for a transcendental function."""
+    got, want = np.asarray(to_np(got)), np.asarray(to_np(want))
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    np.testing.assert_array_equal(np.signbit(got), np.signbit(want))
+    ok = ~np.isnan(want)
+    np.testing.assert_allclose(got[ok], want[ok], rtol=rtol, atol=0)
+
+
+def test_sgn_keeps_nan_and_signed_zero_and_the_phasor():
+    a = np.array([np.nan, -0.0, 0.0, 3.0, -2.0], np.float32)
+    want = pt.sgn(pt.to_tensor(a))
+    _exact(want, np.array([np.nan, -0.0, 0.0, 1.0, -1.0], np.float32))
+    _exact(pp.sgn(pp.to_tensor(a, place="cpu")), want)
+    c = np.array([3 + 4j, 0j, -2j], np.complex64)
+    np.testing.assert_allclose(to_np(pp.sgn(pp.to_tensor(c, place="cpu"))),
+                               to_np(pt.sgn(pt.to_tensor(c))), rtol=1e-6)
+
+
+def test_angle_of_negative_zero_is_pi():
+    a = np.array([-0.0, -1.0, 0.0, 2.0, np.nan], np.float32)
+    want = pt.angle(pt.to_tensor(a))
+    np.testing.assert_allclose(to_np(want)[:4], [np.pi, np.pi, 0.0, 0.0])
+    _exact(pp.angle(pp.to_tensor(a, place="cpu")), want)
