@@ -404,6 +404,28 @@ Phases (any failed check raises and the script exits non-zero):
    kernels on 6 local heads (dp 2 x mp 2) and on 3 heads of the whole
    sequence (Ulysses), and the calls the collective layer staged through
    the host under gloo counted;
+6j. BASELINE config 3, Fleet data-parallel ResNet-50
+   (``experiments/fleet_dp.py``), phase 6's configuration and batch in
+   the PaddleClas eager loop (``loss.backward(); opt.step();
+   opt.clear_grad()``): (a) ``fleet.init(is_collective=True)`` (a world
+   of one on NCCL), ``distributed_model`` (the model itself) and
+   ``distributed_optimizer``: 3 losses equal to the same loop's without
+   Fleet bit for bit under deterministic cuDNN, one
+   ``multi_tensor_update`` launch a flat plan and step, the ms a step and
+   a profiled step's busy share; (b) 4 gloo ranks sharing the card (B 32
+   a rank, the batch split in rank order), ``DataParallel`` through
+   ``distributed_model`` with plain BatchNorm, 2 steps: each synced
+   gradient against the mean of the four ranks' own (a ``no_sync``
+   backward of each quarter, gathered and summed in fp32 in rank order:
+   bit for bit, or within the bound of another fp32 sum order), the
+   parameters' digests equal on every rank, one fp32 all-reduce a bucket
+   and step, one ``multi_tensor_update`` launch a rank and step; (c) the
+   same ranks with ``SyncBatchNorm.convert_sync_batchnorm``: step 0's
+   loss, gradients and running statistics held to the one-process step on
+   all 128 images (each distance from the same step in fp32 at most
+   ``fleet_dp.ratio_bar`` times the one-process bf16 step's, the loss
+   within ``fleet_dp.LOSS_ATOL``), bars that (b)'s per-rank statistics
+   must fail on the loss and the running statistics;
 7. the kernel experiments' entry points, as a user runs them
    (``paddle_tpu_torch.experiments.dot_variants`` and ``.flash_variants``
    at the reference's shapes): every blocked tile within two bf16 ulps
@@ -415,7 +437,7 @@ Phases (any failed check raises and the script exits non-zero):
    bytes from the build's ``-Xptxas -v`` report (a D 64 instance that
    spills fails);
 8. print the kernels' JSON line, then the result line. Each path of
-   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f, 6g, 6h, 6i and 7 is driven with every launch
+   3-3k, 5b, 5c, 6, 6b, 6c, 6d, 6e, 6f, 6g, 6h, 6i, 6j and 7 is driven with every launch
    count set to 0 just before it and read just after; a kernel's
    ``launches`` is its sum over those paths (the decode kernel's quant
    mode has no engine caller, as in the JAX package, so its count is 0
@@ -5928,6 +5950,104 @@ def mesh_phase(torch, llama, mesh_train, fns, card, train5, params5, tok5):
         launches
 
 
+# phase 6j: BASELINE config 3, Fleet data-parallel ResNet-50, on phase 6's
+# batch: a world of one, then 4 gloo ranks sharing the card (B 32 a rank)
+FLEET_WORLD1_STEPS = 3
+FLEET_RANKS = 4
+FLEET_DP_STEPS = 2
+FLEET_TIMEOUT_S = 300
+
+
+def dp_fleet_phase(torch, port, fleet_dp, fns, card, x, y, rtrain):
+    """Phase 6j (``experiments/fleet_dp.py``): (a) the PaddleClas eager
+    loop through ``fleet.init`` (a world of one on NCCL),
+    ``distributed_model`` and ``distributed_optimizer`` against the same
+    loop without Fleet, bit for bit under deterministic cuDNN, one
+    ``multi_tensor_update`` launch a flat plan and step; (b) 4 gloo ranks
+    sharing the card, ``DataParallel`` with plain BatchNorm: each synced
+    gradient against the mean of the four ranks' own (bit for bit, or
+    within the sum-order bound), the parameters equal on every rank, one
+    fp32 all-reduce a bucket and step; (c) the same ranks with
+    ``SyncBatchNorm``: step 0's loss, gradients and running statistics
+    held to the one-process step on the whole batch under
+    ``fleet_dp.ratio_bar`` and ``LOSS_ATOL``, which (b)'s per-rank
+    statistics must fail on the loss and the running statistics.
+    Returns (stats, launches by path)."""
+    counts = (lambda: zero_counts(fns), lambda: read_counts(fns))
+    rep = fleet_dp.run_6j(
+        port, x, y, counts,
+        lambda run: device_profile(torch, run, kinds=RESNET_KINDS),
+        FLEET_WORLD1_STEPS, FLEET_RANKS, FLEET_DP_STEPS,
+        timeout=FLEET_TIMEOUT_S)
+    w1, plain, sync = rep["world1"], rep["plain"], rep["sync"]
+    held, mutant, per_rank = rep["held"], rep["mutant"], rep["launches"]
+    prof = w1.pop("profile")
+    busy = (None if prof is None else prof["device_ms"] / prof["wall_ms"])
+    print(f"6j (a) Fleet ResNet-50 ({card}; {w1['backend']}, world "
+          f"{w1['world_size']}; {' / '.join(w1['wrapped'])}): B "
+          f"{x.shape[0]} {x.shape[1]}x{x.shape[2]} NHWC O2 bf16 eager loop, "
+          f"losses {w1['losses']} equal to the loop without Fleet bit for "
+          f"bit; ms a step over the {FLEET_WORLD1_STEPS} "
+          f"{w1['ms_per_step']:.3f} (the loop without Fleet, run first: "
+          f"{w1['plain_ms_per_step']:.3f}; phase 6's fused_train_step "
+          f"{rtrain['ms_per_step']:.3f}); "
+          f"profiled step: device "
+          f"{'not measured' if prof is None else round(prof['device_ms'], 3)}"
+          f" ms of {'not measured' if prof is None else round(prof['wall_ms'], 3)}"
+          f" ms wall (busy share "
+          f"{'not measured' if busy is None else f'{busy:.4f}'}); "
+          f"multi_tensor_update launches a step "
+          f"{[n['multi_tensor_update'] for n in w1['launches']]} for "
+          f"{w1['plans']} flat plan")
+    print(f"6j (b) DataParallel through fleet.distributed_model ({card}; "
+          f"{FLEET_RANKS} gloo ranks on one card, B "
+          f"{x.shape[0] // FLEET_RANKS} a rank, plain BatchNorm): losses "
+          f"{plain['losses']}; {plain['buckets']} buckets, one fp32 "
+          f"all_reduce each a step (calls a step {plain['calls'][0]}); "
+          f"synced gradients against the mean of the four ranks' own "
+          f"{json.dumps(plain['mean_checks'])}; parameters equal on every "
+          f"rank after each step; multi_tensor_update launches a step by "
+          f"rank {[[n['multi_tensor_update'] for n in r['plain']] for r in per_rank]}"
+          f"; ms a synced step "
+          f"{[round(v, 3) for v in plain['ms']]}")
+    show = ("loss", "loss_bf16", "loss_fp32", "loss_abs_err", "loss_bar",
+            "worst", "worst_grad", "worst_stat", "checked")
+    print(f"6j (c) SyncBatchNorm over the 4 ranks ({card}): step 0 against "
+          f"the one-process step on all {x.shape[0]} images "
+          f"{json.dumps({k: held[k] for k in show})} (bars: gradients "
+          f"{fleet_dp.GRAD_RATIO} + {fleet_dp.SPREAD} / sqrt(n), running "
+          f"statistics {fleet_dp.GRAD_RATIO}, loss {fleet_dp.LOSS_ATOL}); "
+          f"calls a step {sync['calls'][0]}; "
+          f"ms a step {[round(v, 3) for v in sync['ms']]}; the mutation "
+          f"(per-rank statistics, (b)'s step 0) fails on "
+          f"{len(mutant['failing'])} of {mutant['checked']} readings and "
+          f"the loss ({mutant['loss_abs_err']:.3e}), worst "
+          f"{json.dumps(mutant['worst'])}; rank seconds "
+          f"{[round(v, 1) for v in rep['rank_seconds']]}")
+    secs = {k: round(v, 1) for k, v in rep["seconds_to_end_of"].items()}
+    print(f"phase 6j seconds to the end of each part: {json.dumps(secs)}")
+    for i, n in enumerate(w1["launches"]):
+        try:
+            check_counts(n, {"multi_tensor_update": w1["plans"]},
+                         f"6j (a) step {i}")
+        except AssertionError as e:
+            fail(str(e))
+    for r, counted in enumerate(per_rank):
+        for part, what in (("plain", "b"), ("sync", "c")):
+            for i, n in enumerate(counted[part]):
+                try:
+                    check_counts(n, {"multi_tensor_update": 1},
+                                 f"6j ({what}) rank {r} step {i}")
+                except AssertionError as e:
+                    fail(str(e))
+    if rep["faults"]:
+        fail("6j " + "; ".join(rep["faults"]))
+    launches = {"6j_world1": sum_counts(*w1["launches"]),
+                "6j_dp4": sum_counts(*(n for r in per_rank
+                                       for n in r["plain"] + r["sync"]))}
+    return rep, launches
+
+
 def vision_phase(torch, port, bert, parity, vision_quant, fns, eager_fp32,
                  card):
     """Phase 6f: (a) the PaddleClas input pipeline through ``Model.fit``
@@ -6076,7 +6196,8 @@ PAGED = ("paged_drain", "prefix_burst", "long_admit", "cpu_small_paged_drain",
 FLAT_UPDATE = ("resnet50_train", "resnet50_adamw", "mnist_fit",
                "mnist_fit_scheduled", "eager_fp32", "eager_bf16_auto_cast",
                "zoo_mobilenet_v3_large", "imdb_bilstm_fit",
-               "flowers_fit_workers_0", "flowers_fit_workers_4", "bert_qat")
+               "flowers_fit_workers_0", "flowers_fit_workers_4", "bert_qat",
+               "6j_world1", "6j_dp4")
 KERNEL_PATHS = {
     "ragged_decode_attention": CONTIGUOUS,
     "fused_rms_norm": SERVE_TICK,
@@ -6346,7 +6467,7 @@ def main() -> None:
     from paddle_tpu_torch.ops.kernels import tick_fusion as tf
     from paddle_tpu_torch.quantization import serving as qs
     from paddle_tpu_torch.experiments import op_corpus, parity, vision_quant
-    from paddle_tpu_torch.experiments import mesh_train
+    from paddle_tpu_torch.experiments import fleet_dp, mesh_train
     from paddle_tpu_torch.experiments import runtime_llama_opts as rlo
     from paddle_tpu_torch.text import recipes
 
@@ -7157,6 +7278,7 @@ def main() -> None:
     lap("5c")
     # 5c. BASELINE config 2: BERT-base MLM pretraining on the non-causal
     # flash kernels
+    x6, y6 = x.cpu(), y.cpu()  # phase 6's batch, again in 6j
     del rmodel, x, y
     torch.cuda.empty_cache()
     bstats, blaunches5c, elaunches5c = bert_phase(torch, bert, fa, fns)
@@ -7357,6 +7479,15 @@ def main() -> None:
                                         train, params5, tok44)
     del params5, tok44
 
+    lap("6j")
+    # 6j. BASELINE config 3: Fleet data-parallel ResNet-50 on phase 6's
+    # batch, a world of one, then 4 gloo ranks sharing the card
+    torch.cuda.empty_cache()
+    fleet_stats, fjlaunches = dp_fleet_phase(
+        torch, port, fleet_dp, fns, card, x6.to(DEVICE), y6.to(DEVICE),
+        rtrain)
+    del x6, y6
+
     lap("7")
     # 7. the kernel experiments' entry points, at the reference's shapes
     torch.cuda.empty_cache()
@@ -7385,6 +7516,7 @@ def main() -> None:
                "zoo_mobilenet_v3_large": zlaunches,
                "imdb_bilstm_fit": xlaunches, **vqlaunches,
                "readme_quickstart": rqlaunches, **olaunches, **milaunches,
+               **fjlaunches,
                **{f"zoo_{n}": v for n, v in zflaunches.items()},
                "dot_experiment": dlaunches, "flash_experiment": flaunches,
                "fused_drain": flaunches_3g,
@@ -7417,7 +7549,7 @@ def main() -> None:
                    "bert": bstats, "eager_bert": eager, "zoo": zoo_stats,
                    "text": text, "vision_quant": vision_stats,
                    "op_corpus": corpus, "llama_opts": llama_opts,
-                   "mesh": mesh_stats,
+                   "mesh": mesh_stats, "fleet_dp": fleet_stats,
                    "flash_variant_matrix_errors": variant_errs,
                    "flash_attention_build": flash_build,
                    "rebuilt_build": rebuilt_build,

@@ -75,6 +75,7 @@ from . import incubate, io, jit, metric, nn, optimizer, text, vision  # noqa: F4
 from . import profiler  # noqa: F401
 from . import device, sysconfig, utils, version  # noqa: F401
 from . import distributed, parallel  # noqa: F401
+from .distributed.parallel import DataParallel  # noqa: F401
 from .hapi import callbacks  # noqa: F401  (paddle.callbacks alias)
 from .hapi.model import Model  # noqa: F401
 from .hapi.model_summary import flops, summary  # noqa: F401
@@ -90,12 +91,6 @@ def __getattr__(name):
             f"paddle_tpu_torch.{name} is not ported yet (ROADMAP Queue A "
             f"item {_WAITING[name]})")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
-
-
-def DataParallel(layers, **kwargs):
-    raise NotImplementedError(
-        "paddle_tpu_torch.DataParallel is not ported yet (ROADMAP Queue A "
-        "item 5: training beyond one device)")
 
 
 def is_compiled_with_xpu() -> bool:

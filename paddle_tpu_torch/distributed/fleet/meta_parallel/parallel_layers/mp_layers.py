@@ -42,7 +42,7 @@ from .....parallel.mesh import axis_group, get_mesh
 __all__ = ["VocabParallelEmbedding", "ColumnParallelLinear",
            "RowParallelLinear", "ParallelCrossEntropy", "copy_to",
            "reduce_from", "gather_from", "gather_along",
-           "parallel_cross_entropy", "vocab_parallel_lookup"]
+           "parallel_cross_entropy", "vocab_parallel_lookup", "is_mp_shard"]
 
 
 class _CopyTo(torch.autograd.Function):
@@ -111,6 +111,13 @@ def vocab_parallel_lookup(w, ids, group):
     return reduce_from(out, group)
 
 
+def is_mp_shard(p) -> bool:
+    """True for a parameter this rank holds a ``mp`` slice of (marked
+    ``is_distributed``; torch's ``Tensor.is_distributed`` is a method, so
+    only the marked value True counts)."""
+    return getattr(p, "is_distributed", False) is True
+
+
 def _group(mp_group):
     return mp_group if mp_group is not None else axis_group(get_mesh(), "mp")
 
@@ -135,6 +142,7 @@ def _sharded_parameter(layer, shape, attr, default, dim, group, is_bias=False):
     local = Parameter(p.detach().narrow(dim, _rank(group) * k, k).clone(),
                       requires_grad=p.requires_grad)
     local.name = p.name
+    local.is_distributed = True  # each mp rank holds its own slice
     return local
 
 

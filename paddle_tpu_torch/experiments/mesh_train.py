@@ -119,6 +119,7 @@ def spawn(target, nprocs, args=(), device="cpu", backend=None,
                 break
             time.sleep(0.05)
         hung = [r for r, p in enumerate(procs) if p.is_alive()]
+        late = time.monotonic() >= deadline
         for p in procs:
             if p.is_alive():
                 p.terminate()
@@ -131,10 +132,12 @@ def spawn(target, nprocs, args=(), device="cpu", backend=None,
                 if os.path.exists(o + ".err")]
         failed = [r for r, p in enumerate(procs) if p.exitcode != 0]
         if errs or failed:
-            hang = (f"; ranks {hung} still running after {timeout} s"
-                    if hung and not errs else "")
+            hang = (f"; ranks {hung} still running "
+                    + (f"after {timeout} s" if late else "when one ended")
+                    if hung else "")
             raise RuntimeError(
-                f"ranks {failed} of {nprocs} failed{hang}:\n"
+                f"ranks {failed} of {nprocs} failed (exit codes "
+                f"{[p.exitcode for p in procs]}){hang}:\n"
                 + "\n".join(errs))
         results = []
         for o in outs:

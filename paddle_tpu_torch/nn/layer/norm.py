@@ -3,13 +3,21 @@
 ``BatchNorm1D/2D/3D``, ``SyncBatchNorm``): weight 1, bias 0, running
 mean 0 and variance 1 in fp32 buffers ``_mean`` / ``_variance``, Paddle's
 momentum convention (0.9 keeps 90 % of the running value);
-``nn.functional.batch_norm`` updates them while training. In one process
-``SyncBatchNorm`` is ``BatchNorm`` (the batch is the whole batch), and
-``convert_sync_batchnorm`` swaps it in, sharing the parameters and
-buffers. LayerNorm: ``weight`` 1 and ``bias`` 0 over the trailing
-``normalized_shape`` (either left out with ``False`` as its attr), the
-population variance. ``RMSNorm``, ``GroupNorm`` (gain and bias per
-channel, either left out with ``False``), ``InstanceNorm1D/2D/3D``
+``nn.functional.batch_norm`` updates them while training.
+``SyncBatchNorm`` normalizes with the whole batch's statistics while
+training on data-parallel ranks (the reference's, where the batch axis is
+sharded over ``dp`` under SPMD): each channel's sum and count, then its
+sum of squared deviations from the whole batch's mean, are all-reduced
+in fp32 over the data-parallel group (the one a ``DataParallel``
+over the layer hands it, else the world), and so are the backward's two
+per-channel sums; the running mean and (biased) variance follow the whole
+batch's. On one rank, in eval mode and with ``use_global_stats`` it is
+``BatchNorm``, bit for bit. ``convert_sync_batchnorm`` swaps it in,
+sharing the parameters and buffers. LayerNorm: ``weight`` 1 and
+``bias`` 0 over the trailing ``normalized_shape`` (either left out with
+``False`` as its attr), the population variance. ``RMSNorm``,
+``GroupNorm`` (gain and bias per channel, either left out with
+``False``), ``InstanceNorm1D/2D/3D``
 (``weight_attr=False`` leaves out both; no running statistics),
 ``LocalResponseNorm``; ``SpectralNorm`` raises, as in the JAX
 package."""
@@ -17,6 +25,7 @@ package."""
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from ...device import get_device, resolve_device, set_device
 from .. import functional as F
@@ -75,7 +84,90 @@ class BatchNorm3D(_BatchNormBase):
     pass
 
 
+class _SyncBatchNormFn(torch.autograd.Function):
+    """Batch normalization of ``x`` [N, C, ...] over the whole batch of
+    the ranks of ``group``, in fp32; returns (y in x's type, mean, biased
+    variance)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, group):
+        from ...distributed import _comm
+
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xf = x.float()
+        local = torch.cat([xf.sum(dims),
+                           xf.new_full((1,), xf.numel() // xf.shape[1])])
+        total = _comm.all_reduce(local, group)
+        count = total[-1]
+        mean = total[:-1] / count
+        xm = xf - mean.view(shape)
+        var = _comm.all_reduce((xm * xm).sum(dims), group) / count
+        invstd = torch.rsqrt(var + eps)
+        y = xm * invstd.view(shape)
+        if weight is not None:
+            y = y * weight.float().view(shape)
+        if bias is not None:
+            y = y + bias.float().view(shape)
+        ctx.save_for_backward(x, weight, mean, invstd, count)
+        ctx.group = group
+        ctx.bias_dtype = None if bias is None else bias.dtype
+        ctx.mark_non_differentiable(mean, var)
+        return y.to(x.dtype), mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        from ...distributed import _comm
+
+        x, weight, mean, invstd, count = ctx.saved_tensors
+        dims = [0] + list(range(2, x.dim()))
+        shape = [1, -1] + [1] * (x.dim() - 2)
+        xhat = (x.float() - mean.view(shape)) * invstd.view(shape)
+        dyf = dy.float()
+        sum_dy = dyf.sum(dims)
+        sum_dy_xhat = (dyf * xhat).sum(dims)
+        c = mean.numel()
+        # the whole batch's means of the cotangent and of its product
+        # with the normalized input
+        g = _comm.all_reduce(torch.cat([sum_dy, sum_dy_xhat]),
+                             ctx.group) / count
+        scale = invstd if weight is None else invstd * weight.float()
+        dx = (dyf - g[:c].view(shape) - xhat * g[c:].view(shape)) \
+            * scale.view(shape)
+        dw = sum_dy_xhat.to(weight.dtype) if weight is not None else None
+        db = None if ctx.bias_dtype is None else sum_dy.to(ctx.bias_dtype)
+        return dx.to(x.dtype), dw, db, None, None
+
+
 class SyncBatchNorm(_BatchNormBase):
+    # the process group whose ranks share the batch: the one a
+    # ``DataParallel`` over this layer hands it, else the world
+    _group = None
+
+    def _sync_group(self):
+        if not self.training or self._use_global_stats:
+            return None
+        if self._group is not None:
+            return self._group
+        if dist.is_initialized() and dist.get_world_size() > 1:
+            return dist.group.WORLD
+        return None
+
+    def forward(self, x):
+        group = self._sync_group()
+        if group is None:
+            return super().forward(x)
+        channel_axis = (1 if self._data_format.startswith("NC")
+                        and x.dim() > 1 else x.dim() - 1)
+        xc = x.movedim(channel_axis, 1) if channel_axis != 1 else x
+        y, mean, var = _SyncBatchNormFn.apply(xc, self.weight, self.bias,
+                                              self._epsilon, group)
+        m = self._momentum
+        with torch.no_grad():
+            self._mean.copy_(m * self._mean + (1 - m) * mean)
+            self._variance.copy_(m * self._variance + (1 - m) * var)
+        return y.movedim(1, channel_axis) if channel_axis != 1 else y
+
     @classmethod
     def convert_sync_batchnorm(cls, layer):
         """``layer`` with every BatchNorm below it (itself included)

@@ -2426,3 +2426,97 @@ def test_mesh_layouts_on_gloo_ranks_sharing_the_card(cuda):
     assert rep["dp2_mp2_zero3"]["flash_heads_rows"] == [(2, 64)]
     assert rep["mp2_sep2_ulysses"]["flash_heads_rows"] == [(1, 64)]
     assert rep["mp2_sep2_ring"]["flash_heads_rows"] == []
+
+
+def _fleet_batch(n, size):
+    rng = np.random.RandomState(0)
+    return (rng.rand(n, size, size, 3).astype(np.float32),
+            rng.randint(0, 1000, (n,)))
+
+
+def test_fleet_world_of_one_is_the_eager_loop(cuda):
+    """Phase 6j (a) (``fleet_dp.world1``) on ResNet-18 at 64 x 64: the
+    Fleet loop's losses equal the loop's without Fleet bit for bit, one
+    ``multi_tensor_update`` launch a flat plan and step."""
+    import paddle_tpu_torch as port
+    from paddle_tpu_torch.experiments import fleet_dp
+    from paddle_tpu_torch.ops.kernels import launch_counters
+
+    fns = launch_counters()
+    counts = (lambda: [setattr(f, a, 0) for f, a in fns.values()],
+              lambda: {n: getattr(f, a) for n, (f, a) in fns.items()})
+    x, y = _fleet_batch(16, 64)
+    w1 = fleet_dp.world1(port, torch.from_numpy(x).to(cuda),
+                         torch.from_numpy(y).to(cuda), 2, counts,
+                         size_model=fleet_dp.resnet18_nhwc)
+    assert w1["losses"] == w1["plain_losses"]
+    assert w1["backend"] == "nccl" and w1["world_size"] == 1
+    for n in w1["launches"]:
+        assert n["multi_tensor_update"] == w1["plans"] == 1
+
+
+def test_fleet_data_parallel_on_gloo_ranks_sharing_the_card(cuda):
+    """Phase 6j (b) (``fleet_dp.dp_ranks``) on ResNet-18 at 64 x 64 with
+    4 gloo ranks on one card: each synced gradient within the sum-order
+    bound of the mean of the four ranks' own, the parameters equal on
+    every rank, one fp32 all-reduce a bucket and one
+    ``multi_tensor_update`` launch a rank and step; SyncBatchNorm's step
+    adds three all-reduces a BatchNorm layer."""
+    from paddle_tpu_torch.experiments import fleet_dp, mesh_train
+
+    x, y = _fleet_batch(16, 64)
+    ranks = mesh_train.spawn(fleet_dp.dp_ranks, 4, args=(
+        x, y, 2, fleet_dp.resnet18_nhwc), device="cuda", backend="gloo",
+        timeout=240)
+    plain, sync = ranks[0]["plain"], ranks[0]["sync"]
+    assert plain["wrapped"] == ("DataParallel", "HybridParallelOptimizer")
+    for i in range(2):
+        assert plain["mean_checks"][i]["over_bound"] == 0
+        assert len(set(plain["digests"][i])) == 1
+        assert plain["bucket_syncs"][i] == plain["buckets"]
+        assert plain["calls"][i] == {"calls": {
+            "all_reduce": plain["buckets"]}, "staged": {}}
+    n_bn = 20  # ResNet-18's BatchNorm layers
+    assert sync["calls"][0]["calls"]["all_reduce"] == \
+        plain["buckets"] + 3 * n_bn
+    for r in ranks:
+        assert [len(r["launches"][k]) for k in ("plain", "sync")] == [2, 1]
+        for n in r["launches"]["plain"] + r["launches"]["sync"]:
+            assert n == {k: int(k == "multi_tensor_update") for k in n}
+
+
+def test_collectives_on_gloo_ranks_with_cuda_tensors(cuda):
+    """The collectives of ``distributed/collective.py`` on CUDA tensors in
+    2 gloo ranks sharing the card (``fleet_dp.collectives_on``): the
+    reference's results, and the operations gloo does not take on CUDA
+    tensors (point to point, broadcast, scatter) staged through the host
+    and counted, the others not."""
+    from paddle_tpu_torch.experiments import fleet_dp, mesh_train
+
+    ranks = mesh_train.spawn(fleet_dp.collectives_on, 2, args=("cuda",),
+                             device="cuda", backend="gloo", timeout=120)
+    full = lambda v, n=4: np.full((n,), float(v), np.float32)  # noqa: E731
+    for r, res in enumerate(ranks):
+        prev = 1 - r
+        for op, want in (("SUM", 3), ("AVG", 1.5), ("MAX", 2), ("MIN", 1),
+                         ("PROD", 2)):
+            np.testing.assert_array_equal(res[f"all_reduce_{op}"][0],
+                                          full(want))
+        np.testing.assert_array_equal(res["all_reduce_bf16"][0], full(3))
+        np.testing.assert_array_equal(res["all_gather"][1],
+                                      np.r_[full(0, 2), full(1, 2)])
+        np.testing.assert_array_equal(res["broadcast"], full(8, 3))
+        np.testing.assert_array_equal(res["scatter"], full(100 + r, 2))
+        np.testing.assert_array_equal(res["reduce_scatter_max"],
+                                      np.arange(1, 5, dtype=np.float32)[
+                                          2 * r:2 * r + 2] + 1)
+        np.testing.assert_array_equal(res["send_recv"],
+                                      full(5 if r == 1 else 0, 3))
+        np.testing.assert_array_equal(res["isend_irecv"], full(20 + prev, 2))
+        np.testing.assert_array_equal(res["batch_isend_irecv"],
+                                      full(30 + prev, 2))
+        np.testing.assert_array_equal(res["recv_prev"], full(50 + prev, 2))
+        staged = res["staged"]
+        assert {"broadcast", "scatter", "recv", "ring_shift"} <= set(staged)
+        assert not set(staged) & {"all_reduce", "all_gather",
+                                  "reduce_scatter", "all_to_all"}

@@ -124,7 +124,8 @@ def test_world_of_one_without_a_store_and_unported_names():
         assert mesh.mesh.numel() == 1 and pm.axis_group(mesh, "mp") is None
     finally:
         dist.destroy_process_group()
-    for name in ("all_reduce", "DataParallel", "fleet.init", "launch"):
+    for name in ("launch", "auto_parallel", "fleet.elastic",
+                 "fleet.meta_parallel.PipelineLayer"):
         obj = pp.distributed
         with pytest.raises(NotImplementedError, match="Queue A item 5"):
             for part in name.split("."):
